@@ -1,0 +1,202 @@
+"""Model abstraction — counterpart of ``stark_tpu/model.py``.
+
+A model declares its parameters (shapes + constraining bijectors), a
+log-prior over the constrained parameters and a log-likelihood summed
+over the rows of a dataset.  `flatten_model` turns it into a potential
+over a flat unconstrained vector.
+
+Chain batching is explicit: every parameter tensor a model sees carries
+a leading chain axis C, and ``log_prior``/``log_lik`` return ``(C,)``.
+The potential and its gradient therefore take the whole ensemble at
+once, ``(C, d) -> ((C,), (C, d))`` — the form the fused kernels need to
+read the data once for all chains.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from ._device import DeviceLike, resolve_device
+from .bijectors import Bijector, Identity
+from .tree import make_unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Declared shape (constrained space) + constraining bijector."""
+
+    shape: Tuple[int, ...] = ()
+    bijector: Bijector = dataclasses.field(default_factory=Identity)
+
+
+class Model:
+    """Subclass and implement param_spec / log_prior / log_lik.
+
+    Parameters arrive with a leading chain axis; both log densities
+    return one value per chain.  ``log_lik`` is the sum of the per-row
+    terms over the dataset it is handed.
+    """
+
+    def param_spec(self) -> Dict[str, ParamSpec]:
+        raise NotImplementedError
+
+    def log_prior(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
+        raise NotImplementedError
+
+    def log_lik(self, params: Dict[str, torch.Tensor], data) -> torch.Tensor:
+        raise NotImplementedError
+
+    def init_params(self, generator: torch.Generator):
+        """Optional constrained init values with a leading chain axis;
+        None -> U(-2, 2) in unconstrained space (Stan-style)."""
+        return None
+
+    def prepare_data(self, data: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        """One-time host-side layout transform on numpy arrays, applied
+        by `prepare_model_data` before the data moves to the device."""
+        return data
+
+
+def _host(v):
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return v
+
+
+def prepare_model_data(model: Model, data, device: DeviceLike = None):
+    """The single data choke point: apply the model's host-side layout
+    hook once, then move every array to ``device`` (``cuda`` unless the
+    caller asks for the CPU).  Non-array entries (layout ints, markers)
+    pass through."""
+    if data is None:
+        return None
+    dev = resolve_device(device)
+    prepared = model.prepare_data({k: _host(v) for k, v in data.items()})
+    return {
+        k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+        if isinstance(v, np.ndarray)
+        else v
+        for k, v in prepared.items()
+    }
+
+
+class Potential:
+    """Potential-energy callable with a fused value-and-grad path over a
+    chain ensemble: ``value_and_grad(z (C, d)) -> ((C,), (C, d))``."""
+
+    def __init__(self, value_fn, value_and_grad_fn):
+        self._value = value_fn
+        self._vag = value_and_grad_fn
+
+    def __call__(self, z):
+        return self._value(z)
+
+    def value_and_grad(self, z):
+        return self._vag(z)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatModel:
+    """A model compiled down to flat-unconstrained-vector functions."""
+
+    ndim: int
+    # potential(z (C, d), data) -> (C,)
+    potential: Callable[..., torch.Tensor]
+    # potential_and_grad(z (C, d), data) -> ((C,), (C, d))
+    potential_and_grad: Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+    # constrain_with_fldj(z (C, d)) -> (params, fldj (C,))
+    constrain_with_fldj: Callable[..., Tuple[Dict[str, torch.Tensor], torch.Tensor]]
+    constrain: Callable[[torch.Tensor], Dict[str, torch.Tensor]]
+    unconstrain: Callable[[Dict[str, torch.Tensor]], torch.Tensor]
+    # init_flat(chains, generator, device) -> (chains, d)
+    init_flat: Callable[..., torch.Tensor]
+
+    def bind(self, data=None) -> Potential:
+        """Close over a dataset -> a Potential for the kernels."""
+        return Potential(
+            lambda z: self.potential(z, data),
+            lambda z: self.potential_and_grad(z, data),
+        )
+
+
+def flatten_model(model: Model) -> FlatModel:
+    """Compile a Model into chain-batched flat-vector functions."""
+    spec = model.param_spec()
+    unc_shapes = {
+        k: v.bijector.unconstrained_shape(tuple(v.shape)) for k, v in spec.items()
+    }
+    ndim, unflatten, flatten = make_unflatten(unc_shapes)
+
+    def constrain_with_fldj(flat):
+        unc = unflatten(flat)
+        params = {}
+        fldj = torch.zeros(flat.shape[0], dtype=flat.dtype, device=flat.device)
+        for name, ps in spec.items():
+            params[name] = ps.bijector.forward(unc[name])
+            fldj = fldj + ps.bijector.fldj(unc[name])
+        return params, fldj
+
+    def constrain(flat):
+        return constrain_with_fldj(flat)[0]
+
+    def unconstrain(params):
+        return flatten(
+            {k: spec[k].bijector.inverse(torch.as_tensor(params[k])) for k in spec}
+        )
+
+    def potential(flat, data=None):
+        params, fldj = constrain_with_fldj(flat)
+        lp = model.log_prior(params) + fldj
+        if data is not None:
+            lp = lp + model.log_lik(params, data)
+        return -lp
+
+    def potential_and_grad(flat, data=None):
+        with torch.enable_grad():
+            z = flat.detach().requires_grad_(True)
+            pe = potential(z, data)
+            # chains are independent: the gradient of the sum is the
+            # per-chain gradient, row by row
+            (grad,) = torch.autograd.grad(pe.sum(), z)
+        return pe.detach(), grad
+
+    def init_flat(chains: int, generator: torch.Generator, device) -> torch.Tensor:
+        init = model.init_params(generator)
+        if init is None:
+            u = torch.rand(
+                (chains, ndim), generator=generator, device=device,
+                dtype=torch.float32,
+            )
+            return 4.0 * u - 2.0
+        return unconstrain(init)
+
+    return FlatModel(
+        ndim=ndim,
+        potential=potential,
+        potential_and_grad=potential_and_grad,
+        constrain_with_fldj=constrain_with_fldj,
+        constrain=constrain,
+        unconstrain=unconstrain,
+        init_flat=init_flat,
+    )
+
+
+def normal_logpdf(x, loc=0.0, scale=1.0):
+    """Elementwise N(loc, scale) log-density (the jax.scipy form)."""
+    z = (x - loc) / scale
+    return -0.5 * z * z - 0.5 * np.log(2.0 * np.pi) - np.log(scale)
+
+
+__all__ = [
+    "FlatModel",
+    "Model",
+    "ParamSpec",
+    "Potential",
+    "flatten_model",
+    "normal_logpdf",
+    "prepare_model_data",
+]

@@ -1,0 +1,161 @@
+"""Hierarchical logistic regression — the flagship model, counterpart of
+``stark_tpu/models/logistic.py``.
+
+Data: {"x": (N, D) float32, "y": (N,) 0/1 float32, "g": (N,) int group
+ids}.  Three models share one posterior:
+
+* `HierLogistic`: plain PyTorch autograd on the (N, D) rows;
+* `FusedHierLogistic`: the offset path — X transposed once, the
+  likelihood through kernel B2 with the gathered intercepts as row
+  offsets, their gradient through autograd's scatter;
+* `FusedHierLogisticGrouped`: rows sorted by group, value and every
+  gradient from kernel B1 in one pass; falls back to the offset path's
+  layout and kernel when the grouping defeats the layout.
+
+Parameters carry a leading chain axis (see `model.Model`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..bijectors import Exp, batch_sum
+from ..model import Model, ParamSpec, normal_logpdf
+from ..ops.precision import x_stream_dtype
+
+_LOG2 = math.log(2.0)
+
+
+def _bernoulli_logit_loglik(logits, y):
+    f = torch.nn.functional.logsigmoid
+    return (y * f(logits) + (1.0 - y) * f(-logits)).sum(-1)
+
+
+class HierLogistic(Model):
+    """Shared coefficients + per-group random intercepts, non-centered:
+    alpha_g = alpha0 + sigma_alpha * alpha_raw_g."""
+
+    def __init__(self, num_features: int, num_groups: int, prior_scale: float = 2.5):
+        self.num_features = num_features
+        self.num_groups = num_groups
+        self.prior_scale = prior_scale
+
+    def param_spec(self):
+        return {
+            "beta": ParamSpec((self.num_features,)),
+            "alpha0": ParamSpec(()),
+            "sigma_alpha": ParamSpec((), Exp()),
+            "alpha_raw": ParamSpec((self.num_groups,)),
+        }
+
+    def log_prior(self, p):
+        lp = batch_sum(normal_logpdf(p["beta"], 0.0, self.prior_scale))
+        lp = lp + normal_logpdf(p["alpha0"], 0.0, 5.0)
+        # half-normal(0, 1) scale
+        lp = lp + normal_logpdf(p["sigma_alpha"], 0.0, 1.0) + _LOG2
+        return lp + batch_sum(normal_logpdf(p["alpha_raw"]))
+
+    @staticmethod
+    def _alpha(p):
+        return p["alpha0"][:, None] + p["sigma_alpha"][:, None] * p["alpha_raw"]
+
+    def log_lik(self, p, data):
+        logits = p["beta"] @ data["x"].T + self._alpha(p)[:, data["g"]]
+        return _bernoulli_logit_loglik(logits, data["y"])
+
+    def check_groups(self, g):
+        g = np.asarray(g)
+        if g.size and (g.min() < 0 or g.max() >= self.num_groups):
+            raise ValueError(
+                f"group ids must lie in [0, {self.num_groups}); got "
+                f"[{g.min()}, {g.max()}]"
+            )
+
+
+def _transpose_x(data):
+    """Replace the (N, D) rows with their (D, N) transpose, once."""
+    if "xT" in data:
+        return data
+    x_stream_dtype()  # only float32 X streams are ported
+    out = {k: v for k, v in data.items() if k != "x"}
+    out["xT"] = np.ascontiguousarray(np.asarray(data["x"]).T, dtype=np.float32)
+    return out
+
+
+class FusedHierLogistic(HierLogistic):
+    """HierLogistic with the X pass in kernel B2; the intercept gather and
+    its scatter-add gradient stay in PyTorch."""
+
+    def prepare_data(self, data):
+        if "g" in data:
+            self.check_groups(data["g"])
+        return _transpose_x(data)
+
+    def log_lik(self, p, data):
+        from ..ops.logistic_fused import logistic_offset_loglik
+
+        return logistic_offset_loglik(
+            p["beta"], self._alpha(p)[:, data["g"]], data["xT"], data["y"]
+        )
+
+
+class FusedHierLogisticGrouped(HierLogistic):
+    """HierLogistic with the fully fused grouped kernel B1: rows sorted
+    by group so the intercepts and their gradient live inside the pass.
+
+    When no tile keeps the group window small (tiny groups scattered
+    wide), prepare_data keeps the offset path's transposed layout and
+    marks it ``offsets_path``; log_lik then routes through kernel B2.
+    """
+
+    def prepare_data(self, data):
+        if "gl" in data or "offsets_path" in data:
+            return data  # already prepared
+        from ..ops.hier_fused import prepare_grouped
+
+        self.check_groups(data["g"])
+        out = prepare_grouped(data, int(np.asarray(data["x"]).shape[1]))
+        if out is None:
+            out = _transpose_x(data)
+            out["offsets_path"] = True
+        return out
+
+    def log_lik(self, p, data):
+        alpha = self._alpha(p)
+        if "gl" not in data:  # fallback layout
+            from ..ops.logistic_fused import logistic_offset_loglik
+
+            return logistic_offset_loglik(
+                p["beta"], alpha[:, data["g"]], data["xT"], data["y"]
+            )
+        from ..ops.hier_fused import hier_logistic_loglik
+
+        return hier_logistic_loglik(
+            p["beta"], alpha, data["xT"], data["y"], data["gl"],
+            data["first_gid"], data["lane_tile"],
+        )
+
+
+def synth_logistic_data(seed: int, n: int, d: int, *, num_groups: int = 0):
+    """Synthetic benchmark dataset (+ the true parameters), as numpy
+    arrays from a seeded generator: x ~ N(0, 1), beta ~ N(0, 1), group
+    intercepts ~ N(0, 0.5^2), y ~ Bernoulli(sigmoid(x beta + alpha[g])).
+    The same recipe as the JAX package's; the streams differ."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    beta = rng.standard_normal(d, dtype=np.float32)
+    logits = x @ beta
+    out = {"x": x}
+    true = {"beta": beta}
+    if num_groups:
+        g = rng.integers(0, num_groups, size=n, dtype=np.int32)
+        alpha = 0.5 * rng.standard_normal(num_groups, dtype=np.float32)
+        logits = logits + alpha[g]
+        out["g"] = g
+        true["alpha"] = alpha
+    u = rng.random(n, dtype=np.float32)
+    out["y"] = (u < 1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
+    return out, true

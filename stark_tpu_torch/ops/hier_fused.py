@@ -1,0 +1,196 @@
+"""Grouped hierarchical logistic log-likelihood — counterpart of
+``stark_tpu/ops/hier_fused.py`` (kernel B1 and its host-side layout).
+
+Rows are sorted by group once, on the host (`prepare_grouped`), so each
+stretch of rows spans few consecutive groups.  The layout is the JAX
+package's, bit for bit: the same stable sort, the same ``lane_tile``,
+``k_loc``, per-tile ``first_gid`` and per-row local ids ``gl``; the
+absolute group of row n is ``first_gid[n // lane_tile] + gl[n]``.
+``lane_tile`` and ``k_loc`` are plain ints in the prepared data.
+
+`hier_grouped` evaluates, for C chains in one pass over X, the value
+(C,), ∂/∂beta (C, D) and ∂/∂alpha (C, G) without ever forming a (C, N)
+array: on a CUDA tensor it launches ``csrc/hier_grouped.cu``, on a CPU
+tensor it runs `hier_grouped_plain`.  `hier_logistic_loglik` wraps it in
+a ``torch.autograd.Function`` whose backward rescales those gradients.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import numpy as np
+import torch
+
+from .. import _build
+from .logistic_fused import _link_parts, check_kernel_args, row_blocks
+from .precision import check_knobs, x_stream_dtype
+
+# The reference's layout constants, kept so the port builds bit-identical
+# layouts: the lane-tile cap, the per-slab element budget it was sized by,
+# and the cap on the padded groups per tile.
+_LANE_TILE = 8192
+_SLAB_BUDGET_ELEMS = (2 * 1024 * 1024) // 4
+_K_LOC_MAX = 128
+
+
+def grouped_lane_tile(d: int) -> int:
+    """Default (largest) lane tile of the grouped layout: the largest
+    128-multiple whose (d + 2, tile) slab fits the slab budget."""
+    rows = d + 2
+    return max(128, min(_LANE_TILE, (_SLAB_BUDGET_ELEMS // rows) // 128 * 128))
+
+
+def grouped_layout(g_sorted: np.ndarray, d: int):
+    """Host-side layout from SORTED group ids, identical to the JAX
+    package's: (lane_tile, k_loc, first_gid (grid,) int32, gl (N,) int32),
+    or None when no tile keeps the group window within _K_LOC_MAX.
+    ``STARK_GROUPED_LANE_TILE`` caps the starting tile as it does there.
+    """
+    g_sorted = np.asarray(g_sorted)
+    if g_sorted.ndim != 1 or np.any(np.diff(g_sorted) < 0):
+        raise ValueError("grouped_layout requires sorted 1-D group ids")
+    n = g_sorted.shape[0]
+    lane_tile = grouped_lane_tile(d)
+    env_tile = os.environ.get("STARK_GROUPED_LANE_TILE")
+    if env_tile:
+        cap = int(env_tile)
+        if cap % 128 or cap < 256:
+            raise ValueError(
+                f"STARK_GROUPED_LANE_TILE={cap}: need a 128-multiple >= 256"
+            )
+        lane_tile = min(lane_tile, cap)
+    # floor at 256: below it every grouping would fit and the offset
+    # path is the better choice (the reference's rule)
+    while lane_tile >= 256:
+        first_gid = g_sorted[::lane_tile].astype(np.int32)
+        grid = first_gid.shape[0]
+        last = g_sorted[np.minimum(np.arange(1, grid + 1) * lane_tile - 1, n - 1)]
+        span = int(np.max(last - first_gid)) + 1
+        k_loc = -(-span // 8) * 8
+        if k_loc <= _K_LOC_MAX:
+            gl = (g_sorted - np.repeat(first_gid, lane_tile)[:n]).astype(np.int32)
+            return lane_tile, k_loc, first_gid, gl
+        lane_tile = (lane_tile // 2) // 128 * 128
+    return None
+
+
+def prepare_grouped(data, d_eff, transpose_keys=("x",)):
+    """Sort every leaf by data['g'] (stable), transpose the matrices in
+    ``transpose_keys`` to ``<k>T`` (D, N), and add the layout (gl,
+    first_gid, lane_tile, k_loc).  Numpy in, numpy out.  None when
+    `grouped_layout` finds no workable tile."""
+    g = np.asarray(data["g"])
+    order = np.argsort(g, kind="stable")
+    layout = grouped_layout(g[order], d_eff)
+    if layout is None:
+        return None
+    lane_tile, k_loc, first_gid, gl = layout
+    x_stream_dtype()  # only float32 X streams are ported
+    out = {
+        k: np.asarray(v)[order] for k, v in data.items() if k not in transpose_keys
+    }
+    for k in transpose_keys:
+        out[k + "T"] = np.ascontiguousarray(
+            np.asarray(data[k])[order].T, dtype=np.float32
+        )
+    out["gl"] = gl
+    out["first_gid"] = first_gid
+    out["k_loc"] = int(k_loc)
+    out["lane_tile"] = int(lane_tile)
+    return out
+
+
+def absolute_groups(gl, first_gid, lane_tile):
+    """(N,) absolute group id of every row from the layout."""
+    n = gl.shape[0]
+    tile = torch.arange(n, device=gl.device) // lane_tile
+    return first_gid.long()[tile] + gl.long()
+
+
+def hier_grouped_plain(beta, alpha, xT, y, gl, first_gid, lane_tile):
+    """Plain PyTorch version of kernel B1: -> (val (C,), gbeta (C, D),
+    galpha (C, G))."""
+    g = absolute_groups(gl, first_gid, lane_tile)
+    logits = beta @ xT + alpha[:, g]
+    val_terms, resid = _link_parts(y, logits)
+    galpha = torch.zeros_like(alpha).index_add_(1, g, resid)
+    return val_terms.sum(-1), resid @ xT.T, galpha
+
+
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def hier_grouped(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
+    """Kernel B1: -> (val (C,), gbeta (C, D), galpha (C, G)).
+
+    beta (C, D), alpha (C, G), xT (D, N), y (N,) float32; gl (N,),
+    first_gid (ceil(N / lane_tile),) int32; rows sorted by group.
+    """
+    check_knobs()
+    if beta.device.type == "cpu":
+        return hier_grouped_plain(beta, alpha, xT, y, gl, first_gid, lane_tile)
+    if beta.device.type != "cuda":
+        raise ValueError(f"hier_grouped runs on cuda or cpu, not {beta.device}")
+    c, d = beta.shape
+    g_total = alpha.shape[1]
+    n = xT.shape[1]
+    check_kernel_args(
+        {"beta": beta, "alpha": alpha, "xT": xT, "y": y, "gl": gl,
+         "first_gid": first_gid},
+        device=beta.device,
+        dtypes={"beta": torch.float32, "alpha": torch.float32,
+                "xT": torch.float32, "y": torch.float32, "gl": torch.int32,
+                "first_gid": torch.int32},
+        shapes={"beta": (c, d), "alpha": (c, g_total), "xT": (d, n),
+                "y": (n,), "gl": (n,), "first_gid": (-(-n // lane_tile),)},
+    )
+    rows, nblk = row_blocks(n)
+    val = torch.empty(c, device=beta.device, dtype=torch.float32)
+    gbeta = torch.empty(c, d, device=beta.device, dtype=torch.float32)
+    galpha = torch.empty(c, g_total, device=beta.device, dtype=torch.float32)
+    scratch = torch.empty(
+        nblk * (c * d + 3 * c + 2), device=beta.device, dtype=torch.float32
+    )
+    fn = _build.function("hier_grouped", "stark_hier_grouped", _ARGTYPES)
+    err = fn(
+        xT.data_ptr(), y.data_ptr(), gl.data_ptr(), first_gid.data_ptr(),
+        beta.data_ptr(), alpha.data_ptr(), val.data_ptr(), gbeta.data_ptr(),
+        galpha.data_ptr(), scratch.data_ptr(),
+        c, d, n, g_total, lane_tile, rows, nblk,
+        torch.cuda.current_stream(beta.device).cuda_stream,
+    )
+    _build.check("hier_grouped", err)
+    hier_grouped.launches += 1
+    return val, gbeta, galpha
+
+
+#: launches of the CUDA kernel in this process (CPU calls do not count)
+hier_grouped.launches = 0
+
+
+class _HierLogisticLoglik(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, beta, alpha, xT, y, gl, first_gid, lane_tile):
+        val, gbeta, galpha = hier_grouped(
+            beta.contiguous(), alpha.contiguous(), xT, y, gl, first_gid, lane_tile
+        )
+        ctx.save_for_backward(gbeta, galpha)
+        return val
+
+    @staticmethod
+    def backward(ctx, ct):
+        gbeta, galpha = ctx.saved_tensors
+        return ct[:, None] * gbeta, ct[:, None] * galpha, None, None, None, None, None
+
+
+def hier_logistic_loglik(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
+    """Differentiable fused hierarchical Bernoulli-logit log-lik per
+    chain: beta (C, D) [or (D,)], alpha (C, G) [or (G,)] -> (C,) [or ()].
+    One kernel pass yields the value and both gradients."""
+    single = beta.ndim == 1
+    if single:
+        beta, alpha = beta[None], alpha[None]
+    val = _HierLogisticLoglik.apply(beta, alpha, xT, y, gl, first_gid, lane_tile)
+    return val[0] if single else val
