@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "stark_tpu_torch"
 
 #: every kernel library of the package, one per source file
-SOURCES = ("hier_grouped", "logistic_batched")
+SOURCES = ("hier_grouped", "lmm_grouped", "logistic_batched", "logistic_single")
 
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

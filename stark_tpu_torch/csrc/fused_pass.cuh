@@ -1,9 +1,13 @@
 // One pass over the transposed design matrix for a whole chain ensemble:
-// logits = beta . x (+ alpha[c, group(n)] | + offsets[c, n]), the
-// Bernoulli-logit log-likelihood terms, resid = y - sigmoid(logits), and
-// the reductions sum_n val, sum_n resid * x[:, n] and (grouped) the
-// per-group sums of resid.  Shared by csrc/hier_grouped.cu (B1) and
-// csrc/logistic_batched.cu (B2); each instantiates its own variant.
+// logits = beta . x (+ alpha[c, group(n)] | + offsets[c, n] | + ic[c] +
+// sum_q z[q, n] u[c, group(n), q]), the link's value terms and residual,
+// and the reductions sum_n val, sum_n resid * x[:, n] and (grouped) the
+// per-group sums of resid (times z[q, n] with random effects).  Links:
+//   bernoulli_logit: val = y log s(l) + (1 - y) log s(-l), resid = y - s(l)
+//   gaussian:        val = (y - l)^2,                      resid = y - l
+// (the gaussian pass is scale-free: sigma is applied by the caller).
+// Shared by csrc/hier_grouped.cu (B1), csrc/logistic_batched.cu (B2) and
+// csrc/lmm_grouped.cu (B4); each instantiates its own variant.
 //
 // Work split.  Block b owns the contiguous rows [b*R, min(N, (b+1)*R)),
 // R a multiple of kRows chosen by the caller from N alone (about 256
@@ -21,12 +25,15 @@
 // blocks in a second kernel (finish) that adds the per-block partials in
 // block order.  No float atomics: repeated launches are bitwise equal.
 //
-// Groups (B1).  Rows are sorted by group, so a block's groups form one
+// Groups (B1, B4).  Rows are sorted by group, so a block's groups form one
 // contiguous run [blo, bhi].  A group strictly inside a block belongs to
 // that block alone, which writes its gradient straight to galpha.  The
 // block's first and last group may continue in neighbouring blocks;
 // their partial sums go to head/tail and finish adds them up across the
-// blocks that touch the group.  No (C, N) array is ever written.
+// blocks that touch the group.  No (C, N) array is ever written.  With
+// Q random effects (B4) every group carries Q sums (resid * z[q, n]), and
+// head, tail and the output are (.., Q) arrays; B1 is the case Q = 1,
+// z = 1, without the intercept.
 //
 // Masking.  Rows past N are staged as zeros and their terms are chosen
 // away with selects, never multiplied by a mask (0 * NaN = NaN).
@@ -43,6 +50,8 @@ constexpr int kLd = kRows + 1;  // padded row stride of the shared tiles
 constexpr int kChunk = 32;      // chains per chunk
 constexpr int kLanes = 8;       // threads per chain in the reduce phase
 constexpr int kHalf = 16;       // chains per thread in the logits phase
+constexpr int kBernoulli = 0;   // link template argument
+constexpr int kGaussian = 1;
 static_assert(kThreads == kChunk * kLanes, "reduce phase mapping");
 static_assert(kThreads == 2 * kRows && kChunk == 2 * kHalf, "logits phase mapping");
 
@@ -51,23 +60,27 @@ struct Params {
   const float* y;     // (N,)
   const float* beta;  // (C, D)
   int C, D, N, rows_per_block;
-  // grouped (B1)
+  // grouped (B1, B4)
   const int* gl;         // (N,) local group id within the reference tile
   const int* first_gid;  // (N / lane_tile,) first group of each tile
   int lane_tile;
-  const float* alpha;    // (C, G)
-  int G;
-  float* galpha;         // (C, G) output
-  float* head;           // (nblk, C) first-group partial
-  float* tail;           // (nblk, C) last-group partial
+  const float* alpha;    // (C, G, Q) group effects (B1: the intercepts, Q = 1)
+  int G, Q;
+  float* galpha;         // (C, G, Q) output
+  float* head;           // (nblk, C, Q) first-group partial
+  float* tail;           // (nblk, C, Q) last-group partial
   int* blo;              // (nblk,) first group of the block
   int* bhi;              // (nblk,) last group of the block
+  // random effects (B4)
+  const float* zT;       // (Q, N) random-effect design
+  const float* ic;       // (C,) intercept
   // offset path (B2)
   const float* offsets;  // (C, N) or null
   float* resid;          // (C, N) output when offsets are given
   // per-block partials
   float* gpart;          // (nblk, C, D)
   float* vpart;          // (nblk, C)
+  float* rpart;          // (nblk, C) sum of resid (B4)
 };
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
@@ -76,15 +89,18 @@ __host__ __device__ inline int chains_padded(int c) {
 }
 
 // Dynamic shared memory layout, in 4-byte words, every array 16-byte aligned.
+// ``zq`` is the number of staged z rows (Q for B4, else 0); ``q`` the
+// sums per group.
 struct Layout {
-  int xs, rs, vt, ys, gs, bsh, gacc, vsum, run, rung, ishead, segs, misc, words;
+  int xs, zs, rs, vt, ys, gs, bsh, gacc, vsum, rsum, run, rung, ishead, segs, misc, words;
 };
 
-__host__ __device__ inline Layout smem_layout(int C, int D) {
+__host__ __device__ inline Layout smem_layout(int C, int D, int zq, int q) {
   Layout L;
   const int cp = chains_padded(C);
   int o = 0;
   L.xs = o;     o += round4(D * kLd);      // x sub-tile [d][r]
+  L.zs = o;     o += round4(zq * kLd);     // z sub-tile [q][r]
   L.rs = o;     o += round4(kChunk * kLd); // resid [chain][r]
   L.vt = o;     o += round4(kChunk * kLd); // value terms [chain][r]
   L.ys = o;     o += kRows;
@@ -92,7 +108,8 @@ __host__ __device__ inline Layout smem_layout(int C, int D) {
   L.bsh = o;    o += round4(D * cp);       // beta transposed [d][c]
   L.gacc = o;   o += round4(cp * D);       // beta-gradient sums [c][d]
   L.vsum = o;   o += cp;
-  L.run = o;    o += cp;                   // open group segment sum
+  L.rsum = o;   o += cp;                   // sum of resid (B4)
+  L.run = o;    o += round4(cp * q);       // open group segment sums [c][q]
   L.rung = o;   o += cp;                   // open group id
   L.ishead = o; o += cp;                   // open group is the block's first
   L.segs = o;   o += round4(kRows + 1);    // segment starts in the sub-tile
@@ -122,11 +139,14 @@ __device__ __forceinline__ float lane_sum8(float s) {
   return s;
 }
 
-template <bool kGrouped>
+template <bool kGrouped, int kLink, bool kEffects>
 __global__ void __launch_bounds__(kThreads) fused_pass(Params p) {
+  static_assert(kGrouped || !kEffects, "random effects need the grouped layout");
   extern __shared__ __align__(16) float smem[];
-  const Layout L = smem_layout(p.C, p.D);
+  const int Q = kEffects ? p.Q : 1;
+  const Layout L = smem_layout(p.C, p.D, kEffects ? Q : 0, Q);
   float* xs = smem + L.xs;
+  float* zs = smem + L.zs;
   float* rs = smem + L.rs;
   float* vt = smem + L.vt;
   float* ys = smem + L.ys;
@@ -134,6 +154,7 @@ __global__ void __launch_bounds__(kThreads) fused_pass(Params p) {
   float* bsh = smem + L.bsh;
   float* gacc = smem + L.gacc;
   float* vsum = smem + L.vsum;
+  float* rsum = smem + L.rsum;
   float* run = smem + L.run;
   int* rung = reinterpret_cast<int*>(smem + L.rung);
   int* ishead = reinterpret_cast<int*>(smem + L.ishead);
@@ -154,8 +175,9 @@ __global__ void __launch_bounds__(kThreads) fused_pass(Params p) {
   for (int i = t; i < cp * D; i += kThreads) gacc[i] = 0.f;
   for (int c = t; c < cp; c += kThreads) {
     vsum[c] = 0.f;
+    rsum[c] = 0.f;
     if (kGrouped) {
-      run[c] = 0.f;
+      for (int e = 0; e < Q; ++e) run[c * Q + e] = 0.f;
       rung[c] = group_of(p, row_begin);
       ishead[c] = 1;
     }
@@ -167,6 +189,12 @@ __global__ void __launch_bounds__(kThreads) fused_pass(Params p) {
     for (int i = t; i < D * kRows; i += kThreads) {
       const int d = i / kRows, r = i % kRows;
       xs[d * kLd + r] = r < nvalid ? p.xT[(size_t)d * N + row0 + r] : 0.f;
+    }
+    if (kEffects) {
+      for (int i = t; i < Q * kRows; i += kThreads) {
+        const int e = i / kRows, r = i % kRows;
+        zs[e * kLd + r] = r < nvalid ? p.zT[(size_t)e * N + row0 + r] : 0.f;
+      }
     }
     if (t < kRows) {
       const bool ok = t < nvalid;
@@ -225,13 +253,25 @@ __global__ void __launch_bounds__(kThreads) fused_pass(Params p) {
           const int c = k + cl0 + j;
           const bool ok = valid && c < C;
           float l = acc[j];
-          if (kGrouped) {
+          if (kEffects) {
+            if (ok) {
+              const float* uc = p.alpha + ((size_t)c * p.G + g) * Q;
+              l += p.ic[c];
+              for (int e = 0; e < Q; ++e) l = fmaf(zs[e * kLd + r], uc[e], l);
+            }
+          } else if (kGrouped) {
             l += ok ? p.alpha[(size_t)c * p.G + g] : 0.f;
           } else if (p.offsets != nullptr) {
             l += ok ? p.offsets[(size_t)c * N + n] : 0.f;
           }
-          const float v = yv * log_sigmoid(l) + (1.f - yv) * log_sigmoid(-l);
-          const float res = yv - sigmoid(l);
+          float v, res;
+          if (kLink == kGaussian) {
+            res = yv - l;
+            v = res * res;
+          } else {
+            v = yv * log_sigmoid(l) + (1.f - yv) * log_sigmoid(-l);
+            res = yv - sigmoid(l);
+          }
           rs[(cl0 + j) * kLd + r] = ok ? res : 0.f;
           vt[(cl0 + j) * kLd + r] = ok ? v : 0.f;
           if (!kGrouped && p.resid != nullptr && ok) p.resid[(size_t)c * N + n] = res;
@@ -269,28 +309,43 @@ __global__ void __launch_bounds__(kThreads) fused_pass(Params p) {
         for (int r = q; r < kRows; r += kLanes) s += vt[cl * kLd + r];
         s = lane_sum8(s);
         if (q == 0) vsum[c] += s;
+        if (kEffects) {
+          float sr = 0.f;
+          for (int r = q; r < kRows; r += kLanes) sr += rp[r];
+          sr = lane_sum8(sr);
+          if (q == 0) rsum[c] += sr;
+        }
 
         if (kGrouped) {
+          // segment sums; lane 0 of the chain keeps the open group's
+          // books and flushes a finished group to head or galpha
           const int nseg = misc[0];
           for (int si = 0; si < nseg; ++si) {
             const int r0 = segs[si], r1 = segs[si + 1];
-            float sg = 0.f;
-            for (int r = r0 + q; r < r1; r += kLanes) sg += rp[r];
-            sg = lane_sum8(sg);
-            if (q == 0 && c < C) {
-              const int gid = gs[r0];
-              if (gid == rung[c]) {
-                run[c] += sg;
+            const int gid = gs[r0];
+            for (int e = 0; e < Q; ++e) {
+              float sg = 0.f;
+              if (kEffects) {
+                const float* zr = zs + e * kLd;
+                for (int r = r0 + q; r < r1; r += kLanes) sg = fmaf(rp[r], zr[r], sg);
               } else {
-                if (ishead[c]) {
-                  p.head[(size_t)b * C + c] = run[c];
-                  ishead[c] = 0;
-                } else {
-                  p.galpha[(size_t)c * p.G + rung[c]] = run[c];
-                }
-                rung[c] = gid;
-                run[c] = sg;
+                for (int r = r0 + q; r < r1; r += kLanes) sg += rp[r];
               }
+              sg = lane_sum8(sg);
+              if (q == 0 && c < C) {
+                float& open = run[c * Q + e];
+                if (gid == rung[c]) {
+                  open += sg;
+                } else {
+                  if (ishead[c]) p.head[((size_t)b * C + c) * Q + e] = open;
+                  else p.galpha[((size_t)c * p.G + rung[c]) * Q + e] = open;
+                  open = sg;
+                }
+              }
+            }
+            if (q == 0 && c < C && gid != rung[c]) {
+              ishead[c] = 0;
+              rung[c] = gid;
             }
           }
         }
@@ -302,12 +357,16 @@ __global__ void __launch_bounds__(kThreads) fused_pass(Params p) {
   for (int i = t; i < C * D; i += kThreads) p.gpart[(size_t)b * C * D + i] = gacc[i];
   for (int c = t; c < C; c += kThreads) {
     p.vpart[(size_t)b * C + c] = vsum[c];
+    if (kEffects) p.rpart[(size_t)b * C + c] = rsum[c];
     if (kGrouped) {
-      if (ishead[c]) {
-        p.head[(size_t)b * C + c] = run[c];
-        p.tail[(size_t)b * C + c] = 0.f;
-      } else {
-        p.tail[(size_t)b * C + c] = run[c];
+      for (int e = 0; e < Q; ++e) {
+        const size_t i = ((size_t)b * C + c) * Q + e;
+        if (ishead[c]) {
+          p.head[i] = run[c * Q + e];
+          p.tail[i] = 0.f;
+        } else {
+          p.tail[i] = run[c * Q + e];
+        }
       }
     }
   }
@@ -318,10 +377,11 @@ __global__ void __launch_bounds__(kThreads) fused_pass(Params p) {
 }
 
 // Second pass: add the per-block partials in block order.  One thread per
-// beta-gradient entry, per chain value and (grouped) per (chain, group).
-template <bool kGrouped>
-__global__ void finish(Params p, int nblk, float* val, float* gbeta) {
-  const int C = p.C, D = p.D;
+// beta-gradient entry, per chain value, (B4) per chain resid sum and
+// (grouped) per (chain, group, effect).
+template <bool kGrouped, bool kEffects>
+__global__ void finish(Params p, int nblk, float* val, float* gbeta, float* sresid) {
+  const int C = p.C, D = p.D, Q = kEffects ? p.Q : 1;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long ncd = (long long)C * D;
   if (i < ncd) {
@@ -338,8 +398,18 @@ __global__ void finish(Params p, int nblk, float* val, float* gbeta) {
     return;
   }
   j -= C;
-  if (kGrouped && j < (long long)C * p.G) {
-    const int c = (int)(j / p.G), g = (int)(j % p.G);
+  if (kEffects) {
+    if (j < C) {
+      float s = 0.f;
+      for (int b = 0; b < nblk; ++b) s += p.rpart[(size_t)b * C + j];
+      sresid[j] = s;
+      return;
+    }
+    j -= C;
+  }
+  if (kGrouped && j < (long long)C * p.G * Q) {
+    const int e = (int)(j % Q);
+    const int c = (int)(j / ((long long)p.G * Q)), g = (int)((j / Q) % p.G);
     int lo = 0, hi = nblk;  // first block whose last group is >= g
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
@@ -348,39 +418,46 @@ __global__ void finish(Params p, int nblk, float* val, float* gbeta) {
     float s = 0.f;
     bool interior = false;
     for (int b = lo; b < nblk && p.blo[b] <= g; ++b) {
-      if (p.blo[b] == g) s += p.head[(size_t)b * C + c];
-      else if (p.bhi[b] == g) s += p.tail[(size_t)b * C + c];
+      if (p.blo[b] == g) s += p.head[((size_t)b * C + c) * Q + e];
+      else if (p.bhi[b] == g) s += p.tail[((size_t)b * C + c) * Q + e];
       else interior = true;  // written by the block that owns it
     }
-    if (!interior) p.galpha[(size_t)c * p.G + g] = s;  // zero when empty
+    if (!interior) p.galpha[((size_t)c * p.G + g) * Q + e] = s;  // zero when empty
   }
 }
 
-template <bool kGrouped>
-inline int launch(const Params& p, int nblk, float* val, float* gbeta, cudaStream_t stream) {
-  const Layout L = smem_layout(p.C, p.D);
+template <bool kGrouped, int kLink, bool kEffects>
+inline int launch(const Params& p, int nblk, float* val, float* gbeta, float* sresid,
+                  cudaStream_t stream) {
+  const int q = kEffects ? p.Q : 1;
+  const Layout L = smem_layout(p.C, p.D, kEffects ? q : 0, q);
   const size_t bytes = (size_t)L.words * sizeof(float);
+  auto* kern = fused_pass<kGrouped, kLink, kEffects>;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_pass<kGrouped>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  fused_pass<kGrouped><<<nblk, kThreads, bytes, stream>>>(p);
+  kern<<<nblk, kThreads, bytes, stream>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long total = (long long)p.C * p.D + p.C + (kGrouped ? (long long)p.C * p.G : 0);
+  const long long total = (long long)p.C * p.D + p.C + (kEffects ? p.C : 0) +
+                          (kGrouped ? (long long)p.C * p.G * q : 0);
   const int blocks = (int)((total + kThreads - 1) / kThreads);
-  finish<kGrouped><<<blocks, kThreads, 0, stream>>>(p, nblk, val, gbeta);
+  finish<kGrouped, kEffects><<<blocks, kThreads, 0, stream>>>(p, nblk, val, gbeta, sresid);
   return (int)cudaGetLastError();
 }
 
-// Carve the caller's scratch buffer: gpart (nblk*C*D), vpart, head, tail
-// (nblk*C each), blo, bhi (nblk ints each).
+// Carve the caller's scratch buffer: gpart (nblk*C*D), vpart, rpart
+// (nblk*C each), head, tail (nblk*C*Q each), blo, bhi (nblk ints each);
+// stark_tpu_torch/ops/logistic_fused.py:scratch_words sizes it.
 inline void carve_scratch(Params& p, float* scratch, int nblk) {
   const size_t nc = (size_t)nblk * p.C;
+  const size_t ncq = nc * (p.Q > 0 ? p.Q : 1);
   p.gpart = scratch;
   p.vpart = p.gpart + nc * p.D;
-  p.head = p.vpart + nc;
-  p.tail = p.head + nc;
-  p.blo = reinterpret_cast<int*>(p.tail + nc);
+  p.rpart = p.vpart + nc;
+  p.head = p.rpart + nc;
+  p.tail = p.head + ncq;
+  p.blo = reinterpret_cast<int*>(p.tail + ncq);
   p.bhi = p.blo + nblk;
 }
 

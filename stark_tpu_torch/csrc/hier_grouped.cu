@@ -43,5 +43,6 @@ extern "C" int stark_hier_grouped(
   p.G = G;
   p.galpha = galpha;
   stark::carve_scratch(p, scratch, nblk);
-  return stark::launch<true>(p, nblk, val, gbeta, static_cast<cudaStream_t>(stream));
+  return stark::launch<true, stark::kBernoulli, false>(
+      p, nblk, val, gbeta, nullptr, static_cast<cudaStream_t>(stream));
 }

@@ -7,8 +7,10 @@ packages compute on identical inputs.
 
 The reference rides two static layout ints in array SHAPES (a jit
 trick): ``k_loc`` is a (k_loc,) dummy and ``lt128`` a (lane_tile/128,)
-dummy; the grouped model's fallback layout carries a (0,)-shaped
-``offsets_path`` marker.  Here they become plain ints and a flag.
+dummy; the grouped models' fallback layout carries a (0,)-shaped
+``offsets_path`` marker.  Here they become plain ints and a flag.  The
+arrays the ported models read (`DATA_KEYS`) become tensors; any other
+key raises, so nothing the reference prepared is silently dropped.
 """
 
 from __future__ import annotations
@@ -21,6 +23,12 @@ import torch
 from ._device import DeviceLike, resolve_device
 from .chees import CheesRunCarry
 from .kernels.chees import init_ensemble
+
+
+#: array keys of the ported models' prepared data: the rows (x, or its
+#: transpose xT), the LMM's random-effect design (z, or zT), the
+#: response, the group ids and the grouped layout (gl, first_gid)
+DATA_KEYS = ("x", "xT", "z", "zT", "y", "g", "gl", "first_gid")
 
 
 def data_from_reference(ref_data: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
@@ -39,6 +47,10 @@ def data_from_reference(ref_data: Dict[str, Any], device: DeviceLike = None) -> 
         elif k.endswith("_scale"):
             raise NotImplementedError(
                 f"{k}: packed X streams are not ported yet (ROADMAP item B5)"
+            )
+        elif k not in DATA_KEYS:
+            raise ValueError(
+                f"data key {k!r} is not one the ported models read: {DATA_KEYS}"
             )
         else:
             if v.dtype == np.float64:

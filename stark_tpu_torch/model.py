@@ -186,9 +186,11 @@ def flatten_model(model: Model) -> FlatModel:
 
 
 def normal_logpdf(x, loc=0.0, scale=1.0):
-    """Elementwise N(loc, scale) log-density (the jax.scipy form)."""
+    """Elementwise N(loc, scale) log-density (the jax.scipy form); scale
+    is a number or a tensor (a parameter, e.g. the LMM's sigma)."""
     z = (x - loc) / scale
-    return -0.5 * z * z - 0.5 * np.log(2.0 * np.pi) - np.log(scale)
+    log_scale = torch.log(scale) if isinstance(scale, torch.Tensor) else np.log(scale)
+    return -0.5 * z * z - 0.5 * np.log(2.0 * np.pi) - log_scale
 
 
 __all__ = [

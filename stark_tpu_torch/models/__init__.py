@@ -1,5 +1,12 @@
-"""Model zoo of the port (the flagship hierarchical logistic family)."""
+"""Model zoo of the port: the flagship hierarchical logistic family and
+the hierarchical linear mixed model (BASELINE config 3)."""
 
+from .lmm import (
+    FusedLinearMixedModel,
+    FusedLinearMixedModelGrouped,
+    LinearMixedModel,
+    synth_lmm_data,
+)
 from .logistic import (
     FusedHierLogistic,
     FusedHierLogisticGrouped,
@@ -10,6 +17,10 @@ from .logistic import (
 __all__ = [
     "FusedHierLogistic",
     "FusedHierLogisticGrouped",
+    "FusedLinearMixedModel",
+    "FusedLinearMixedModelGrouped",
     "HierLogistic",
+    "LinearMixedModel",
     "synth_logistic_data",
+    "synth_lmm_data",
 ]

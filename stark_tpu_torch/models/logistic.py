@@ -67,12 +67,17 @@ class HierLogistic(Model):
         return _bernoulli_logit_loglik(logits, data["y"])
 
     def check_groups(self, g):
-        g = np.asarray(g)
-        if g.size and (g.min() < 0 or g.max() >= self.num_groups):
-            raise ValueError(
-                f"group ids must lie in [0, {self.num_groups}); got "
-                f"[{g.min()}, {g.max()}]"
-            )
+        check_group_ids(g, self.num_groups)
+
+
+def check_group_ids(g, num_groups: int) -> None:
+    """Group ids index the per-group parameters on the card: refuse any
+    outside [0, num_groups) before they get there."""
+    g = np.asarray(g)
+    if g.size and (g.min() < 0 or g.max() >= num_groups):
+        raise ValueError(
+            f"group ids must lie in [0, {num_groups}); got [{g.min()}, {g.max()}]"
+        )
 
 
 def _transpose_x(data):

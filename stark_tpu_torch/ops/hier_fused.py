@@ -1,5 +1,6 @@
-"""Grouped hierarchical logistic log-likelihood — counterpart of
-``stark_tpu/ops/hier_fused.py`` (kernel B1 and its host-side layout).
+"""Grouped likelihood passes over group-sorted rows — counterpart of
+``stark_tpu/ops/hier_fused.py``: kernels B1 (hierarchical logistic) and
+B4 (linear mixed model) and their host-side layout.
 
 Rows are sorted by group once, on the host (`prepare_grouped`), so each
 stretch of rows spans few consecutive groups.  The layout is the JAX
@@ -13,6 +14,12 @@ absolute group of row n is ``first_gid[n // lane_tile] + gl[n]``.
 array: on a CUDA tensor it launches ``csrc/hier_grouped.cu``, on a CPU
 tensor it runs `hier_grouped_plain`.  `hier_logistic_loglik` wraps it in
 a ``torch.autograd.Function`` whose backward rescales those gradients.
+
+`lmm_grouped` does the same for the Gaussian LMM with Q random effects
+per group: mu = intercept + beta . x + sum_q z_q u[g, q], and one pass
+yields the SSR, sum(resid), ∂/∂beta and ∂/∂u (C, G, Q), scale-free
+(``csrc/lmm_grouped.cu``; plain version `lmm_grouped_plain`).
+`lmm_grouped_loglik` applies sigma outside, as the reference does.
 """
 
 from __future__ import annotations
@@ -24,7 +31,15 @@ import numpy as np
 import torch
 
 from .. import _build
-from .logistic_fused import _link_parts, check_kernel_args, row_blocks
+from .logistic_fused import (
+    _link_parts,
+    _per_chain,
+    check_kernel_args,
+    normal_loglik_from_ssr,
+    row_blocks,
+    scratch_words,
+    sigma_grad,
+)
 from .precision import check_knobs, x_stream_dtype
 
 # The reference's layout constants, kept so the port builds bit-identical
@@ -151,7 +166,7 @@ def hier_grouped(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
     gbeta = torch.empty(c, d, device=beta.device, dtype=torch.float32)
     galpha = torch.empty(c, g_total, device=beta.device, dtype=torch.float32)
     scratch = torch.empty(
-        nblk * (c * d + 3 * c + 2), device=beta.device, dtype=torch.float32
+        scratch_words(nblk, c, d), device=beta.device, dtype=torch.float32
     )
     fn = _build.function("hier_grouped", "stark_hier_grouped", _ARGTYPES)
     err = fn(
@@ -193,4 +208,107 @@ def hier_logistic_loglik(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
     if single:
         beta, alpha = beta[None], alpha[None]
     val = _HierLogisticLoglik.apply(beta, alpha, xT, y, gl, first_gid, lane_tile)
+    return val[0] if single else val
+
+
+def lmm_grouped_plain(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile):
+    """Plain PyTorch version of kernel B4: -> (ssr (C,), sum_resid (C,),
+    gbeta (C, D), gu (C, G, Q))."""
+    g = absolute_groups(gl, first_gid, lane_tile)
+    mu = intercept[:, None] + beta @ xT + torch.einsum("qn,cnq->cn", zT, u[:, g, :])
+    _, resid = _link_parts(y, mu, "gaussian")
+    gu = torch.zeros_like(u).index_add_(1, g, resid[:, :, None] * zT.T[None])
+    return (resid * resid).sum(-1), resid.sum(-1), resid @ xT.T, gu
+
+
+_LMM_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def lmm_grouped(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile: int):
+    """Kernel B4: -> (ssr (C,), sum_resid (C,), gbeta (C, D), gu (C, G, Q)).
+
+    beta (C, D), u (C, G, Q), intercept (C,), xT (D, N), zT (Q, N), y
+    (N,) float32; gl (N,), first_gid (ceil(N / lane_tile),) int32; rows
+    sorted by group.
+    """
+    check_knobs()
+    if beta.device.type == "cpu":
+        return lmm_grouped_plain(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile)
+    if beta.device.type != "cuda":
+        raise ValueError(f"lmm_grouped runs on cuda or cpu, not {beta.device}")
+    c, d = beta.shape
+    g_total, q = u.shape[1], u.shape[2]
+    n = xT.shape[1]
+    f32 = torch.float32
+    check_kernel_args(
+        {"beta": beta, "u": u, "intercept": intercept, "xT": xT, "zT": zT,
+         "y": y, "gl": gl, "first_gid": first_gid},
+        device=beta.device,
+        dtypes={"beta": f32, "u": f32, "intercept": f32, "xT": f32,
+                "zT": f32, "y": f32, "gl": torch.int32,
+                "first_gid": torch.int32},
+        shapes={"beta": (c, d), "u": (c, g_total, q), "intercept": (c,),
+                "xT": (d, n), "zT": (q, n), "y": (n,), "gl": (n,),
+                "first_gid": (-(-n // lane_tile),)},
+    )
+    rows, nblk = row_blocks(n)
+    ssr = torch.empty(c, device=beta.device, dtype=f32)
+    sresid = torch.empty(c, device=beta.device, dtype=f32)
+    gbeta = torch.empty(c, d, device=beta.device, dtype=f32)
+    gu = torch.empty(c, g_total, q, device=beta.device, dtype=f32)
+    scratch = torch.empty(scratch_words(nblk, c, d, q), device=beta.device, dtype=f32)
+    fn = _build.function("lmm_grouped", "stark_lmm_grouped", _LMM_ARGTYPES)
+    err = fn(
+        xT.data_ptr(), zT.data_ptr(), y.data_ptr(), gl.data_ptr(),
+        first_gid.data_ptr(), beta.data_ptr(), u.data_ptr(),
+        intercept.data_ptr(), ssr.data_ptr(), sresid.data_ptr(),
+        gbeta.data_ptr(), gu.data_ptr(), scratch.data_ptr(),
+        c, d, q, n, g_total, lane_tile, rows, nblk,
+        torch.cuda.current_stream(beta.device).cuda_stream,
+    )
+    _build.check("lmm_grouped", err)
+    lmm_grouped.launches += 1
+    return ssr, sresid, gbeta, gu
+
+
+#: launches of the CUDA kernel in this process (CPU calls do not count)
+lmm_grouped.launches = 0
+
+
+class _LmmGroupedLoglik(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, beta, u, intercept, sigma, xT, zT, y, gl, first_gid, lane_tile):
+        ssr, sresid, gbeta, gu = lmm_grouped(
+            beta.contiguous(), u.contiguous(), intercept.contiguous(), xT, zT,
+            y, gl, first_gid, lane_tile,
+        )
+        n = y.shape[-1]
+        ctx.n = n
+        ctx.save_for_backward(ssr, sresid, gbeta, gu, sigma)
+        return normal_loglik_from_ssr(ssr, n, sigma)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ssr, sresid, gbeta, gu, sigma = ctx.saved_tensors
+        inv2 = 1.0 / (sigma * sigma)
+        s = ct * inv2
+        return (
+            _per_chain(s, gbeta), _per_chain(s, gu), s * sresid,
+            sigma_grad(ct, ssr, ctx.n, sigma, inv2),
+            None, None, None, None, None, None,
+        )
+
+
+def lmm_grouped_loglik(beta, u, intercept, sigma, xT, zT, y, gl, first_gid,
+                       lane_tile: int):
+    """Differentiable fused LMM normal log-lik over group-sorted rows, per
+    chain: beta (C, D), u (C, G, Q), intercept (C,), sigma (C,) [or one
+    chain without the leading axis] -> (C,) [or ()].  One kernel pass
+    yields the value and every gradient; sigma applies outside."""
+    single = beta.ndim == 1
+    if single:
+        beta, u, intercept, sigma = beta[None], u[None], intercept[None], sigma[None]
+    val = _LmmGroupedLoglik.apply(
+        beta, u, intercept, sigma, xT, zT, y, gl, first_gid, lane_tile
+    )
     return val[0] if single else val

@@ -1,20 +1,30 @@
-"""Fused chain-batched logistic log-likelihood — counterpart of
-``stark_tpu/ops/logistic_fused.py`` (kernel B2, bernoulli_logit link).
+"""Fused logistic and gaussian log-likelihood passes — counterpart of
+``stark_tpu/ops/logistic_fused.py`` (kernels B2 and B3, both links).
 
 ``xT`` is the design matrix transposed, (D, N), as the JAX package lays
-it out.  `logistic_batched` evaluates, for a (C, D) block of chains in
-one pass over X, the log-likelihood value (C,), its beta gradient (C, D)
-and — when per-chain row offsets (C, N) are given — the residual
-y - sigmoid(logits) (C, N), which the offset-path model sums per group.
+it out.  Two kernels evaluate, in one pass over X, the link's value sum,
+its beta gradient and — when row offsets are given — the per-row
+residual, which the offset-path models chain through their gather:
 
-On a CUDA tensor it launches ``csrc/logistic_batched.cu``; on a CPU
-tensor it runs `logistic_batched_plain`, the same function in plain
-PyTorch (the CPU tests' path and the kernel's yardstick on the card).
-There is no fallback from one to the other.
+* `logistic_batched` (B2): a (C, D) block of chains, offsets (C, N);
+* `logistic_single` (B3): one chain, beta (D,), offsets (N,).
 
-`logistic_offset_loglik` and `logistic_loglik` wrap it in
-``torch.autograd.Function``s whose backward only rescales the gradients
-the forward pass already computed, so X is read once per evaluation.
+Links (`_link_parts`): ``bernoulli_logit`` (value = the log-likelihood,
+resid = y - sigmoid(logits)) and ``gaussian`` (value = the SSR, resid =
+y - logits; scale-free, sigma is applied outside).
+
+On a CUDA tensor each wrapper launches its kernel
+(``csrc/logistic_batched.cu``, ``csrc/logistic_single.cu``); on a CPU
+tensor it runs the plain PyTorch version beside it (the CPU tests' path
+and the kernel's yardstick on the card).  There is no fallback from one
+to the other.
+
+`logistic_offset_loglik`, `logistic_loglik`, `gaussian_offset_loglik`
+and `gaussian_loglik` wrap them in ``torch.autograd.Function``s whose
+backward only rescales the gradients the forward pass already computed,
+so X is read once per evaluation.  A chain batch (beta (C, D)) goes to
+B2 and one chain (beta (D,)) to B3, as the reference's batching rules
+route them.
 """
 
 from __future__ import annotations
@@ -43,10 +53,31 @@ def row_blocks(n: int) -> Tuple[int, int]:
     return rows, -(-n // rows)
 
 
-def _link_parts(y, logits):
-    """Bernoulli-logit value terms and residual, elementwise."""
+#: the links both kernels take, and their code in the C entry points
+LINKS = {"bernoulli_logit": 0, "gaussian": 1}
+_LOG_2PI = 1.8378770664093453
+
+
+def _link_code(link: str) -> int:
+    if link not in LINKS:
+        raise ValueError(f"unknown link {link!r}; use one of {sorted(LINKS)}")
+    return LINKS[link]
+
+
+def _link_parts(y, logits, link="bernoulli_logit"):
+    """Elementwise value terms and residual of a link."""
+    _link_code(link)
+    if link == "gaussian":
+        resid = y - logits
+        return resid * resid, resid
     val_terms = y * F.logsigmoid(logits) + (1.0 - y) * F.logsigmoid(-logits)
     return val_terms, y - torch.sigmoid(logits)
+
+
+def scratch_words(nblk: int, c: int, d: int, q: int = 1) -> int:
+    """float32 words of the per-block partials a kernel launch needs
+    (csrc/fused_pass.cuh:carve_scratch)."""
+    return nblk * (c * d + 2 * c + 2 * c * q + 2)
 
 
 def check_kernel_args(named, *, device, dtypes, shapes):
@@ -63,12 +94,12 @@ def check_kernel_args(named, *, device, dtypes, shapes):
             raise ValueError(f"{name} must be contiguous")
 
 
-def logistic_batched_plain(beta, xT, y, offsets=None):
+def logistic_batched_plain(beta, xT, y, offsets=None, link="bernoulli_logit"):
     """Plain PyTorch version of kernel B2 (same outputs)."""
     logits = beta @ xT
     if offsets is not None:
         logits = logits + offsets
-    val_terms, resid = _link_parts(y, logits)
+    val_terms, resid = _link_parts(y, logits, link)
     val = val_terms.sum(-1)
     gbeta = resid @ xT.T
     if offsets is not None:
@@ -76,7 +107,7 @@ def logistic_batched_plain(beta, xT, y, offsets=None):
     return val, gbeta
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def logistic_batched(
@@ -84,14 +115,18 @@ def logistic_batched(
     xT: torch.Tensor,
     y: torch.Tensor,
     offsets: Optional[torch.Tensor] = None,
+    link: str = "bernoulli_logit",
 ):
     """Kernel B2: -> (val (C,), gbeta (C, D)[, resid (C, N)]).
 
     beta (C, D), xT (D, N), y (N,), offsets (C, N) or None; float32.
+    Launches count in ``logistic_batched.launches`` (bernoulli_logit) and
+    ``logistic_batched.gaussian_launches`` (gaussian).
     """
     check_knobs()
+    code = _link_code(link)
     if beta.device.type == "cpu":
-        return logistic_batched_plain(beta, xT, y, offsets)
+        return logistic_batched_plain(beta, xT, y, offsets, link)
     if beta.device.type != "cuda":
         raise ValueError(f"logistic_batched runs on cuda or cpu, not {beta.device}")
     c, d = beta.shape
@@ -112,7 +147,7 @@ def logistic_batched(
         if offsets is not None else None
     )
     scratch = torch.empty(
-        nblk * (c * d + 3 * c + 2), device=beta.device, dtype=torch.float32
+        scratch_words(nblk, c, d), device=beta.device, dtype=torch.float32
     )
     fn = _build.function("logistic_batched", "stark_logistic_batched", _ARGTYPES)
     err = fn(
@@ -120,66 +155,219 @@ def logistic_batched(
         offsets.data_ptr() if offsets is not None else None,
         beta.data_ptr(), val.data_ptr(), gbeta.data_ptr(),
         resid.data_ptr() if resid is not None else None,
-        scratch.data_ptr(), c, d, n, rows, nblk,
+        scratch.data_ptr(), c, d, n, rows, nblk, code,
         torch.cuda.current_stream(beta.device).cuda_stream,
     )
     _build.check("logistic_batched", err)
-    logistic_batched.launches += 1
+    if link == "gaussian":
+        logistic_batched.gaussian_launches += 1
+    else:
+        logistic_batched.launches += 1
+    if offsets is not None:
+        return val, gbeta, resid
+    return val, gbeta
+
+
+#: launches of the CUDA kernel in this process, per link (CPU calls do
+#: not count)
+logistic_batched.launches = 0
+logistic_batched.gaussian_launches = 0
+
+
+def logistic_single_plain(beta, xT, y, offsets=None, link="bernoulli_logit"):
+    """Plain PyTorch version of kernel B3: -> (val (), gbeta (D,)[,
+    resid (N,)])."""
+    logits = beta @ xT
+    if offsets is not None:
+        logits = logits + offsets
+    val_terms, resid = _link_parts(y, logits, link)
+    gbeta = xT @ resid
+    if offsets is not None:
+        return val_terms.sum(), gbeta, resid
+    return val_terms.sum(), gbeta
+
+
+_SINGLE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def logistic_single(
+    beta: torch.Tensor,
+    xT: torch.Tensor,
+    y: torch.Tensor,
+    offsets: Optional[torch.Tensor] = None,
+    link: str = "bernoulli_logit",
+):
+    """Kernel B3: -> (val (), gbeta (D,)[, resid (N,)]).
+
+    beta (D,), xT (D, N), y (N,), offsets (N,) or None; float32.
+    """
+    check_knobs()
+    code = _link_code(link)
+    if beta.ndim != 1:
+        raise ValueError(f"logistic_single takes one chain, beta (D,); got {tuple(beta.shape)}")
+    if beta.device.type == "cpu":
+        return logistic_single_plain(beta, xT, y, offsets, link)
+    if beta.device.type != "cuda":
+        raise ValueError(f"logistic_single runs on cuda or cpu, not {beta.device}")
+    (d,) = beta.shape
+    n = xT.shape[1]
+    named = {"beta": beta, "xT": xT, "y": y}
+    shapes = {"beta": (d,), "xT": (d, n), "y": (n,), "offsets": (n,)}
+    if offsets is not None:
+        named["offsets"] = offsets
+    check_kernel_args(
+        named, device=beta.device,
+        dtypes={k: torch.float32 for k in shapes}, shapes=shapes,
+    )
+    rows, nblk = row_blocks(n)
+    val = torch.empty((), device=beta.device, dtype=torch.float32)
+    gbeta = torch.empty(d, device=beta.device, dtype=torch.float32)
+    resid = (
+        torch.empty(n, device=beta.device, dtype=torch.float32)
+        if offsets is not None else None
+    )
+    scratch = torch.empty(
+        scratch_words(nblk, 1, d), device=beta.device, dtype=torch.float32
+    )
+    fn = _build.function("logistic_single", "stark_logistic_single", _SINGLE_ARGTYPES)
+    err = fn(
+        xT.data_ptr(), y.data_ptr(),
+        offsets.data_ptr() if offsets is not None else None,
+        beta.data_ptr(), val.data_ptr(), gbeta.data_ptr(),
+        resid.data_ptr() if resid is not None else None,
+        scratch.data_ptr(), d, n, rows, nblk, code,
+        torch.cuda.current_stream(beta.device).cuda_stream,
+    )
+    _build.check("logistic_single", err)
+    logistic_single.launches += 1
     if offsets is not None:
         return val, gbeta, resid
     return val, gbeta
 
 
 #: launches of the CUDA kernel in this process (CPU calls do not count)
-logistic_batched.launches = 0
+logistic_single.launches = 0
 
 
-def _as_batch(beta):
-    """(D,) -> (1, D); (C, D) unchanged.  Returns (batched, was_single)."""
-    return (beta[None], True) if beta.ndim == 1 else (beta, False)
+def logistic_loglik_value_and_grad(beta, xT, y):
+    """-> (log-lik (), d/dbeta (D,)) of one chain in one pass over xT
+    (kernel B3).  beta (D,), xT (D, N) — X transposed — y (N,) in {0, 1}."""
+    return logistic_single(beta, xT, y)
+
+
+def _pass(beta, xT, y, offsets, link):
+    """One chain (beta (D,)) -> B3; a chain batch (beta (C, D)) -> B2."""
+    beta = beta.contiguous()
+    if offsets is not None:
+        offsets = offsets.contiguous()
+    if beta.ndim == 1:
+        return logistic_single(beta, xT, y, offsets, link)
+    return logistic_batched(beta, xT, y, offsets, link)
+
+
+def _per_chain(ct, g):
+    """Cotangent (C,) or () times per-chain gradients (C, ...) or (...)."""
+    return ct.reshape(ct.shape + (1,) * (g.ndim - ct.ndim)) * g
 
 
 class _LogisticOffsetLoglik(torch.autograd.Function):
     @staticmethod
     def forward(ctx, beta, offsets, xT, y):
-        val, gbeta, resid = logistic_batched(
-            beta.contiguous(), xT, y, offsets.contiguous()
-        )
+        val, gbeta, resid = _pass(beta, xT, y, offsets, "bernoulli_logit")
         ctx.save_for_backward(gbeta, resid)
         return val
 
     @staticmethod
     def backward(ctx, ct):
         gbeta, resid = ctx.saved_tensors
-        return ct[:, None] * gbeta, ct[:, None] * resid, None, None
+        return _per_chain(ct, gbeta), _per_chain(ct, resid), None, None
 
 
 class _LogisticLoglik(torch.autograd.Function):
     @staticmethod
     def forward(ctx, beta, xT, y):
-        val, gbeta = logistic_batched(beta.contiguous(), xT, y)
+        val, gbeta = _pass(beta, xT, y, None, "bernoulli_logit")
         ctx.save_for_backward(gbeta)
         return val
 
     @staticmethod
     def backward(ctx, ct):
         (gbeta,) = ctx.saved_tensors
-        return ct[:, None] * gbeta, None, None
+        return _per_chain(ct, gbeta), None, None
 
 
 def logistic_offset_loglik(beta, offsets, xT, y):
     """Differentiable Bernoulli-logit log-lik of X beta + offsets, per
     chain: beta (C, D) [or (D,)], offsets (C, N) [or (N,)] -> (C,) [or
     ()].  ∂/∂offsets is the residual the kernel already wrote."""
-    b, single = _as_batch(beta)
-    off = offsets[None] if single else offsets
-    val = _LogisticOffsetLoglik.apply(b, off, xT, y)
-    return val[0] if single else val
+    return _LogisticOffsetLoglik.apply(beta, offsets, xT, y)
 
 
 def logistic_loglik(beta, xT, y):
     """Differentiable Bernoulli-logit log-lik of X beta, per chain:
     beta (C, D) [or (D,)] -> (C,) [or ()]."""
-    b, single = _as_batch(beta)
-    val = _LogisticLoglik.apply(b, xT, y)
-    return val[0] if single else val
+    return _LogisticLoglik.apply(beta, xT, y)
+
+
+def normal_loglik_from_ssr(ssr, n, sigma):
+    """sum_n log N(y_n | mu_n, sigma) from the sum of squared residuals."""
+    return -0.5 * ssr / sigma**2 - n * torch.log(sigma) - 0.5 * n * _LOG_2PI
+
+
+def sigma_grad(ct, ssr, n, sigma, inv2):
+    """Cotangent times ∂/∂sigma of `normal_loglik_from_ssr` (inv2 =
+    1 / sigma^2)."""
+    return ct * (ssr * inv2 / sigma - n / sigma)
+
+
+class _GaussianOffsetLoglik(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, beta, offsets, xT, y, sigma):
+        ssr, xresid, resid = _pass(beta, xT, y, offsets, "gaussian")
+        n = y.shape[-1]
+        ctx.n = n
+        ctx.save_for_backward(xresid, resid, ssr, sigma)
+        return normal_loglik_from_ssr(ssr, n, sigma)
+
+    @staticmethod
+    def backward(ctx, ct):
+        xresid, resid, ssr, sigma = ctx.saved_tensors
+        inv2 = 1.0 / (sigma * sigma)
+        s = ct * inv2
+        return (
+            _per_chain(s, xresid), _per_chain(s, resid), None, None,
+            sigma_grad(ct, ssr, ctx.n, sigma, inv2),
+        )
+
+
+class _GaussianLoglik(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, beta, xT, y, sigma):
+        ssr, xresid = _pass(beta, xT, y, None, "gaussian")
+        n = y.shape[-1]
+        ctx.n = n
+        ctx.save_for_backward(xresid, ssr, sigma)
+        return normal_loglik_from_ssr(ssr, n, sigma)
+
+    @staticmethod
+    def backward(ctx, ct):
+        xresid, ssr, sigma = ctx.saved_tensors
+        inv2 = 1.0 / (sigma * sigma)
+        return (
+            _per_chain(ct * inv2, xresid), None, None,
+            sigma_grad(ct, ssr, ctx.n, sigma, inv2),
+        )
+
+
+def gaussian_offset_loglik(beta, offsets, xT, y, sigma):
+    """Differentiable normal log-lik of y ~ N(X beta + offsets, sigma) in
+    one X pass, per chain: beta (C, D) [or (D,)], offsets (C, N) [or
+    (N,)], sigma (C,) [or ()] -> (C,) [or ()].  The kernel is scale-free:
+    sigma enters outside, and ∂/∂sigma comes from the SSR."""
+    return _GaussianOffsetLoglik.apply(beta, offsets, xT, y, sigma)
+
+
+def gaussian_loglik(beta, xT, y, sigma):
+    """Differentiable normal log-lik of y ~ N(X beta, sigma), no offsets:
+    no (N,) offset stream in and no residual written back."""
+    return _GaussianLoglik.apply(beta, xT, y, sigma)

@@ -13,7 +13,12 @@ import torch
 
 import stark_tpu_torch
 from stark_tpu_torch import chees_sample, prepare_model_data, sample
-from stark_tpu_torch.models import FusedHierLogisticGrouped, synth_logistic_data
+from stark_tpu_torch.models import (
+    FusedHierLogisticGrouped,
+    FusedLinearMixedModelGrouped,
+    synth_lmm_data,
+    synth_logistic_data,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "stark_tpu_torch"
@@ -28,7 +33,7 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
     code = (
         "import sys, stark_tpu_torch, stark_tpu_torch.interop, "
         "stark_tpu_torch.ops.hier_fused, stark_tpu_torch.ops.logistic_fused, "
-        "stark_tpu_torch.models\n"
+        "stark_tpu_torch.models, stark_tpu_torch.models.lmm, stark_tpu_torch._build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'stark_tpu'))\n"
         "print(','.join(bad))\n"
@@ -64,11 +69,18 @@ def test_no_jax_or_reference_import_in_package_or_chip_smoke():
     assert bad == []
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
+_ENTRY_MODELS = {
+    "flagship": lambda: (FusedHierLogisticGrouped(2, 3),
+                         synth_logistic_data(0, 300, 2, num_groups=3)[0]),
+    "lmm": lambda: (FusedLinearMixedModelGrouped(2, 3), synth_lmm_data(0, 300, 2, 3)[0]),
+}
+
+
+@pytest.mark.parametrize("family", list(_ENTRY_MODELS))
+def test_entry_points_raise_without_a_card(monkeypatch, family):
     """No device argument means the card; with none present, raise."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    raw, _ = synth_logistic_data(0, 300, 2, num_groups=3)
-    model = FusedHierLogisticGrouped(2, 3)
+    model, raw = _ENTRY_MODELS[family]()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         chees_sample(model, raw, chains=2, num_warmup=2, num_samples=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
