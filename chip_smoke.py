@@ -48,9 +48,11 @@ the plain versions (no build, no launch counts, no device times); it is
 a rehearsal of the control flow, not a result.
 
 ``--compare-with TREE`` instead times the kernels that TREE (another
-checkout, e.g. the parent commit's) shares with this one, B1 and B2
-(bernoulli) at the flagship's full width, each tree's own build in its
-own process, in the order TREE, this, this, TREE on the same card.
+checkout, e.g. the parent commit's) shares with this one: B1 and B2
+(bernoulli, with and without offsets) at the flagship's full width, B2's
+gaussian link and B4 at config 3's, each tree's own build in its own
+process, in the order TREE, this, this, TREE on the same card, and says
+for each kernel whether its outputs are bitwise equal across the trees.
 """
 
 from __future__ import annotations
@@ -141,7 +143,10 @@ def read_counts():
 
 def timed(run: Run, fn, reps: int) -> float:
     """Mean milliseconds per call over ``reps`` warm calls (CUDA events
-    on the card; the host clock in a rehearsal)."""
+    on the card; the host clock in a rehearsal).  On the card a sleep
+    kernel (about 0.5 ms per call) holds the stream while the host
+    enqueues the calls, so the events time the device alone, not the
+    host's launch cost."""
     fn()
     fn()
     if run.rehearsal:
@@ -151,6 +156,7 @@ def timed(run: Run, fn, reps: int) -> float:
         return 1e3 * (time.perf_counter() - t) / reps
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(reps * 1_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -322,7 +328,8 @@ def phase_parity_and_times(run: Run, flag, lmm):
         again = hf.hier_grouped(*args)
         run.sync()
         want = hf.hier_grouped_plain(*args)
-        err = compare(f"B1 C=64 {label} lane_tile={prep['lane_tile']} k_loc={prep['k_loc']}", got, want)
+        err = compare(f"B1 C=64 {label} lane_tile={prep['lane_tile']} k_loc={prep['k_loc']} "
+                      f"blocks={hf.b1_blocks(raw['y'].shape[0])[0]}", got, want)
         check_repeat("B1", got, again)
         results.setdefault("B1", (args, err))
         for link in ("bernoulli_logit", "gaussian"):
@@ -656,12 +663,17 @@ def phase_profile(run: Run, model, raw, label):
                 top=[(r[2][:60], r[0] / reps) for r in rows[:5]])
 
 
+#: kernels both trees time in --compare-with, and the calls each makes
+SHARED_KERNELS = ("B1", "B2 offsets=False", "B2 offsets=True", "B2 gaussian (LMM)", "B4")
+
+
 def shared_kernel_times(tree: str) -> dict:
     """B1 (C=64) and B2 (C=32, with and without offsets) at the
-    flagship's full width, from the stark_tpu_torch of ``tree``, built
+    flagship's full width, and B2's gaussian link (C=16, offsets) and B4
+    (C=16) at config 3's, from the stark_tpu_torch of ``tree``, built
     from that tree's sources; the calls are the ones both trees share.
-    ``digest`` hashes the outputs' bytes, so two trees whose kernels
-    compute bitwise alike show the same digest."""
+    ``digests`` hashes each kernel's outputs apart, so two trees whose
+    kernel computes bitwise alike show the same digest for it."""
     import hashlib
 
     sys.path.insert(0, tree)
@@ -671,20 +683,25 @@ def shared_kernel_times(tree: str) -> dict:
     from stark_tpu_torch.ops import logistic_fused as lf
 
     assert stark_tpu_torch.__file__.startswith(str(tree)), stark_tpu_torch.__file__
-    _build.build(["hier_grouped", "logistic_batched"])
+    _build.build(["hier_grouped", "logistic_batched", "lmm_grouped"])
     run = Run(False)
-    full, _, _ = make_flagship_data(run)
+    (full, _, _), (lfull, _, _) = make_data(run)
     gen = torch.Generator(device=run.dev).manual_seed(1)
     b1_args, _ = _grouped_inputs(run, full, 64, gen)
-    out = {"tree": tree, "B1": timed(run, lambda: hf.hier_grouped(*b1_args), 20)}
-    results = list(hf.hier_grouped(*b1_args))
+    calls = {"B1": lambda: hf.hier_grouped(*b1_args)}
     for with_off in (False, True):
         bargs = _batched_inputs(run, full, 32, gen, with_off)
-        out[f"B2 offsets={with_off}"] = timed(run, lambda: lf.logistic_batched(*bargs), 20)
-        results += lf.logistic_batched(*bargs)
-    out["digest"] = hashlib.sha1(
-        b"".join(t.cpu().numpy().tobytes() for t in results)
-    ).hexdigest()
+        calls[f"B2 offsets={with_off}"] = lambda bargs=bargs: lf.logistic_batched(*bargs)
+    gargs = _lmm_offset_inputs(run, lfull, LMM_CHAINS, gen)
+    calls["B2 gaussian (LMM)"] = lambda: lf.logistic_batched(*gargs, link="gaussian")
+    b4_args, _ = _lmm_inputs(run, lfull, LMM_CHAINS, gen)
+    calls["B4"] = lambda: hf.lmm_grouped(*b4_args)
+    out = {"tree": tree, "digests": {}}
+    for key in SHARED_KERNELS:
+        out[key] = timed(run, calls[key], 50 if key in ("B4", "B2 gaussian (LMM)") else 20)
+        out["digests"][key] = hashlib.sha1(
+            b"".join(t.cpu().numpy().tobytes() for t in calls[key]())
+        ).hexdigest()
     return out
 
 
@@ -705,11 +722,12 @@ def compare_with(other: str) -> int:
             raise RuntimeError(f"timing the kernels of {tree} failed")
         rows.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         log(json.dumps(rows[-1]))
-    log("== shared kernels, ms (CUDA events, 20 warm launches): other, this, this, other")
-    for key in ("B1", "B2 offsets=False", "B2 offsets=True"):
-        log(f"  {key}: " + ", ".join(f"{r[key]:.4f}" for r in rows))
-    same = len({r["digest"] for r in rows}) == 1
-    log(f"  outputs bitwise equal across the trees: {'yes' if same else 'no'}")
+    log("== shared kernels, ms (CUDA events, 20 warm launches queued behind a sleep; "
+        "50 at config 3): other, this, this, other; outputs bitwise equal across the trees")
+    for key in SHARED_KERNELS:
+        same = len({r["digests"][key] for r in rows}) == 1
+        log(f"  {key}: " + ", ".join(f"{r[key]:.4f}" for r in rows)
+            + f"; bitwise equal: {'yes' if same else 'no'}")
     return 0
 
 
@@ -718,7 +736,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="walk the phases on the CPU at a tiny size (not a result)")
     ap.add_argument("--compare-with", metavar="TREE",
-                    help="time B1 and B2 of TREE and of this checkout, in turns")
+                    help="time the kernels of TREE and of this checkout, in turns")
     ap.add_argument("--shared-kernel-times", metavar="TREE", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not args.cpu_rehearsal and not torch.cuda.is_available():

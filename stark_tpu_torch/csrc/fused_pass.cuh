@@ -6,8 +6,9 @@
 //   bernoulli_logit: val = y log s(l) + (1 - y) log s(-l), resid = y - s(l)
 //   gaussian:        val = (y - l)^2,                      resid = y - l
 // (the gaussian pass is scale-free: sigma is applied by the caller).
-// Shared by csrc/hier_grouped.cu (B1), csrc/logistic_batched.cu (B2) and
-// csrc/lmm_grouped.cu (B4); each instantiates its own variant.
+// Shared by csrc/logistic_batched.cu (B2) and csrc/lmm_grouped.cu (B4);
+// each instantiates its own variant.  csrc/hier_grouped.cu (B1) has a pass
+// of its own and takes only Params, carve_scratch, group_of and finish.
 //
 // Work split.  Block b owns the contiguous rows [b*R, min(N, (b+1)*R)),
 // R a multiple of kRows chosen by the caller from N alone (about 256

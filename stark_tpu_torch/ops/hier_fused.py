@@ -25,6 +25,7 @@ yields the SSR, sum(resid), ∂/∂beta and ∂/∂u (C, G, Q), scale-free
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import numpy as np
@@ -134,7 +135,41 @@ def hier_grouped_plain(beta, alpha, xT, y, gl, first_gid, lane_tile):
     return val_terms.sum(-1), resid @ xT.T, galpha
 
 
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+#: rows per staged sub-tile of csrc/hier_grouped.cu (b1::kRows)
+B1_ROW_TILE = 128
+#: most row blocks of one B1 launch: two resident on each of the H100's
+#: 132 SMs, so one wave (b1::kBlocks)
+B1_BLOCKS = 264
+
+
+def b1_blocks(n: int):
+    """Row split of a B1 launch over n rows: (number of blocks, edges),
+    block b owning rows [edges[b], edges[b + 1]).  The S = ceil(n / 128)
+    sub-tiles are dealt out as [b*S // B, (b+1)*S // B) to B = min(264, S)
+    blocks, so every edge but the last is a multiple of B1_ROW_TILE and
+    the blocks differ by at most one sub-tile.  A function of n alone,
+    computed the same way by the kernel, whose launcher refuses any other
+    block count: a shape always sums in the same order."""
+    nsub = -(-n // B1_ROW_TILE)
+    nblk = min(B1_BLOCKS, nsub)
+    edges = [min(n, (b * nsub // nblk) * B1_ROW_TILE) for b in range(nblk + 1)]
+    return nblk, edges
+
+
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def b1_shared_memory(c: int, d: int, device: int):
+    """(bytes of shared memory one B1 block needs at C=c, D=d, most bytes
+    the card ``device`` gives one block), from csrc/hier_grouped.cu."""
+    fn = _build.function(
+        "hier_grouped", "stark_hier_grouped_smem",
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2,
+    )
+    need, limit = ctypes.c_int(), ctypes.c_int()
+    _build.check("hier_grouped", fn(c, d, device, ctypes.byref(need), ctypes.byref(limit)))
+    return need.value, limit.value
 
 
 def hier_grouped(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
@@ -161,7 +196,15 @@ def hier_grouped(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
         shapes={"beta": (c, d), "alpha": (c, g_total), "xT": (d, n),
                 "y": (n,), "gl": (n,), "first_gid": (-(-n // lane_tile),)},
     )
-    rows, nblk = row_blocks(n)
+    if lane_tile % B1_ROW_TILE:
+        raise ValueError(f"lane_tile={lane_tile} is not a multiple of {B1_ROW_TILE}")
+    need, limit = b1_shared_memory(c, d, beta.device.index)
+    if need > limit:
+        raise ValueError(
+            f"hier_grouped: C={c} chains of D={d} features need {need} bytes of "
+            f"shared memory per block; this card gives a block at most {limit}"
+        )
+    nblk, _ = b1_blocks(n)
     val = torch.empty(c, device=beta.device, dtype=torch.float32)
     gbeta = torch.empty(c, d, device=beta.device, dtype=torch.float32)
     galpha = torch.empty(c, g_total, device=beta.device, dtype=torch.float32)
@@ -173,7 +216,7 @@ def hier_grouped(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
         xT.data_ptr(), y.data_ptr(), gl.data_ptr(), first_gid.data_ptr(),
         beta.data_ptr(), alpha.data_ptr(), val.data_ptr(), gbeta.data_ptr(),
         galpha.data_ptr(), scratch.data_ptr(),
-        c, d, n, g_total, lane_tile, rows, nblk,
+        c, d, n, g_total, lane_tile, nblk,
         torch.cuda.current_stream(beta.device).cuda_stream,
     )
     _build.check("hier_grouped", err)

@@ -29,19 +29,30 @@ def _cuda():
     return torch.device("cuda")
 
 
-def _grouped(n, d, groups, chains, seed=0):
+def _grouped_case(n, d, groups, chains, seed=0, g=None, beta_scale=0.3):
+    """B1's arguments from rows drawn with a seed; ``g`` (sorted ids, one
+    per row) replaces the uniform draw of group ids, ``beta_scale`` sets
+    the logits' spread."""
     rs = np.random.RandomState(seed)
+    n = n if g is None else g.shape[0]
     raw = {
         "x": rs.standard_normal((n, d)).astype(np.float32),
         "y": (rs.rand(n) < 0.4).astype(np.float32),
-        "g": rs.randint(0, groups, size=n).astype(np.int32),
+        "g": rs.randint(0, groups, size=n).astype(np.int32) if g is None else g,
     }
     prep = hier_fused.prepare_grouped(raw, d)
+    assert prep is not None
     dev = _cuda()
     t = {k: torch.as_tensor(prep[k], device=dev) for k in ("xT", "y", "gl", "first_gid")}
-    beta = torch.as_tensor(0.3 * rs.standard_normal((chains, d)), dtype=torch.float32, device=dev)
+    beta = torch.as_tensor(beta_scale * rs.standard_normal((chains, d)),
+                           dtype=torch.float32, device=dev)
     alpha = torch.as_tensor(rs.standard_normal((chains, groups)), dtype=torch.float32, device=dev)
-    return beta, alpha, t, prep["lane_tile"]
+    return (beta, alpha, t["xT"], t["y"], t["gl"], t["first_gid"], prep["lane_tile"])
+
+
+def _grouped(n, d, groups, chains, seed=0):
+    beta, alpha, xT, y, gl, first_gid, lane_tile = _grouped_case(n, d, groups, chains, seed)
+    return beta, alpha, {"xT": xT, "y": y, "gl": gl, "first_gid": first_gid}, lane_tile
 
 
 def _assert_parity(got, want):
@@ -66,6 +77,69 @@ def test_b1_matches_plain_and_repeats_bitwise(n, d, groups, chains):
     _assert_parity(got, hier_fused.hier_grouped_plain(*args))
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+def _sizes_with_gaps(groups, seed):
+    """Sorted group ids in which every 7th id has no rows, every 5th has
+    one row, and the rest 40-400 rows each."""
+    rs = np.random.RandomState(seed)
+    sizes = rs.randint(40, 400, size=groups)
+    sizes[::5] = 1
+    sizes[3::7] = 0
+    return np.repeat(np.arange(groups, dtype=np.int32), sizes)
+
+
+_B1_EDGE_CASES = {
+    # chain counts off the 64-chain chunk, feature counts off the 32-feature chunk
+    **{f"C={c} D={d}": dict(n=3001, d=d, groups=20, chains=c)
+       for c in (1, 7, 33, 100) for d in (1, 3, 33)},
+    # less than one 128-row sub-tile; N = 1, 2, 3 (mod 4), so rows of xT
+    # past the first start off 16-byte alignment
+    "N<sub-tile": dict(n=50, d=5, groups=3, chains=9),
+    "N=1 mod 4": dict(n=40_001, d=32, groups=300, chains=64),
+    "N=2 mod 4": dict(n=40_002, d=7, groups=300, chains=64),
+    "N=3 mod 4": dict(n=40_003, d=32, groups=300, chains=70),
+    # groups straddling sub-tiles and blocks, one-row groups, ids without rows
+    "gaps": dict(n=0, d=32, groups=300, chains=64, g=_sizes_with_gaps(300, 1)),
+    "gaps C=33 D=3": dict(n=0, d=3, groups=300, chains=33, g=_sizes_with_gaps(300, 2)),
+    # logits beyond +-30 in both directions
+    "wide logits": dict(n=20_011, d=32, groups=50, chains=64, beta_scale=8.0),
+    "wide logits C=5": dict(n=5003, d=6, groups=10, chains=5, beta_scale=20.0),
+    # wide rows: one x buffer (D=128, 160; C=100 in two chunks), then the
+    # gradient sums in device memory (D=200, C=128 D=126), up to the widest
+    # that fits one block at C=64
+    "D=128 C=64": dict(n=20_011, d=128, groups=50, chains=64),
+    "D=160 C=64": dict(n=20_011, d=160, groups=50, chains=64),
+    "D=130 C=100": dict(n=5003, d=130, groups=30, chains=100),
+    "D=200 C=64": dict(n=5003, d=200, groups=30, chains=64),
+    "D=126 C=128": dict(n=5003, d=126, groups=30, chains=128),
+    "D=249 C=64": dict(n=3001, d=249, groups=20, chains=64),
+}
+
+
+@pytest.mark.parametrize("case", list(_B1_EDGE_CASES))
+def test_b1_edge_cases_match_plain_and_repeat_bitwise(case):
+    kw = _B1_EDGE_CASES[case]
+    args = _grouped_case(**kw)
+    if "beta_scale" in kw:
+        logits = args[0] @ args[2]
+        assert float(logits.max()) > 30 and float(logits.min()) < -30
+    before = hier_fused.hier_grouped.launches
+    got = hier_fused.hier_grouped(*args)
+    again = hier_fused.hier_grouped(*args)
+    torch.cuda.synchronize()
+    assert hier_fused.hier_grouped.launches == before + 2
+    _assert_parity(got, hier_fused.hier_grouped_plain(*args))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_b1_refuses_widths_beyond_shared_memory():
+    args = _grouped_case(n=1000, d=256, groups=10, chains=64)
+    before = hier_fused.hier_grouped.launches
+    with pytest.raises(ValueError, match="shared memory per block"):
+        hier_fused.hier_grouped(*args)
+    assert hier_fused.hier_grouped.launches == before
 
 
 @pytest.mark.parametrize("with_offsets", [False, True])

@@ -14,6 +14,7 @@ import torch
 
 from stark_tpu.ops import hier_fused as ref
 from stark_tpu_torch.ops import hier_fused as port
+from stark_tpu_torch.ops import logistic_fused
 
 VAL_RTOL = 2e-5
 GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-4
@@ -131,3 +132,30 @@ def test_kernel_wrapper_refuses_other_devices():
     beta = torch.zeros(2, 3, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         port.hier_grouped(beta, beta, beta, beta, beta, beta, 256)
+
+
+@pytest.mark.parametrize(
+    "n", [1, 50, 127, 128, 129, 3001, 33_792, 33_793, 40_003, 1_000_000, 1_000_037]
+)
+def test_b1_block_split_covers_rows_once_in_whole_subtiles(n):
+    """The row split of B1 (csrc/hier_grouped.cu): every row in exactly
+    one block, block edges on sub-tile boundaries, at most B1_BLOCKS
+    blocks within one sub-tile of each other, the same split on every
+    call, and scratch for every block's partials."""
+    nblk, edges = port.b1_blocks(n)
+    assert port.b1_blocks(n) == (nblk, edges)
+    tile = port.B1_ROW_TILE
+    nsub = -(-n // tile)
+    assert nblk == min(port.B1_BLOCKS, nsub) and len(edges) == nblk + 1
+    assert edges[0] == 0 and edges[-1] == n
+    owner = np.repeat(np.arange(nblk), np.diff(edges))
+    assert owner.shape == (n,) and np.all(np.diff(owner) >= 0)  # each row once, in order
+    assert all(e % tile == 0 for e in edges[:-1])
+    subtiles = [-(-(b - a) // tile) for a, b in zip(edges[:-1], edges[1:])]
+    assert min(subtiles) >= 1 and max(subtiles) - min(subtiles) <= 1
+    assert sum(subtiles) == nsub
+    for c, d in ((64, 32), (1, 1), (100, 33)):
+        # csrc/fused_pass.cuh:carve_scratch: gpart (nblk, C, D), vpart,
+        # rpart, head, tail (nblk, C) each, blo and bhi (nblk,) ints
+        need = nblk * c * d + 4 * nblk * c + 2 * nblk
+        assert logistic_fused.scratch_words(nblk, c, d) >= need
