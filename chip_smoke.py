@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases, in order; any failure exits non-zero (none is caught):
   1. card     — name and power limit (nvidia-smi), torch and CUDA versions
   2. build    — nvcc for sm_90a of every kernel in stark_tpu_torch/csrc,
-                all started together; prints each -Xptxas -v report
+                all started together; prints each -Xptxas -v report and
+                fails if a kernel of B1 or B2 spills registers
   3. parity   — each kernel against its plain PyTorch version on the card,
                 at full width, a second launch bitwise equal:
                 flagship (D=32, G=1000, N=1,000,000 and a ragged
@@ -17,7 +18,14 @@ Phases, in order; any failure exits non-zero (none is caught):
                 and without offsets and both links;
                 LMM, BASELINE config 3 (D=8, Q=2, G=10,000, N=100,000 and
                 a ragged 100,037): B4 at C=16, B2's gaussian link at C=16
-                with offsets
+                with offsets; B4 on config 3's rows without every 7th
+                group's (ids without rows);
+                B2's edge cases (B2_EDGE_CASES: chain and feature counts
+                off its chunks, N below a sub-tile and N = 1, 2, 3 mod 4,
+                blocks of two sub-tiles, the widest D of each shared-memory
+                tier), both links, with and without offsets, on dyadic
+                inputs against the plain version in float64, and its
+                refusal one width further
   4. times    — CUDA-event times of each kernel and its plain version,
                 beside the least time the card could take (bound); B2 at
                 C=1 beside B3 on the same inputs
@@ -49,7 +57,7 @@ a rehearsal of the control flow, not a result.
 
 ``--compare-with TREE`` instead times the kernels that TREE (another
 checkout, e.g. the parent commit's) shares with this one: B1 and B2
-(bernoulli, with and without offsets) at the flagship's full width, B2's
+(both links, with and without offsets) at the flagship's full width, B2's
 gaussian link and B4 at config 3's, each tree's own build in its own
 process, in the order TREE, this, this, TREE on the same card, and says
 for each kernel whether its outputs are bitwise equal across the trees.
@@ -59,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +91,27 @@ N_FULL, N_RAGGED = 1_000_000, 1_000_037
 LMM_D, LMM_G, LMM_Q = 8, 10_000, 2
 LMM_N_FULL, LMM_N_RAGGED = 100_000, 100_037
 LMM_CHAINS = 16
+
+# B2's edge cases (N, D, C): chain and feature counts off the 32-chain and
+# 32-feature chunks; N below one 128-row sub-tile and N = 1, 2, 3 (mod 4),
+# so rows of xT, offsets and resid start off 16-byte alignment; more
+# sub-tiles than B2's 396 blocks, so that blocks take two and stage the
+# next while they compute (several chunks of chains, features past one
+# chunk, each shared-memory tier); the widest D of each tier
+# (csrc/logistic_batched.cu:layout) at C=32 (one tile, two buffers, one
+# buffer, gradient sums in device memory) and C=64.  One width further
+# is refused.
+B2_EDGE_CASES = (
+    *[(3001, d, c) for c in (1, 7, 33, 100) for d in (1, 3, 33)],
+    (50, 5, 9), (40_001, 32, 32), (40_002, 7, 32), (40_003, 32, 20),
+    (60_001, 33, 33), (60_002, 3, 100), (60_003, 51, 32), (60_001, 100, 32),
+    (60_002, 300, 32),
+    *[(1001, d, 32) for d in (32, 51, 273, 327)],
+    *[(1001, d, 64) for d in (32, 206, 273)],
+)
+B2_REFUSED = ((32, 328), (64, 274))
+#: kernel libraries whose every kernel must build without spilling
+NO_SPILL = ("hier_grouped", "logistic_batched")
 
 
 def log(*a):
@@ -165,15 +195,17 @@ def timed(run: Run, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name, got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL):
-    """Max abs / rel error of each output; assert the reference's
-    tolerances (value rtol 2e-5; the rest at rtol / atol)."""
+def compare(name, got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL, quiet=False):
+    """Max abs / rel error of each output (logged unless ``quiet``);
+    assert the reference's tolerances (value rtol 2e-5; the rest at rtol
+    / atol)."""
     worst = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
         err = (g - w).abs()
         rel = err / w.abs().clamp_min(1e-30)
-        log(f"  {name} out{i} {tuple(g.shape)}: max_abs_err={float(err.max()):.6g} "
-            f"max_rel_err={float(rel.max()):.6g}")
+        if not quiet:
+            log(f"  {name} out{i} {tuple(g.shape)}: max_abs_err={float(err.max()):.6g} "
+                f"max_rel_err={float(rel.max()):.6g}")
         if i == 0:
             torch.testing.assert_close(g, w, rtol=VAL_RTOL, atol=0)
         else:
@@ -216,6 +248,30 @@ def phase_build(run: Run):
         log(f"  --- nvcc csrc/{name}.cu")
         for line in text.strip().splitlines():
             log(f"    {line}")
+    for name in NO_SPILL:
+        if logs[name] == "(already built)":
+            log(f"  csrc/{name}.cu was built before this run: its spills are not read")
+            continue
+        kernels = spills(logs[name])
+        assert kernels, f"no -Xptxas -v report for csrc/{name}.cu"
+        bad = [k for k in kernels if k[1] or k[2]]
+        assert not bad, f"register spills in csrc/{name}.cu: {bad}"
+        log(f"  csrc/{name}.cu: {len(kernels)} kernels, 0 bytes of spill")
+
+
+def spills(report):
+    """(kernel, spill store bytes, spill load bytes) of every kernel in an
+    nvcc -Xptxas -v report."""
+    out, kernel = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and kernel:
+            out.append((kernel, int(m.group(1)), int(m.group(2))))
+            kernel = None
+    return out
 
 
 def make_flagship_data(run: Run):
@@ -369,6 +425,20 @@ def phase_parity_and_times(run: Run, flag, lmm):
         err = compare(f"B2 gaussian C={LMM_CHAINS} offsets=True (LMM) {label}", got, want)
         check_repeat("B2 gaussian", got, again)
         results.setdefault("B2g lmm", (bargs, err))
+    # ids without rows between groups of one row block: every 7th
+    # group's rows dropped from config 3's
+    keep = lfull["g"] % 7 != 3
+    gaps = {k: v[keep] for k, v in lfull.items()}
+    empty = int(np.sum(np.bincount(gaps["g"], minlength=run.lmm_g) == 0))
+    args, prep = _lmm_inputs(run, gaps, LMM_CHAINS, gen)
+    got = hf.lmm_grouped(*args)
+    again = hf.lmm_grouped(*args)
+    run.sync()
+    want = hf.lmm_grouped_plain(*args)
+    compare(f"B4 C={LMM_CHAINS} N={gaps['y'].shape[0]} G={run.lmm_g} with {empty} ids "
+            f"without rows", got, want, LMM_RTOL, LMM_ATOL)
+    check_repeat("B4 (ids without rows)", got, again)
+    phase_b2_edges(run, gen)
 
     log("== times (full width: flagship N=%d, LMM N=%d)" % (run.n_full, run.lmm_n_full))
     b1_args, b1_err = results["B1"]
@@ -461,6 +531,84 @@ def phase_parity_and_times(run: Run, flag, lmm):
         if not with_off:  # the public op's configuration
             run.kernels["B3"] = entry
     log("  library_ms: none (no single PyTorch call computes these functions)")
+
+
+def b2_edge_inputs(n, d, c, link, gen, dev):
+    """B2's arguments on small dyadic grids: x in {-1, -1/2, 0, 1/2, 1},
+    beta in eighths of [-1/2, 1/2], offsets in quarters of [-1, 1], a
+    gaussian y in quarters of [-2, 2].  The logits are then exact in
+    float32, and so is every step of the gaussian link, so a wrong or
+    missing row shows at any width and float32 rounding does not."""
+    def grid(shape, k, step):
+        return torch.randint(-k, k + 1, shape, generator=gen, device=dev).float() * step
+
+    xT = grid((d, n), 2, 0.5)
+    if link == "gaussian":
+        y = grid((n,), 8, 0.25)
+    else:
+        y = (torch.rand(n, generator=gen, device=dev) < 0.4).float()
+    return xT, y, grid((c, d), 4, 0.125), grid((c, n), 4, 0.25)
+
+
+def plain_in_float64(fn, *args, **kw):
+    """The plain version evaluated in float64 on the same inputs, the
+    yardstick of the edge cases: the float32 plain version's own rounding
+    (cuBLAS over tens of thousands of rows) exceeds atol 1e-4 on entries
+    near 0."""
+    out = fn(*(None if a is None else a.double() for a in args), **kw)
+    return tuple(o.float() for o in out)
+
+
+def phase_b2_edges(run: Run, gen):
+    """B2 on its edge cases (B2_EDGE_CASES), both links, with and without
+    offsets, against the plain version in float64, a second launch
+    bitwise equal; then each width of B2_REFUSED refused before any
+    launch."""
+    from stark_tpu_torch.ops import logistic_fused as lf
+
+    worst = 0.0
+    for n, d, c in B2_EDGE_CASES:
+        for link in ("bernoulli_logit", "gaussian"):
+            xT, y, beta, offsets = b2_edge_inputs(n, d, c, link, gen, run.dev)
+            for off in (None, offsets):
+                got = lf.logistic_batched(beta, xT, y, off, link)
+                again = lf.logistic_batched(beta, xT, y, off, link)
+                run.sync()
+                want = plain_in_float64(lf.logistic_batched_plain, beta, xT, y, off, link=link)
+                worst = max(worst, compare(f"B2 N={n} D={d} C={c} {link}", got, want, quiet=True))
+                assert all(torch.equal(a, b) for a, b in zip(got, again)), (n, d, c, link)
+    log(f"  B2 edge cases: {len(B2_EDGE_CASES)} shapes x 2 links x with/without offsets "
+        f"match the plain version in float64 (max abs err {worst:.6g}), second launches "
+        f"bitwise equal")
+    # why float64 is the yardstick: normal inputs, the kernel and the
+    # float32 plain version each held against the float64 plain version
+    n, d, c = 40_003, 32, 20
+    for link in ("bernoulli_logit", "gaussian"):
+        xT = torch.randn(d, n, generator=gen, device=run.dev)
+        y = torch.randn(n, generator=gen, device=run.dev) if link == "gaussian" else \
+            (torch.rand(n, generator=gen, device=run.dev) < 0.4).float()
+        beta = 0.3 * torch.randn(c, d, generator=gen, device=run.dev)
+        off = torch.randn(c, n, generator=gen, device=run.dev)
+        want = plain_in_float64(lf.logistic_batched_plain, beta, xT, y, off, link=link)
+        kern = lf.logistic_batched(beta, xT, y, off, link)
+        plain = lf.logistic_batched_plain(beta, xT, y, off, link)
+        log(f"  B2 {link} N={n} D={d} C={c} normal inputs, largest |error| of the beta gradient "
+            f"against float64: kernel {float((kern[1] - want[1]).abs().max()):.4g}, plain float32 "
+            f"{float((plain[1] - want[1]).abs().max()):.4g}")
+    if run.rehearsal:
+        return
+    for c, d in B2_REFUSED:
+        need, limit = lf.b2_shared_memory(c, d - 1, 0)
+        assert need <= limit, (c, d - 1, need, limit)
+        before = (lf.logistic_batched.launches, lf.logistic_batched.gaussian_launches)
+        try:
+            lf.logistic_batched(torch.zeros(c, d, device=run.dev), torch.zeros(d, 300, device=run.dev),
+                                torch.zeros(300, device=run.dev))
+        except ValueError as e:
+            log(f"  B2 C={c} D={d} refused: {e}")
+        else:
+            raise AssertionError(f"B2 C={c} D={d} was not refused")
+        assert (lf.logistic_batched.launches, lf.logistic_batched.gaussian_launches) == before
 
 
 def phase_small(run: Run):
@@ -664,13 +812,14 @@ def phase_profile(run: Run, model, raw, label):
 
 
 #: kernels both trees time in --compare-with, and the calls each makes
-SHARED_KERNELS = ("B1", "B2 offsets=False", "B2 offsets=True", "B2 gaussian (LMM)", "B4")
+SHARED_KERNELS = ("B1", "B2 offsets=False", "B2 offsets=True", "B2 gaussian offsets=False",
+                  "B2 gaussian offsets=True", "B2 gaussian (LMM)", "B4")
 
 
 def shared_kernel_times(tree: str) -> dict:
-    """B1 (C=64) and B2 (C=32, with and without offsets) at the
-    flagship's full width, and B2's gaussian link (C=16, offsets) and B4
-    (C=16) at config 3's, from the stark_tpu_torch of ``tree``, built
+    """B1 (C=64) and B2 (C=32, both links, with and without offsets) at
+    the flagship's full width, and B2's gaussian link (C=16, offsets) and
+    B4 (C=16) at config 3's, from the stark_tpu_torch of ``tree``, built
     from that tree's sources; the calls are the ones both trees share.
     ``digests`` hashes each kernel's outputs apart, so two trees whose
     kernel computes bitwise alike show the same digest for it."""
@@ -692,6 +841,8 @@ def shared_kernel_times(tree: str) -> dict:
     for with_off in (False, True):
         bargs = _batched_inputs(run, full, 32, gen, with_off)
         calls[f"B2 offsets={with_off}"] = lambda bargs=bargs: lf.logistic_batched(*bargs)
+        calls[f"B2 gaussian offsets={with_off}"] = (
+            lambda bargs=bargs: lf.logistic_batched(*bargs, link="gaussian"))
     gargs = _lmm_offset_inputs(run, lfull, LMM_CHAINS, gen)
     calls["B2 gaussian (LMM)"] = lambda: lf.logistic_batched(*gargs, link="gaussian")
     b4_args, _ = _lmm_inputs(run, lfull, LMM_CHAINS, gen)

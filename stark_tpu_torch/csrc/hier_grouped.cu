@@ -53,7 +53,7 @@
 //            Value sums stay in registers; resid goes to shared memory
 //            [chain][row] for the two consumers below.
 //   segments thread (chain, lane of 4) sums resid over each run of one
-//            group in the sub-tile, as csrc/fused_pass.cuh does: a group
+//            group in the sub-tile, as csrc/lmm_grouped.cu does: a group
 //            inside the block goes straight to galpha, the block's first
 //            and last groups to head and tail for the finish pass.
 //   gradient thread (chain group, feature group, row slice) owns a 4 x 8

@@ -17,7 +17,10 @@ On a CUDA tensor each wrapper launches its kernel
 (``csrc/logistic_batched.cu``, ``csrc/logistic_single.cu``); on a CPU
 tensor it runs the plain PyTorch version beside it (the CPU tests' path
 and the kernel's yardstick on the card).  There is no fallback from one
-to the other.
+to the other.  B2 splits the rows by `b2_blocks` and refuses, before
+launching, widths whose block would not fit the card's shared memory
+(`b2_shared_memory`); B3 (and B4, ``ops/hier_fused.py``) split them by
+`row_blocks`.
 
 `logistic_offset_loglik`, `logistic_loglik`, `gaussian_offset_loglik`
 and `gaussian_loglik` wrap them in ``torch.autograd.Function``s whose
@@ -30,6 +33,7 @@ route them.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -38,19 +42,40 @@ import torch.nn.functional as F
 from .. import _build
 from .precision import check_knobs
 
-#: rows per staged sub-tile in csrc/fused_pass.cuh (kRows)
+#: rows per staged sub-tile of B4 (csrc/lmm_grouped.cu:kRows); B3's row blocks are multiples of it
 KERNEL_ROW_TILE = 128
 #: target number of row blocks per launch (about two per SM on an H100)
 _TARGET_BLOCKS = 256
 
 
 def row_blocks(n: int) -> Tuple[int, int]:
-    """(rows per block, number of blocks) for the CUDA kernels: blocks of
+    """(rows per block, number of blocks) for kernels B3 and B4: blocks of
     a multiple of KERNEL_ROW_TILE rows, about _TARGET_BLOCKS of them,
     chosen from N alone so a given shape always sums in the same order."""
     per = -(-n // _TARGET_BLOCKS)
     rows = max(KERNEL_ROW_TILE, -(-per // KERNEL_ROW_TILE) * KERNEL_ROW_TILE)
     return rows, -(-n // rows)
+
+
+#: rows per staged sub-tile of csrc/logistic_batched.cu (b2::kRows)
+B2_ROW_TILE = 128
+#: most row blocks of one B2 launch: three resident on each of the H100's
+#: 132 SMs, so one wave at the flagship's width (b2::kBlocks)
+B2_BLOCKS = 396
+
+
+def b2_blocks(n: int):
+    """Row split of a B2 launch over n rows: (number of blocks, edges),
+    block b owning rows [edges[b], edges[b + 1]).  The S = ceil(n / 128)
+    sub-tiles are dealt out as [b*S // B, (b+1)*S // B) to B = min(396, S)
+    blocks, so every edge but the last is a multiple of B2_ROW_TILE and
+    the blocks differ by at most one sub-tile.  A function of n alone,
+    computed the same way by the kernel, whose launcher refuses any other
+    block count: a shape always sums in the same order."""
+    nsub = -(-n // B2_ROW_TILE)
+    nblk = min(B2_BLOCKS, nsub)
+    edges = [min(n, (b * nsub // nblk) * B2_ROW_TILE) for b in range(nblk + 1)]
+    return nblk, edges
 
 
 #: the links both kernels take, and their code in the C entry points
@@ -107,7 +132,22 @@ def logistic_batched_plain(beta, xT, y, offsets=None, link="bernoulli_logit"):
     return val, gbeta
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def b2_shared_memory(c: int, d: int, device: int):
+    """(bytes of shared memory one B2 block needs at C=c, D=d, most bytes
+    the card ``device`` gives one block), from csrc/logistic_batched.cu."""
+    fn = _build.function(
+        "logistic_batched", "stark_logistic_batched_smem",
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2,
+    )
+    need, limit = ctypes.c_int(), ctypes.c_int()
+    _build.check(
+        "logistic_batched", fn(c, d, device, ctypes.byref(need), ctypes.byref(limit))
+    )
+    return need.value, limit.value
 
 
 def logistic_batched(
@@ -139,7 +179,13 @@ def logistic_batched(
         named, device=beta.device,
         dtypes={k: torch.float32 for k in shapes}, shapes=shapes,
     )
-    rows, nblk = row_blocks(n)
+    need, limit = b2_shared_memory(c, d, beta.device.index)
+    if need > limit:
+        raise ValueError(
+            f"logistic_batched: C={c} chains of D={d} features need {need} bytes "
+            f"of shared memory per block; this card gives a block at most {limit}"
+        )
+    nblk, _ = b2_blocks(n)
     val = torch.empty(c, device=beta.device, dtype=torch.float32)
     gbeta = torch.empty(c, d, device=beta.device, dtype=torch.float32)
     resid = (
@@ -155,7 +201,7 @@ def logistic_batched(
         offsets.data_ptr() if offsets is not None else None,
         beta.data_ptr(), val.data_ptr(), gbeta.data_ptr(),
         resid.data_ptr() if resid is not None else None,
-        scratch.data_ptr(), c, d, n, rows, nblk, code,
+        scratch.data_ptr(), c, d, n, nblk, code,
         torch.cuda.current_stream(beta.device).cuda_stream,
     )
     _build.check("logistic_batched", err)

@@ -142,6 +142,73 @@ def test_b1_refuses_widths_beyond_shared_memory():
     assert hier_fused.hier_grouped.launches == before
 
 
+# B2's widest D per shared-memory tier (csrc/logistic_batched.cu:layout):
+# at C=32 one tile to D=32, two buffers to 51, one buffer to 273, the
+# gradient sums in device memory to 327; at C=64 two buffers to 32, one
+# to 206, device memory to 273.  One width further is refused.
+_B2_TIER_WIDEST = {32: (32, 51, 273, 327), 64: (32, 206, 273)}
+_B2_REFUSED = {32: 328, 64: 274}
+
+_B2_EDGE_CASES = [
+    # chain counts off the 32-chain chunk, feature counts off the 32-feature chunk
+    *[(3001, d, c) for c in (1, 7, 33, 100) for d in (1, 3, 33)],
+    # less than one 128-row sub-tile; N = 1, 2, 3 (mod 4), so rows of xT,
+    # offsets and resid past the first start off 16-byte alignment
+    (50, 5, 9), (40_001, 32, 32), (40_002, 7, 32), (40_003, 32, 20),
+    # more sub-tiles than B2's 396 blocks: blocks take two and stage the
+    # next while they compute, with chunks of chains, features past one
+    # chunk, and each tier
+    (60_001, 33, 33), (60_002, 3, 100), (60_003, 51, 32), (60_001, 100, 32),
+    (60_002, 300, 32),
+    # the widest D of each tier
+    *[(1001, d, c) for c, ds in _B2_TIER_WIDEST.items() for d in ds],
+]
+
+
+def _dyadic_b2_case(n, d, chains, link, seed):
+    """B2's arguments on small dyadic grids (x in halves of [-1, 1], beta
+    in eighths of [-1/2, 1/2], offsets in quarters of [-1, 1], a gaussian
+    y in quarters of [-2, 2]): the logits are exact in float32, and so is
+    every step of the gaussian link, so a wrong or missing row shows at
+    any width while float32 rounding does not."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def grid(shape, k, step):
+        return torch.randint(-k, k + 1, shape, generator=g, device=dev).float() * step
+
+    xT = grid((d, n), 2, 0.5)
+    if link == "gaussian":
+        y = grid((n,), 8, 0.25)
+    else:
+        y = (torch.rand(n, device=dev, generator=g) < 0.4).float()
+    return grid((chains, d), 4, 0.125), xT, y, grid((chains, n), 4, 0.25)
+
+
+@pytest.mark.parametrize("link", ["bernoulli_logit", "gaussian"])
+@pytest.mark.parametrize("with_offsets", [False, True])
+@pytest.mark.parametrize("n,d,chains", _B2_EDGE_CASES)
+def test_b2_edge_cases_match_plain_and_repeat_bitwise(n, d, chains, with_offsets, link):
+    """Against the plain version in float64: the float32 plain version's
+    own rounding (cuBLAS over tens of thousands of rows) exceeds atol
+    1e-4 on entries near 0."""
+    beta, xT, y, off = _dyadic_b2_case(n, d, chains, link, seed=n + d + chains)
+    off = off if with_offsets else None
+    lb = logistic_fused.logistic_batched
+    before = (lb.launches, lb.gaussian_launches)
+    got = lb(beta, xT, y, off, link=link)
+    again = lb(beta, xT, y, off, link=link)
+    torch.cuda.synchronize()
+    bump = (2, 0) if link == "bernoulli_logit" else (0, 2)
+    assert (lb.launches, lb.gaussian_launches) == (before[0] + bump[0], before[1] + bump[1])
+    want = logistic_fused.logistic_batched_plain(
+        beta.double(), xT.double(), y.double(), None if off is None else off.double(), link
+    )
+    _assert_parity(got, [w.float() for w in want])
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("with_offsets", [False, True])
 @pytest.mark.parametrize("n,d,chains", [(3000, 5, 1), (100_037, 32, 32), (129, 3, 40)])
 def test_b2_matches_plain_and_repeats_bitwise(n, d, chains, with_offsets):
@@ -182,14 +249,17 @@ def test_wrappers_refuse_bad_arguments_instead_of_falling_back():
         logistic_fused.logistic_batched(beta, t["xT"].cpu(), t["y"])
 
 
-def _lmm(n, d, q, groups, chains, seed=0):
+def _lmm(n, d, q, groups, chains, seed=0, g=None):
+    """B4's arguments from rows drawn with a seed; ``g`` (sorted ids, one
+    per row) replaces the uniform draw of group ids."""
     rs = np.random.RandomState(seed)
+    n = n if g is None else g.shape[0]
     z = np.concatenate([np.ones((n, 1)), rs.standard_normal((n, q - 1))], axis=1)
     raw = {
         "x": rs.standard_normal((n, d)).astype(np.float32),
         "z": z.astype(np.float32),
         "y": rs.standard_normal(n).astype(np.float32),
-        "g": rs.randint(0, groups, size=n).astype(np.int32),
+        "g": rs.randint(0, groups, size=n).astype(np.int32) if g is None else g,
     }
     prep = hier_fused.prepare_grouped(raw, d + q, transpose_keys=("x", "z"))
     assert prep is not None
@@ -225,6 +295,30 @@ def test_b4_matches_plain_and_repeats_bitwise(n, d, groups, chains, q):
         assert torch.equal(a, b)
 
 
+_B4_EDGE_CASES = {
+    # every 7th id without rows, every 5th with one row: ids without rows
+    # between two groups of one row block get a zero gradient
+    "gaps C=16 D=8 Q=2": dict(n=0, d=8, q=2, groups=300, chains=16, g=_sizes_with_gaps(300, 1)),
+    "gaps C=33 D=3 Q=3": dict(n=0, d=3, q=3, groups=300, chains=33, g=_sizes_with_gaps(300, 2)),
+}
+
+
+@pytest.mark.parametrize("case", list(_B4_EDGE_CASES))
+def test_b4_edge_cases_match_plain_and_repeat_bitwise(case):
+    args = _lmm(**_B4_EDGE_CASES[case])
+    before = hier_fused.lmm_grouped.launches
+    got = hier_fused.lmm_grouped(*args)
+    again = hier_fused.lmm_grouped(*args)
+    torch.cuda.synchronize()
+    assert hier_fused.lmm_grouped.launches == before + 2
+    want = hier_fused.lmm_grouped_plain(*args)
+    torch.testing.assert_close(got[0], want[0], rtol=VAL_RTOL, atol=0)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-4)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("with_offsets", [False, True])
 @pytest.mark.parametrize("n,d,chains", [(100_037, 8, 16), (100_000, 32, 32), (129, 3, 40)])
 def test_b2_gaussian_matches_plain_and_counts_apart(n, d, chains, with_offsets):
@@ -243,6 +337,64 @@ def test_b2_gaussian_matches_plain_and_counts_apart(n, d, chains, with_offsets):
     _assert_parity(got, logistic_fused.logistic_batched_plain(beta, xT, y, off, link="gaussian"))
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+def test_b2_wide_logits_match_plain():
+    """Logits beyond +-30 in both directions, through the hardware link."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(11)
+    xT = torch.randn(20, 20_011, device=dev, generator=g)
+    y = (torch.rand(20_011, device=dev, generator=g) < 0.4).float()
+    beta = 8.0 * torch.randn(64, 20, device=dev, generator=g)
+    off = torch.randn(64, 20_011, device=dev, generator=g)
+    logits = beta @ xT
+    assert float(logits.max()) > 30 and float(logits.min()) < -30
+    got = logistic_fused.logistic_batched(beta, xT, y, off)
+    _assert_parity(got, logistic_fused.logistic_batched_plain(beta, xT, y, off))
+
+
+def _parent_pass_widest(c):
+    """Widest D at which B2 ran as an instantiation of the shared pass in
+    csrc/fused_pass.cuh, before it had a pass of its own, for C=c chains:
+    that pass's layout smem_layout(C, D, 0, 1) in one block of 227 KB."""
+    cp = -(-c // 32) * 32
+
+    def r4(v):
+        return (v + 3) & ~3
+
+    def words(d):
+        return (r4(129 * d) + 2 * r4(32 * 129) + 256 + r4(d * cp) + r4(cp * d)
+                + 4 * cp + r4(cp) + r4(129) + 8)
+
+    d = 0
+    while 4 * words(d + 1) <= 227 * 1024:
+        d += 1
+    return d
+
+
+@pytest.mark.parametrize("chains", [1, 32, 33, 64, 128, 256, 512, 1024])
+def test_b2_runs_every_width_the_shared_pass_ran(chains):
+    dev = _cuda()
+    d = _parent_pass_widest(chains)
+    need, limit = logistic_fused.b2_shared_memory(chains, d, dev.index or 0)
+    assert need <= limit, (chains, d, need, limit)
+
+
+@pytest.mark.parametrize("link", ["bernoulli_logit", "gaussian"])
+@pytest.mark.parametrize("chains", sorted(_B2_REFUSED))
+def test_b2_refuses_widths_beyond_shared_memory(chains, link):
+    dev = _cuda()
+    d = _B2_REFUSED[chains]
+    need, limit = logistic_fused.b2_shared_memory(chains, d - 1, dev.index or 0)
+    assert need <= limit
+    xT = torch.zeros(d, 300, device=dev)
+    y = torch.zeros(300, device=dev)
+    beta = torch.zeros(chains, d, device=dev)
+    lb = logistic_fused.logistic_batched
+    before = (lb.launches, lb.gaussian_launches)
+    with pytest.raises(ValueError, match="shared memory per block"):
+        lb(beta, xT, y, torch.zeros(chains, 300, device=dev), link=link)
+    assert (lb.launches, lb.gaussian_launches) == before
 
 
 @pytest.mark.parametrize("link", ["bernoulli_logit", "gaussian"])

@@ -88,3 +88,30 @@ def test_row_blocks_cover_rows_in_whole_subtiles(n):
     assert rows % port.KERNEL_ROW_TILE == 0
     assert nblk * rows >= n > (nblk - 1) * rows
     assert nblk <= 256
+
+
+@pytest.mark.parametrize(
+    "n", [1, 50, 127, 128, 129, 3001, 40_003, 50_687, 50_688, 50_689, 1_000_000, 1_000_037]
+)
+def test_b2_block_split_covers_rows_once_in_whole_subtiles(n):
+    """The row split of B2 (csrc/logistic_batched.cu): every row in
+    exactly one block, block edges on sub-tile boundaries, at most
+    B2_BLOCKS blocks within one sub-tile of each other, the same split on
+    every call, and scratch for every block's partials."""
+    nblk, edges = port.b2_blocks(n)
+    assert port.b2_blocks(n) == (nblk, edges)
+    tile = port.B2_ROW_TILE
+    nsub = -(-n // tile)
+    assert nblk == min(port.B2_BLOCKS, nsub) and len(edges) == nblk + 1
+    assert edges[0] == 0 and edges[-1] == n
+    owner = np.repeat(np.arange(nblk), np.diff(edges))
+    assert owner.shape == (n,) and np.all(np.diff(owner) >= 0)  # each row once, in order
+    assert all(e % tile == 0 for e in edges[:-1])
+    subtiles = [-(-(b - a) // tile) for a, b in zip(edges[:-1], edges[1:])]
+    assert min(subtiles) >= 1 and max(subtiles) - min(subtiles) <= 1
+    assert sum(subtiles) == nsub
+    for c, d in ((32, 32), (1, 1), (100, 33)):
+        # csrc/fused_pass.cuh:carve_scratch: gpart (nblk, C, D), vpart,
+        # rpart, head, tail (nblk, C) each, blo and bhi (nblk,) ints
+        need = nblk * c * d + 4 * nblk * c + 2 * nblk
+        assert port.scratch_words(nblk, c, d) >= need
