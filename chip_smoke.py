@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero (none is caught):
   1. card     — name and power limit (nvidia-smi), torch and CUDA versions
   2. build    — nvcc for sm_90a of every kernel in stark_tpu_torch/csrc,
                 all started together; prints each -Xptxas -v report and
-                fails if a kernel of B1 or B2 spills registers
+                fails if a kernel of B1, B2 or B4 spills registers
   3. parity   — each kernel against its plain PyTorch version on the card,
                 at full width, a second launch bitwise equal:
                 flagship (D=32, G=1000, N=1,000,000 and a ragged
@@ -25,7 +25,14 @@ Phases, in order; any failure exits non-zero (none is caught):
                 blocks of two sub-tiles, the widest D of each shared-memory
                 tier), both links, with and without offsets, on dyadic
                 inputs against the plain version in float64, and its
-                refusal one width further
+                refusal one width further; B4's edge cases (B4_EDGE_CASES:
+                ids without rows between groups and at both ends, groups
+                across sub-tiles and blocks, each chain instantiation, Q =
+                2, 3, N below a sub-tile and N = 1, 2, 3 mod 4, each
+                shared-memory tier) the same way, ids without rows exactly
+                0, and its refusal one width further; B1's, B2's and B4's
+                largest distance from float64 on normal inputs beside the
+                float32 plain version's
   4. times    — CUDA-event times of each kernel and its plain version,
                 beside the least time the card could take (bound); B2 at
                 C=1 beside B3 on the same inputs
@@ -56,11 +63,13 @@ the plain versions (no build, no launch counts, no device times); it is
 a rehearsal of the control flow, not a result.
 
 ``--compare-with TREE`` instead times the kernels that TREE (another
-checkout, e.g. the parent commit's) shares with this one: B1 and B2
-(both links, with and without offsets) at the flagship's full width, B2's
+checkout, e.g. the parent commit's) shares with this one: B1, B2 (both
+links, with and without offsets) and B3 at the flagship's full width, B2's
 gaussian link and B4 at config 3's, each tree's own build in its own
 process, in the order TREE, this, this, TREE on the same card, and says
-for each kernel whether its outputs are bitwise equal across the trees.
+for each kernel whether its outputs are bitwise equal across the trees
+(every kernel but B4, whose sums run in another order since its
+redesign, is expected to be).
 """
 
 from __future__ import annotations
@@ -110,8 +119,27 @@ B2_EDGE_CASES = (
     *[(1001, d, 64) for d in (32, 206, 273)],
 )
 B2_REFUSED = ((32, 328), (64, 274))
+
+# B4's edge cases (ids, N, D, Q, C, G), csrc/lmm_grouped.cu: ids without
+# rows between groups ("gaps") and before the first row's group and after
+# the last ("ends"); one group of 5000 rows over 33 blocks ("long");
+# groups of 150-250 rows in blocks of two sub-tiles ("wide"); chain
+# counts in each instantiation (C <= 8, <= 16, <= 32 at D <= 8) and past
+# it; Q = 2, 3; N below one sub-tile and N = 1, 2, 3 (mod 4); each
+# shared-memory tier (two buffers, one from D = 9 or at C = 17, Q = 3,
+# the gradient sums in device memory, the widest D at C = 64).  One
+# width further is refused.  (N = 0: the ids' layout sets it.)
+B4_EDGE_CASES = (
+    ("gaps", 0, 8, 2, 16, 300), ("gaps", 0, 3, 3, 33, 300), ("ends", 20_011, 8, 2, 16, 300),
+    ("long", 0, 8, 2, 16, 400), ("wide", 0, 8, 3, 17, 300),
+    *[("uniform", 3001, 8, q, c, 20) for c in (1, 16, 17, 33, 64) for q in (2, 3)],
+    ("uniform", 50, 5, 2, 9, 3), ("uniform", 40_001, 8, 2, 16, 4000),
+    ("uniform", 40_002, 3, 3, 33, 300), ("uniform", 40_003, 9, 2, 64, 4000),
+    ("uniform", 3001, 200, 2, 64, 20), ("uniform", 1001, 216, 2, 64, 20),
+)
+B4_REFUSED = (64, 2, 217)  # (C, Q, D)
 #: kernel libraries whose every kernel must build without spilling
-NO_SPILL = ("hier_grouped", "logistic_batched")
+NO_SPILL = ("hier_grouped", "logistic_batched", "lmm_grouped")
 
 
 def log(*a):
@@ -413,7 +441,7 @@ def phase_parity_and_times(run: Run, flag, lmm):
         run.sync()
         want = hf.lmm_grouped_plain(*args)
         err = compare(f"B4 C={LMM_CHAINS} {label} lane_tile={prep['lane_tile']} "
-                      f"k_loc={prep['k_loc']} blocks={lf.row_blocks(raw['y'].shape[0])[1]}",
+                      f"k_loc={prep['k_loc']} blocks={hf.b4_blocks(raw['y'].shape[0])[0]}",
                       got, want, LMM_RTOL, LMM_ATOL)
         check_repeat("B4", got, again)
         results.setdefault("B4", (args, err))
@@ -439,6 +467,8 @@ def phase_parity_and_times(run: Run, flag, lmm):
             f"without rows", got, want, LMM_RTOL, LMM_ATOL)
     check_repeat("B4 (ids without rows)", got, again)
     phase_b2_edges(run, gen)
+    phase_b4_edges(run, results["B4"][0])
+    b1_float64_distance(run, gen)
 
     log("== times (full width: flagship N=%d, LMM N=%d)" % (run.n_full, run.lmm_n_full))
     b1_args, b1_err = results["B1"]
@@ -551,11 +581,12 @@ def b2_edge_inputs(n, d, c, link, gen, dev):
 
 
 def plain_in_float64(fn, *args, **kw):
-    """The plain version evaluated in float64 on the same inputs, the
-    yardstick of the edge cases: the float32 plain version's own rounding
-    (cuBLAS over tens of thousands of rows) exceeds atol 1e-4 on entries
-    near 0."""
-    out = fn(*(None if a is None else a.double() for a in args), **kw)
+    """The plain version evaluated in float64 on the same inputs (index
+    arrays and ints as they are), the yardstick of the edge cases: the
+    float32 plain version's own rounding (cuBLAS over tens of thousands of
+    rows) exceeds atol 1e-4 on entries near 0."""
+    out = fn(*(a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+               for a in args), **kw)
     return tuple(o.float() for o in out)
 
 
@@ -609,6 +640,113 @@ def phase_b2_edges(run: Run, gen):
         else:
             raise AssertionError(f"B2 C={c} D={d} was not refused")
         assert (lf.logistic_batched.launches, lf.logistic_batched.gaussian_launches) == before
+
+
+def b4_edge_inputs(ids, n, d, q, c, groups, rs):
+    """B4's raw rows (x, z, y, g) and (beta, u, intercept), numpy, on small
+    dyadic grids: x and z's slopes in halves of [-1, 1], y in quarters of
+    [-2, 2], beta in eighths of [-1/2, 1/2], u and the intercepts in
+    quarters of [-1, 1]; mu and resid are then exact in float32.  ``ids``
+    picks the group ids (B4_EDGE_CASES)."""
+    def grid(shape, k, step):
+        return (rs.randint(-k, k + 1, size=shape) * step).astype(np.float32)
+
+    if ids in ("gaps", "long", "wide"):
+        lo, hi = {"gaps": (40, 400), "long": (100, 200), "wide": (150, 250)}[ids]
+        sizes = rs.randint(lo, hi, size=groups)
+        if ids == "gaps":
+            sizes[::5] = 1
+            sizes[3::7] = 0
+        if ids == "long":
+            sizes[groups // 2] = 5000
+        g = np.repeat(np.arange(groups, dtype=np.int32), sizes)
+    else:
+        margin = 5 if ids == "ends" else 0
+        g = rs.randint(margin, groups - margin, size=n).astype(np.int32)
+    n = g.shape[0]
+    raw = {"x": grid((n, d), 2, 0.5),
+           "z": np.concatenate([np.ones((n, 1), np.float32), grid((n, q - 1), 2, 0.5)], 1),
+           "y": grid((n,), 8, 0.25), "g": g}
+    return raw, (grid((c, d), 4, 0.125), grid((c, groups, q), 4, 0.25), grid((c,), 4, 0.25))
+
+
+def phase_b4_edges(run: Run, b4_args):
+    """B4 on its edge cases (B4_EDGE_CASES) against the plain version in
+    float64, a second launch bitwise equal, ids without rows exactly 0;
+    B4_REFUSED refused before any launch; and on config 3's inputs
+    (``b4_args``) the kernel's and the float32 plain version's largest
+    distance from float64."""
+    from stark_tpu_torch.ops import hier_fused as hf
+
+    rs = np.random.RandomState(6)
+    worst = 0.0
+    for ids, n, d, q, c, groups in B4_EDGE_CASES:
+        raw, params = b4_edge_inputs(ids, n, d, q, c, groups, rs)
+        prep = hf.prepare_grouped(raw, d + q, transpose_keys=("x", "z"))
+        assert prep is not None, (ids, n, d, q, c)
+        t = [torch.as_tensor(prep[k], device=run.dev) for k in ("xT", "zT", "y", "gl", "first_gid")]
+        args = (*(torch.as_tensor(a, device=run.dev) for a in params), *t, prep["lane_tile"])
+        got = hf.lmm_grouped(*args)
+        again = hf.lmm_grouped(*args)
+        run.sync()
+        want = plain_in_float64(hf.lmm_grouped_plain, *args)
+        name = f"B4 {ids} N={prep['y'].shape[0]} D={d} Q={q} C={c}"
+        worst = max(worst, compare(name, got, want, LMM_RTOL, LMM_ATOL, quiet=True))
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+        empty = np.setdiff1d(np.arange(groups), raw["g"])
+        assert torch.all(got[3][:, torch.as_tensor(empty, device=run.dev).long(), :] == 0), name
+    log(f"  B4 edge cases: {len(B4_EDGE_CASES)} shapes match the plain version in float64 "
+        f"(max abs err {worst:.6g}), second launches bitwise equal, ids without rows 0")
+    want = plain_in_float64(hf.lmm_grouped_plain, *b4_args)
+    kern, plain = hf.lmm_grouped(*b4_args), hf.lmm_grouped_plain(*b4_args)
+    log(f"  B4 config 3 (N={b4_args[3].shape[1]}) normal inputs, largest |error| against "
+        f"float64 of the beta gradient: kernel {float((kern[2] - want[2]).abs().max()):.4g}, "
+        f"plain float32 {float((plain[2] - want[2]).abs().max()):.4g}; of the u gradient: kernel "
+        f"{float((kern[3] - want[3]).abs().max()):.4g}, plain float32 "
+        f"{float((plain[3] - want[3]).abs().max()):.4g}")
+    if run.rehearsal:
+        return
+    c, q, d = B4_REFUSED
+    need, limit = hf.b4_shared_memory(c, d - 1, q, 0)
+    assert need <= limit, (c, d - 1, q, need, limit)
+    before = hf.lmm_grouped.launches
+    n, groups = 300, 10
+    lane = hf.grouped_lane_tile(d + q)
+    zeros = lambda *shape: torch.zeros(*shape, device=run.dev)
+    izeros = lambda *shape: torch.zeros(*shape, dtype=torch.int32, device=run.dev)
+    try:
+        hf.lmm_grouped(zeros(c, d), zeros(c, groups, q), zeros(c), zeros(d, n), zeros(q, n),
+                       zeros(n), izeros(n), izeros(-(-n // lane)), lane)
+    except ValueError as e:
+        log(f"  B4 C={c} D={d} Q={q} refused: {e}")
+    else:
+        raise AssertionError(f"B4 C={c} D={d} Q={q} was not refused")
+    assert hf.lmm_grouped.launches == before
+
+
+def b1_float64_distance(run: Run, gen):
+    """B1's and the float32 plain version's largest distance from the
+    plain version in float64, on normal inputs at N = 40,003, D = 32,
+    C = 70 (B1's 'N=3 mod 4' edge case)."""
+    from stark_tpu_torch.ops import hier_fused as hf
+
+    n, d, c, groups = 40_003, 32, 70, 300
+    rs = np.random.RandomState(7)
+    raw = {"x": rs.standard_normal((n, d)).astype(np.float32),
+           "y": (rs.rand(n) < 0.4).astype(np.float32),
+           "g": rs.randint(0, groups, size=n).astype(np.int32)}
+    prep = hf.prepare_grouped(raw, d)
+    t = [torch.as_tensor(prep[k], device=run.dev) for k in ("xT", "y", "gl", "first_gid")]
+    beta = 0.3 * torch.randn(c, d, generator=gen, device=run.dev)
+    alpha = torch.randn(c, groups, generator=gen, device=run.dev)
+    args = (beta, alpha, *t, prep["lane_tile"])
+    want = plain_in_float64(hf.hier_grouped_plain, *args)
+    kern, plain = hf.hier_grouped(*args), hf.hier_grouped_plain(*args)
+    log(f"  B1 N={n} D={d} C={c} normal inputs, largest |error| against float64 of the beta "
+        f"gradient: kernel {float((kern[1] - want[1]).abs().max()):.4g}, plain float32 "
+        f"{float((plain[1] - want[1]).abs().max()):.4g}; of the alpha gradient: kernel "
+        f"{float((kern[2] - want[2]).abs().max()):.4g}, plain float32 "
+        f"{float((plain[2] - want[2]).abs().max()):.4g}")
 
 
 def phase_small(run: Run):
@@ -813,13 +951,15 @@ def phase_profile(run: Run, model, raw, label):
 
 #: kernels both trees time in --compare-with, and the calls each makes
 SHARED_KERNELS = ("B1", "B2 offsets=False", "B2 offsets=True", "B2 gaussian offsets=False",
-                  "B2 gaussian offsets=True", "B2 gaussian (LMM)", "B4")
+                  "B2 gaussian offsets=True", "B2 gaussian (LMM)", "B3 offsets=False",
+                  "B3 offsets=True", "B4")
 
 
 def shared_kernel_times(tree: str) -> dict:
-    """B1 (C=64) and B2 (C=32, both links, with and without offsets) at
-    the flagship's full width, and B2's gaussian link (C=16, offsets) and
-    B4 (C=16) at config 3's, from the stark_tpu_torch of ``tree``, built
+    """B1 (C=64), B2 (C=32, both links, with and without offsets) and B3
+    (with and without offsets) at the flagship's full width, and B2's
+    gaussian link (C=16, offsets) and B4 (C=16) at config 3's, from the
+    stark_tpu_torch of ``tree``, built
     from that tree's sources; the calls are the ones both trees share.
     ``digests`` hashes each kernel's outputs apart, so two trees whose
     kernel computes bitwise alike show the same digest for it."""
@@ -832,7 +972,7 @@ def shared_kernel_times(tree: str) -> dict:
     from stark_tpu_torch.ops import logistic_fused as lf
 
     assert stark_tpu_torch.__file__.startswith(str(tree)), stark_tpu_torch.__file__
-    _build.build(["hier_grouped", "logistic_batched", "lmm_grouped"])
+    _build.build()
     run = Run(False)
     (full, _, _), (lfull, _, _) = make_data(run)
     gen = torch.Generator(device=run.dev).manual_seed(1)
@@ -843,6 +983,8 @@ def shared_kernel_times(tree: str) -> dict:
         calls[f"B2 offsets={with_off}"] = lambda bargs=bargs: lf.logistic_batched(*bargs)
         calls[f"B2 gaussian offsets={with_off}"] = (
             lambda bargs=bargs: lf.logistic_batched(*bargs, link="gaussian"))
+        sargs = _single_inputs(run, full, gen, with_off)
+        calls[f"B3 offsets={with_off}"] = lambda sargs=sargs: lf.logistic_single(*sargs)
     gargs = _lmm_offset_inputs(run, lfull, LMM_CHAINS, gen)
     calls["B2 gaussian (LMM)"] = lambda: lf.logistic_batched(*gargs, link="gaussian")
     b4_args, _ = _lmm_inputs(run, lfull, LMM_CHAINS, gen)
@@ -877,8 +1019,9 @@ def compare_with(other: str) -> int:
         "50 at config 3): other, this, this, other; outputs bitwise equal across the trees")
     for key in SHARED_KERNELS:
         same = len({r["digests"][key] for r in rows}) == 1
+        expect = "no, B4 sums in another order" if key == "B4" else "yes"
         log(f"  {key}: " + ", ".join(f"{r[key]:.4f}" for r in rows)
-            + f"; bitwise equal: {'yes' if same else 'no'}")
+            + f"; bitwise equal: {'yes' if same else 'no'} (expected against the parent: {expect})")
     return 0
 
 

@@ -53,9 +53,9 @@
 //            Value sums stay in registers; resid goes to shared memory
 //            [chain][row] for the two consumers below.
 //   segments thread (chain, lane of 4) sums resid over each run of one
-//            group in the sub-tile, as csrc/lmm_grouped.cu does: a group
-//            inside the block goes straight to galpha, the block's first
-//            and last groups to head and tail for the finish pass.
+//            group in the sub-tile: a group inside the block goes straight
+//            to galpha, the block's first and last groups to head and tail
+//            for the finish pass.
 //   gradient thread (chain group, feature group, row slice) owns a 4 x 8
 //            tile of gbeta (chains gcg + 16 i, features fg + 4 j) over a
 //            quarter of the rows: per 4 rows four float4 of resid and
@@ -549,7 +549,7 @@ extern "C" int stark_hier_grouped(
   if (e != cudaSuccess) return (int)e;
   const long long total = (long long)C * D + C + (long long)C * G;
   const int blocks = (int)((total + stark::b1::kThreads - 1) / stark::b1::kThreads);
-  stark::finish<true, false><<<blocks, stark::b1::kThreads, 0, s>>>(p, nblk, val, gbeta, nullptr);
+  stark::finish<true><<<blocks, stark::b1::kThreads, 0, s>>>(p, nblk, val, gbeta);
   return (int)cudaGetLastError();
 }
 

@@ -164,6 +164,6 @@ extern "C" int stark_logistic_single(
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int blocks = (D + 1 + stark::kThreads - 1) / stark::kThreads;
-  stark::finish<false, false><<<blocks, stark::kThreads, 0, s>>>(p, nblk, val, gbeta, nullptr);
+  stark::finish<false><<<blocks, stark::kThreads, 0, s>>>(p, nblk, val, gbeta);
   return (int)cudaGetLastError();
 }

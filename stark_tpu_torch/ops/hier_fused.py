@@ -20,6 +20,10 @@ per group: mu = intercept + beta . x + sum_q z_q u[g, q], and one pass
 yields the SSR, sum(resid), ∂/∂beta and ∂/∂u (C, G, Q), scale-free
 (``csrc/lmm_grouped.cu``; plain version `lmm_grouped_plain`).
 `lmm_grouped_loglik` applies sigma outside, as the reference does.
+
+Each kernel splits the rows by its own function of N (`b1_blocks`,
+`b4_blocks`) and refuses, before launching, widths whose block would not
+fit the card's shared memory (`b1_shared_memory`, `b4_shared_memory`).
 """
 
 from __future__ import annotations
@@ -37,9 +41,9 @@ from .logistic_fused import (
     _per_chain,
     check_kernel_args,
     normal_loglik_from_ssr,
-    row_blocks,
     scratch_words,
     sigma_grad,
+    subtile_split,
 )
 from .precision import check_knobs, x_stream_dtype
 
@@ -143,17 +147,8 @@ B1_BLOCKS = 264
 
 
 def b1_blocks(n: int):
-    """Row split of a B1 launch over n rows: (number of blocks, edges),
-    block b owning rows [edges[b], edges[b + 1]).  The S = ceil(n / 128)
-    sub-tiles are dealt out as [b*S // B, (b+1)*S // B) to B = min(264, S)
-    blocks, so every edge but the last is a multiple of B1_ROW_TILE and
-    the blocks differ by at most one sub-tile.  A function of n alone,
-    computed the same way by the kernel, whose launcher refuses any other
-    block count: a shape always sums in the same order."""
-    nsub = -(-n // B1_ROW_TILE)
-    nblk = min(B1_BLOCKS, nsub)
-    edges = [min(n, (b * nsub // nblk) * B1_ROW_TILE) for b in range(nblk + 1)]
-    return nblk, edges
+    """Row split of a B1 launch (`subtile_split`, csrc/hier_grouped.cu)."""
+    return subtile_split(n, B1_ROW_TILE, B1_BLOCKS)
 
 
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -264,7 +259,51 @@ def lmm_grouped_plain(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile):
     return (resid * resid).sum(-1), resid.sum(-1), resid @ xT.T, gu
 
 
-_LMM_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+#: rows per staged sub-tile of csrc/lmm_grouped.cu (b4::kRows)
+B4_ROW_TILE = 128
+#: most row blocks of one B4 launch: three resident on each of the H100's
+#: 132 SMs, so one wave (b4::kBlocks)
+B4_BLOCKS = 396
+
+
+def b4_blocks(n: int):
+    """Row split of a B4 launch (`subtile_split`, csrc/lmm_grouped.cu)."""
+    return subtile_split(n, B4_ROW_TILE, B4_BLOCKS)
+
+
+#: the per-block partials of a B4 launch, in the order
+#: csrc/lmm_grouped.cu:carve lays them out in the scratch buffer
+B4_PARTIALS = ("gpart", "vpart", "rpart", "head", "tail", "blo", "bhi")
+
+
+def b4_scratch(nblk: int, c: int, d: int, q: int):
+    """(word offset of each of B4_PARTIALS, total words) of B4's scratch
+    buffer: gpart (nblk, C, D), vpart and rpart (nblk, C), head and tail
+    (nblk, C, Q) float32, blo and bhi (nblk,) int32, one after another
+    (csrc/lmm_grouped.cu:carve)."""
+    nc = nblk * c
+    sizes = (nc * d, nc, nc, nc * q, nc * q, nblk, nblk)
+    offsets, o = {}, 0
+    for name, size in zip(B4_PARTIALS, sizes):
+        offsets[name] = o
+        o += size
+    return offsets, o
+
+
+@functools.lru_cache(maxsize=None)
+def b4_shared_memory(c: int, d: int, q: int, device: int):
+    """(bytes of shared memory one B4 block needs at C=c, D=d, Q=q, most
+    bytes the card ``device`` gives one block), from csrc/lmm_grouped.cu."""
+    fn = _build.function(
+        "lmm_grouped", "stark_lmm_grouped_smem",
+        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2,
+    )
+    need, limit = ctypes.c_int(), ctypes.c_int()
+    _build.check("lmm_grouped", fn(c, d, q, device, ctypes.byref(need), ctypes.byref(limit)))
+    return need.value, limit.value
+
+
+_LMM_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def lmm_grouped(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile: int):
@@ -294,19 +333,28 @@ def lmm_grouped(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile: int):
                 "xT": (d, n), "zT": (q, n), "y": (n,), "gl": (n,),
                 "first_gid": (-(-n // lane_tile),)},
     )
-    rows, nblk = row_blocks(n)
+    if lane_tile % B4_ROW_TILE:
+        raise ValueError(f"lane_tile={lane_tile} is not a multiple of {B4_ROW_TILE}")
+    need, limit = b4_shared_memory(c, d, q, beta.device.index)
+    if need > limit:
+        raise ValueError(
+            f"lmm_grouped: C={c} chains of D={d} features and Q={q} effects need "
+            f"{need} bytes of shared memory per block; this card gives a block at "
+            f"most {limit}"
+        )
+    nblk, _ = b4_blocks(n)
     ssr = torch.empty(c, device=beta.device, dtype=f32)
     sresid = torch.empty(c, device=beta.device, dtype=f32)
     gbeta = torch.empty(c, d, device=beta.device, dtype=f32)
     gu = torch.empty(c, g_total, q, device=beta.device, dtype=f32)
-    scratch = torch.empty(scratch_words(nblk, c, d, q), device=beta.device, dtype=f32)
+    scratch = torch.empty(b4_scratch(nblk, c, d, q)[1], device=beta.device, dtype=f32)
     fn = _build.function("lmm_grouped", "stark_lmm_grouped", _LMM_ARGTYPES)
     err = fn(
         xT.data_ptr(), zT.data_ptr(), y.data_ptr(), gl.data_ptr(),
         first_gid.data_ptr(), beta.data_ptr(), u.data_ptr(),
         intercept.data_ptr(), ssr.data_ptr(), sresid.data_ptr(),
         gbeta.data_ptr(), gu.data_ptr(), scratch.data_ptr(),
-        c, d, q, n, g_total, lane_tile, rows, nblk,
+        c, d, q, n, g_total, lane_tile, nblk,
         torch.cuda.current_stream(beta.device).cuda_stream,
     )
     _build.check("lmm_grouped", err)

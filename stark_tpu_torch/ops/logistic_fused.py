@@ -19,8 +19,7 @@ tensor it runs the plain PyTorch version beside it (the CPU tests' path
 and the kernel's yardstick on the card).  There is no fallback from one
 to the other.  B2 splits the rows by `b2_blocks` and refuses, before
 launching, widths whose block would not fit the card's shared memory
-(`b2_shared_memory`); B3 (and B4, ``ops/hier_fused.py``) split them by
-`row_blocks`.
+(`b2_shared_memory`); B3 splits them by `row_blocks`.
 
 `logistic_offset_loglik`, `logistic_loglik`, `gaussian_offset_loglik`
 and `gaussian_loglik` wrap them in ``torch.autograd.Function``s whose
@@ -42,16 +41,16 @@ import torch.nn.functional as F
 from .. import _build
 from .precision import check_knobs
 
-#: rows per staged sub-tile of B4 (csrc/lmm_grouped.cu:kRows); B3's row blocks are multiples of it
+#: B3's row blocks are multiples of this many rows
 KERNEL_ROW_TILE = 128
 #: target number of row blocks per launch (about two per SM on an H100)
 _TARGET_BLOCKS = 256
 
 
 def row_blocks(n: int) -> Tuple[int, int]:
-    """(rows per block, number of blocks) for kernels B3 and B4: blocks of
-    a multiple of KERNEL_ROW_TILE rows, about _TARGET_BLOCKS of them,
-    chosen from N alone so a given shape always sums in the same order."""
+    """(rows per block, number of blocks) for kernel B3: blocks of a
+    multiple of KERNEL_ROW_TILE rows, about _TARGET_BLOCKS of them, chosen
+    from N alone so a given shape always sums in the same order."""
     per = -(-n // _TARGET_BLOCKS)
     rows = max(KERNEL_ROW_TILE, -(-per // KERNEL_ROW_TILE) * KERNEL_ROW_TILE)
     return rows, -(-n // rows)
@@ -64,18 +63,24 @@ B2_ROW_TILE = 128
 B2_BLOCKS = 396
 
 
-def b2_blocks(n: int):
-    """Row split of a B2 launch over n rows: (number of blocks, edges),
-    block b owning rows [edges[b], edges[b + 1]).  The S = ceil(n / 128)
-    sub-tiles are dealt out as [b*S // B, (b+1)*S // B) to B = min(396, S)
-    blocks, so every edge but the last is a multiple of B2_ROW_TILE and
-    the blocks differ by at most one sub-tile.  A function of n alone,
-    computed the same way by the kernel, whose launcher refuses any other
-    block count: a shape always sums in the same order."""
-    nsub = -(-n // B2_ROW_TILE)
-    nblk = min(B2_BLOCKS, nsub)
-    edges = [min(n, (b * nsub // nblk) * B2_ROW_TILE) for b in range(nblk + 1)]
+def subtile_split(n: int, tile: int, most: int):
+    """Row split of a launch over n rows in sub-tiles of ``tile`` rows:
+    (number of blocks, edges), block b owning rows [edges[b], edges[b +
+    1]).  The S = ceil(n / tile) sub-tiles are dealt out as [b*S // B,
+    (b+1)*S // B) to B = min(most, S) blocks, so every edge but the last
+    is a multiple of ``tile`` and the blocks differ by at most one
+    sub-tile.  A function of n alone, computed the same way by the
+    kernels, whose launchers refuse any other block count: a shape always
+    sums in the same order."""
+    nsub = -(-n // tile)
+    nblk = min(most, nsub)
+    edges = [min(n, (b * nsub // nblk) * tile) for b in range(nblk + 1)]
     return nblk, edges
+
+
+def b2_blocks(n: int):
+    """Row split of a B2 launch (`subtile_split`, csrc/logistic_batched.cu)."""
+    return subtile_split(n, B2_ROW_TILE, B2_BLOCKS)
 
 
 #: the links both kernels take, and their code in the C entry points
@@ -99,10 +104,10 @@ def _link_parts(y, logits, link="bernoulli_logit"):
     return val_terms, y - torch.sigmoid(logits)
 
 
-def scratch_words(nblk: int, c: int, d: int, q: int = 1) -> int:
-    """float32 words of the per-block partials a kernel launch needs
-    (csrc/fused_pass.cuh:carve_scratch)."""
-    return nblk * (c * d + 2 * c + 2 * c * q + 2)
+def scratch_words(nblk: int, c: int, d: int) -> int:
+    """float32 words of the per-block partials a launch of B1, B2 or B3
+    needs (csrc/fused_pass.cuh:carve_scratch)."""
+    return nblk * (c * d + 3 * c + 2)
 
 
 def check_kernel_args(named, *, device, dtypes, shapes):

@@ -29,14 +29,22 @@ def _cuda():
     return torch.device("cuda")
 
 
-def _grouped_case(n, d, groups, chains, seed=0, g=None, beta_scale=0.3):
+def _dyadic(rs, shape, k, step):
+    """Draws from the grid {-k, ..., k} * step (step a power of two)."""
+    return (rs.randint(-k, k + 1, size=shape) * step).astype(np.float32)
+
+
+def _grouped_case(n, d, groups, chains, seed=0, g=None, beta_scale=0.3, dyadic=False):
     """B1's arguments from rows drawn with a seed; ``g`` (sorted ids, one
     per row) replaces the uniform draw of group ids, ``beta_scale`` sets
-    the logits' spread."""
+    the logits' spread.  ``dyadic``: x in halves of [-1, 1], alpha in
+    quarters of [-1, 1], beta on a grid of four steps each way, the step
+    the power of two nearest beta_scale / 2.4, so the logits are exact in
+    float32."""
     rs = np.random.RandomState(seed)
     n = n if g is None else g.shape[0]
     raw = {
-        "x": rs.standard_normal((n, d)).astype(np.float32),
+        "x": _dyadic(rs, (n, d), 2, 0.5) if dyadic else rs.standard_normal((n, d)).astype(np.float32),
         "y": (rs.rand(n) < 0.4).astype(np.float32),
         "g": rs.randint(0, groups, size=n).astype(np.int32) if g is None else g,
     }
@@ -44,10 +52,25 @@ def _grouped_case(n, d, groups, chains, seed=0, g=None, beta_scale=0.3):
     assert prep is not None
     dev = _cuda()
     t = {k: torch.as_tensor(prep[k], device=dev) for k in ("xT", "y", "gl", "first_gid")}
-    beta = torch.as_tensor(beta_scale * rs.standard_normal((chains, d)),
-                           dtype=torch.float32, device=dev)
-    alpha = torch.as_tensor(rs.standard_normal((chains, groups)), dtype=torch.float32, device=dev)
+    if dyadic:
+        beta = _dyadic(rs, (chains, d), 4, 2.0 ** round(np.log2(beta_scale / 2.4)))
+        alpha = _dyadic(rs, (chains, groups), 4, 0.25)
+    else:
+        beta = beta_scale * rs.standard_normal((chains, d))
+        alpha = rs.standard_normal((chains, groups))
+    beta = torch.as_tensor(beta, dtype=torch.float32, device=dev)
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
     return (beta, alpha, t["xT"], t["y"], t["gl"], t["first_gid"], prep["lane_tile"])
+
+
+def _in_float64(plain, args):
+    """``plain`` evaluated in float64 on the same inputs (index arrays and
+    ints as they are), rounded to float32: the edge cases' yardstick.  The
+    float32 plain version's own rounding (cuBLAS over tens of thousands
+    of rows) exceeds atol 1e-4 on entries near 0."""
+    out = plain(*(a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                  for a in args))
+    return [o.float() for o in out]
 
 
 def _grouped(n, d, groups, chains, seed=0):
@@ -134,6 +157,23 @@ def test_b1_edge_cases_match_plain_and_repeat_bitwise(case):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("case", list(_B1_EDGE_CASES))
+def test_b1_edge_cases_match_float64_on_dyadic_inputs(case):
+    """The same cases on dyadic inputs, whose logits are exact in float32,
+    held against the plain version in float64."""
+    kw = _B1_EDGE_CASES[case]
+    args = _grouped_case(**kw, dyadic=True)
+    if "beta_scale" in kw:
+        logits = args[0] @ args[2]
+        assert float(logits.max()) > 30 and float(logits.min()) < -30
+    got = hier_fused.hier_grouped(*args)
+    again = hier_fused.hier_grouped(*args)
+    torch.cuda.synchronize()
+    _assert_parity(got, _in_float64(hier_fused.hier_grouped_plain, args))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
 def test_b1_refuses_widths_beyond_shared_memory():
     args = _grouped_case(n=1000, d=256, groups=10, chains=64)
     before = hier_fused.hier_grouped.launches
@@ -201,10 +241,8 @@ def test_b2_edge_cases_match_plain_and_repeat_bitwise(n, d, chains, with_offsets
     torch.cuda.synchronize()
     bump = (2, 0) if link == "bernoulli_logit" else (0, 2)
     assert (lb.launches, lb.gaussian_launches) == (before[0] + bump[0], before[1] + bump[1])
-    want = logistic_fused.logistic_batched_plain(
-        beta.double(), xT.double(), y.double(), None if off is None else off.double(), link
-    )
-    _assert_parity(got, [w.float() for w in want])
+    want = _in_float64(logistic_fused.logistic_batched_plain, (beta, xT, y, off, link))
+    _assert_parity(got, want)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
 
@@ -249,30 +287,45 @@ def test_wrappers_refuse_bad_arguments_instead_of_falling_back():
         logistic_fused.logistic_batched(beta, t["xT"].cpu(), t["y"])
 
 
-def _lmm(n, d, q, groups, chains, seed=0, g=None):
-    """B4's arguments from rows drawn with a seed; ``g`` (sorted ids, one
-    per row) replaces the uniform draw of group ids."""
+def lmm_arrays(n, d, q, groups, chains, seed=0, g=None, dyadic=False):
+    """B4's arguments as numpy arrays, (beta, u, ic, prepared data), from
+    rows drawn with a seed; ``g`` (sorted ids, one per row) replaces the
+    uniform draw of group ids.  ``dyadic``: x and z's slopes in halves of
+    [-1, 1], y in quarters of [-2, 2], beta in eighths of [-1/2, 1/2], u
+    and the intercepts in quarters of [-1, 1], so mu and resid are exact
+    in float32."""
     rs = np.random.RandomState(seed)
     n = n if g is None else g.shape[0]
-    z = np.concatenate([np.ones((n, 1)), rs.standard_normal((n, q - 1))], axis=1)
+    if dyadic:
+        z = _dyadic(rs, (n, q - 1), 2, 0.5)
+        x, y = _dyadic(rs, (n, d), 2, 0.5), _dyadic(rs, (n,), 8, 0.25)
+    else:
+        z = rs.standard_normal((n, q - 1))
+        x, y = rs.standard_normal((n, d)), rs.standard_normal(n)
     raw = {
-        "x": rs.standard_normal((n, d)).astype(np.float32),
-        "z": z.astype(np.float32),
-        "y": rs.standard_normal(n).astype(np.float32),
+        "x": x.astype(np.float32),
+        "z": np.concatenate([np.ones((n, 1)), z], axis=1).astype(np.float32),
+        "y": y.astype(np.float32),
         "g": rs.randint(0, groups, size=n).astype(np.int32) if g is None else g,
     }
     prep = hier_fused.prepare_grouped(raw, d + q, transpose_keys=("x", "z"))
     assert prep is not None
+    if dyadic:
+        beta = _dyadic(rs, (chains, d), 4, 0.125)
+        u, ic = _dyadic(rs, (chains, groups, q), 4, 0.25), _dyadic(rs, (chains,), 4, 0.25)
+    else:
+        beta = 0.3 * rs.standard_normal((chains, d))
+        u, ic = 0.5 * rs.standard_normal((chains, groups, q)), rs.standard_normal(chains)
+    return (beta.astype(np.float32), u.astype(np.float32), ic.astype(np.float32), prep)
+
+
+def _lmm(n, d, q, groups, chains, seed=0, g=None, dyadic=False):
+    """`lmm_arrays` on the card, in lmm_grouped's argument order."""
+    beta, u, ic, prep = lmm_arrays(n, d, q, groups, chains, seed, g, dyadic)
     dev = _cuda()
     t = {k: torch.as_tensor(prep[k], device=dev)
          for k in ("xT", "zT", "y", "gl", "first_gid")}
-
-    def f32(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=dev)
-
-    beta = f32(0.3 * rs.standard_normal((chains, d)))
-    u = f32(0.5 * rs.standard_normal((chains, groups, q)))
-    ic = f32(rs.standard_normal(chains))
+    beta, u, ic = (torch.as_tensor(a, device=dev) for a in (beta, u, ic))
     return (beta, u, ic, t["xT"], t["zT"], t["y"], t["gl"], t["first_gid"],
             prep["lane_tile"])
 
@@ -295,28 +348,135 @@ def test_b4_matches_plain_and_repeats_bitwise(n, d, groups, chains, q):
         assert torch.equal(a, b)
 
 
+def _ids_between(n, lo, hi, seed):
+    """n sorted ids drawn from [lo, hi): ids below lo and from hi on have
+    no rows."""
+    return np.sort(np.random.RandomState(seed).randint(lo, hi, size=n)).astype(np.int32)
+
+
+def _sizes_between(groups, lo, hi, seed, long_group=None):
+    """Sorted ids, group sizes drawn from [lo, hi); ``long_group`` = (id,
+    rows) gives one group that many rows."""
+    sizes = np.random.RandomState(seed).randint(lo, hi, size=groups)
+    if long_group is not None:
+        sizes[long_group[0]] = long_group[1]
+    return np.repeat(np.arange(groups, dtype=np.int32), sizes)
+
+
+# B4's edge cases (csrc/lmm_grouped.cu): ids without rows; groups that
+# cross sub-tiles and blocks; chain counts in each instantiation (C <= 8,
+# <= 16, <= 32 one tile) and past it; Q = 2, 3; N below one sub-tile and
+# N = 1, 2, 3 (mod 4), so rows of xT and zT past the first start off
+# 16-byte alignment; each shared-memory tier (csrc/lmm_grouped.cu:layout:
+# two buffers, one buffer from D = 9 or at C = 17, Q = 3, the gradient
+# sums in device memory, the widest D at C = 64).  Past 396 sub-tiles
+# (N > 50,688) blocks take two sub-tiles.
 _B4_EDGE_CASES = {
     # every 7th id without rows, every 5th with one row: ids without rows
     # between two groups of one row block get a zero gradient
     "gaps C=16 D=8 Q=2": dict(n=0, d=8, q=2, groups=300, chains=16, g=_sizes_with_gaps(300, 1)),
     "gaps C=33 D=3 Q=3": dict(n=0, d=3, q=3, groups=300, chains=33, g=_sizes_with_gaps(300, 2)),
+    # rows only for ids 5 .. G-6
+    "ids without rows at both ends": dict(n=0, d=8, q=2, groups=300, chains=16,
+                                          g=_ids_between(20_011, 5, 295, 3)),
+    # one group of 5000 rows: 40 sub-tiles, over 33 blocks
+    "one group over several blocks": dict(n=0, d=8, q=2, groups=400, chains=16,
+                                          g=_sizes_between(400, 100, 200, 4, (200, 5000))),
+    # groups of 150-250 rows in blocks of two sub-tiles (N about 60,000)
+    "groups over sub-tiles": dict(n=0, d=8, q=3, groups=300, chains=17,
+                                  g=_sizes_between(300, 150, 250, 5)),
+    **{f"C={c} Q={q}": dict(n=3001, d=8, q=q, groups=20, chains=c)
+       for c in (1, 16, 17, 33, 64) for q in (2, 3)},
+    "N<sub-tile": dict(n=50, d=5, q=2, groups=3, chains=9),
+    "N=1 mod 4": dict(n=40_001, d=8, q=2, groups=4000, chains=16),
+    "N=2 mod 4": dict(n=40_002, d=3, q=3, groups=300, chains=33),
+    "N=3 mod 4": dict(n=40_003, d=9, q=2, groups=4000, chains=64),
+    "D=200 C=64": dict(n=3001, d=200, q=2, groups=20, chains=64),
+    "D=216 C=64": dict(n=1001, d=216, q=2, groups=20, chains=64),
 }
+#: B4 at C=64, Q=2 refuses D=217, one past its widest tier (layout)
+_B4_REFUSED = (64, 2, 217)
 
 
 @pytest.mark.parametrize("case", list(_B4_EDGE_CASES))
 def test_b4_edge_cases_match_plain_and_repeat_bitwise(case):
-    args = _lmm(**_B4_EDGE_CASES[case])
+    """On dyadic inputs, against the plain version in float64; an id
+    without rows gets exactly 0."""
+    args = _lmm(**_B4_EDGE_CASES[case], dyadic=True)
     before = hier_fused.lmm_grouped.launches
     got = hier_fused.lmm_grouped(*args)
     again = hier_fused.lmm_grouped(*args)
     torch.cuda.synchronize()
     assert hier_fused.lmm_grouped.launches == before + 2
-    want = hier_fused.lmm_grouped_plain(*args)
+    want = _in_float64(hier_fused.lmm_grouped_plain, args)
     torch.testing.assert_close(got[0], want[0], rtol=VAL_RTOL, atol=0)
     for g, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-4)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+    groups = hier_fused.absolute_groups(args[6], args[7], args[8])
+    empty = torch.ones(args[1].shape[1], dtype=torch.bool, device=groups.device)
+    empty[groups] = False
+    assert torch.all(got[3][:, empty, :] == 0)
+
+
+def test_b4_refuses_widths_beyond_shared_memory():
+    c, q, d = _B4_REFUSED
+    dev = _cuda()
+    need, limit = hier_fused.b4_shared_memory(c, d - 1, q, dev.index or 0)
+    assert need <= limit
+    need, limit = hier_fused.b4_shared_memory(c, d, q, dev.index or 0)
+    assert need > limit
+    args = _lmm(300, d, q, 10, c)
+    before = hier_fused.lmm_grouped.launches
+    with pytest.raises(ValueError, match="shared memory per block"):
+        hier_fused.lmm_grouped(*args)
+    assert hier_fused.lmm_grouped.launches == before
+
+
+def _parent_b4_widest(c, q):
+    """Widest D at which B4 ran before it had a pass of its own, for C=c
+    chains and Q=q effects: that pass's layout (csrc/lmm_grouped.cu:
+    smem_layout) in one block of 227 KB."""
+    cp = -(-c // 32) * 32
+
+    def r4(v):
+        return (v + 3) & ~3
+
+    def words(d):
+        return (r4(129 * d) + r4(129 * q) + 2 * r4(32 * 129) + 256 + 2 * r4(d * cp)
+                + 4 * cp + r4(cp * q) + r4(129) + 8)
+
+    d = 0
+    while 4 * words(d + 1) <= 227 * 1024:
+        d += 1
+    return d
+
+
+@pytest.mark.parametrize("chains", [1, 16, 33, 64, 128, 256])
+def test_b4_runs_every_width_the_parent_ran_at_two_effects(chains):
+    """At Q = 2 (random intercepts and slopes); with more effects the
+    staged u rows (16 KB per effect at 32 chains) narrow the widest D."""
+    dev = _cuda()
+    d = _parent_b4_widest(chains, 2)
+    need, limit = hier_fused.b4_shared_memory(chains, d, 2, dev.index or 0)
+    assert need <= limit, (chains, d, need, limit)
+
+
+@pytest.mark.parametrize("nblk,c,d,q", [(1, 1, 1, 2), (396, 16, 8, 2), (7, 33, 9, 3)])
+def test_b4_scratch_carve_matches_the_kernel(nblk, c, d, q):
+    """hier_fused.b4_scratch against the kernel's own carve."""
+    import ctypes
+
+    from stark_tpu_torch import _build
+
+    _cuda()
+    fn = _build.function("lmm_grouped", "stark_lmm_grouped_scratch",
+                         [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    out = (ctypes.c_longlong * 8)()
+    assert fn(nblk, c, d, q, out) == 0
+    offsets, words = hier_fused.b4_scratch(nblk, c, d, q)
+    assert list(out) == [offsets[k] for k in hier_fused.B4_PARTIALS] + [words]
 
 
 @pytest.mark.parametrize("with_offsets", [False, True])

@@ -172,6 +172,57 @@ def test_lmm_autograd_backward_is_cotangent_times_forward_grads():
     assert one.shape == () and float(one.detach()) == float(val[0].detach())
 
 
+@pytest.mark.parametrize(
+    "n", [1, 50, 127, 128, 129, 3001, 40_003, 50_687, 50_688, 50_689, 100_000, 100_037]
+)
+def test_b4_block_split_covers_rows_once_in_whole_subtiles(n):
+    """The row split of B4 (csrc/lmm_grouped.cu): every row in exactly one
+    block, block edges on sub-tile boundaries, at most B4_BLOCKS blocks
+    within one sub-tile of each other, and the same split on every call:
+    a function of N alone."""
+    nblk, edges = phf.b4_blocks(n)
+    assert phf.b4_blocks(n) == (nblk, edges)
+    tile = phf.B4_ROW_TILE
+    nsub = -(-n // tile)
+    assert nblk == min(phf.B4_BLOCKS, nsub) and len(edges) == nblk + 1
+    assert edges[0] == 0 and edges[-1] == n
+    owner = np.repeat(np.arange(nblk), np.diff(edges))
+    assert owner.shape == (n,) and np.all(np.diff(owner) >= 0)  # each row once, in order
+    assert all(e % tile == 0 for e in edges[:-1])
+    subtiles = [-(-(b - a) // tile) for a, b in zip(edges[:-1], edges[1:])]
+    assert min(subtiles) >= 1 and max(subtiles) - min(subtiles) <= 1
+    assert sum(subtiles) == nsub
+
+
+@pytest.mark.parametrize("nblk,c,d,q", [(1, 1, 1, 2), (396, 16, 8, 2), (7, 33, 9, 3)])
+def test_b4_scratch_tiles_the_buffer_with_each_partial(nblk, c, d, q):
+    """B4's scratch (csrc/lmm_grouped.cu:carve): the partials one after
+    another in B4_PARTIALS order, each its own size, nothing between or
+    after them."""
+    offsets, words = phf.b4_scratch(nblk, c, d, q)
+    assert tuple(offsets) == phf.B4_PARTIALS
+    sizes = {"gpart": nblk * c * d, "vpart": nblk * c, "rpart": nblk * c,
+             "head": nblk * c * q, "tail": nblk * c * q, "blo": nblk, "bhi": nblk}
+    o = 0
+    for name in phf.B4_PARTIALS:
+        assert offsets[name] == o, name
+        o += sizes[name]
+    assert words == o
+
+
+def test_lmm_grouped_on_cpu_is_the_plain_version_and_counts_no_launch():
+    n, d, groups = _DENSE
+    prep = phf.prepare_grouped(_ref_data(n, d, groups, seed=5), d + Q, transpose_keys=("x", "z"))
+    args = [torch.as_tensor(a) for a in _b4_params(2, d, groups, seed=2)]
+    args += [torch.as_tensor(prep[k]) for k in ("xT", "zT", "y", "gl", "first_gid")]
+    before = phf.lmm_grouped.launches
+    got = phf.lmm_grouped(*args, prep["lane_tile"])
+    want = phf.lmm_grouped_plain(*args, prep["lane_tile"])
+    assert phf.lmm_grouped.launches == before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_synth_lmm_data_is_seeded():
     a, ta = plmm.synth_lmm_data(3, 500, 4, 30)
     b, _ = plmm.synth_lmm_data(3, 500, 4, 30)

@@ -112,6 +112,6 @@ def test_b2_block_split_covers_rows_once_in_whole_subtiles(n):
     assert sum(subtiles) == nsub
     for c, d in ((32, 32), (1, 1), (100, 33)):
         # csrc/fused_pass.cuh:carve_scratch: gpart (nblk, C, D), vpart,
-        # rpart, head, tail (nblk, C) each, blo and bhi (nblk,) ints
-        need = nblk * c * d + 4 * nblk * c + 2 * nblk
+        # head, tail (nblk, C) each, blo and bhi (nblk,) ints
+        need = nblk * c * d + 3 * nblk * c + 2 * nblk
         assert port.scratch_words(nblk, c, d) >= need
