@@ -50,17 +50,38 @@ Phases, in order; any failure exits non-zero (none is caught):
   9. lmm offset — the same through FusedLinearMixedModel (B2, gaussian)
  10. single   — logistic_loglik_value_and_grad on the flagship X: one B3
                 launch per call, no other kernel
- 11. profile  — one ensemble gradient evaluation of each sampled path at
+ 11. runner   — the adaptive runner (ROADMAP A6) through
+                stark_tpu_torch.supervised_sample on the flagship
+                (FusedHierLogisticGrouped(32, 1000), N=1,000,000, 64
+                chains, B1 on every gradient), two legs, each with its
+                launch counts: (a) gated: the bench's MAP 500, warmup 400,
+                blocks of 100 up to 5, under the R-hat < 1.01 / ESS > 400
+                stop gate; prints whether and where the gate stopped, wall
+                time split into set-up, MAP, warmup and sampling, the
+                validation pass's R-hat and ESS, ESS/s (min bulk ESS over
+                wall, set-up included), and per block the seconds in the
+                gate, the checkpoint and the draw-store append; asserts
+                the stop was validated (or the run spent its budget), the
+                draw store reads back equal to the posterior, the
+                checkpoint's block count equals the history's, and B1's
+                launches equal the evaluations; (b) resume: a small budget
+                run uninterrupted, then under supervision with the first
+                attempt faulted after block 1's checkpoint; one restart
+                record, and the resumed draws bitwise equal to the
+                uninterrupted ones
+ 12. profile  — one ensemble gradient evaluation of each sampled path at
                 its final state: host-clock time per evaluation, and under
                 torch.profiler the device time by kernel and the share of
                 the window the device sat idle
-Each path sets every launch count to 0 just before it and reads them
-just after.  Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and
+Each path (and each runner leg) sets every launch count to 0 just
+before it and reads them just after.  Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and
 the last line ``{"ok": true, "device": {...}}``.
 
 ``--cpu-rehearsal`` walks the same phases on the CPU at a tiny size with
 the plain versions (no build, no launch counts, no device times); it is
-a rehearsal of the control flow, not a result.
+a rehearsal of the control flow, not a result.  There the edge cases'
+"kernel" is the float32 plain version itself, so it is held to the
+float32 plain version, not to float64.
 
 ``--compare-with TREE`` instead times the kernels that TREE (another
 checkout, e.g. the parent commit's) shares with this one: B1, B2 (both
@@ -77,12 +98,17 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
 
+from pathlib import Path
+
 import numpy as np
 import torch
+
+REPO = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -157,6 +183,8 @@ class Run:
             self.off_budget = dict(map_init_steps=5, num_warmup=20, num_samples=5)
             self.lmm_budget = dict(map_init_steps=10, num_warmup=30, num_samples=10)
             self.lmm_off_budget = dict(map_init_steps=5, num_warmup=20, num_samples=5)
+            self.runner_budget = dict(map_init_steps=10, num_warmup=30, block_size=10, max_blocks=5)
+            self.resume_budget = dict(map_init_steps=5, num_warmup=20, block_size=10, max_blocks=3)
         else:
             self.n_full, self.n_ragged = N_FULL, N_RAGGED
             self.lmm_n_full, self.lmm_n_ragged, self.lmm_g = LMM_N_FULL, LMM_N_RAGGED, LMM_G
@@ -164,6 +192,11 @@ class Run:
             self.off_budget = dict(map_init_steps=30, num_warmup=100, num_samples=10)
             self.lmm_budget = dict(map_init_steps=100, num_warmup=150, num_samples=100)
             self.lmm_off_budget = dict(map_init_steps=30, num_warmup=60, num_samples=10)
+            # the bench's MAP, warmup, block and draw budget (bench.py:552-555,
+            # :641, :698-712), the stop gate on
+            self.runner_budget = dict(map_init_steps=500, num_warmup=400, block_size=100,
+                                      max_blocks=5)
+            self.resume_budget = dict(map_init_steps=50, num_warmup=60, block_size=20, max_blocks=3)
         self.t0 = time.perf_counter()
         self.kernels = {}
         self.last_z = {}
@@ -580,6 +613,20 @@ def b2_edge_inputs(n, d, c, link, gen, dev):
     return xT, y, grid((c, d), 4, 0.125), grid((c, n), 4, 0.25)
 
 
+def yardstick(run: Run, fn, *args, **kw):
+    """What an edge case is held to: the plain version in float64 on the
+    card; in a rehearsal, where the "kernel" is the float32 plain version
+    itself, that float32 plain version (its own float32 rounding would
+    otherwise stand as the kernel's error)."""
+    if run.rehearsal:
+        return fn(*args, **kw)
+    return plain_in_float64(fn, *args, **kw)
+
+
+def yardstick_name(run: Run) -> str:
+    return "float32 (rehearsal)" if run.rehearsal else "float64"
+
+
 def plain_in_float64(fn, *args, **kw):
     """The plain version evaluated in float64 on the same inputs (index
     arrays and ints as they are), the yardstick of the edge cases: the
@@ -605,11 +652,11 @@ def phase_b2_edges(run: Run, gen):
                 got = lf.logistic_batched(beta, xT, y, off, link)
                 again = lf.logistic_batched(beta, xT, y, off, link)
                 run.sync()
-                want = plain_in_float64(lf.logistic_batched_plain, beta, xT, y, off, link=link)
+                want = yardstick(run, lf.logistic_batched_plain, beta, xT, y, off, link=link)
                 worst = max(worst, compare(f"B2 N={n} D={d} C={c} {link}", got, want, quiet=True))
                 assert all(torch.equal(a, b) for a, b in zip(got, again)), (n, d, c, link)
     log(f"  B2 edge cases: {len(B2_EDGE_CASES)} shapes x 2 links x with/without offsets "
-        f"match the plain version in float64 (max abs err {worst:.6g}), second launches "
+        f"match the plain version in {yardstick_name(run)} (max abs err {worst:.6g}), second launches "
         f"bitwise equal")
     # why float64 is the yardstick: normal inputs, the kernel and the
     # float32 plain version each held against the float64 plain version
@@ -689,13 +736,13 @@ def phase_b4_edges(run: Run, b4_args):
         got = hf.lmm_grouped(*args)
         again = hf.lmm_grouped(*args)
         run.sync()
-        want = plain_in_float64(hf.lmm_grouped_plain, *args)
+        want = yardstick(run, hf.lmm_grouped_plain, *args)
         name = f"B4 {ids} N={prep['y'].shape[0]} D={d} Q={q} C={c}"
         worst = max(worst, compare(name, got, want, LMM_RTOL, LMM_ATOL, quiet=True))
         assert all(torch.equal(a, b) for a, b in zip(got, again)), name
         empty = np.setdiff1d(np.arange(groups), raw["g"])
         assert torch.all(got[3][:, torch.as_tensor(empty, device=run.dev).long(), :] == 0), name
-    log(f"  B4 edge cases: {len(B4_EDGE_CASES)} shapes match the plain version in float64 "
+    log(f"  B4 edge cases: {len(B4_EDGE_CASES)} shapes match the plain version in {yardstick_name(run)} "
         f"(max abs err {worst:.6g}), second launches bitwise equal, ids without rows 0")
     want = plain_in_float64(hf.lmm_grouped_plain, *b4_args)
     kern, plain = hf.lmm_grouped(*b4_args), hf.lmm_grouped_plain(*b4_args)
@@ -897,6 +944,160 @@ def phase_single(run: Run, raw, calls=10):
     return dict(calls=calls, launches=launches, wall_ms=1e3 * wall)
 
 
+def _runner_leg(run: Run, label, fn):
+    """One leg of the runner phase: counts to 0 just before, read just
+    after; returns (result, wall seconds, launches)."""
+    run.sync()
+    reset_counts()
+    t = time.perf_counter()
+    out = fn()
+    run.sync()
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    log(f"  {label}: wall {wall:.2f} s, launches {launches}")
+    return out, wall, launches
+
+
+def _check_b1_launches(run: Run, launches, evals, label):
+    if run.rehearsal:
+        return
+    assert launches["B1"] == evals, (label, launches, evals)
+    others = {k: v for k, v in launches.items() if k != "B1" and v}
+    assert not others, f"{others} launched on the runner's {label}"
+    run.kernels["B1"]["launches"] = run.kernels["B1"].get("launches", 0) + launches["B1"]
+
+
+def phase_runner(run: Run, full):
+    """The adaptive runner with its stop gate, checkpoints, draw store and
+    supervised restart, on the flagship at full width (ROADMAP A6, A7)."""
+    from stark_tpu_torch import diagnostics, runner, supervised_sample
+    from stark_tpu_torch.checkpoint import load_checkpoint
+    from stark_tpu_torch.drawstore import read_draws
+    from stark_tpu_torch.models import FusedHierLogisticGrouped
+
+    root = REPO / "build" / "chip_smoke_runner"
+    shutil.rmtree(root, ignore_errors=True)
+    common = dict(kernel="chees", chains=64, init_step_size=0.1, seed=0)
+    if run.rehearsal:
+        common["device"] = "cpu"
+    budget = run.runner_budget
+    log(f"== runner (gated): supervised_sample(FusedHierLogisticGrouped({D}, {G})), "
+        f"N={run.n_full}, 64 chains, R-hat < 1.01 and ESS > 400, {budget}")
+    wd = root / "gated"
+    post, wall, launches = _runner_leg(run, "gated leg", lambda: supervised_sample(
+        FusedHierLogisticGrouped(D, G), full, workdir=str(wd), min_blocks=2,
+        rhat_target=1.01, ess_target=400.0, **budget, **common))
+    evals = int(post.sample_stats["num_ensemble_grad_evals"])
+    _check_b1_launches(run, launches, evals, "gated leg")
+    recs = [json.loads(line) for line in open(wd / "metrics.jsonl")]
+    assert not [r for r in recs if r["event"] == "restart"], "the gated leg restarted"
+    (warm,) = [r for r in recs if r["event"] == "warmup_done"]
+    blocks = post.history
+    draws = post.draws_flat
+    assert np.all(np.isfinite(draws)), "non-finite draws on the runner path"
+    assert draws.shape[0] == 64 and draws.shape[1] == blocks[-1]["draws_per_chain"]
+    last = blocks[-1]
+    if post.converged:
+        assert last["full_max_rhat"] < 1.01 and last["full_min_ess"] > 400.0, last
+        stop = f"the gate stopped the run at block {last['block']}, validated by the full pass"
+    else:
+        assert draws.shape[1] == budget["max_blocks"] * budget["block_size"], draws.shape
+        stop = (f"the gate did not stop the run: it spent its budget of "
+                f"{budget['max_blocks'] * budget['block_size']} draws per chain")
+    stored, chains, dim = read_draws(str(wd / "draws.stkr"))
+    assert (chains, dim) == (64, draws.shape[2])
+    assert np.array_equal(np.asarray(stored).transpose(1, 0, 2), draws), "draw store != posterior"
+    _, meta = load_checkpoint(str(wd / "chain.ckpt.npz"))
+    assert meta["blocks_done"] == len(blocks), (meta["blocks_done"], len(blocks))
+    split = float(np.max(diagnostics.split_rhat(draws)))
+    bulk = float(np.min(diagnostics.ess_bulk(draws)))
+    sampling = sum(r["t_dispatch_s"] + r["t_diag_s"] + r["t_store_s"] + r["t_ckpt_s"]
+                   for r in blocks)
+    per_block = []
+    for r in blocks:
+        row = {k: r[k] for k in ("block", "draws_per_chain", "max_rhat", "min_ess", "t_dispatch_s",
+                                 "t_diag_s", "t_store_s", "t_ckpt_s")}
+        row["evals"] = r["block_grad_evals"] // 64
+        row["ms_per_eval"] = 1e3 * r["t_dispatch_s"] / max(row["evals"], 1)
+        row.update({k: r[k] for k in ("full_max_rhat", "full_min_ess") if k in r})
+        per_block.append(row)
+    warm_evals = warm["warmup_grad_evals"] // 64 - budget["map_init_steps"]
+    res = dict(
+        converged=bool(post.converged), stop_block=last["block"] if post.converged else None,
+        blocks=len(blocks), draws_per_chain=int(draws.shape[1]), wall_s=wall,
+        setup_s=warm["t_setup_s"], map_s=warm["t_map_s"], warmup_s=warm["t_warmup_s"],
+        sampling_s=sampling, warmup_evals=warm_evals,
+        warmup_ms_per_eval=1e3 * warm["t_warmup_s"] / max(warm_evals, 1),
+        map_evals=budget["map_init_steps"] + 1, full_max_rhat=last.get("full_max_rhat"),
+        full_min_ess=last.get("full_min_ess"), max_split_rhat=split, min_bulk_ess=bulk,
+        ess_per_s=bulk / wall, wall_to_rhat_s=wall if post.converged else None,
+        evals=evals, b1_launches=launches["B1"], ms_per_eval=1e3 * wall / evals,
+        gate_s=[r["t_diag_s"] for r in blocks], ckpt_s=[r["t_ckpt_s"] for r in blocks],
+        store_s=[r["t_store_s"] for r in blocks], per_block=per_block,
+        divergences=int(post.num_divergent),
+    )
+    log(f"  {stop}; {len(blocks)} blocks, {draws.shape[1]} draws per chain")
+    log(f"  wall {wall:.2f} s with set-up: set-up {warm['t_setup_s']:.2f}, MAP "
+        f"{warm['t_map_s']:.2f} ({budget['map_init_steps'] + 1} evaluations), warmup "
+        f"{warm['t_warmup_s']:.2f} ({warm_evals} evaluations, "
+        f"{res['warmup_ms_per_eval']:.4f} ms each), sampling {sampling:.2f}")
+    log(f"  validation pass: full_max_rhat {last.get('full_max_rhat')}, full_min_ess "
+        f"{last.get('full_min_ess')}; max split R-hat {split:.5f}, min bulk ESS {bulk:.1f}; "
+        f"ESS/s {bulk / wall:.4f}; divergences {int(post.num_divergent)}")
+    log(f"  ensemble gradient evaluations {evals} = B1 launches {launches['B1']}; "
+        f"{1e3 * wall / evals:.4f} ms per evaluation (set-up included)")
+    for r in per_block:
+        valid = (f", validation pass R-hat {r['full_max_rhat']:.5f} ESS {r['full_min_ess']:.1f}"
+                 if "full_max_rhat" in r else "")
+        log(f"  block {r['block']}: to {r['draws_per_chain']} draws; {r['evals']} evaluations in "
+            f"{r['t_dispatch_s']:.3f} s ({r['ms_per_eval']:.4f} ms each); streaming R-hat "
+            f"{r['max_rhat']} ESS {r['min_ess']}{valid}; gate {r['t_diag_s']:.4f} s, "
+            f"draw-store append {r['t_store_s']:.4f} s, flush and checkpoint {r['t_ckpt_s']:.4f} s")
+
+    small = dict(run.resume_budget, rhat_target=0.0)
+    log(f"== runner (resume): the same model, {small}, uninterrupted and then faulted "
+        f"after block 1's checkpoint, restarted without a reseed")
+    whole, _, launches = _runner_leg(run, "uninterrupted", lambda: supervised_sample(
+        FusedHierLogisticGrouped(D, G), full, workdir=str(root / "whole"), **small, **common))
+    _check_b1_launches(run, launches, int(whole.sample_stats["num_ensemble_grad_evals"]),
+                       "uninterrupted leg")
+    real = runner.sample_until_converged
+    attempts = []
+
+    def faulted(model, data=None, **kw):
+        # the first attempt stops after block 1's checkpoint (a zero time
+        # budget), then faults
+        attempts.append(kw.get("resume_from"))
+        if len(attempts) == 1:
+            first = real(model, data, **dict(kw, time_budget_s=0.0))
+            attempts.append(int(first.sample_stats["num_ensemble_grad_evals"]))
+            raise RuntimeError("fault injected after block 1's checkpoint")
+        return real(model, data, **kw)
+
+    runner.sample_until_converged = faulted
+    try:
+        resumed, _, launches = _runner_leg(run, "faulted and resumed", lambda: supervised_sample(
+            FusedHierLogisticGrouped(D, G), full, workdir=str(root / "faulted"),
+            reseed_on_restart=False, **small, **common))
+    finally:
+        runner.sample_until_converged = real
+    assert attempts[0] is None and attempts[2] is not None, attempts
+    _check_b1_launches(run, launches,
+                       attempts[1] + int(resumed.sample_stats["num_ensemble_grad_evals"]),
+                       "resume leg")
+    restarts = [json.loads(line) for line in open(root / "faulted" / "metrics.jsonl")]
+    restarts = [r for r in restarts if r["event"] == "restart"]
+    assert len(restarts) == 1, restarts
+    same = np.array_equal(resumed.draws_flat, whole.draws_flat)
+    log(f"  one restart record ({restarts[0]['error']}); resumed draws "
+        f"{resumed.draws_flat.shape} bitwise equal to the uninterrupted run's: "
+        f"{'yes' if same else 'no'}")
+    assert same, "the resumed draws differ from the uninterrupted run's"
+    res["resume"] = dict(restarts=len(restarts), bitwise_equal=same,
+                         draws_per_chain=int(whole.draws_flat.shape[1]))
+    return res
+
+
 def phase_profile(run: Run, model, raw, label):
     """Where an ensemble gradient evaluation's time goes, at the state
     the path's run ended in."""
@@ -945,7 +1146,7 @@ def phase_profile(run: Run, model, raw, label):
     for ms, count, key in rows[:8]:
         log(f"    {ms / reps:9.4f} ms/eval  x{count / reps:<4.0f} {key[:90]}")
     return dict(eval_ms=per_eval, window_ms=window, kernel_ms=busy,
-                launches_per_eval=launches, idle_share=1 - busy / window,
+                kernel_ms_per_eval=busy / reps, launches_per_eval=launches, idle_share=1 - busy / window,
                 top=[(r[2][:60], r[0] / reps) for r in rows[:5]])
 
 
@@ -999,9 +1200,7 @@ def shared_kernel_times(tree: str) -> dict:
 
 
 def compare_with(other: str) -> int:
-    from pathlib import Path
-
-    here = str(Path(__file__).resolve().parent)
+    here = str(REPO)
     other = str(Path(other).resolve())
     phase_card(Run(False))
     rows = []
@@ -1069,6 +1268,7 @@ def main(argv=None) -> int:
         "lmm_offset_path": phase_lmm(run, lfull, ltrue, FusedLinearMixedModel,
                                      run.lmm_off_budget, counted="B2g"),
         "single_path": phase_single(run, full),
+        "runner_path": phase_runner(run, full),
     }
     prof = {
         label: phase_profile(run, model, raw, label)
@@ -1080,6 +1280,15 @@ def main(argv=None) -> int:
             ("FusedLinearMixedModel", FusedLinearMixedModel(LMM_D, run.lmm_g, LMM_Q), lfull),
         )
     }
+    if not run.rehearsal:
+        # the runner path's device busy share: its evaluations times the
+        # kernel time of one evaluation (profile phase, same potential)
+        rp = paths["runner_path"]
+        per_eval = prof["FusedHierLogisticGrouped"]["kernel_ms_per_eval"]
+        busy = rp["evals"] * per_eval / 1e3
+        rp["idle_share_derived"] = 1 - busy / rp["wall_s"]
+        log(f"== runner path: {rp['evals']} evaluations x {per_eval:.4f} ms of kernels each = "
+            f"{busy:.1f} s busy of {rp['wall_s']:.1f} s wall: idle share {rp['idle_share_derived']:.4f}")
     log(f"== done in {run.elapsed():.1f} s")
     log(json.dumps({**paths, "profile": prof}))
     if run.rehearsal:

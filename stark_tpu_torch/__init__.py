@@ -8,8 +8,12 @@ find; inside, the idiom is PyTorch: plain functions on tensors, an
 explicit ``device`` argument, explicit ``torch.Generator`` streams and a
 ``torch.autograd.Function`` around each kernel.
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-with no card and no explicit CPU device they raise (see `_device`).
+Entry points — `sample`, `chees_sample`, the adaptive runner
+`sample_until_converged` (blocks until the R-hat/ESS gate passes, with
+checkpoints and a draw store) and `supervised_sample` (the runner with
+restart from the last healthy checkpoint) — run on ``cuda`` unless the
+caller passes ``device="cpu"``; with no card and no explicit CPU device
+they raise (see `_device`).
 
 Precision stance: float32 everywhere, no TF32.  This mirrors the JAX
 package's ``highest`` matmul default — MCMC needs accurate energies and
@@ -24,11 +28,14 @@ _torch.backends.cudnn.allow_tf32 = False
 from . import bijectors, diagnostics  # noqa: E402
 from .chees import chees_sample  # noqa: E402
 from .model import Model, ParamSpec, flatten_model, prepare_model_data  # noqa: E402
+from .runner import AdaptiveResult, sample_until_converged  # noqa: E402
 from .sampler import Posterior, SamplerConfig, sample  # noqa: E402
+from .supervise import supervised_sample  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "AdaptiveResult",
     "Model",
     "ParamSpec",
     "Posterior",
@@ -39,4 +46,6 @@ __all__ = [
     "flatten_model",
     "prepare_model_data",
     "sample",
+    "sample_until_converged",
+    "supervised_sample",
 ]

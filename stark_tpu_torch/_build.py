@@ -1,4 +1,5 @@
-"""Build and load the CUDA kernels in ``stark_tpu_torch/csrc``.
+"""Build and load the CUDA kernels in ``stark_tpu_torch/csrc`` and the
+host C++ libraries in ``stark_tpu_torch/native``.
 
 Each ``csrc/<name>.cu`` is one shared library with a plain C interface,
 compiled at first use with::
@@ -6,10 +7,15 @@ compiled at first use with::
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/stark_tpu_torch/lib<name>-<hash>.so
 
-and loaded with ``ctypes``.  The file name carries a hash of the sources
-and flags, so an edited kernel is rebuilt and a stale library is never
-loaded.  Sources come from the checkout only.  A failed build raises.
-Nothing is compiled when this module is imported.
+and loaded with ``ctypes``.  Each ``native/<name>.cpp`` (host code, such
+as the draw store) is built the same way with ``g++`` alone, so it needs
+no CUDA toolkit and builds on a host without a card.  The file name
+carries a hash of the sources and flags, so an edited source is rebuilt
+and a stale library is never loaded; each build writes a temporary name
+of its own process and renames it into place, so processes that build
+at once never load a half-written library.  Sources come from the
+checkout only.  A failed build raises.  Nothing is compiled when this
+module is imported.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Dict, Iterable, List, Sequence
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
+NATIVE = _PKG / "native"
 BUILD_DIR = _PKG.parent / "build" / "stark_tpu_torch"
 
 #: every kernel library of the package, one per source file
@@ -33,6 +40,11 @@ _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: every host library of the package, one per source file in native/
+HOST_SOURCES = ("drawstore",)
+
+_HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 # name -> loaded library, per process
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -117,3 +129,37 @@ def check(lib: str, err: int) -> None:
             f"CUDA kernel in csrc/{lib}.cu failed: "
             f"{msg(err).decode()} (cudaError_t {err})"
         )
+
+
+def _host_target(name: str) -> Path:
+    h = hashlib.sha1(" ".join(_HOST_FLAGS).encode())
+    h.update((NATIVE / f"{name}.cpp").read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The host library ``native/<name>.cpp``, built with ``g++`` at
+    first use and loaded; raises when the build fails."""
+    if name not in HOST_SOURCES:
+        raise ValueError(f"unknown host library {name!r}")
+    key = f"native/{name}"
+    if key not in _LIBS:
+        out = _host_target(name)
+        if not out.exists():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found on PATH: native/{name}.cpp is built with it")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [gxx, *_HOST_FLAGS, "-o", str(tmp), str(NATIVE / f"{name}.cpp")],
+                capture_output=True, text=True,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"g++ failed for native/{name}.cpp (exit {proc.returncode}):\n"
+                    f"{proc.stdout}{proc.stderr}"
+                )
+            os.replace(tmp, out)
+        _LIBS[key] = ctypes.CDLL(str(out))
+    return _LIBS[key]

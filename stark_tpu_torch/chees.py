@@ -11,9 +11,13 @@ Warmup:
 Sampling keeps everything frozen except the Halton jitter.
 
 `make_chees_parts` builds the pieces with explicit carries
-(init_carry / warm_segment / finalize / sample_segment), so a test can
-drive the JAX package's parts and these on the same inputs;
-`run_chees` and `chees_sample` compose them into one run.
+(init_carry / warm_segment / finalize / sample_segment, and
+sample_segment_diag, which also carries the streaming-diagnostics
+accumulator), so a test can drive the JAX package's parts and these on
+the same inputs; `run_chees` and `chees_sample` compose them into one
+run, and the adaptive runner (`runner.py`) drives them block by block.
+A warmup segment runs any slice of the schedule from any carry, so the
+runner can checkpoint between segments and resume from one.
 
 Where the JAX package runs each segment as one compiled ``lax.scan``,
 this module runs eager PyTorch on the device and reads one integer back
@@ -39,7 +43,7 @@ from .adaptation import (
     welford_init,
     welford_variance,
 )
-from .kernels.base import HMCState
+from .kernels.base import HMCState, stream_diag_update
 from .kernels.chees import TorchNoise, chees_transition, halton, init_ensemble
 from .model import Model, flatten_model, prepare_model_data
 from .sampler import Posterior, SamplerConfig, constrain_draws
@@ -104,6 +108,9 @@ class CheesParts(NamedTuple):
     sample_segment: Callable  # (carry, noise, us, data) -> (carry, outs)
     warm_cap: int
     schedule: Any  # WarmupSchedule for cfg.num_warmup
+    # (carry, diag, noise, us, data) -> (carry, diag, outs): sample_segment
+    # plus the on-device StreamDiagState, updated from every draw
+    sample_segment_diag: Callable
 
 
 def make_chees_parts(fm, cfg: SamplerConfig) -> CheesParts:
@@ -196,9 +203,10 @@ def make_chees_parts(fm, cfg: SamplerConfig) -> CheesParts:
             inv_mass=carry.inv_mass,
         )
 
-    def sample_segment(carry: CheesRunCarry, noise, us, data=None):
-        """Sampling transitions; returns (carry, outs) with outs the
-        host-side step-major (zs, accept_prob, is_divergent, nleap)."""
+    def sample_loop(carry: CheesRunCarry, diag, noise, us, data):
+        """The one sampling loop of both segment variants: the
+        accumulator only reads each draw, so the draws are the same bits
+        with it or without it."""
         potential_fn = fm.bind(data)
         step_size = torch.exp(carry.log_eps)
         zs, acc, div, nleap = [], [], [], []
@@ -208,6 +216,8 @@ def make_chees_parts(fm, cfg: SamplerConfig) -> CheesParts:
             states, info = chees_transition(
                 noise, states, potential_fn, step_size, carry.inv_mass, L
             )
+            if diag is not None:
+                diag = stream_diag_update(diag, states.z)
             # draws go to the host as they are made, so device memory
             # holds no draw history
             zs.append(states.z.cpu())
@@ -216,14 +226,25 @@ def make_chees_parts(fm, cfg: SamplerConfig) -> CheesParts:
             nleap.append(L)
         carry = CheesRunCarry(states, carry.log_eps, carry.log_T, carry.inv_mass)
         if not zs:
-            return carry, None
+            return carry, diag, None
         outs = (
             torch.stack(zs).numpy(),
             torch.stack(acc).numpy(),
             torch.stack(div).numpy(),
             np.asarray(nleap, np.int64),
         )
+        return carry, diag, outs
+
+    def sample_segment(carry: CheesRunCarry, noise, us, data=None):
+        """Sampling transitions; returns (carry, outs) with outs the
+        host-side step-major (zs, accept_prob, is_divergent, nleap)."""
+        carry, _, outs = sample_loop(carry, None, noise, us, data)
         return carry, outs
+
+    def sample_segment_diag(carry: CheesRunCarry, diag, noise, us, data=None):
+        """`sample_segment` that also folds every draw into ``diag`` (a
+        `kernels.base.StreamDiagState`); returns (carry, diag, outs)."""
+        return sample_loop(carry, diag, noise, us, data)
 
     return CheesParts(
         init_carry=init_carry,
@@ -232,6 +253,7 @@ def make_chees_parts(fm, cfg: SamplerConfig) -> CheesParts:
         sample_segment=sample_segment,
         warm_cap=warm_cap,
         schedule=sched,
+        sample_segment_diag=sample_segment_diag,
     )
 
 

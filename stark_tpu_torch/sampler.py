@@ -1,8 +1,9 @@
 """Sampler frontend: configuration, the Posterior and `sample` —
 counterpart of ``stark_tpu/sampler.py``.
 
-This slice ports the ChEES ensemble sampler; ``sample(kernel="chees")``
-routes to `chees.run_chees`.  NUTS and HMC arrive with their own slice.
+The ChEES ensemble sampler is ported; ``sample(kernel="chees")`` runs
+`backends.CudaBackend.run`, which calls `chees.run_chees`.  NUTS and HMC
+arrive with their own slice.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from . import diagnostics
-from ._device import DeviceLike, resolve_device
+from ._device import DeviceLike
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,18 +99,9 @@ def sample(
 
     Only ``kernel="chees"`` is ported so far.
     """
-    cfg = SamplerConfig(**cfg_kwargs)
-    if cfg.kernel != "chees":
-        raise NotImplementedError(
-            f"kernel={cfg.kernel!r} is not ported yet: NUTS and HMC are "
-            "ROADMAP item A8; use kernel='chees'"
-        )
-    from .chees import run_chees
-    from .model import flatten_model, prepare_model_data
+    from .backends import CudaBackend
 
-    dev = resolve_device(device)
-    data = prepare_model_data(model, data, dev)
-    return run_chees(
-        flatten_model(model), cfg, data, chains=chains, seed=seed,
-        init_params=init_params, device=dev,
+    return CudaBackend(device).run(
+        model, data, SamplerConfig(**cfg_kwargs), chains=chains, seed=seed,
+        init_params=init_params,
     )

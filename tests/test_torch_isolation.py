@@ -12,7 +12,13 @@ import pytest
 import torch
 
 import stark_tpu_torch
-from stark_tpu_torch import chees_sample, prepare_model_data, sample
+from stark_tpu_torch import (
+    chees_sample,
+    prepare_model_data,
+    sample,
+    sample_until_converged,
+    supervised_sample,
+)
 from stark_tpu_torch.models import (
     FusedHierLogisticGrouped,
     FusedLinearMixedModelGrouped,
@@ -33,7 +39,10 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
     code = (
         "import sys, stark_tpu_torch, stark_tpu_torch.interop, "
         "stark_tpu_torch.ops.hier_fused, stark_tpu_torch.ops.logistic_fused, "
-        "stark_tpu_torch.models, stark_tpu_torch.models.lmm, stark_tpu_torch._build\n"
+        "stark_tpu_torch.models, stark_tpu_torch.models.lmm, stark_tpu_torch._build, "
+        "stark_tpu_torch.runner, stark_tpu_torch.supervise, stark_tpu_torch.checkpoint, "
+        "stark_tpu_torch.drawstore, stark_tpu_torch.backends, "
+        "stark_tpu_torch.backends.cuda_backend\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'stark_tpu'))\n"
         "print(','.join(bad))\n"
@@ -90,6 +99,21 @@ def test_entry_points_raise_without_a_card(monkeypatch, family):
     # explicit CPU is the one way to run here
     data = prepare_model_data(model, raw, device="cpu")
     assert data["xT"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("family", list(_ENTRY_MODELS))
+def test_runner_entry_points_raise_without_a_card(monkeypatch, tmp_path, family):
+    """The adaptive runner and the supervisor take the card by default
+    too, and raise before they write anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model, raw = _ENTRY_MODELS[family]()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sample_until_converged(model, raw, chains=2, num_warmup=2, max_blocks=1,
+                               metrics_path=str(tmp_path / "m.jsonl"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        supervised_sample(model, raw, workdir=str(tmp_path / "w"), chains=2, num_warmup=2,
+                          max_blocks=1)
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_unported_kernels_raise():
