@@ -69,12 +69,33 @@ Phases, in order; any failure exits non-zero (none is caught):
                 attempt faulted after block 1's checkpoint; one restart
                 record, and the resumed draws bitwise equal to the
                 uninterrupted ones
- 12. profile  — one ensemble gradient evaluation of each sampled path at
+ 12. nuts     — NUTS and HMC, the per-chain samplers (ROADMAP A8), at the
+                flagship's full width with 8 chains, four legs, each with
+                its launch counts: nuts_offset, the reference bench's NUTS
+                leg (bench.py:410-415, :485-487) through sample() on
+                FusedHierLogistic (B2 with offsets), tree depth 6, 100
+                warmup and 100 draws (the bench: 200 and 200);
+                nuts_grouped, the same on FusedHierLogisticGrouped (B1);
+                hmc_grouped, HMC with 32 leapfrog steps, 50 warmup and 50
+                draws (B1); nuts_runner, NUTS through supervised_sample
+                (warmup 50, 3 blocks of 20), whole and then faulted after
+                block 1's checkpoint,
+                the resumed draws bitwise equal.  Each leg prints, beside
+                the card's name and power limit, its wall with set-up,
+                evaluations and launches (equal, or the phase fails), ms
+                per evaluation, tree depth, leaves per transition, lane
+                use (the chains' own gradient evaluations over C x the
+                ensemble evaluations of sampling), divergences, split
+                R-hat, bulk ESS and ESS/s, step sizes and peak device
+                memory; a NUTS leg also profiles three transitions at its
+                final state.  The times phase also times B1 and B2 with
+                offsets at the legs' C=8
+ 13. profile  — one ensemble gradient evaluation of each sampled path at
                 its final state: host-clock time per evaluation, and under
                 torch.profiler the device time by kernel and the share of
                 the window the device sat idle
-Each path (and each runner leg) sets every launch count to 0 just
-before it and reads them just after.  Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and
+Each path (and each runner and NUTS leg) sets every launch count to 0
+just before it and reads them just after.  Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and
 the last line ``{"ok": true, "device": {...}}``.
 
 ``--cpu-rehearsal`` walks the same phases on the CPU at a tiny size with
@@ -126,6 +147,8 @@ N_FULL, N_RAGGED = 1_000_000, 1_000_037
 LMM_D, LMM_G, LMM_Q = 8, 10_000, 2
 LMM_N_FULL, LMM_N_RAGGED = 100_000, 100_037
 LMM_CHAINS = 16
+# the per-chain samplers' chain count (bench.py:412, its NUTS leg)
+NUTS_CHAINS = 8
 
 # B2's edge cases (N, D, C): chain and feature counts off the 32-chain and
 # 32-feature chunks; N below one 128-row sub-tile and N = 1, 2, 3 (mod 4),
@@ -185,6 +208,10 @@ class Run:
             self.lmm_off_budget = dict(map_init_steps=5, num_warmup=20, num_samples=5)
             self.runner_budget = dict(map_init_steps=10, num_warmup=30, block_size=10, max_blocks=5)
             self.resume_budget = dict(map_init_steps=5, num_warmup=20, block_size=10, max_blocks=3)
+            self.nuts_budget = dict(max_tree_depth=4, num_warmup=20, num_samples=10)
+            self.hmc_budget = dict(num_leapfrog=8, num_warmup=20, num_samples=10)
+            self.nuts_runner_budget = dict(max_tree_depth=4, num_warmup=20, block_size=10,
+                                           max_blocks=3)
         else:
             self.n_full, self.n_ragged = N_FULL, N_RAGGED
             self.lmm_n_full, self.lmm_n_ragged, self.lmm_g = LMM_N_FULL, LMM_N_RAGGED, LMM_G
@@ -197,6 +224,12 @@ class Run:
             self.runner_budget = dict(map_init_steps=500, num_warmup=400, block_size=100,
                                       max_blocks=5)
             self.resume_budget = dict(map_init_steps=50, num_warmup=60, block_size=20, max_blocks=3)
+            # the reference bench's NUTS leg (bench.py:410-415): 8 chains,
+            # tree depth 6; its 200 warmup and 200 samples cut to 100 each
+            self.nuts_budget = dict(max_tree_depth=6, num_warmup=100, num_samples=100)
+            self.hmc_budget = dict(num_leapfrog=32, num_warmup=50, num_samples=50)
+            self.nuts_runner_budget = dict(max_tree_depth=6, num_warmup=50, block_size=20,
+                                           max_blocks=3)
         self.t0 = time.perf_counter()
         self.kernels = {}
         self.last_z = {}
@@ -593,7 +626,40 @@ def phase_parity_and_times(run: Run, flag, lmm):
             f"B2 at C=1 {b2_ms:.4f} ms, {fmt_bound(entry)}")
         if not with_off:  # the public op's configuration
             run.kernels["B3"] = entry
+    run.c8 = times_at_nuts_chains(run, full, gen)
     log("  library_ms: none (no single PyTorch call computes these functions)")
+
+
+def times_at_nuts_chains(run: Run, full, gen):
+    """B1 and B2 with offsets at the per-chain samplers' C=8 on the
+    flagship X: each against its plain version, timed beside it, with its
+    bound."""
+    from stark_tpu_torch.ops import hier_fused as hf
+    from stark_tpu_torch.ops import logistic_fused as lf
+
+    out = {}
+    c, n = NUTS_CHAINS, full["y"].shape[0]
+    args, _ = _grouped_inputs(run, full, c, gen)
+    beta, alpha, xT, y, gl, fg, _ = args
+    err = compare(f"B1 C={c} N={n}", hf.hier_grouped(*args), hf.hier_grouped_plain(*args))
+    e = bound(4 * (xT.numel() + y.numel() + gl.numel() + fg.numel() + 2 * alpha.numel()
+                   + 2 * beta.numel() + c), 4 * c * D * n)
+    e.update(max_abs_err=err, ms=timed(run, lambda: hf.hier_grouped(*args), 50),
+             plain_ms=timed(run, lambda: hf.hier_grouped_plain(*args), 10))
+    out["B1"] = e
+    bargs = _batched_inputs(run, full, c, gen, True)
+    beta, xT, y, off = bargs
+    err = compare(f"B2 bernoulli_logit C={c} offsets=True N={n}",
+                  lf.logistic_batched(*bargs), lf.logistic_batched_plain(*bargs))
+    e = bound(4 * (xT.numel() + y.numel() + 2 * beta.numel() + c + 2 * off.numel()),
+              4 * c * D * n)
+    e.update(max_abs_err=err, ms=timed(run, lambda: lf.logistic_batched(*bargs), 50),
+             plain_ms=timed(run, lambda: lf.logistic_batched_plain(*bargs), 10))
+    out["B2 offsets"] = e
+    for k, e in out.items():
+        log(f"  {k} C={c} (the NUTS legs' chain count): {e['ms']:.4f} ms, plain "
+            f"{e['plain_ms']:.4f} ms, {fmt_bound(e)}")
+    return out
 
 
 def b2_edge_inputs(n, d, c, link, gen, dev):
@@ -1098,6 +1164,247 @@ def phase_runner(run: Run, full):
     return res
 
 
+def _nuts_leg(run: Run, fn):
+    """One leg of the NUTS phase: counts to 0 just before, read just
+    after, the peak device memory between; returns (result, wall
+    seconds, launches, peak MiB)."""
+    run.sync()
+    if not run.rehearsal:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    out = fn()
+    run.sync()
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20 if not run.rehearsal else float("nan")
+    return out, wall, launches, peak
+
+
+def _check_leg_launches(run: Run, label, counted, launches, evals):
+    """The counted kernel launched once per ensemble evaluation and no
+    other kernel; its launches go into the kernels line."""
+    if run.rehearsal:
+        return
+    assert launches[counted] > 0, f"{counted} was never launched on the {label} leg"
+    assert launches[counted] == evals, (label, launches, evals)
+    others = {k: v for k, v in launches.items() if k != counted and v}
+    assert not others, f"{others} launched on the {label} leg"
+    run.kernels[counted]["launches"] = run.kernels[counted].get("launches", 0) + launches[counted]
+
+
+def _leg_line(run: Run, label, res):
+    log(f"  {label} [{getattr(run, 'smi', 'cpu rehearsal')}]: wall {res['wall_s']:.2f} s with "
+        f"set-up; ensemble evaluations {res['evals']} (warmup {res['warmup_evals']}), launches "
+        f"{res['launches']}; {res['ms_per_eval']:.4f} ms per evaluation")
+    depth = (f"tree depth mean {res['mean_depth']:.3f} max {res['max_depth']}; "
+             if res.get("mean_depth") is not None else "")
+    log(f"  {label}: {depth}leaves per transition {res['leaves_per_transition']:.2f}; lane use "
+        f"{res['lane_use']:.4f}; divergences {res['divergences']} (warmup "
+        f"{res['warmup_divergences']}); max split R-hat {res['max_split_rhat']:.4f}; min bulk ESS "
+        f"{res['min_bulk_ess']:.1f}; ESS/s {res['ess_per_s']:.4f}; step size mean "
+        f"{res['step_size_mean']:.5g} (min {res['step_size_min']:.5g}, max "
+        f"{res['step_size_max']:.5g}); peak device memory {res['peak_mib']:.1f} MiB")
+
+
+def phase_nuts(run: Run, full):
+    """NUTS and HMC, the per-chain samplers, at the flagship's full width
+    with 8 chains: the reference bench's NUTS leg (bench.py:485-487,
+    :795-797) through sample() on the offset model (B2 with offsets) and
+    the grouped one (B1), HMC on the grouped one, and the adaptive runner
+    with NUTS under supervision, whole and resumed from a fault after
+    block 1's checkpoint (bitwise equal)."""
+    from stark_tpu_torch import diagnostics, runner, sample, supervised_sample
+    from stark_tpu_torch.kernels.nuts import tree_depth_from_leaves
+    from stark_tpu_torch.models import FusedHierLogistic, FusedHierLogisticGrouped
+
+    dev = {"device": "cpu"} if run.rehearsal else {}
+    out = {}
+    for label, model_cls, counted, kw in (
+        ("nuts_offset", FusedHierLogistic, "B2", dict(kernel="nuts", **run.nuts_budget)),
+        ("nuts_grouped", FusedHierLogisticGrouped, "B1", dict(kernel="nuts", **run.nuts_budget)),
+        ("hmc_grouped", FusedHierLogisticGrouped, "B1", dict(kernel="hmc", **run.hmc_budget)),
+    ):
+        log(f"== NUTS phase, leg {label}: sample({model_cls.__name__}({D}, {G})), N={run.n_full}, "
+            f"chains={NUTS_CHAINS}, {kw}")
+        post, wall, launches, peak = _nuts_leg(run, lambda: sample(
+            model_cls(D, G), full, chains=NUTS_CHAINS, seed=0, **kw, **dev))
+        st = post.sample_stats
+        evals = int(st["num_ensemble_grad_evals"])
+        warm = int(st["num_warmup_ensemble_grad_evals"])
+        _check_leg_launches(run, label, counted, launches, evals)
+        draws = post.draws_flat
+        assert draws.shape[:2] == (NUTS_CHAINS, kw["num_samples"]), draws.shape
+        assert np.all(np.isfinite(draws)), f"non-finite draws on the {label} leg"
+        ngrad = np.asarray(st["num_grad_evals"])
+        bulk = float(np.min(diagnostics.ess_bulk(draws)))
+        depth = tree_depth_from_leaves(ngrad) if kw["kernel"] == "nuts" else None
+        res = dict(
+            wall_s=wall, evals=evals, warmup_evals=warm, launches=launches, peak_mib=peak,
+            ms_per_eval=1e3 * wall / evals,
+            mean_depth=float(depth.mean()) if depth is not None else None,
+            max_depth=int(depth.max()) if depth is not None else None,
+            leaves_per_transition=float(ngrad.mean()),
+            lane_use=float(ngrad.sum()) / (NUTS_CHAINS * (evals - warm)),
+            divergences=int(post.num_divergent),
+            warmup_divergences=int(np.sum(st["num_warmup_divergent"])),
+            max_split_rhat=float(np.max(diagnostics.split_rhat(draws))), min_bulk_ess=bulk,
+            ess_per_s=bulk / wall, step_size_mean=float(np.mean(st["step_size"])),
+            step_size_min=float(np.min(st["step_size"])),
+            step_size_max=float(np.max(st["step_size"])),
+        )
+        _leg_line(run, label, res)
+        if kw["kernel"] == "nuts":
+            res["profile"] = profile_nuts_transitions(run, model_cls(D, G), full, post, label)
+        out[label] = res
+
+    root = REPO / "build" / "chip_smoke_nuts"
+    shutil.rmtree(root, ignore_errors=True)
+    budget = dict(run.nuts_runner_budget, kernel="nuts", chains=NUTS_CHAINS, seed=0,
+                  rhat_target=0.0, **dev)
+    log(f"== NUTS phase, leg nuts_runner: supervised_sample(FusedHierLogisticGrouped({D}, {G})), "
+        f"N={run.n_full}, {budget}, whole and then faulted after block 1's checkpoint")
+    whole, wall, launches, peak = _nuts_leg(run, lambda: supervised_sample(
+        FusedHierLogisticGrouped(D, G), full, workdir=str(root / "whole"), **budget))
+    evals = int(whole.sample_stats["num_ensemble_grad_evals"])
+    _check_leg_launches(run, "nuts_runner", "B1", launches, evals)
+    recs = [json.loads(line) for line in open(root / "whole" / "metrics.jsonl")]
+    (warm,) = [r for r in recs if r["event"] == "warmup_done"]
+    draws = whole.draws_flat
+    assert np.all(np.isfinite(draws)), "non-finite draws on the nuts_runner leg"
+    assert draws.shape[:2] == (NUTS_CHAINS, budget["block_size"] * budget["max_blocks"])
+    assert all(r["grad_eval_basis"] == "tree_leaves" for r in whole.history)
+    # the initial state's evaluation and the step-size search and warmup
+    warm_evals = 1 + warm["warmup_grad_evals"] // NUTS_CHAINS
+    leaves = sum(r["block_grad_evals"] for r in whole.history)
+    bulk = float(np.min(diagnostics.ess_bulk(draws)))
+    lengths = np.diff([0] + [r["draws_per_chain"] for r in whole.history])
+    res = dict(
+        wall_s=wall, evals=evals, warmup_evals=warm_evals, launches=launches, peak_mib=peak,
+        ms_per_eval=1e3 * wall / evals,
+        mean_depth=float(np.average([r["tree_depth_mean"] for r in whole.history],
+                                    weights=lengths)),
+        max_depth=max(r["tree_depth_max"] for r in whole.history),
+        leaves_per_transition=leaves / draws.shape[0] / draws.shape[1],
+        lane_use=leaves / (NUTS_CHAINS * (evals - warm_evals)),
+        divergences=int(whole.num_divergent), warmup_divergences=int(warm["num_divergent"]),
+        max_split_rhat=float(np.max(diagnostics.split_rhat(draws))), min_bulk_ess=bulk,
+        ess_per_s=bulk / wall, step_size_mean=float(np.mean(warm["step_size"])),
+        step_size_min=float(np.min(warm["step_size"])),
+        step_size_max=float(np.max(warm["step_size"])),
+        setup_s=warm["t_setup_s"], init_s=warm["t_map_s"], warmup_s=warm["t_warmup_s"],
+    )
+    _leg_line(run, "nuts_runner (whole)", res)
+    real = runner.sample_until_converged
+    attempts = []
+
+    def faulted(model, data=None, **kw):
+        # the first attempt stops after block 1's checkpoint (a zero time
+        # budget), then faults
+        attempts.append(kw.get("resume_from"))
+        if len(attempts) == 1:
+            first = real(model, data, **dict(kw, time_budget_s=0.0))
+            attempts.append(int(first.sample_stats["num_ensemble_grad_evals"]))
+            raise RuntimeError("fault injected after block 1's checkpoint")
+        return real(model, data, **kw)
+
+    runner.sample_until_converged = faulted
+    try:
+        resumed, rwall, launches, _ = _nuts_leg(run, lambda: supervised_sample(
+            FusedHierLogisticGrouped(D, G), full, workdir=str(root / "faulted"),
+            reseed_on_restart=False, **budget))
+    finally:
+        runner.sample_until_converged = real
+    assert attempts[0] is None and attempts[2] is not None, attempts
+    _check_leg_launches(run, "nuts_runner (resume)", "B1", launches,
+                        attempts[1] + int(resumed.sample_stats["num_ensemble_grad_evals"]))
+    restarts = [json.loads(line) for line in open(root / "faulted" / "metrics.jsonl")]
+    restarts = [r for r in restarts if r["event"] == "restart"]
+    assert len(restarts) == 1, restarts
+    same = np.array_equal(resumed.draws_flat, whole.draws_flat)
+    log(f"  nuts_runner (resume): wall {rwall:.2f} s, launches {launches}; one restart record "
+        f"({restarts[0]['error']}); resumed draws {resumed.draws_flat.shape} bitwise equal to "
+        f"the whole run's: {'yes' if same else 'no'}")
+    assert same, "the resumed NUTS draws differ from the whole run's"
+    res["resume"] = dict(wall_s=rwall, restarts=len(restarts), bitwise_equal=same)
+    out["nuts_runner"] = res
+    return out
+
+
+def device_rows(fn):
+    """Run ``fn`` under torch.profiler -> (window ms on the host clock,
+    [(device ms, launches, kernel name)] of every CUDA kernel, largest
+    first).  Only CUDA rows are summed: an operator's row repeats the
+    time of the kernels it launched."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window = 1e3 * (time.perf_counter() - t)
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        rows.append((dev_us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    return window, rows
+
+
+def profile_nuts_transitions(run: Run, model, raw, post, label, reps=3):
+    """Where a NUTS leaf's time goes: ``reps`` transitions from the leg's
+    last draws at its adapted step sizes and metric, on the host clock
+    and then under torch.profiler (device time by kernel, launches and
+    the idle share per ensemble evaluation)."""
+    from stark_tpu_torch import prepare_model_data
+    from stark_tpu_torch.kernels.base import init_state
+    from stark_tpu_torch.kernels.chees import TorchNoise
+    from stark_tpu_torch.kernels.nuts import nuts_step
+    from stark_tpu_torch.model import flatten_model
+
+    pot = flatten_model(model).bind(prepare_model_data(model, raw, device=run.dev))
+    st = post.sample_stats
+    state = init_state(pot, torch.as_tensor(post.draws_flat[:, -1], device=run.dev))
+    step = torch.as_tensor(st["step_size"], device=run.dev)[:, None]
+    mass = torch.as_tensor(st["inv_mass_diag"], device=run.dev)
+    noise = TorchNoise(torch.Generator(device=run.dev).manual_seed(11))
+    depth = run.nuts_budget["max_tree_depth"]
+
+    def transitions():
+        n = 0
+        for _ in range(reps):
+            _, info = nuts_step(noise, state, pot, step, mass, depth)
+            n += info.num_ensemble_grad_evals
+        return n
+
+    transitions()
+    run.sync()
+    t = time.perf_counter()
+    evals = transitions()
+    run.sync()
+    per_eval = 1e3 * (time.perf_counter() - t) / evals
+    log(f"  profile {label}: {reps} NUTS transitions, {evals} ensemble evaluations, "
+        f"{per_eval:.4f} ms each (host clock)")
+    if run.rehearsal:
+        return dict(eval_ms=per_eval)
+    counted = {}
+    window, rows = device_rows(lambda: counted.setdefault("evals", transitions()))
+    evals = counted["evals"]
+    busy = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows) / evals
+    log(f"  profile {label}: window {window:.3f} ms for {evals} evaluations (profiler on); "
+        f"kernels {busy:.3f} ms, {busy / evals:.4f} ms and {launches:.1f} launches per "
+        f"evaluation; idle share {1 - busy / window:.4f}")
+    for ms, count, key in rows[:6]:
+        log(f"    {ms / evals:9.4f} ms/eval  x{count / evals:<5.1f} {key[:90]}")
+    return dict(eval_ms=per_eval, window_ms=window, kernel_ms_per_eval=busy / evals,
+                launches_per_eval=launches, idle_share=1 - busy / window,
+                top=[(r[2][:60], r[0] / evals) for r in rows[:5]])
+
+
 def phase_profile(run: Run, model, raw, label):
     """Where an ensemble gradient evaluation's time goes, at the state
     the path's run ended in."""
@@ -1119,25 +1426,8 @@ def phase_profile(run: Run, model, raw, label):
         f"evaluation (host clock, {reps} evaluations)")
     if run.rehearsal:
         return dict(eval_ms=per_eval)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     reps = 10
-    with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        for _ in range(reps):
-            pot.value_and_grad(z)
-        torch.cuda.synchronize()
-        window = 1e3 * (time.perf_counter() - t)
-    # device time of the kernels alone: an operator's row repeats the
-    # time of the kernels it launched, so only CUDA rows are summed
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        rows.append((dev_us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
+    window, rows = device_rows(lambda: [pot.value_and_grad(z) for _ in range(reps)])
     busy = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows) / reps
     log(f"  window {window:.3f} ms for {reps} evaluations (profiler on); kernels "
@@ -1269,6 +1559,7 @@ def main(argv=None) -> int:
                                      run.lmm_off_budget, counted="B2g"),
         "single_path": phase_single(run, full),
         "runner_path": phase_runner(run, full),
+        "nuts_path": phase_nuts(run, full),
     }
     prof = {
         label: phase_profile(run, model, raw, label)
@@ -1290,7 +1581,7 @@ def main(argv=None) -> int:
         log(f"== runner path: {rp['evals']} evaluations x {per_eval:.4f} ms of kernels each = "
             f"{busy:.1f} s busy of {rp['wall_s']:.1f} s wall: idle share {rp['idle_share_derived']:.4f}")
     log(f"== done in {run.elapsed():.1f} s")
-    log(json.dumps({**paths, "profile": prof}))
+    log(json.dumps({**paths, "profile": prof, "times_c8": run.c8}))
     if run.rehearsal:
         log(json.dumps({"rehearsal": True, "ok": True}))
         return 0

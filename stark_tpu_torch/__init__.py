@@ -1,8 +1,9 @@
 """stark_tpu_torch — the PyTorch/CUDA port of ``stark_tpu`` for one H100.
 
-Parallel-chain ChEES-HMC over a model's log-posterior, with the
-likelihood hot path in hand-written CUDA kernels for Hopper
-(``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use).  The
+Parallel-chain NUTS (the default, as in the JAX package), HMC and the
+ChEES-HMC ensemble over a model's log-posterior, with the likelihood hot
+path in hand-written CUDA kernels for Hopper (``csrc/``, built with
+``nvcc`` for ``sm_90a`` at first use).  The
 module names follow the JAX package so each counterpart is easy to
 find; inside, the idiom is PyTorch: plain functions on tensors, an
 explicit ``device`` argument, explicit ``torch.Generator`` streams and a

@@ -1,9 +1,14 @@
-"""Warmup adaptation: dual-averaging step size, Welford variance and the
-Stan windowed schedule — counterpart of ``stark_tpu/adaptation.py``.
+"""Warmup adaptation: dual-averaging step size, Welford variance, the
+Stan windowed schedule and the initial step-size search — counterpart
+of ``stark_tpu/adaptation.py``.
 
-Scalars live in 0-d float32 tensors on the run's device, like the
+Adaptation state lives in tensors on the run's device, like the
 reference's float32 arrays, so the adaptation arithmetic matches it and
-the host reads nothing back per step.
+its per-step updates read nothing back to the host: 0-d for ChEES's ensemble-shared
+state, (C,) step sizes and (C, d) Welford moments for the per-chain
+kernels (NUTS, HMC), which adapt every chain on its own as the
+reference's ``vmap`` does.  The step counts are host ints: the schedule
+flags are shared by every chain, so every chain's count is the same.
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from .kernels.base import guarded_leapfrog_step, kinetic_energy, sample_momentum
 
 
 class DualAveragingState(NamedTuple):
@@ -59,7 +66,9 @@ class WelfordState(NamedTuple):
     m2: torch.Tensor
 
 
-def welford_init(d: int, device, dtype=torch.float32) -> WelfordState:
+def welford_init(d, device, dtype=torch.float32) -> WelfordState:
+    """Zero moments of shape ``d``: (d,) for one accumulator, (C, d) for
+    one per chain."""
     return WelfordState(
         count=0,
         mean=torch.zeros(d, device=device, dtype=dtype),
@@ -119,3 +128,49 @@ def build_warmup_schedule(
         start = stop
         w *= 2
     return WarmupSchedule(adapt_mass, window_end)
+
+
+# --------------------------------------------------------------------------
+# Reasonable initial step size (Hoffman & Gelman Alg. 4), every chain at once
+# --------------------------------------------------------------------------
+
+
+def find_reasonable_step_size(noise, potential_fn, z, pe, grad, inv_mass_diag,
+                              init_step_size: float = 1.0):
+    """Per-chain step sizes (C,) from ``init_step_size`` by doubling or
+    halving until one leapfrog step's acceptance crosses 1/2 (at most 64
+    times), and the ensemble evaluations it made.
+
+    The JAX package runs one chain's ``while_loop`` under ``vmap``; here
+    the C chains move together: each round is one ensemble evaluation at
+    every chain's current step, a chain that has stopped keeps its step,
+    and the loop ends when no chain goes on (one host read per round).
+    The momentum is one normal draw from ``noise``."""
+    C = z.shape[0]
+    r0 = sample_momentum(noise, C, inv_mass_diag)
+    energy0 = pe + kinetic_energy(r0, inv_mass_diag)
+    live = torch.ones(C, dtype=torch.bool, device=z.device)
+
+    def accept_logprob(step):
+        _, r, _, pe1 = guarded_leapfrog_step(
+            potential_fn, z, r0, grad, step[:, None], inv_mass_diag, live, z
+        )
+        delta = energy0 - (pe1 + kinetic_energy(r, inv_mass_diag))
+        return torch.where(torch.isnan(delta), torch.full_like(delta, float("-inf")), delta)
+
+    log2 = torch.log(torch.tensor(2.0, dtype=z.dtype, device=z.device))
+    step = torch.full((C,), init_step_size, dtype=z.dtype, device=z.device)
+    lp = accept_logprob(step)
+    direction = torch.where(lp > -log2, 1.0, -1.0).to(z.dtype)
+    factor = torch.exp(direction * log2)
+    count = 0
+    evals = 1
+    # the first round's test reads the initial step's own acceptance
+    going = torch.where(direction > 0, lp > -log2, lp <= -log2)
+    while count < 64 and bool(going.any()):
+        step = torch.where(going, step * factor, step)
+        count += 1
+        lp = accept_logprob(step)
+        evals += 1
+        going = going & torch.where(direction > 0, lp > -log2, lp <= -log2)
+    return step, evals

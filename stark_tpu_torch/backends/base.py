@@ -12,45 +12,65 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple, Optional, Protocol, runtime_checkable
 
 
+class Block(NamedTuple):
+    """One block of sampling transitions, on the host."""
+
+    zs: Any  # (chains, n, d) draws
+    accept: Any  # acceptance statistics
+    divergent: Any  # divergence flags
+    evals: int  # ensemble gradient evaluations (likelihood kernel launches)
+    grads: int  # gradient evaluations in per-chain units
+    record: Dict[str, Any]  # the sampler's fields of the block record
+
+
 class AdaptiveParts(NamedTuple):
-    """What a backend hands the adaptive runner.  The runner owns the
-    schedule, blocks, diagnostics and checkpoints; the backend owns
-    placement and the segment callables.
+    """What a backend hands the adaptive runner, with one signature for
+    every sampler.  The runner owns the schedule, blocks, diagnostics and
+    checkpoints; the backend owns placement and the segment callables.
 
-      fm / data    flat model + the data prepared once, on the device
-      extra        () or (data,) — trailing args of every segment call
-      put_chains   place a host (chains, ...) array on the device
-      put_rep      place a host array shared by the ensemble
-      collect      tensor pytree -> host numpy
-      chees        `chees.CheesParts` (schedule, finalize) for kernel="chees"
-      init_j       init_j(z0, *extra) -> CheesWarmCarry (MAP descent included)
-      warm_j       warm_j(carry, noise, us, idxs, aflags, wflags, *extra)
-                   -> (carry, (divergences, leapfrogs))
-      samp_j       samp_j(carry, noise, us, *extra) -> (carry, outs)
-      samp_diag    samp_diag(carry, diag, noise, us, *extra)
-                   -> (carry, diag, outs): samp_j plus the streaming-
-                   diagnostics accumulator
-      seg_warmup, get_block   the per-chain kernels' parts (ROADMAP A8);
-                   None here
+      fm / data       flat model + the data prepared once, on the device
+      extra           () or (data,) — trailing args of every segment call
+      put_chains      place a host (chains, ...) array on the device
+      collect         tensor pytree -> host numpy
+      init_positions  init_positions(generator, chains, init_params) -> z0
+      init_j          init_j(noise, z0, *extra) -> (warmup carry, the
+                      evaluations after the initial state's: ChEES's MAP
+                      steps, NUTS's and HMC's step-size search)
+      warm_j          warm_j(carry, noise, start, stop, *extra) -> (carry,
+                      divergences, evaluations): warmup schedule steps
+                      [start, stop)
+      finalize        warmup carry -> sampling carry
+      samp_j          samp_j(carry, diag, noise, start, length, *extra) ->
+                      (carry, diag, Block): sampling transitions
+                      [start, start + length); ``diag`` is the
+                      streaming-diagnostics accumulator or None
+      warm_arrays     warmup carry -> host arrays of a warmup checkpoint
+      warm_carry      those arrays -> the warmup carry, on the device
+      run_arrays      sampling carry -> host arrays of a sampling
+                      checkpoint (z, pe, grad, step_size, inv_mass, ...)
+      run_carry       those arrays -> the sampling carry, on the device
 
-    The JAX package's ``samp_diag`` is a factory of donated or plain
-    jitted variants; PyTorch runs eagerly and donates nothing, so here it
-    is the segment callable itself.
+    ``noise`` is a `kernels.chees.TorchNoise`: the warmup stream for
+    init_j and warm_j, the sampling stream for samp_j.  The JAX package's
+    ``samp_diag`` is a factory of donated or plain jitted variants;
+    PyTorch runs eagerly and donates nothing, so here ``samp_j`` takes
+    the accumulator itself.
     """
 
     fm: Any
     data: Any
     extra: tuple
     put_chains: Any
-    put_rep: Any
     collect: Any
-    chees: Any = None
-    init_j: Any = None
-    warm_j: Any = None
-    samp_j: Any = None
-    samp_diag: Any = None
-    seg_warmup: Any = None
-    get_block: Any = None
+    init_positions: Any
+    init_j: Any
+    warm_j: Any
+    finalize: Any
+    samp_j: Any
+    warm_arrays: Any
+    warm_carry: Any
+    run_arrays: Any
+    run_carry: Any
 
 
 @runtime_checkable

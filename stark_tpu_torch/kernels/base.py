@@ -3,7 +3,11 @@
 
 State lives on flat unconstrained vectors with a leading chain axis:
 z (C, d), potential energy (C,), gradient (C, d).  The inverse mass
-matrix is a diagonal (d,) shared by the ensemble.
+matrix is a diagonal: (d,) shared by the ensemble (ChEES) or (C, d), one
+per chain (NUTS, HMC).  A step size is a scalar shared by the ensemble or
+a (C, 1) column, one per chain; a negative step integrates backwards in
+time (NUTS's leftward doublings).  Both forms broadcast through the same
+arithmetic, so the shared form computes bitwise what it always did.
 
 Also home to the streaming-diagnostics accumulator (`StreamDiagState`,
 `stream_diag_update`): Welford-style moments and fixed-lag
@@ -102,6 +106,27 @@ class HMCState(NamedTuple):
     grad: torch.Tensor  # (C, d)
 
 
+class HMCInfo(NamedTuple):
+    """Per-chain transition statistics of NUTS and HMC, (C,) each, and
+    the ensemble evaluations the transition made."""
+
+    accept_prob: torch.Tensor  # mean MH accept prob (dual-averaging signal)
+    is_accepted: torch.Tensor
+    is_divergent: torch.Tensor
+    energy: torch.Tensor  # H at the accepted state
+    num_grad_evals: torch.Tensor  # this chain's gradient evaluations (int32)
+    # (C, d)-batch potential-gradient evaluations of the transition, a host
+    # int: every chain's leapfrog of one step is one evaluation (one
+    # likelihood kernel launch), whether or not the chain still moves
+    num_ensemble_grad_evals: int
+
+
+def init_state(potential_fn, z: torch.Tensor) -> HMCState:
+    """The (C, d) state with one potential-gradient evaluation."""
+    pe, grad = potential_fn.value_and_grad(z)
+    return HMCState(z=z, potential_energy=pe, grad=grad)
+
+
 def kinetic_energy(r: torch.Tensor, inv_mass_diag: torch.Tensor) -> torch.Tensor:
     """0.5 r^T M^-1 r per chain: r (C, d) -> (C,)."""
     return 0.5 * torch.sum(inv_mass_diag * r * r, dim=-1)
@@ -110,7 +135,7 @@ def kinetic_energy(r: torch.Tensor, inv_mass_diag: torch.Tensor) -> torch.Tensor
 def sample_momentum(noise, chains: int, inv_mass_diag: torch.Tensor) -> torch.Tensor:
     """r ~ N(0, M), M = diag(1 / inv_mass_diag), for ``chains`` chains;
     the standard normals come from ``noise.normal``."""
-    eps = noise.normal((chains, inv_mass_diag.shape[0]))
+    eps = noise.normal((chains, inv_mass_diag.shape[-1]))
     return eps * torch.rsqrt(inv_mass_diag)
 
 
@@ -120,4 +145,48 @@ def leapfrog_step(potential_fn, z, r, grad, step_size, inv_mass_diag):
     z = z + step_size * (inv_mass_diag * r)
     pe, grad = potential_fn.value_and_grad(z)
     r = r - 0.5 * step_size * grad
+    return z, r, grad, pe
+
+
+def guarded_value_and_grad(potential_fn, z, live, z_hold):
+    """The potential and gradient of the (C, d) batch ``z`` where the
+    kernel only ever sees finite positions.
+
+    Rows that are not ``live`` (a chain whose trajectory has ended, whose
+    result the caller discards) and rows that left the finite numbers (a
+    diverging step) are evaluated at ``z_hold`` instead, a finite
+    position of the same chain; a live row that left the finite numbers
+    then reads potential and gradient NaN, which is what evaluating it
+    would give and what the divergence test turns into +inf."""
+    finite = torch.isfinite(z).all(dim=-1)
+    pe, grad = potential_fn.value_and_grad(
+        torch.where((live & finite)[:, None], z, z_hold)
+    )
+    bad = live & ~finite
+    nan = torch.full_like(pe, float("nan"))
+    return torch.where(bad, nan, pe), torch.where(bad[:, None], nan[:, None], grad)
+
+
+def guarded_leapfrog_step(potential_fn, z, r, grad, step_size, inv_mass_diag, live, z_hold):
+    """`leapfrog_step` through `guarded_value_and_grad`: the per-chain
+    kernels' integrator (ChEES keeps the unguarded one)."""
+    r = r - 0.5 * step_size * grad
+    z = z + step_size * (inv_mass_diag * r)
+    pe, grad = guarded_value_and_grad(potential_fn, z, live, z_hold)
+    r = r - 0.5 * step_size * grad
+    return z, r, grad, pe
+
+
+def leapfrog(potential_fn, z, r, grad, step_size, inv_mass_diag, num_steps: int):
+    """Velocity-Verlet for a fixed ``num_steps`` steps (HMC), one ensemble
+    evaluation each.  A chain that leaves the finite numbers goes on as
+    NaN, as it would in the JAX package, but the kernel is handed the
+    chain's start for it."""
+    z_hold = z
+    live = torch.ones(z.shape[0], dtype=torch.bool, device=z.device)
+    pe = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
+    for _ in range(num_steps):
+        z, r, grad, pe = guarded_leapfrog_step(
+            potential_fn, z, r, grad, step_size, inv_mass_diag, live, z_hold
+        )
     return z, r, grad, pe

@@ -1,6 +1,8 @@
-"""Model zoo of the port: the flagship hierarchical logistic family and
-the hierarchical linear mixed model (BASELINE config 3)."""
+"""Model zoo of the port: 8 schools (BASELINE config 1), the flagship
+hierarchical logistic family and the hierarchical linear mixed model
+(BASELINE config 3)."""
 
+from .eight_schools import EightSchools, eight_schools_data
 from .lmm import (
     FusedLinearMixedModel,
     FusedLinearMixedModelGrouped,
@@ -15,12 +17,14 @@ from .logistic import (
 )
 
 __all__ = [
+    "EightSchools",
     "FusedHierLogistic",
     "FusedHierLogisticGrouped",
     "FusedLinearMixedModel",
     "FusedLinearMixedModelGrouped",
     "HierLogistic",
     "LinearMixedModel",
+    "eight_schools_data",
     "synth_logistic_data",
     "synth_lmm_data",
 ]

@@ -1,5 +1,6 @@
 """Adaptive runner: sample in blocks until R-hat < target — counterpart of
-``stark_tpu/runner.py``, its ChEES branch.
+``stark_tpu/runner.py``: its ChEES branch and its per-chain branch (NUTS,
+HMC) with the serial block loop.
 
 Warmup runs in segments of ``block_size`` transitions, each checkpointed,
 then the sampler draws blocks until the stop gate passes or the budget
@@ -15,11 +16,22 @@ The loop is the JAX package's serial one (its pipelined loop gives the
 same draws; the port's is ROADMAP A6's remainder).  The random streams
 are the port's own: one ``torch.Generator`` each for the initial
 positions, the warmup and the sampling transitions, where the JAX
-package splits keys.  Checkpoints carry the warmup and sampling
-generators' states (under the JAX package's array names ``key_warm``
-and ``key``) and the Halton position, so a run resumed from a
-checkpoint draws bitwise what the uninterrupted run draws, whatever the
-block boundaries; ``reseed`` branches both streams.
+package splits keys (`sampler.chain_streams`, the streams of `sample`
+too).  Checkpoints carry the warmup and sampling generators' states
+(under the JAX package's array names ``key_warm`` and ``key``) and the
+count of draws (``draw_rows``, ChEES's Halton position), so a run
+resumed from a checkpoint draws bitwise what the uninterrupted run
+draws, whatever the block boundaries; ``reseed`` branches both streams.
+
+The runner knows no sampler: it calls the backend's `AdaptiveParts`,
+whose callables have one signature for ChEES, NUTS and HMC.  Warmup
+segments are checkpointed for every sampler.  The per-chain
+warmup checkpoint (``phase: "warmup"``: the chain state, per-chain
+step-size averaging, Welford moments and inverse mass) has no
+counterpart in the JAX package, whose per-chain warmup is one unbroken
+dispatch; its sampling-phase checkpoint has the JAX package's arrays
+(``z``, ``pe``, ``grad``, ``step_size`` (C,), ``inv_mass`` (C, d),
+``key``, ``draws``).
 
 `StopGate` is the schedule and stop rule as one host-side unit: block
 lengths (the fixed march or the ESS-forecast ladder), the streaming
@@ -41,13 +53,11 @@ import torch
 
 from . import diagnostics
 from ._device import DeviceLike
-from .adaptation import DualAveragingState, WelfordState
-from .chees import AdamState, CheesRunCarry, CheesWarmCarry, chees_init_positions
 from .checkpoint import load_checkpoint, rank_path, save_checkpoint
-from .kernels.base import STREAM_DIAG_LAGS, HMCState, StreamDiagState
-from .kernels.chees import TorchNoise, halton
+from .kernels.base import STREAM_DIAG_LAGS, StreamDiagState
+from .kernels.chees import TorchNoise
 from .model import Model
-from .sampler import Posterior, SamplerConfig, constrain_draws
+from .sampler import Posterior, SamplerConfig, chain_streams, constrain_draws
 
 log = logging.getLogger(__name__)
 
@@ -80,15 +90,6 @@ def _refuse(what: str, item: str) -> None:
 
 
 # ---------------------------------------------------------------- streams
-
-
-def _seed_of(*parts) -> int:
-    """A generator seed (< 2**63) from integers: one stream per purpose."""
-    return int(np.random.SeedSequence(list(parts)).generate_state(1, np.uint64)[0] >> 1)
-
-
-def _generator(device: torch.device, seed: int) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(seed)
 
 
 def _gen_state(g: torch.Generator) -> np.ndarray:
@@ -365,14 +366,19 @@ def sample_until_converged(
     ``t_dispatch_s`` (the sampling segment), ``t_diag_s`` (the gate: the
     accumulator's read-back, the streaming statistics and any validation
     pass), ``t_store_s`` (the draw-store append) and ``t_ckpt_s`` (flush
-    and checkpoint); ``warmup_done`` carries ``t_setup_s`` (data
-    preparation), ``t_map_s`` (initial evaluation and MAP descent) and
-    ``t_warmup_s``.
+    and checkpoint), and for NUTS ``tree_depth_mean`` and
+    ``tree_depth_max`` of the block's transitions (the JAX package reads
+    them in its health monitor, ROADMAP A12); ``warmup_done`` carries
+    ``t_setup_s`` (data preparation), ``t_map_s`` (the initial
+    evaluation and MAP descent or step-size search) and ``t_warmup_s``;
+    its ``warmup_grad_evals`` (per-chain units, times chains) counts the
+    ensemble evaluations after the initial state's and before sampling
+    for NUTS and HMC too (their step-size search and warmup).
 
     Not ported, each refused with its ROADMAP item: the pipelined loop
     (``sync_blocks=False``), adaptation reuse (``adapt_path``,
-    ``adapt_export_path``), ``trace`` and ``profile_dir``, and kernels
-    other than ChEES.
+    ``adapt_export_path``), ``trace`` and ``profile_dir``, and ragged
+    NUTS (``STARK_RAGGED_NUTS=1``).
     """
     if sync_blocks is False:
         _refuse("the pipelined block loop (sync_blocks=False)", "A6, the pipelined loop")
@@ -400,7 +406,7 @@ def sample_until_converged(
     t_call = time.perf_counter()
     ap = backend.adaptive_parts(model, cfg, data)
     t_setup = time.perf_counter() - t_call
-    fm, extra, parts = ap.fm, ap.extra, ap.chees
+    fm, extra = ap.fm, ap.extra
     dev = backend.device
 
     t_start = time.perf_counter()
@@ -427,29 +433,11 @@ def sample_until_converged(
 
             check_finite_state(arrays)
 
-    def save_warmup_checkpoint(carry, g_samp, g_warm, done, nd, nl):
-        """Warmup-phase checkpoint: the whole CheesWarmCarry under the JAX
-        package's array names, so a fault mid-warmup resumes at the last
-        finished segment."""
-        arrays = ap.collect({
-            "z": carry.states.z,
-            "pe": carry.states.potential_energy,
-            "grad": carry.states.grad,
-            "inv_mass": carry.inv_mass,
-            "da_log_step": carry.da.log_step,
-            "da_log_avg_step": carry.da.log_avg_step,
-            "da_h_avg": carry.da.h_avg,
-            "da_mu": carry.da.mu,
-            "adam_m": carry.adam.m,
-            "adam_v": carry.adam.v,
-            "log_T": carry.log_T,
-            "wf_mean": carry.wf.mean,
-            "wf_m2": carry.wf.m2,
-        })
-        arrays["da_count"] = np.asarray(carry.da.count, np.int32)
-        arrays["adam_t"] = np.asarray(carry.adam.t, np.int32)
-        arrays["wf_count"] = np.asarray(carry.wf.count, np.int32)
-        arrays["step_size"] = np.exp(arrays["da_log_step"])
+    def save_warmup_checkpoint(carry, g_samp, g_warm, done, n_div, n_warm):
+        """Warmup-phase checkpoint: the whole warmup carry (the JAX
+        package's array names for ChEES's), so a fault mid-warmup resumes
+        at the last finished segment."""
+        arrays = ap.warm_arrays(carry)
         arrays["key"] = _gen_state(g_samp)
         arrays["key_warm"] = _gen_state(g_warm)
         check_finite(arrays)
@@ -457,43 +445,41 @@ def sample_until_converged(
             "kernel": cfg.kernel,
             "phase": "warmup",
             "warm_done": done,
-            "warm_div": nd,
-            "warm_leap": nl,
+            "warm_div": n_div,
+            # the JAX package's ChEES count leaves out the MAP steps
+            "warm_leap": n_warm - cfg.map_init_steps,
             "model": type(model).__name__,
         })
 
-    def run_warmup(carry, start, g_samp, g_warm, nd0, nl0):
+    def run_warmup(carry, start, g_samp, g_warm, n_div, n_warm):
         """Warmup segments of ``block_size`` from schedule step ``start``,
         each but the last checkpointed (the first block's checkpoint
-        holds the last one's state).  -> (carry, divergences, leapfrogs
-        in total, leapfrogs of this call)."""
-        sched = parts.schedule
-        aflags = np.asarray(sched.adapt_mass)
-        wflags = np.asarray(sched.window_end)
-        u_warm = (2.0 * halton(cfg.num_warmup)).astype(np.float32)
-        idxs = np.arange(cfg.num_warmup)
+        holds the last one's state).  -> (carry, divergences and
+        evaluations before sampling in total, evaluations of this
+        call)."""
         noise = TorchNoise(g_warm)
-        n_div, n_leap, here = nd0, nl0, 0
+        here = 0
         for s in range(start, cfg.num_warmup, block_size):
             e = min(s + block_size, cfg.num_warmup)
-            carry, (nd, nl) = ap.warm_j(
-                carry, noise, u_warm[s:e], idxs[s:e], aflags[s:e], wflags[s:e], *extra
-            )
+            carry, nd, n = ap.warm_j(carry, noise, s, e, *extra)
             n_div += int(nd)
-            n_leap += int(nl)
-            here += int(nl)
+            n_warm += int(n)
+            here += int(n)
             if checkpoint_path and e < cfg.num_warmup:
-                save_warmup_checkpoint(carry, g_samp, g_warm, e, n_div, n_leap)
-        return carry, n_div, n_leap, here
+                save_warmup_checkpoint(carry, g_samp, g_warm, e, n_div, n_warm)
+        return carry, n_div, n_warm, here
 
-    def emit_warmup_done(n_div, step_size, warm_leap, t_map, t_warm, resumed_from=None):
+    def finish_warmup(carry, n_div, n_warm, t_map, t_warm, resumed_from=None):
+        """The sampling carry after warmup, and the ``warmup_done``
+        record."""
+        run_carry = ap.finalize(carry)
         rec = {
             "event": "warmup_done",
             "wall_s": time.perf_counter() - t_start,
             "num_divergent": int(n_div),
-            "step_size": np.asarray(ap.collect(step_size)).tolist(),
-            # per-chain units, as the JAX package counts them
-            "warmup_grad_evals": int((warm_leap + cfg.map_init_steps) * chains),
+            "step_size": ap.run_arrays(run_carry)["step_size"].tolist(),
+            # per-chain units, as the JAX package counts ChEES's
+            "warmup_grad_evals": int(n_warm * chains),
             "t_setup_s": t_setup,
             "t_map_s": t_map,
             "t_warmup_s": t_warm,
@@ -501,6 +487,7 @@ def sample_until_converged(
         if resumed_from is not None:
             rec["resumed_from_step"] = int(resumed_from)
         emit(rec)
+        return run_carry
 
     blocks_done = 0
     total_div = 0
@@ -513,57 +500,35 @@ def sample_until_converged(
             if ckpt_kernel is None:
                 raise ValueError(
                     "checkpoint has no kernel record (pre-chees format); "
-                    "cannot resume it with kernel='chees'"
+                    f"cannot resume it with kernel={cfg.kernel!r}"
                 )
             if ckpt_kernel != cfg.kernel:
                 raise ValueError(
                     f"checkpoint was written by kernel={ckpt_kernel!r}, "
                     f"resuming run uses kernel={cfg.kernel!r}"
                 )
-            pc, pr = ap.put_chains, ap.put_rep
-            state = HMCState(z=pc(arrays["z"]), potential_energy=pc(arrays["pe"]), grad=pc(arrays["grad"]))
-            inv_mass = pr(arrays["inv_mass"])
             g_samp = _gen_from_state(dev, arrays["key"], reseed)
-            chains = int(state.z.shape[0])
+            chains = int(arrays["z"].shape[0])
             if meta.get("phase") == "warmup":
-                def rep(name):
-                    return pr(arrays[name])
-
-                carry = CheesWarmCarry(
-                    states=state,
-                    da=DualAveragingState(
-                        log_step=rep("da_log_step"),
-                        log_avg_step=rep("da_log_avg_step"),
-                        h_avg=rep("da_h_avg"),
-                        mu=rep("da_mu"),
-                        count=int(arrays["da_count"]),
-                    ),
-                    adam=AdamState(m=rep("adam_m"), v=rep("adam_v"), t=int(arrays["adam_t"])),
-                    log_T=rep("log_T"),
-                    wf=WelfordState(count=int(arrays["wf_count"]), mean=rep("wf_mean"), m2=rep("wf_m2")),
-                    inv_mass=inv_mass,
-                )
                 g_warm = _gen_from_state(dev, arrays["key_warm"], reseed)
                 t = time.perf_counter()
-                carry, n_div, n_warm_leap, here = run_warmup(
-                    carry, int(meta["warm_done"]), g_samp, g_warm,
-                    int(meta.get("warm_div", 0)), int(meta.get("warm_leap", 0)),
+                carry, n_div, n_warm, here = run_warmup(
+                    ap.warm_carry(arrays), int(meta["warm_done"]), g_samp, g_warm,
+                    int(meta.get("warm_div", 0)),
+                    int(meta.get("warm_leap", 0)) + cfg.map_init_steps,
                 )
                 evals += here
-                run_carry = parts.finalize(carry)
-                emit_warmup_done(
-                    n_div, torch.exp(run_carry.log_eps), n_warm_leap, 0.0,
-                    time.perf_counter() - t, resumed_from=int(meta["warm_done"]),
+                run_carry = finish_warmup(
+                    carry, n_div, n_warm, 0.0, time.perf_counter() - t,
+                    resumed_from=int(meta["warm_done"]),
                 )
             else:
-                run_carry = CheesRunCarry(
-                    states=state, log_eps=pr(arrays["log_eps"]), log_T=pr(arrays["log_T"]),
-                    inv_mass=inv_mass,
-                )
+                run_carry = ap.run_carry(arrays)
             blocks_done = int(meta.get("blocks_done", 0))
             total_div = int(meta.get("num_divergent", 0))
             history = list(meta.get("history", []))
-            halton_pos = int(meta.get("halton_pos", 0))
+            # sampling transitions made so far (ChEES's Halton position)
+            drawn = int(meta.get("draw_rows", blocks_done * int(meta.get("block_size", block_size))))
             if "draws" in arrays:
                 stored_draws = arrays["draws"]
             elif draw_store_path and os.path.exists(draw_store_path):
@@ -571,29 +536,25 @@ def sample_until_converged(
 
                 # the async writer can land a block after the last
                 # checkpoint: drop the rows no checkpoint accounts for
-                accounted = meta.get("draw_rows", blocks_done * int(meta.get("block_size", block_size)))
-                truncate_draws(draw_store_path, accounted)
+                truncate_draws(draw_store_path, drawn)
                 stored, _, _ = read_draws(draw_store_path, mmap=False)
                 if stored.shape[0]:
                     # (n, chains, d) on disk -> (chains, n, d)
                     stored_draws = np.ascontiguousarray(stored.transpose(1, 0, 2))
         else:
-            g_init = _generator(dev, _seed_of(seed, 0))
-            g_warm = _generator(dev, _seed_of(seed, 1))
-            g_samp = _generator(dev, _seed_of(seed, 2))
-            halton_pos = 0
+            g_init, g_warm, g_samp = chain_streams(seed, dev)
+            drawn = 0
             t = time.perf_counter()
-            z0 = chees_init_positions(fm, g_init, chains, init_params, dev)
-            carry = ap.init_j(z0, *extra)
-            evals += cfg.map_init_steps + 1
+            z0 = ap.init_positions(g_init, chains, init_params)
+            # the initial state, then MAP steps or the step-size search
+            # (warmup stream)
+            carry, n_pre = ap.init_j(TorchNoise(g_warm), z0, *extra)
+            evals += 1 + n_pre
             t_map = time.perf_counter() - t
             t = time.perf_counter()
-            carry, n_div, n_warm_leap, here = run_warmup(carry, 0, g_samp, g_warm, 0, 0)
+            carry, n_div, n_warm, here = run_warmup(carry, 0, g_samp, g_warm, 0, n_pre)
             evals += here
-            run_carry = parts.finalize(carry)
-            emit_warmup_done(
-                n_div, torch.exp(run_carry.log_eps), n_warm_leap, t_map, time.perf_counter() - t
-            )
+            run_carry = finish_warmup(carry, n_div, n_warm, t_map, time.perf_counter() - t)
 
         gate = StopGate(
             chains, fm.ndim, block_size=block_size, max_blocks=max_blocks,
@@ -624,58 +585,40 @@ def sample_until_converged(
                 length = gate.next_block_len()
                 if length <= 0:
                     break
-                # the Halton jitter continues the run's one sequence, so a
-                # resumed or re-blocked run walks the same points
-                us = (2.0 * halton(length, start=halton_pos)).astype(np.float32)
-                halton_pos += length
                 t_blk = time.perf_counter()
-                if stream_diag:
-                    run_carry, diag, outs = ap.samp_diag(run_carry, diag, noise, us, *extra)
-                else:
-                    run_carry, outs = ap.samp_j(run_carry, noise, us, *extra)
-                zs_dm, accept, divergent, n_leap = outs
+                run_carry, diag, blk = ap.samp_j(run_carry, diag, noise, drawn, length, *extra)
+                drawn += length
                 t_dispatch = time.perf_counter() - t_blk
-                evals += int(np.sum(n_leap))
-                carried = None
+                evals += blk.evals
+                arrays = None
                 if health_check or checkpoint_path:
-                    st = run_carry.states
-                    carried = ap.collect({
-                        "z": st.z, "pe": st.potential_energy, "grad": st.grad,
-                        "step_size": torch.exp(run_carry.log_eps),
-                        "inv_mass": run_carry.inv_mass,
-                    })
-                    check_finite(carried)
+                    arrays = ap.run_arrays(run_carry)
+                    check_finite(arrays)
                 t = time.perf_counter()
                 diag_host = tuple(ap.collect(diag)) if stream_diag else None
-                # the block is draw-major (n, chains, d): a transposed view
-                # for the gate, the block itself for the store
-                grec, converged = gate.observe(zs_dm.transpose(1, 0, 2), diag_host)
+                grec, converged = gate.observe(blk.zs, diag_host)
                 t_diag = time.perf_counter() - t
                 t = time.perf_counter()
                 if draw_store is not None:
-                    draw_store.append(zs_dm, draw_major=True)
+                    draw_store.append(blk.zs)
                 t_store = time.perf_counter() - t
-                total_div += int(np.sum(divergent))
+                total_div += int(np.sum(blk.divergent))
                 rec = {
                     "event": "block",
                     **grec,
                     "num_divergent": total_div,
-                    "mean_accept": float(np.mean(accept)),
+                    "mean_accept": float(np.mean(blk.accept)),
                     "t_dispatch_s": t_dispatch,
                     "t_diag_s": t_diag,
                     "t_store_s": t_store,
-                    # per-chain gradient units: leapfrogs x chains
-                    "block_grad_evals": int(np.sum(n_leap)) * chains,
-                    "grad_eval_basis": "leapfrog",
+                    "block_grad_evals": blk.grads,
+                    **blk.record,
                     "wall_s": time.perf_counter() - t_start,
                 }
                 history.append(rec)
                 t = time.perf_counter()
                 if checkpoint_path:
-                    arrays = dict(carried)
                     arrays["key"] = _gen_state(g_samp)
-                    arrays["log_eps"] = ap.collect(run_carry.log_eps)
-                    arrays["log_T"] = ap.collect(run_carry.log_T)
                     if draw_store is None:
                         # no store: the draws ride in the checkpoint
                         arrays["draws"] = gate.draws.view()
@@ -685,7 +628,6 @@ def sample_until_converged(
                         "blocks_done": gate.blocks_done,
                         "block_size": block_size,
                         "draw_rows": gate.rows,
-                        "halton_pos": halton_pos,
                         "num_divergent": total_div,
                         "history": history,
                         "model": type(model).__name__,

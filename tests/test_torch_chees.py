@@ -174,7 +174,7 @@ def test_chees_parts_match_reference_on_shared_noise():
     chains = 8
     rfm, pfm, rdata, pdata = _flagship_family()
     budget = dict(num_warmup=30, num_samples=6, init_step_size=0.1, map_init_steps=3)
-    rcfg, pcfg = RefConfig(kernel="chees", **budget), SamplerConfig(**budget)
+    rcfg, pcfg = RefConfig(kernel="chees", **budget), SamplerConfig(kernel="chees", **budget)
     rparts, pparts = rchees.make_chees_parts(rfm, rcfg), pchees.make_chees_parts(pfm, pcfg)
     assert pparts.warm_cap == rparts.warm_cap
 

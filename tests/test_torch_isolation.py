@@ -42,7 +42,9 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "stark_tpu_torch.models, stark_tpu_torch.models.lmm, stark_tpu_torch._build, "
         "stark_tpu_torch.runner, stark_tpu_torch.supervise, stark_tpu_torch.checkpoint, "
         "stark_tpu_torch.drawstore, stark_tpu_torch.backends, "
-        "stark_tpu_torch.backends.cuda_backend\n"
+        "stark_tpu_torch.backends.cuda_backend, stark_tpu_torch.kernels, "
+        "stark_tpu_torch.kernels.nuts, stark_tpu_torch.kernels.hmc, "
+        "stark_tpu_torch.models.eight_schools\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'stark_tpu'))\n"
         "print(','.join(bad))\n"
@@ -93,7 +95,7 @@ def test_entry_points_raise_without_a_card(monkeypatch, family):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         chees_sample(model, raw, chains=2, num_warmup=2, num_samples=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        sample(model, raw, chains=2, num_warmup=2, num_samples=2)
+        sample(model, raw, kernel="chees", chains=2, num_warmup=2, num_samples=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         prepare_model_data(model, raw)
     # explicit CPU is the one way to run here
@@ -108,17 +110,19 @@ def test_runner_entry_points_raise_without_a_card(monkeypatch, tmp_path, family)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model, raw = _ENTRY_MODELS[family]()
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        sample_until_converged(model, raw, chains=2, num_warmup=2, max_blocks=1,
-                               metrics_path=str(tmp_path / "m.jsonl"))
+        sample_until_converged(model, raw, kernel="chees", chains=2, num_warmup=2,
+                               max_blocks=1, metrics_path=str(tmp_path / "m.jsonl"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        supervised_sample(model, raw, workdir=str(tmp_path / "w"), chains=2, num_warmup=2,
-                          max_blocks=1)
+        supervised_sample(model, raw, workdir=str(tmp_path / "w"), kernel="chees", chains=2,
+                          num_warmup=2, max_blocks=1)
     assert list(tmp_path.iterdir()) == []
 
 
-def test_unported_kernels_raise():
+def test_unported_kernels_raise(monkeypatch):
+    """NUTS and HMC are ported; the JAX package's ragged NUTS is not."""
     raw, _ = synth_logistic_data(0, 300, 2, num_groups=3)
-    with pytest.raises(NotImplementedError, match="A8"):
+    monkeypatch.setenv("STARK_RAGGED_NUTS", "1")
+    with pytest.raises(NotImplementedError, match="A8, ragged NUTS"):
         sample(FusedHierLogisticGrouped(2, 3), raw, kernel="nuts", device="cpu")
 
 

@@ -291,9 +291,12 @@ def test_backend_takes_the_card_unless_told_otherwise(monkeypatch):
 @pytest.mark.parametrize("kw,item", [
     (dict(sync_blocks=False), "A6"), (dict(adapt_path="x.npz"), "A6"),
     (dict(adapt_export_path="x.npz"), "A6"), (dict(trace=object()), "A12"),
-    (dict(profile_dir="p"), "A12"), (dict(kernel="nuts"), "A8"),
+    (dict(profile_dir="p"), "A12"), (dict(kernel="nuts", env={"STARK_RAGGED_NUTS": "1"}), "A8"),
 ])
-def test_unported_options_are_refused(kw, item):
+def test_unported_options_are_refused(kw, item, monkeypatch):
+    kw = dict(kw)
+    for k, v in kw.pop("env", {}).items():
+        monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError, match=item):
         sample_until_converged(ScaledNormal(), device="cpu", num_warmup=2, max_blocks=1, **kw)
 
@@ -303,11 +306,12 @@ def test_flagship_model_through_the_backend_and_the_supervisor(tmp_path):
     assert isinstance(backend, SamplerBackend)
     model = FusedHierLogisticGrouped(3, 4)
     raw, _ = synth_logistic_data(0, 600, 3, num_groups=4)
-    ap = backend.adaptive_parts(model, runner.SamplerConfig(num_warmup=10), raw)
+    ap = backend.adaptive_parts(model, runner.SamplerConfig(kernel="chees", num_warmup=10), raw)
     assert isinstance(ap, AdaptiveParts) and ap.data["xT"].device.type == "cpu"
     post = supervised_sample(
         model, raw, workdir=str(tmp_path / "w"), backend=backend, chains=6, block_size=10,
         max_blocks=2, rhat_target=0.0, num_warmup=30, map_init_steps=5, init_step_size=0.1,
+        kernel="chees",
     )
     assert post.draws["beta"].shape == (6, 20, 3)
     assert all(np.all(np.isfinite(v)) for v in post.draws.values())

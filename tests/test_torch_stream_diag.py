@@ -154,7 +154,7 @@ def test_diag_segment_draws_bitwise_equal_plain_segment():
     raw, _ = synth_logistic_data(0, 400, 3, num_groups=4)
     data = prepare_model_data(model, raw, device="cpu")
     fm = flatten_model(model)
-    cfg = SamplerConfig(num_warmup=30, init_step_size=0.1, map_init_steps=5)
+    cfg = SamplerConfig(kernel="chees", num_warmup=30, init_step_size=0.1, map_init_steps=5)
     parts = make_chees_parts(fm, cfg)
     gen = torch.Generator().manual_seed(0)
     carry = parts.init_carry(chees_init_positions(fm, gen, 6, None, "cpu"), data)

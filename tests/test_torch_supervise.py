@@ -209,9 +209,11 @@ def test_supervised_restart_window_bounds_rate(tmp_path, monkeypatch):
     assert rs[0]["backoff_s"] > 0 and rs[-1]["backoff_s"] == 0
 
 
-def test_supervised_refuses_what_is_not_ported(tmp_path):
+def test_supervised_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="A12"):
-        supervised_sample(StdNormal2(), workdir=str(tmp_path), stall_timeout_s=5.0, device="cpu")
+        supervised_sample(StdNormal2(), workdir=str(tmp_path), stall_timeout_s=5.0, device="cpu",
+                          kernel="chees")
+    monkeypatch.setenv("STARK_RAGGED_NUTS", "1")
     with pytest.raises(NotImplementedError, match="A8"):
         supervised_sample(StdNormal2(), workdir=str(tmp_path / "w"), device="cpu",
                           kernel="nuts", num_warmup=2)
