@@ -90,7 +90,37 @@ Phases, in order; any failure exits non-zero (none is caught):
                 memory; a NUTS leg also profiles three transitions at its
                 final state.  The times phase also times B1 and B2 with
                 offsets at the legs' C=8
- 13. profile  — one ensemble gradient evaluation of each sampled path at
+ 13. b2_shards — B2 with its shard axis (consensus Monte Carlo) at
+                config 2's width (S=8 shards of n=125,000 rows, C=8, D=16,
+                and a ragged 125,003) against the plain version, a second
+                launch bitwise equal, the S=1 call bitwise equal to the
+                unsharded call; its edge cases (B2_SHARD_EDGE_CASES: S = 1,
+                2, 3, 8, shards below one sub-tile, N = 1, 2, 3 mod 4, both
+                links, with and without offsets) on dyadic inputs against
+                the plain version in float64; times of the kernel, its
+                plain version and S separate unsharded launches, beside
+                the bound
+ 14. consensus — BASELINE config 2 at its pinned width (tools/
+                consensus_1m.py, stark_tpu/benchmarks.py:574-624):
+                consensus_sample(FusedLogistic(16)) on N=1,000,000 rows, 8
+                shards x 8 chains, ChEES, MAP 200, warmup 300, samples
+                300, dispatch_steps 6, combine precision_full: wall,
+                ESS/s, split R-hat and combine_rel_err against a full-data
+                chees_sample at the same budget (outside the wall); every
+                ensemble evaluation one shard-batched B2 launch and no
+                other kernel; then a NUTS leg (depth 6, 50 + 50) and a
+                shard-death leg (8 shards of 4,096 rows, one shard's y
+                NaN: one restart, degraded, that shard lost, finite
+                combined draws)
+ 15. bnn      — BASELINE config 5 at its pinned settings
+                (stark_tpu/benchmarks.py:757-839): sghmc_sample of
+                BayesianMLP(64, hidden=64) on N=100,000 rows, batches of
+                1024, 4 chains, warmup 2000, samples 4000, 8 cycles, step
+                3e-3, friction 5.0; no hand-written kernel launches;
+                predictive accuracy on 256 probe rows (>= 0.75, the
+                reference's gate), predictive bulk and tail ESS, R-hat
+                and cycle_mode_ratio
+ 16. profile  — one ensemble gradient evaluation of each sampled path at
                 its final state: host-clock time per evaluation, and under
                 torch.profiler the device time by kernel and the share of
                 the window the device sat idle
@@ -149,6 +179,27 @@ LMM_N_FULL, LMM_N_RAGGED = 100_000, 100_037
 LMM_CHAINS = 16
 # the per-chain samplers' chain count (bench.py:412, its NUTS leg)
 NUTS_CHAINS = 8
+# BASELINE config 2 (tools/consensus_1m.py:26-45, stark_tpu/benchmarks.py:
+# bench_consensus_logistic): flat logistic, D=16, N=1,000,000 in 8 shards
+# of 125,000 rows, 8 chains per shard, ChEES
+CONS_D, CONS_N, CONS_SHARDS, CONS_CHAINS = 16, 1_000_000, 8, 8
+# BASELINE config 5 (stark_tpu/benchmarks.py:bench_bnn_sghmc): a 2-layer
+# MLP, 64 features, 64 hidden units, N=100,000, batches of 1024, 4 chains
+BNN_D, BNN_H, BNN_N, BNN_BATCH, BNN_CHAINS = 64, 64, 100_000, 1024, 4
+# the reference's gate on config 5 (stark_tpu/benchmarks.py:838-839)
+BNN_MIN_ACCURACY = 0.75
+
+# B2's shard-axis edge cases (S, N, D, C): one, two, three and eight
+# shards; shards below one 128-row sub-tile (N = 50, 127) and of N = 1,
+# 2, 3 (mod 4) rows, so a shard's rows start off 16-byte alignment;
+# shards of more sub-tiles than their share of the 396 blocks (N =
+# 40,003 at S = 2 and 3); chain and feature counts off the 32-chain and
+# 32-feature chunks; config 2's own width with a ragged shard
+B2_SHARD_EDGE_CASES = (
+    (1, 3001, 7, 9), (2, 3001, 33, 33), (3, 50, 5, 9), (3, 127, 16, 8),
+    (2, 40_003, 32, 20), (3, 40_002, 3, 40), (8, 1001, 16, 8), (8, 5, 16, 8),
+    (8, 125_003, 16, 8),
+)
 
 # B2's edge cases (N, D, C): chain and feature counts off the 32-chain and
 # 32-feature chunks; N below one 128-row sub-tile and N = 1, 2, 3 (mod 4),
@@ -212,6 +263,11 @@ class Run:
             self.hmc_budget = dict(num_leapfrog=8, num_warmup=20, num_samples=10)
             self.nuts_runner_budget = dict(max_tree_depth=4, num_warmup=20, block_size=10,
                                            max_blocks=3)
+            self.cons_n = 8 * 2048
+            self.cons_budget = dict(map_init_steps=20, num_warmup=60, num_samples=60)
+            self.cons_nuts_budget = dict(max_tree_depth=4, num_warmup=20, num_samples=20)
+            self.bnn_n = 4_000
+            self.bnn_budget = dict(num_warmup=100, num_samples=200, cycles=4)
         else:
             self.n_full, self.n_ragged = N_FULL, N_RAGGED
             self.lmm_n_full, self.lmm_n_ragged, self.lmm_g = LMM_N_FULL, LMM_N_RAGGED, LMM_G
@@ -230,6 +286,16 @@ class Run:
             self.hmc_budget = dict(num_leapfrog=32, num_warmup=50, num_samples=50)
             self.nuts_runner_budget = dict(max_tree_depth=6, num_warmup=50, block_size=20,
                                            max_blocks=3)
+            self.cons_n = CONS_N
+            # config 2's pinned budget (stark_tpu/benchmarks.py:574-624)
+            self.cons_budget = dict(map_init_steps=200, num_warmup=300, num_samples=300)
+            self.cons_nuts_budget = dict(max_tree_depth=6, num_warmup=50, num_samples=50)
+            self.bnn_n = BNN_N
+            # config 5's pinned budget (stark_tpu/benchmarks.py:757-776)
+            self.bnn_budget = dict(num_warmup=2000, num_samples=4000, cycles=8)
+        # the shard-death leg: 8 shards of 4096 rows, one poisoned
+        self.death_n = 8 * 4096
+        self.death_budget = dict(map_init_steps=10, num_warmup=10, num_samples=10)
         self.t0 = time.perf_counter()
         self.kernels = {}
         self.last_z = {}
@@ -251,6 +317,7 @@ def counters():
         "B1": (hf.hier_grouped, "launches"),
         "B2": (lf.logistic_batched, "launches"),
         "B2g": (lf.logistic_batched, "gaussian_launches"),
+        "B2s": (lf.logistic_batched, "shard_launches"),
         "B3": (lf.logistic_single, "launches"),
         "B4": (hf.lmm_grouped, "launches"),
     }
@@ -265,12 +332,12 @@ def read_counts():
     return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
 
 
-def timed(run: Run, fn, reps: int) -> float:
+def timed(run: Run, fn, reps: int, launches: int = 1) -> float:
     """Mean milliseconds per call over ``reps`` warm calls (CUDA events
     on the card; the host clock in a rehearsal).  On the card a sleep
-    kernel (about 0.5 ms per call) holds the stream while the host
-    enqueues the calls, so the events time the device alone, not the
-    host's launch cost."""
+    kernel (about 0.5 ms per wrapper call, ``launches`` of them in one
+    ``fn``) holds the stream while the host enqueues the calls, so the
+    events time the device alone, not the host's launch cost."""
     fn()
     fn()
     if run.rehearsal:
@@ -280,7 +347,7 @@ def timed(run: Run, fn, reps: int) -> float:
         return 1e3 * (time.perf_counter() - t) / reps
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(reps * 1_000_000)
+    torch.cuda._sleep(reps * launches * 1_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -753,6 +820,265 @@ def phase_b2_edges(run: Run, gen):
         else:
             raise AssertionError(f"B2 C={c} D={d} was not refused")
         assert (lf.logistic_batched.launches, lf.logistic_batched.gaussian_launches) == before
+
+
+def b2_shard_inputs(s, n, d, c, gen, dev, link="bernoulli_logit", dyadic=False):
+    """B2's shard-batched arguments (beta (S, C, D), xT (S, D, n), y (S, n),
+    offsets (S, C, n)): normal inputs, or the dyadic grids of
+    `b2_edge_inputs` for every shard."""
+    if dyadic:
+        parts = [b2_edge_inputs(n, d, c, link, gen, dev) for _ in range(s)]
+        xT, y, beta, off = (torch.stack(t) for t in zip(*parts))
+        return beta, xT, y, off
+    xT = torch.randn(s, d, n, generator=gen, device=dev)
+    y = (torch.randn(s, n, generator=gen, device=dev) if link == "gaussian"
+         else (torch.rand(s, n, generator=gen, device=dev) < 0.4).float())
+    beta = 0.3 * torch.randn(s, c, d, generator=gen, device=dev)
+    off = torch.randn(s, c, n, generator=gen, device=dev)
+    return beta, xT, y, off
+
+
+def phase_b2_shards(run: Run):
+    """B2's shard axis (consensus Monte Carlo, config 2): at config 2's
+    width (S=8, C=8, D=16, n=125,000 rows a shard, and a ragged 125,003)
+    against the plain version, a second launch bitwise equal; the S=1 call
+    bitwise equal to the unsharded call; the edge cases on dyadic inputs
+    against the plain version in float64; then times of the kernel, its
+    plain version and S separate unsharded launches (the loop the axis
+    replaces), beside the bound."""
+    from stark_tpu_torch.ops import logistic_fused as lf
+
+    log("== b2_shards: kernel B2 with a shard axis")
+    gen = torch.Generator(device=run.dev).manual_seed(5)
+    S, C, d = CONS_SHARDS, CONS_CHAINS, CONS_D
+    n0 = run.cons_n // S
+    err = None
+    for n in (n0, n0 + 3):
+        for link in ("bernoulli_logit", "gaussian"):
+            beta, xT, y, off = b2_shard_inputs(S, n, d, C, gen, run.dev, link)
+            for o in (None, off):
+                got = lf.logistic_batched(beta, xT, y, o, link)
+                again = lf.logistic_batched(beta, xT, y, o, link)
+                run.sync()
+                want = lf.logistic_batched_plain(beta, xT, y, o, link)
+                e = compare(f"B2 shards S={S} C={C} D={d} n={n} {link} offsets={o is not None} "
+                            f"blocks per shard={lf.b2_blocks(n, S)[0]}", got, want)
+                check_repeat("B2 shards", got, again)
+                if n == n0 and link == "bernoulli_logit" and o is None:
+                    err = e, (beta, xT, y)
+                # S = 1 against the unsharded call, bitwise
+                one = lf.logistic_batched(beta[:1], xT[:1], y[:1], None if o is None else o[:1], link)
+                flat = lf.logistic_batched(beta[0], xT[0], y[0], None if o is None else o[0], link)
+                run.sync()
+                assert all(torch.equal(a[0], b) for a, b in zip(one, flat)), (n, link)
+    log("  B2 S=1 calls bitwise equal to the unsharded calls: yes")
+    worst = 0.0
+    for s_, n, d_, c_ in B2_SHARD_EDGE_CASES:
+        for link in ("bernoulli_logit", "gaussian"):
+            beta, xT, y, off = b2_shard_inputs(s_, n, d_, c_, gen, run.dev, link, dyadic=True)
+            for o in (None, off):
+                got = lf.logistic_batched(beta, xT, y, o, link)
+                again = lf.logistic_batched(beta, xT, y, o, link)
+                run.sync()
+                want = yardstick(run, lf.logistic_batched_plain, beta, xT, y, o, link=link)
+                worst = max(worst, compare(f"B2 shards S={s_} n={n} D={d_} C={c_} {link}", got,
+                                           want, quiet=True))
+                assert all(torch.equal(a, b) for a, b in zip(got, again)), (s_, n, d_, c_, link)
+    log(f"  B2 shard-axis edge cases: {len(B2_SHARD_EDGE_CASES)} shapes x 2 links x with/without "
+        f"offsets match the plain version in {yardstick_name(run)} (max abs err {worst:.6g}), "
+        f"second launches bitwise equal")
+
+    e, (beta, xT, y) = err
+    n = xT.shape[-1]
+    nbytes = 4 * (xT.numel() + y.numel() + 2 * beta.numel() + S * C)
+    flops = 4 * S * C * d * n
+    ms = timed(run, lambda: lf.logistic_batched(beta, xT, y), 50)
+    plain = timed(run, lambda: lf.logistic_batched_plain(beta, xT, y), 10)
+    loop = timed(run, lambda: [lf.logistic_batched(beta[k], xT[k], y[k]) for k in range(S)], 20,
+                 launches=S)
+    run.kernels["B2s"] = dict(
+        name="logistic_batched (B2, shard axis)", route="cuda",
+        source="stark_tpu_torch/csrc/logistic_batched.cu",
+        replaces="stark_tpu/ops/logistic_fused.py:130",
+        max_abs_err=e, ms=ms, plain_ms=plain, loop_ms=loop, **bound(nbytes, flops),
+        library_ms=None,
+    )
+    log(f"  B2 shards S={S} C={C} D={d} n={n}: {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"{S} unsharded launches {loop:.4f} ms, {fmt_bound(run.kernels['B2s'])}")
+    return dict(ms=ms, plain_ms=plain, loop_ms=loop, bound_ms=run.kernels["B2s"]["bound_ms"])
+
+
+def _counted_leg(run: Run, fn):
+    """Counts to 0 just before ``fn``, read just after: (result, wall s,
+    launches, peak device MiB)."""
+    if not run.rehearsal:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    out = fn()
+    run.sync()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**20 if not run.rehearsal else float("nan")
+    return out, wall, read_counts(), peak
+
+
+def _check_shard_launches(run: Run, label, launches, evals):
+    """Every ensemble evaluation one shard-batched B2 launch, no other
+    kernel."""
+    if run.rehearsal:
+        return
+    assert launches["B2s"] > 0, f"B2 was never launched with its shard axis on the {label} leg"
+    assert launches["B2"] == launches["B2s"] == evals, (label, launches, evals)
+    others = {k: v for k, v in launches.items() if k not in ("B2", "B2s") and v}
+    assert not others, f"{others} launched on the {label} leg"
+
+
+def phase_consensus(run: Run):
+    """BASELINE config 2 at its pinned width: consensus_sample of
+    FusedLogistic(16) over 8 shards of N=1,000,000 rows, 8 chains a shard,
+    ChEES (stark_tpu/benchmarks.py:574-624, tools/consensus_1m.py); its
+    combine against a full-data chees_sample at the same budget, outside
+    the timed wall; a NUTS leg; and a shard-death leg (one shard's y
+    NaN)."""
+    from stark_tpu_torch import chees_sample, consensus_sample, diagnostics
+    from stark_tpu_torch.models import FusedLogistic, synth_logistic_data
+
+    dev = {"device": "cpu"} if run.rehearsal else {}
+    raw, true = synth_logistic_data(0, run.cons_n, CONS_D)
+    budget = run.cons_budget
+    kw = dict(num_shards=CONS_SHARDS, chains=CONS_CHAINS, kernel="chees", init_step_size=0.1,
+              dispatch_steps=6, seed=0, **budget, **dev)
+    log(f"== consensus (config 2): consensus_sample(FusedLogistic({CONS_D})), N={run.cons_n}, "
+        f"{CONS_SHARDS} shards x {CONS_CHAINS} chains, combine precision_full, {kw}")
+    post, wall, launches, peak = _counted_leg(
+        run, lambda: consensus_sample(FusedLogistic(CONS_D), raw, **kw))
+    st = post.sample_stats
+    evals = int(st["num_ensemble_grad_evals"])
+    _check_shard_launches(run, "consensus", launches, evals)
+    if not run.rehearsal:
+        run.kernels["B2s"]["launches"] = launches["B2s"]
+    draws = post.draws_flat
+    assert draws.shape == (CONS_CHAINS, budget["num_samples"], CONS_D), draws.shape
+    assert np.all(np.isfinite(draws)) and not st["degraded"]
+    bulk = float(np.min(diagnostics.ess_bulk(draws)))
+    rhat = post.max_rhat()
+    res = dict(wall_s=wall, evals=evals, launches=launches, peak_mib=peak, max_rhat=rhat,
+               min_ess_bulk=bulk, ess_per_s=bulk / wall,
+               step_size=np.asarray(st["step_size"]).tolist(),
+               traj_length=np.asarray(st["traj_length"]).tolist(),
+               divergences=int(st["num_divergent"]))
+    log(f"  wall {wall:.2f} s (set-up included), {evals} ensemble evaluations "
+        f"({1e3 * wall / max(evals, 1):.4f} ms each), launches {launches}, peak device memory "
+        f"{peak:.1f} MiB")
+    log(f"  max split R-hat {rhat:.5f}; min bulk ESS {bulk:.1f}; ESS/s {bulk / wall:.3f}; "
+        f"divergences {res['divergences']}; step sizes {np.round(res['step_size'], 5).tolist()}; "
+        f"trajectory lengths {np.round(res['traj_length'], 4).tolist()}")
+    # the combine against a full-data run at the same budget (evidence of
+    # correctness, not part of the consensus wall)
+    t = time.perf_counter()
+    full = chees_sample(FusedLogistic(CONS_D), raw, chains=CONS_CHAINS, init_step_size=0.1,
+                        seed=1, **budget, **dev)
+    full_wall = time.perf_counter() - t
+    mc = post.draws["beta"].mean(axis=(0, 1))
+    mf = full.draws["beta"].mean(axis=(0, 1))
+    sf = full.draws["beta"].std(axis=(0, 1))
+    res["combine_rel_err"] = float(np.max(np.abs(mc - mf) / sf))
+    res["full_wall_s"] = full_wall
+    res["full_max_rhat"] = full.max_rhat()
+    log(f"  combine_rel_err {res['combine_rel_err']:.4f} (max over coefficients of |mean "
+        f"consensus - mean full| / sd full); full-data chees_sample {full_wall:.2f} s, "
+        f"R-hat {res['full_max_rhat']:.5f}; max |consensus mean - true beta| "
+        f"{float(np.max(np.abs(mc - true['beta']))):.4g}")
+    # the reference's own bound on the combine (tests/test_consensus.py:86):
+    # consensus means within 4 full-data sds
+    assert np.all(np.abs(mc - mf) <= 4 * np.max(sf)), (mc, mf, sf)
+
+    nb = run.cons_nuts_budget
+    log(f"== consensus, NUTS leg: kernel='nuts', {nb}")
+    post, wall, launches, _ = _counted_leg(run, lambda: consensus_sample(
+        FusedLogistic(CONS_D), raw, num_shards=CONS_SHARDS, chains=CONS_CHAINS, kernel="nuts",
+        seed=0, **nb, **dev))
+    evals = int(post.sample_stats["num_ensemble_grad_evals"])
+    _check_shard_launches(run, "consensus NUTS", launches, evals)
+    assert np.all(np.isfinite(post.draws_flat))
+    res["nuts"] = dict(wall_s=wall, evals=evals, launches=launches, max_rhat=post.max_rhat())
+    log(f"  wall {wall:.2f} s, {evals} ensemble evaluations, launches {launches}, max split "
+        f"R-hat {post.max_rhat():.4f}")
+
+    n = run.death_n
+    dead = CONS_SHARDS // 2
+    raw_d, _ = synth_logistic_data(1, n, CONS_D)
+    per = n // CONS_SHARDS
+    raw_d["y"][dead * per:(dead + 1) * per] = np.nan
+    log(f"== consensus, shard-death leg: N={n}, shard {dead}'s y NaN, ChEES, "
+        f"{run.death_budget}")
+    post, wall, launches, _ = _counted_leg(run, lambda: consensus_sample(
+        FusedLogistic(CONS_D), raw_d, num_shards=CONS_SHARDS, chains=CONS_CHAINS, kernel="chees",
+        init_step_size=0.1, seed=0, **run.death_budget, **dev))
+    st = post.sample_stats
+    evals = int(st["num_ensemble_grad_evals"])
+    _check_shard_launches(run, "shard-death", launches, evals)
+    log(f"  restarts {st['num_shard_restarts']}, degraded {st['degraded']}, lost shards "
+        f"{st['lost_shards'].tolist()}, combined draws finite {bool(np.isfinite(post.draws_flat).all())}; "
+        f"wall {wall:.2f} s, {evals} evaluations, launches {launches}")
+    assert st["num_shard_restarts"] == 1 and st["degraded"], st
+    assert st["lost_shards"].tolist() == [dead], st["lost_shards"]
+    assert np.all(np.isfinite(post.draws_flat))
+    res["death"] = dict(wall_s=wall, evals=evals, restarts=int(st["num_shard_restarts"]),
+                        lost_shards=st["lost_shards"].tolist())
+    return res
+
+
+def phase_bnn(run: Run):
+    """BASELINE config 5 at its pinned settings: sghmc_sample of
+    BayesianMLP(64, hidden=64) on N=100,000 rows, batches of 1024, 4
+    chains, warmup 2000, samples 4000, 8 cycles, step 3e-3, friction 5.0
+    (stark_tpu/benchmarks.py:757-776); diagnostics in predictive space at
+    256 probe rows (:785-830), the reference's accuracy gate (:838-839).
+    No hand-written kernel runs: the reference's BNN is plain XLA."""
+    from stark_tpu_torch import diagnostics, sghmc_sample
+    from stark_tpu_torch.models import BayesianMLP, synth_bnn_data
+
+    dev = {"device": "cpu"} if run.rehearsal else {}
+    data, _ = synth_bnn_data(0, run.bnn_n, BNN_D)
+    model = BayesianMLP(BNN_D, hidden=BNN_H)
+    kw = dict(batch_size=BNN_BATCH, chains=BNN_CHAINS, step_size=3e-3, friction=5.0, seed=0,
+              **run.bnn_budget)
+    log(f"== bnn (config 5): sghmc_sample(BayesianMLP({BNN_D}, hidden={BNN_H})), "
+        f"N={run.bnn_n}, {kw}")
+    post, wall, launches, peak = _counted_leg(run, lambda: sghmc_sample(model, data, **kw, **dev))
+    if not run.rehearsal:
+        assert not any(launches.values()), f"{launches} launched on the BNN path"
+    x_probe = torch.as_tensor(data["x"][:256])
+    y_probe = data["y"][:256]
+    logits = post.functional(lambda p: model.forward(p, x_probe))
+    assert np.all(np.isfinite(logits)), "non-finite predictive logits"
+    probs = 1.0 / (1.0 + np.exp(-np.asarray(logits, np.float64)))
+    acc = float(np.mean((probs.mean(axis=(0, 1)) > 0.5) == (y_probe > 0.5)))
+    res = dict(wall_s=wall, steps=int(post.sample_stats["num_ensemble_grad_evals"]),
+               kept=int(post.num_samples), peak_mib=peak, predictive_accuracy=acc,
+               pred_ess_bulk=float(np.min(diagnostics.ess_bulk(logits))),
+               pred_ess_tail=float(np.min(diagnostics.ess_tail(logits))),
+               pred_rhat=float(np.max(diagnostics.split_rhat(logits))),
+               divergences=int(np.sum(post.sample_stats["num_divergent"])))
+    cyc = post.sample_stats.get("cycle_id")
+    if cyc is not None and len(np.unique(cyc)) > 1:
+        pc = np.stack([logits[:, cyc == c, :].mean(axis=1) for c in np.unique(cyc)])
+        across = float(pc.std(axis=0).mean())
+        within = float(np.mean([logits[:, cyc == c, :].std(axis=1).mean()
+                                for c in np.unique(cyc)]))
+        res["cycle_mode_ratio"] = across / max(within, 1e-12)
+    res["pred_ess_per_s"] = res["pred_ess_bulk"] / wall
+    log(f"  wall {wall:.2f} s ({res['steps']} steps of {BNN_CHAINS} chains, "
+        f"{1e3 * wall / res['steps']:.4f} ms each), {res['kept']} draws kept a chain, launches "
+        f"{launches}, peak device memory {peak:.1f} MiB, divergences {res['divergences']}")
+    log(f"  predictive accuracy {acc:.4f} on 256 probe rows (gate >= {BNN_MIN_ACCURACY}); "
+        f"predictive bulk ESS {res['pred_ess_bulk']:.1f}, tail ESS {res['pred_ess_tail']:.1f}, "
+        f"ESS/s {res['pred_ess_per_s']:.3f}; predictive R-hat {res['pred_rhat']:.4f}; "
+        f"cycle_mode_ratio {res.get('cycle_mode_ratio', float('nan')):.3f}")
+    assert acc >= BNN_MIN_ACCURACY, f"predictive accuracy {acc} below {BNN_MIN_ACCURACY}"
+    return res
 
 
 def b4_edge_inputs(ids, n, d, q, c, groups, rs):
@@ -1560,6 +1886,9 @@ def main(argv=None) -> int:
         "single_path": phase_single(run, full),
         "runner_path": phase_runner(run, full),
         "nuts_path": phase_nuts(run, full),
+        "b2_shards": phase_b2_shards(run),
+        "consensus_path": phase_consensus(run),
+        "bnn_path": phase_bnn(run),
     }
     prof = {
         label: phase_profile(run, model, raw, label)

@@ -11,10 +11,12 @@ explicit ``device`` argument, explicit ``torch.Generator`` streams and a
 
 Entry points — `sample`, `chees_sample`, the adaptive runner
 `sample_until_converged` (blocks until the R-hat/ESS gate passes, with
-checkpoints and a draw store) and `supervised_sample` (the runner with
-restart from the last healthy checkpoint) — run on ``cuda`` unless the
-caller passes ``device="cpu"``; with no card and no explicit CPU device
-they raise (see `_device`).
+checkpoints and a draw store), `supervised_sample` (the runner with
+restart from the last healthy checkpoint), `consensus_sample`
+(consensus Monte Carlo over data shards) and `sghmc_sample`
+(minibatch SG-HMC) — run on ``cuda`` unless the caller passes
+``device="cpu"``; with no card and no explicit CPU device they raise
+(see `_device`).
 
 Precision stance: float32 everywhere, no TF32.  This mirrors the JAX
 package's ``highest`` matmul default — MCMC needs accurate energies and
@@ -29,8 +31,10 @@ _torch.backends.cudnn.allow_tf32 = False
 from . import bijectors, diagnostics  # noqa: E402
 from .chees import chees_sample  # noqa: E402
 from .model import Model, ParamSpec, flatten_model, prepare_model_data  # noqa: E402
+from .parallel import consensus_sample  # noqa: E402
 from .runner import AdaptiveResult, sample_until_converged  # noqa: E402
 from .sampler import Posterior, SamplerConfig, sample  # noqa: E402
+from .sghmc import sghmc_sample  # noqa: E402
 from .supervise import supervised_sample  # noqa: E402
 
 __version__ = "0.1.0"
@@ -43,10 +47,12 @@ __all__ = [
     "SamplerConfig",
     "bijectors",
     "chees_sample",
+    "consensus_sample",
     "diagnostics",
     "flatten_model",
     "prepare_model_data",
     "sample",
     "sample_until_converged",
+    "sghmc_sample",
     "supervised_sample",
 ]

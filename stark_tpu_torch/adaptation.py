@@ -147,7 +147,7 @@ def find_reasonable_step_size(noise, potential_fn, z, pe, grad, inv_mass_diag,
     and the loop ends when no chain goes on (one host read per round).
     The momentum is one normal draw from ``noise``."""
     C = z.shape[0]
-    r0 = sample_momentum(noise, C, inv_mass_diag)
+    r0 = sample_momentum(noise, (C,), inv_mass_diag)
     energy0 = pe + kinetic_energy(r0, inv_mass_diag)
     live = torch.ones(C, dtype=torch.bool, device=z.device)
 

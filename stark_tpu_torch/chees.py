@@ -23,6 +23,13 @@ Where the JAX package runs each segment as one compiled ``lax.scan``,
 this module runs eager PyTorch on the device and reads one integer back
 to the host per transition: the leapfrog count L, which sets the length
 of the Python leapfrog loop.
+
+The parts also run S independent ensembles side by side (consensus
+Monte Carlo, `parallel.consensus`): z0 (S, C, d), and every adaptation
+state gains the S axis — step-size averaging, Adam on log T, the
+Welford moments and the inverse mass (S, d) — as the JAX package's
+``vmap`` over shards gives each shard its own.  The one host read per
+transition is then the S leapfrog counts.
 """
 
 from __future__ import annotations
@@ -69,10 +76,11 @@ def _adam_ascent(s: AdamState, grad, lr=0.025, b1=0.9, b2=0.95):
 
 
 def _welford_batch(w: WelfordState, xs: torch.Tensor) -> WelfordState:
-    """Merge a (C, d) batch into the accumulator (Chan parallel combine)."""
-    bc = xs.shape[0]
-    bmean = xs.mean(0)
-    bm2 = torch.sum((xs - bmean[None, :]) ** 2, dim=0)
+    """Merge a (C, d) batch into the accumulator (Chan parallel combine);
+    (S, C, d) into S accumulators (S, d)."""
+    bc = xs.shape[-2]
+    bmean = xs.mean(-2)
+    bm2 = torch.sum((xs - bmean.unsqueeze(-2)) ** 2, dim=-2)
     na, nb = float(w.count), float(bc)
     delta = bmean - w.mean
     tot = na + nb
@@ -125,10 +133,10 @@ def make_chees_parts(fm, cfg: SamplerConfig) -> CheesParts:
     warm_cap = min(cfg.max_leapfrog, 512)
     log_cap = math.log(float(warm_cap))
 
-    def num_steps(u: float, log_T, log_eps) -> int:
-        # the one host read per transition
-        L = torch.ceil(u * torch.exp(log_T - log_eps)).to(torch.int32)
-        return int(torch.clamp(L, 1, warm_cap).item())
+    def num_steps(u: float, log_T, log_eps) -> list:
+        # the one host read per transition: one count per shard ([L] without)
+        L = torch.clamp(torch.ceil(u * torch.exp(log_T - log_eps)).to(torch.int32), 1, warm_cap)
+        return L.reshape(-1).tolist()
 
     def init_carry(z0: torch.Tensor, data=None) -> CheesWarmCarry:
         potential_fn = fm.bind(data)
@@ -143,13 +151,14 @@ def make_chees_parts(fm, cfg: SamplerConfig) -> CheesParts:
                 adam, step = _adam_ascent(adam, -g, lr=0.05, b2=0.999)
                 z0 = z0 + step
         f32 = dict(device=dev, dtype=torch.float32)
+        lead = tuple(z0.shape[:-2])  # () or (S,): one adaptation state per shard
         return CheesWarmCarry(
             states=init_ensemble(potential_fn, z0),
-            da=da_init(torch.tensor(cfg.init_step_size, **f32)),
-            adam=AdamState(torch.zeros((), **f32), torch.zeros((), **f32), 0),
-            log_T=torch.log(torch.tensor(T0, **f32)),
-            wf=welford_init(d, dev),
-            inv_mass=torch.ones(d, **f32),
+            da=da_init(torch.full(lead, cfg.init_step_size, **f32)),
+            adam=AdamState(torch.zeros(lead, **f32), torch.zeros(lead, **f32), 0),
+            log_T=torch.log(torch.full(lead, T0, **f32)),
+            wf=welford_init(lead + (d,), dev),
+            inv_mass=torch.ones(lead + (d,), **f32),
         )
 
     def warm_step(carry: CheesWarmCarry, noise, potential_fn, u, idx, accum, at_window):
@@ -159,7 +168,7 @@ def make_chees_parts(fm, cfg: SamplerConfig) -> CheesParts:
         states, info = chees_transition(
             noise, states, potential_fn, torch.exp(log_eps), inv_mass, L
         )
-        da = da_update(da, info.accept_prob.mean(), cfg.target_accept)
+        da = da_update(da, info.accept_prob.mean(-1), cfg.target_accept)
         # chain rule d/dlogT = T d/dT on the criterion-relative gradient
         adam, step = _adam_ascent(adam, info.grad_rel_T * torch.exp(log_T), lr=0.05)
         if idx >= t_start:
@@ -175,7 +184,7 @@ def make_chees_parts(fm, cfg: SamplerConfig) -> CheesParts:
             # window end: apply the pooled variance as the metric, restart
             # the accumulator and the step-size averaging
             inv_mass = welford_variance(wf)
-            wf = welford_init(d, inv_mass.device)
+            wf = welford_init(inv_mass.shape, inv_mass.device)
             da = da_init(torch.exp(da.log_step))
         carry = CheesWarmCarry(states, da, adam, log_T, wf, inv_mass)
         return carry, info
@@ -223,7 +232,7 @@ def make_chees_parts(fm, cfg: SamplerConfig) -> CheesParts:
             zs.append(states.z.cpu())
             acc.append(info.accept_prob.cpu())
             div.append(info.is_divergent.cpu())
-            nleap.append(L)
+            nleap.append(info.num_leapfrog)
         carry = CheesRunCarry(states, carry.log_eps, carry.log_T, carry.inv_mass)
         if not zs:
             return carry, diag, None
@@ -237,7 +246,8 @@ def make_chees_parts(fm, cfg: SamplerConfig) -> CheesParts:
 
     def sample_segment(carry: CheesRunCarry, noise, us, data=None):
         """Sampling transitions; returns (carry, outs) with outs the
-        host-side step-major (zs, accept_prob, is_divergent, nleap)."""
+        host-side step-major (zs, accept_prob, is_divergent, nleap): zs
+        (T, [S,] C, d), nleap the ensemble evaluations of each."""
         carry, _, outs = sample_loop(carry, None, noise, us, data)
         return carry, outs
 

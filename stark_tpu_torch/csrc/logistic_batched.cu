@@ -1,6 +1,8 @@
 // B2: chain-batched log-likelihood pass, value and beta gradient in one
 // pass over X for all chains, with optional per-chain row offsets; links
-// bernoulli_logit and gaussian.
+// bernoulli_logit and gaussian; optionally for S independent shards of
+// rows at once (consensus Monte Carlo: shard s has its own beta, xT, y,
+// offsets and outputs).
 //
 // Replaces the TPU kernel stark_tpu/ops/logistic_fused.py:
 // _make_batched_kernel (called through _batched_call).  For C chains,
@@ -15,6 +17,17 @@
 //     resid (C, N)  y - l
 // resid is written only with offsets: the offset path's own output, which
 // the model chains through the gather that made the offsets.
+//
+// Shard axis.  With S shards every array gains a leading S axis (beta
+// (S, C, D), xT (S, D, N), y (S, N), offsets and resid (S, C, N), val (S,
+// C), gbeta (S, C, D)), and one launch serves them all: the grid is (row
+// blocks, S), blockIdx.y picks the shard, and each shard's partials sit in
+// a region of the scratch buffer of their own, summed by b2_finish within
+// the shard only.  The row split of a shard is b2_blocks' at most kBlocks
+// / S blocks, so the launch stays about one wave.  The shard offsets are
+// compiled into instantiations of their own (kShards), launched for S >
+// 1; S = 1 runs the unsharded pass: the same code, blocks and sums, so
+// the same bits and time.
 //
 // Bound on an H100 SXM at the offset-path flagship shape (C=32, D=32,
 // N=1M, with offsets): it must read xT (128 MB), y (4 MB) and offsets
@@ -238,9 +251,25 @@ __device__ __forceinline__ void stage(const Params& p, float* xs, float* ys, flo
 // kOneTile: one_tile(C, D), the flagship's case (two buffers, one chunk,
 // the gradient tile in registers throughout), compiled apart so that none
 // of the other cases' state takes its registers.
-template <bool kOneTile, int kLink>
+// The arguments of shard s (blockIdx.y): every array advanced to the
+// shard's own slice, the partials to the shard's region of the scratch.
+__device__ __forceinline__ Params shard_view(Params p, int s, int nblk) {
+  const size_t cd = (size_t)p.C * p.D, cn = (size_t)p.C * p.N;
+  p.xT += (size_t)s * p.D * p.N;
+  p.y += (size_t)s * p.N;
+  p.beta += s * cd;
+  if (p.offsets != nullptr) p.offsets += s * cn;
+  if (p.resid != nullptr) p.resid += s * cn;
+  p.gpart += (size_t)s * nblk * cd;
+  p.vpart += (size_t)s * nblk * p.C;
+  return p;
+}
+
+// kShards: S > 1, blockIdx.y the shard.
+template <bool kOneTile, int kLink, bool kShards>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int nblk) {
   extern __shared__ __align__(16) float smem[];
+  if (kShards) p = shard_view(p, blockIdx.y, nblk);
   const int C = p.C, D = p.D, N = p.N;
   const Layout L = layout(C, D);
   float* xs = smem + L.xs;
@@ -485,16 +514,25 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
   for (int c = t; c < C; c += kThreads) p.vpart[(size_t)b * C + c] = vsl[2 * c] + vsl[2 * c + 1];
 }
 
-// Second pass: one warp per beta-gradient entry and per chain value.
-// Lane l adds the partials of blocks l, l + 32, l + 64, ... in order, and
+// Second pass: one warp per beta-gradient entry and per chain value, of
+// every shard (the shard's entries, then the next shard's).  Lane l adds
+// the partials of the shard's blocks l, l + 32, l + 64, ... in order, and
 // the lanes' sums meet in a fixed xor-shuffle tree, which leaves the same
 // bits in every lane.  A lane's loads are independent, and the rounding
-// grows with nblk / 32 + 5 adds, not with nblk.
-__global__ void b2_finish(Params p, int nblk, float* val, float* gbeta) {
-  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+// grows with nblk / 32 + 5 adds, not with nblk.  kShards: S > 1.
+template <bool kShards>
+__global__ void b2_finish(Params p, int nblk, int S, float* val, float* gbeta) {
+  long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   const long long ncd = (long long)p.C * p.D;
-  if (w >= ncd + p.C) return;  // a whole warp
+  if (w >= (ncd + p.C) * (kShards ? S : 1)) return;  // a whole warp
+  if (kShards) {
+    const int shard = (int)(w / (ncd + p.C));
+    w -= shard * (ncd + p.C);
+    p = shard_view(p, shard, nblk);
+    val += (size_t)shard * p.C;
+    gbeta += (size_t)shard * ncd;
+  }
   const float* part = w < ncd ? p.gpart + w : p.vpart + (w - ncd);
   const size_t stride = w < ncd ? (size_t)ncd : (size_t)p.C;
   float s = 0.f;
@@ -510,9 +548,10 @@ __global__ void b2_finish(Params p, int nblk, float* val, float* gbeta) {
 
 using Kernel = void (*)(Params, int);
 
-template <bool kOneTile>
+template <bool kOneTile, bool kShards>
 inline Kernel pick(int link) {
-  return link == kGaussian ? b2_pass<kOneTile, kGaussian> : b2_pass<kOneTile, kBernoulli>;
+  return link == kGaussian ? b2_pass<kOneTile, kGaussian, kShards>
+                           : b2_pass<kOneTile, kBernoulli, kShards>;
 }
 
 }  // namespace b2
@@ -521,7 +560,7 @@ inline Kernel pick(int link) {
 extern "C" int stark_logistic_batched(
     const float* xT, const float* y, const float* offsets, const float* beta,
     float* val, float* gbeta, float* resid, float* scratch, int C, int D, int N,
-    int nblk, int link, void* stream) {
+    int S, int nblk, int link, void* stream) {
   namespace b2 = stark::b2;
   stark::Params p{};
   p.xT = xT;
@@ -533,22 +572,28 @@ extern "C" int stark_logistic_batched(
   p.offsets = offsets;
   p.resid = resid;
   // the block split of stark_tpu_torch/ops/logistic_fused.py:b2_blocks, no other
+  if (S < 1 || S > 65535) return (int)cudaErrorInvalidValue;
   const int nsub = (N + b2::kRows - 1) / b2::kRows;
-  if (nblk != (nsub < b2::kBlocks ? nsub : b2::kBlocks)) return (int)cudaErrorInvalidValue;
+  const int most = b2::kBlocks / S > 1 ? b2::kBlocks / S : 1;
+  if (nblk != (nsub < most ? nsub : most)) return (int)cudaErrorInvalidValue;
   if (link != stark::kBernoulli && link != stark::kGaussian) return (int)cudaErrorInvalidValue;
-  stark::carve_scratch(p, scratch, nblk);
+  stark::carve_scratch(p, scratch, nblk * S);  // shard s: blocks s * nblk ..
+
   auto s = static_cast<cudaStream_t>(stream);
   const size_t bytes = (size_t)b2::layout(C, D).words * sizeof(float);
-  const b2::Kernel kern = b2::one_tile(C, D) ? b2::pick<true>(link) : b2::pick<false>(link);
+  const bool one = b2::one_tile(C, D);
+  const b2::Kernel kern = S > 1 ? (one ? b2::pick<true, true>(link) : b2::pick<false, true>(link))
+                                : (one ? b2::pick<true, false>(link) : b2::pick<false, false>(link));
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  kern<<<nblk, b2::kThreads, bytes, s>>>(p, nblk);
+  kern<<<dim3(nblk, S), b2::kThreads, bytes, s>>>(p, nblk);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long warps = (long long)C * D + C;
+  const long long warps = ((long long)C * D + C) * S;
   const int blocks = (int)((32 * warps + b2::kThreads - 1) / b2::kThreads);
-  b2::b2_finish<<<blocks, b2::kThreads, 0, s>>>(p, nblk, val, gbeta);
+  if (S > 1) b2::b2_finish<true><<<blocks, b2::kThreads, 0, s>>>(p, nblk, S, val, gbeta);
+  else b2::b2_finish<false><<<blocks, b2::kThreads, 0, s>>>(p, nblk, S, val, gbeta);
   return (int)cudaGetLastError();
 }
 

@@ -132,10 +132,11 @@ def kinetic_energy(r: torch.Tensor, inv_mass_diag: torch.Tensor) -> torch.Tensor
     return 0.5 * torch.sum(inv_mass_diag * r * r, dim=-1)
 
 
-def sample_momentum(noise, chains: int, inv_mass_diag: torch.Tensor) -> torch.Tensor:
-    """r ~ N(0, M), M = diag(1 / inv_mass_diag), for ``chains`` chains;
-    the standard normals come from ``noise.normal``."""
-    eps = noise.normal((chains, inv_mass_diag.shape[-1]))
+def sample_momentum(noise, batch: tuple, inv_mass_diag: torch.Tensor) -> torch.Tensor:
+    """r ~ N(0, M), M = diag(1 / inv_mass_diag), for a batch of chains of
+    shape ``batch`` ((C,), or (S, C) with shards); the standard normals
+    come from ``noise.normal``."""
+    eps = noise.normal(tuple(batch) + (inv_mass_diag.shape[-1],))
     return eps * torch.rsqrt(inv_mass_diag)
 
 

@@ -21,7 +21,7 @@ _DIVERGENCE_THRESHOLD = 1000.0
 def hmc_step(noise, state: HMCState, potential_fn, step_size, inv_mass_diag, num_leapfrog: int):
     """One HMC transition of every chain; returns (HMCState, HMCInfo)."""
     C = state.z.shape[0]
-    r0 = sample_momentum(noise, C, inv_mass_diag)
+    r0 = sample_momentum(noise, (C,), inv_mass_diag)
     u_accept = noise.uniform((C,))
     energy0 = state.potential_energy + kinetic_energy(r0, inv_mass_diag)
 

@@ -9,7 +9,12 @@ Chain batching is explicit: every parameter tensor a model sees carries
 a leading chain axis C, and ``log_prior``/``log_lik`` return ``(C,)``.
 The potential and its gradient therefore take the whole ensemble at
 once, ``(C, d) -> ((C,), (C, d))`` — the form the fused kernels need to
-read the data once for all chains.
+read the data once for all chains.  Consensus Monte Carlo adds a shard
+axis in front, ``(S, C, d)`` against data split into S row blocks: the
+prior and the bijectors see the S*C rows as one batch, and ``log_lik``
+sees parameters with both leading axes when the model declares a
+shard-batched likelihood (`Model.shard_batched_lik`), and one shard at
+a time otherwise (see `parallel.consensus`).
 """
 
 from __future__ import annotations
@@ -41,6 +46,12 @@ class Model:
     terms over the dataset it is handed.
     """
 
+    # True when log_lik also takes parameters (S, C, ...) against data
+    # whose every entry has a leading shard axis (rows split into S
+    # blocks) and returns (S, C); a model without it is handed the shards
+    # one at a time
+    shard_batched_lik = False
+
     def param_spec(self) -> Dict[str, ParamSpec]:
         raise NotImplementedError
 
@@ -59,6 +70,15 @@ class Model:
         """One-time host-side layout transform on numpy arrays, applied
         by `prepare_model_data` before the data moves to the device."""
         return data
+
+    def data_row_axes(self, data) -> Dict[str, int]:
+        """Which axis of each ``prepare_data``-output entry indexes data
+        rows: axis 0 everywhere by default.  Entry points that split or
+        minibatch rows (consensus shards, SG-HMC minibatches) consult it;
+        a model whose layout moves the rows (a transposed ``xT``, rows on
+        axis 1) overrides it, and -1 marks an entry without rows, passed
+        whole to every shard or batch."""
+        return {k: 0 for k in data}
 
 
 def _host(v):
@@ -123,8 +143,14 @@ class FlatModel:
         )
 
 
-def flatten_model(model: Model) -> FlatModel:
-    """Compile a Model into chain-batched flat-vector functions."""
+def flatten_model(model: Model, prior_scale: float = 1.0, lik_scale: float = 1.0) -> FlatModel:
+    """Compile a Model into chain-batched flat-vector functions.
+
+    prior_scale: prior tempering exponent (consensus Monte Carlo uses
+      1/S); lik_scale: likelihood scale (SG-HMC minibatches use
+      N/batch).  At 1.0 (the default) the product is exact, so every
+      potential computes what it did without them.
+    """
     spec = model.param_spec()
     unc_shapes = {
         k: v.bijector.unconstrained_shape(tuple(v.shape)) for k, v in spec.items()
@@ -148,12 +174,26 @@ def flatten_model(model: Model) -> FlatModel:
             {k: spec[k].bijector.inverse(torch.as_tensor(params[k])) for k in spec}
         )
 
+    def log_lik(params, data, lead):
+        if len(lead) < 2 or model.shard_batched_lik:
+            return model.log_lik(params, data)
+        return torch.stack([
+            model.log_lik(
+                {k: v[s] for k, v in params.items()},
+                {k: v[s] if isinstance(v, torch.Tensor) else v for k, v in data.items()},
+            )
+            for s in range(lead[0])
+        ])
+
     def potential(flat, data=None):
-        params, fldj = constrain_with_fldj(flat)
-        lp = model.log_prior(params) + fldj
+        lead = flat.shape[:-1]
+        # the prior and bijectors see every shard's chains as one batch
+        params, fldj = constrain_with_fldj(flat.reshape(-1, ndim))
+        lp = prior_scale * model.log_prior(params) + fldj
         if data is not None:
-            lp = lp + model.log_lik(params, data)
-        return -lp
+            params = {k: v.reshape(lead + v.shape[1:]) for k, v in params.items()}
+            lp = lp + lik_scale * log_lik(params, data, lead).reshape(lp.shape)
+        return -lp.reshape(lead)
 
     def potential_and_grad(flat, data=None):
         with torch.enable_grad():

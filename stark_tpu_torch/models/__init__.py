@@ -1,6 +1,9 @@
-"""Model zoo of the port: 8 schools (BASELINE config 1), the flagship
-hierarchical logistic family and the hierarchical linear mixed model
-(BASELINE config 3)."""
+"""Model zoo of the port: 8 schools (BASELINE config 1), flat logistic
+regression (config 2), the flagship hierarchical logistic family, the
+hierarchical linear mixed model (config 3) and the Bayesian 2-layer MLP
+(config 5)."""
+
+from .bnn import BayesianMLP, synth_bnn_data
 
 from .eight_schools import EightSchools, eight_schools_data
 from .lmm import (
@@ -12,19 +15,25 @@ from .lmm import (
 from .logistic import (
     FusedHierLogistic,
     FusedHierLogisticGrouped,
+    FusedLogistic,
     HierLogistic,
+    Logistic,
     synth_logistic_data,
 )
 
 __all__ = [
+    "BayesianMLP",
     "EightSchools",
     "FusedHierLogistic",
     "FusedHierLogisticGrouped",
     "FusedLinearMixedModel",
     "FusedLinearMixedModelGrouped",
+    "FusedLogistic",
     "HierLogistic",
     "LinearMixedModel",
+    "Logistic",
     "eight_schools_data",
+    "synth_bnn_data",
     "synth_logistic_data",
     "synth_lmm_data",
 ]

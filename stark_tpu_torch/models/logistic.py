@@ -1,8 +1,16 @@
-"""Hierarchical logistic regression — the flagship model, counterpart of
-``stark_tpu/models/logistic.py``.
+"""Logistic regression, flat (BASELINE config 2) and hierarchical (the
+flagship model) — counterpart of ``stark_tpu/models/logistic.py``.
 
 Data: {"x": (N, D) float32, "y": (N,) 0/1 float32, "g": (N,) int group
-ids}.  Three models share one posterior:
+ids}.  Two flat models share one posterior:
+
+* `Logistic`: plain PyTorch autograd on the (N, D) rows;
+* `FusedLogistic`: X transposed once, value and gradient from kernel B2
+  (a chain batch; per shard and chain under consensus Monte Carlo).
+
+Both evaluate a shard batch (parameters (S, C, ...) against data split
+into S row blocks) as well as a chain batch.  Three hierarchical models
+share another:
 
 * `HierLogistic`: plain PyTorch autograd on the (N, D) rows;
 * `FusedHierLogistic`: the offset path — X transposed once, the
@@ -32,6 +40,30 @@ _LOG2 = math.log(2.0)
 def _bernoulli_logit_loglik(logits, y):
     f = torch.nn.functional.logsigmoid
     return (y * f(logits) + (1.0 - y) * f(-logits)).sum(-1)
+
+
+class Logistic(Model):
+    """Flat logistic regression: beta ~ N(0, prior_scale),
+    y ~ Bernoulli(sigmoid(x beta))."""
+
+    shard_batched_lik = True
+
+    def __init__(self, num_features: int, prior_scale: float = 2.5):
+        self.num_features = num_features
+        self.prior_scale = prior_scale
+
+    def param_spec(self):
+        return {"beta": ParamSpec((self.num_features,))}
+
+    def log_prior(self, p):
+        return batch_sum(normal_logpdf(p["beta"], 0.0, self.prior_scale))
+
+    def log_lik(self, p, data):
+        beta, y = p["beta"], data["y"]
+        logits = beta @ data["x"].transpose(-1, -2)
+        if beta.ndim == 3:  # shards: y (S, n) against logits (S, C, n)
+            y = y.unsqueeze(-2)
+        return _bernoulli_logit_loglik(logits, y)
 
 
 class HierLogistic(Model):
@@ -90,6 +122,33 @@ def _transpose_x(data):
     return out
 
 
+def _row_axes_xt(data):
+    """Rows on axis 1 of the transposed ``xT``, axis 0 elsewhere; an entry
+    without rows (a 0-d or empty marker) is -1."""
+    def ax(k, v):
+        if np.ndim(v) == 0 or np.shape(v)[0] == 0:
+            return -1
+        return 1 if k == "xT" else 0
+
+    return {k: ax(k, v) for k, v in data.items()}
+
+
+class FusedLogistic(Logistic):
+    """Logistic with value and gradient from kernel B2 in one pass over
+    the transposed X."""
+
+    def prepare_data(self, data):
+        return _transpose_x(data)
+
+    def data_row_axes(self, data):
+        return _row_axes_xt(data)
+
+    def log_lik(self, p, data):
+        from ..ops.logistic_fused import logistic_loglik
+
+        return logistic_loglik(p["beta"], data["xT"], data["y"])
+
+
 class FusedHierLogistic(HierLogistic):
     """HierLogistic with the X pass in kernel B2; the intercept gather and
     its scatter-add gradient stay in PyTorch."""
@@ -98,6 +157,9 @@ class FusedHierLogistic(HierLogistic):
         if "g" in data:
             self.check_groups(data["g"])
         return _transpose_x(data)
+
+    def data_row_axes(self, data):
+        return _row_axes_xt(data)
 
     def log_lik(self, p, data):
         from ..ops.logistic_fused import logistic_offset_loglik

@@ -7,6 +7,9 @@ its beta gradient and — when row offsets are given — the per-row
 residual, which the offset-path models chain through their gather:
 
 * `logistic_batched` (B2): a (C, D) block of chains, offsets (C, N);
+  or S shards of rows at once (consensus Monte Carlo), each with its own
+  (C, D) block: beta (S, C, D), xT (S, D, n), y (S, n), offsets (S, C,
+  n), all in one launch;
 * `logistic_single` (B3): one chain, beta (D,), offsets (N,).
 
 Links (`_link_parts`): ``bernoulli_logit`` (value = the log-likelihood,
@@ -78,9 +81,11 @@ def subtile_split(n: int, tile: int, most: int):
     return nblk, edges
 
 
-def b2_blocks(n: int):
-    """Row split of a B2 launch (`subtile_split`, csrc/logistic_batched.cu)."""
-    return subtile_split(n, B2_ROW_TILE, B2_BLOCKS)
+def b2_blocks(n: int, shards: int = 1):
+    """Row split of each shard of a B2 launch over ``shards`` shards of
+    n rows (`subtile_split` into at most B2_BLOCKS // shards blocks, so
+    the launch stays about one wave; csrc/logistic_batched.cu)."""
+    return subtile_split(n, B2_ROW_TILE, max(1, B2_BLOCKS // shards))
 
 
 #: the links both kernels take, and their code in the C entry points
@@ -125,19 +130,22 @@ def check_kernel_args(named, *, device, dtypes, shapes):
 
 
 def logistic_batched_plain(beta, xT, y, offsets=None, link="bernoulli_logit"):
-    """Plain PyTorch version of kernel B2 (same outputs)."""
+    """Plain PyTorch version of kernel B2 (same outputs), with or
+    without the shard axis."""
     logits = beta @ xT
     if offsets is not None:
         logits = logits + offsets
+    if beta.ndim == 3:  # shards: y (S, n) against logits (S, C, n)
+        y = y.unsqueeze(-2)
     val_terms, resid = _link_parts(y, logits, link)
     val = val_terms.sum(-1)
-    gbeta = resid @ xT.T
+    gbeta = resid @ xT.transpose(-1, -2)
     if offsets is not None:
         return val, gbeta, resid
     return val, gbeta
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -165,19 +173,30 @@ def logistic_batched(
     """Kernel B2: -> (val (C,), gbeta (C, D)[, resid (C, N)]).
 
     beta (C, D), xT (D, N), y (N,), offsets (C, N) or None; float32.
-    Launches count in ``logistic_batched.launches`` (bernoulli_logit) and
-    ``logistic_batched.gaussian_launches`` (gaussian).
+    With a leading shard axis — beta (S, C, D), xT (S, D, n), y (S, n),
+    offsets (S, C, n) — every shard in one launch: -> (val (S, C), gbeta
+    (S, C, D)[, resid (S, C, n)]).  Launches count in
+    ``logistic_batched.launches`` (bernoulli_logit) and
+    ``logistic_batched.gaussian_launches`` (gaussian), one per launch
+    whatever the number of shards; a launch with a shard axis also counts
+    in ``logistic_batched.shard_launches``.
     """
     check_knobs()
     code = _link_code(link)
+    if beta.ndim not in (2, 3):
+        raise ValueError(f"logistic_batched takes beta (C, D) or (S, C, D); got "
+                         f"{tuple(beta.shape)}")
     if beta.device.type == "cpu":
         return logistic_batched_plain(beta, xT, y, offsets, link)
     if beta.device.type != "cuda":
         raise ValueError(f"logistic_batched runs on cuda or cpu, not {beta.device}")
-    c, d = beta.shape
-    n = xT.shape[1]
+    lead = tuple(beta.shape[:-2])  # () or (S,)
+    s = lead[0] if lead else 1
+    c, d = beta.shape[-2:]
+    n = xT.shape[-1]
     named = {"beta": beta, "xT": xT, "y": y}
-    shapes = {"beta": (c, d), "xT": (d, n), "y": (n,), "offsets": (c, n)}
+    shapes = {"beta": lead + (c, d), "xT": lead + (d, n), "y": lead + (n,),
+              "offsets": lead + (c, n)}
     if offsets is not None:
         named["offsets"] = offsets
     check_kernel_args(
@@ -190,23 +209,19 @@ def logistic_batched(
             f"logistic_batched: C={c} chains of D={d} features need {need} bytes "
             f"of shared memory per block; this card gives a block at most {limit}"
         )
-    nblk, _ = b2_blocks(n)
-    val = torch.empty(c, device=beta.device, dtype=torch.float32)
-    gbeta = torch.empty(c, d, device=beta.device, dtype=torch.float32)
-    resid = (
-        torch.empty(c, n, device=beta.device, dtype=torch.float32)
-        if offsets is not None else None
-    )
-    scratch = torch.empty(
-        scratch_words(nblk, c, d), device=beta.device, dtype=torch.float32
-    )
+    nblk, _ = b2_blocks(n, s)
+    f32 = dict(device=beta.device, dtype=torch.float32)
+    val = torch.empty(lead + (c,), **f32)
+    gbeta = torch.empty(lead + (c, d), **f32)
+    resid = torch.empty(lead + (c, n), **f32) if offsets is not None else None
+    scratch = torch.empty(scratch_words(nblk * s, c, d), **f32)
     fn = _build.function("logistic_batched", "stark_logistic_batched", _ARGTYPES)
     err = fn(
         xT.data_ptr(), y.data_ptr(),
         offsets.data_ptr() if offsets is not None else None,
         beta.data_ptr(), val.data_ptr(), gbeta.data_ptr(),
         resid.data_ptr() if resid is not None else None,
-        scratch.data_ptr(), c, d, n, nblk, code,
+        scratch.data_ptr(), c, d, n, s, nblk, code,
         torch.cuda.current_stream(beta.device).cuda_stream,
     )
     _build.check("logistic_batched", err)
@@ -214,15 +229,18 @@ def logistic_batched(
         logistic_batched.gaussian_launches += 1
     else:
         logistic_batched.launches += 1
+    if lead:
+        logistic_batched.shard_launches += 1
     if offsets is not None:
         return val, gbeta, resid
     return val, gbeta
 
 
 #: launches of the CUDA kernel in this process, per link (CPU calls do
-#: not count)
+#: not count); shard_launches also counts those with a shard axis
 logistic_batched.launches = 0
 logistic_batched.gaussian_launches = 0
+logistic_batched.shard_launches = 0
 
 
 def logistic_single_plain(beta, xT, y, offsets=None, link="bernoulli_logit"):
@@ -307,7 +325,8 @@ def logistic_loglik_value_and_grad(beta, xT, y):
 
 
 def _pass(beta, xT, y, offsets, link):
-    """One chain (beta (D,)) -> B3; a chain batch (beta (C, D)) -> B2."""
+    """One chain (beta (D,)) -> B3; a chain batch (beta (C, D)) or one
+    per shard (beta (S, C, D)) -> B2."""
     beta = beta.contiguous()
     if offsets is not None:
         offsets = offsets.contiguous()
@@ -356,7 +375,8 @@ def logistic_offset_loglik(beta, offsets, xT, y):
 
 def logistic_loglik(beta, xT, y):
     """Differentiable Bernoulli-logit log-lik of X beta, per chain:
-    beta (C, D) [or (D,)] -> (C,) [or ()]."""
+    beta (C, D) [or (D,)] -> (C,) [or ()]; per shard and chain, beta (S,
+    C, D), xT (S, D, n), y (S, n) -> (S, C), in one B2 launch."""
     return _LogisticLoglik.apply(beta, xT, y)
 
 

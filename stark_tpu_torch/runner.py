@@ -53,6 +53,7 @@ import torch
 
 from . import diagnostics
 from ._device import DeviceLike
+from ._unported import refuse
 from .checkpoint import load_checkpoint, rank_path, save_checkpoint
 from .kernels.base import STREAM_DIAG_LAGS, StreamDiagState
 from .kernels.chees import TorchNoise
@@ -83,10 +84,6 @@ class AdaptiveResult(Posterior):
         # the JAX package's statistical-health verdict; its monitor is
         # ROADMAP A12, so None here (never an empty claim of health)
         self.health_warnings = None
-
-
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 # ---------------------------------------------------------------- streams
@@ -381,13 +378,13 @@ def sample_until_converged(
     NUTS (``STARK_RAGGED_NUTS=1``).
     """
     if sync_blocks is False:
-        _refuse("the pipelined block loop (sync_blocks=False)", "A6, the pipelined loop")
+        refuse("the pipelined block loop (sync_blocks=False)", "A6, the pipelined loop")
     if adapt_path is not None or adapt_export_path is not None:
-        _refuse("adaptation reuse (adapt_path / adapt_export_path)", "A6, adaptation reuse")
+        refuse("adaptation reuse (adapt_path / adapt_export_path)", "A6, adaptation reuse")
     if trace is not None:
-        _refuse("run telemetry (trace=)", "A12")
+        refuse("run telemetry (trace=)", "A12")
     if profile_dir is not None:
-        _refuse("profile hooks (profile_dir=)", "A12")
+        refuse("profile hooks (profile_dir=)", "A12")
     if backend is None:
         from .backends.cuda_backend import CudaBackend
 

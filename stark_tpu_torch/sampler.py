@@ -118,6 +118,21 @@ class Posterior:
     def min_ess(self) -> float:
         return float(min(np.min(v) for v in self.ess().values()))
 
+    def functional(self, fn: Callable[[Dict[str, torch.Tensor]], torch.Tensor]) -> np.ndarray:
+        """``fn(params) -> tensor`` of one draw, applied to every draw:
+        (chains, draws, ...), on the host CPU.  The diagnostic space for
+        models whose parameters are not identifiable (a neural net's
+        hidden units, a mixture's labels): R-hat and ESS of predictions at
+        probe inputs instead of weights.  ``fn`` sees one draw's
+        parameters (``torch.func.vmap`` over the draws, 1024 at a time to
+        bound the host memory of its intermediates)."""
+        params = {k: torch.as_tensor(v) for k, v in self.draws.items()}
+        c, t = next(iter(params.values())).shape[:2]
+        flat = {k: v.reshape((c * t,) + tuple(v.shape[2:])) for k, v in params.items()}
+        with torch.no_grad():
+            out = torch.func.vmap(fn, chunk_size=1024)(flat)
+        return out.reshape((c, t) + tuple(out.shape[1:])).numpy()
+
 
 def constrain_draws(fm, zs: np.ndarray) -> Dict[str, np.ndarray]:
     """(chains, draws, d) flat draws -> named constrained draws, on the

@@ -38,6 +38,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from ._device import DeviceLike, resolve_device
+from ._unported import refuse
 from .checkpoint import load_checkpoint, rank_path
 from .model import Model
 
@@ -218,9 +219,9 @@ def supervised_sample(
     from . import runner
 
     if stall_timeout_s is not None:
-        runner._refuse("the stall watchdog (stall_timeout_s=)", "A12")
+        refuse("the stall watchdog (stall_timeout_s=)", "A12")
     if trace is not None:
-        runner._refuse("run telemetry (trace=)", "A12")
+        refuse("run telemetry (trace=)", "A12")
     if kwargs.get("backend") is None:
         kwargs["device"] = resolve_device(device)
     elif device is not None:

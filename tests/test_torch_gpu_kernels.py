@@ -620,3 +620,84 @@ def test_new_wrappers_refuse_bad_arguments():
         logistic_fused.logistic_single(args[0][:, 0], xT, y)
     with pytest.raises(ValueError, match="unknown link"):
         logistic_fused.logistic_batched(args[0], xT, y, link="poisson")
+
+
+# B2's shard axis (consensus Monte Carlo): (S, N, D, C) with one, two,
+# three and eight shards, shards below one sub-tile and of N = 1, 2, 3
+# (mod 4) rows, shards of more sub-tiles than their share of the blocks,
+# chain and feature counts off the 32-wide chunks, config 2's width
+_B2_SHARD_CASES = [
+    (1, 3001, 7, 9), (2, 3001, 33, 33), (3, 50, 5, 9), (3, 127, 16, 8),
+    (2, 40_003, 32, 20), (3, 40_002, 3, 40), (8, 1001, 16, 8), (8, 5, 16, 8),
+    (8, 125_003, 16, 8),
+]
+
+
+def _dyadic_b2_shards(s, n, d, chains, link, seed):
+    parts = [_dyadic_b2_case(n, d, chains, link, seed + k) for k in range(s)]
+    return tuple(torch.stack(t) for t in zip(*parts))
+
+
+@pytest.mark.parametrize("link", ["bernoulli_logit", "gaussian"])
+@pytest.mark.parametrize("with_offsets", [False, True])
+@pytest.mark.parametrize("s,n,d,chains", _B2_SHARD_CASES)
+def test_b2_shard_axis_matches_float64_and_repeats_bitwise(s, n, d, chains, with_offsets, link):
+    """Every shard in one launch (one count), against the plain version
+    in float64 on dyadic inputs, a second launch bitwise equal."""
+    beta, xT, y, off = _dyadic_b2_shards(s, n, d, chains, link, seed=n + d + chains + s)
+    off = off if with_offsets else None
+    lb = logistic_fused.logistic_batched
+    before = (lb.launches, lb.gaussian_launches, lb.shard_launches)
+    got = lb(beta, xT, y, off, link=link)
+    again = lb(beta, xT, y, off, link=link)
+    torch.cuda.synchronize()
+    bump = (2, 0) if link == "bernoulli_logit" else (0, 2)
+    assert (lb.launches, lb.gaussian_launches, lb.shard_launches) == (
+        before[0] + bump[0], before[1] + bump[1], before[2] + 2)
+    assert got[0].shape == (s, chains) and got[1].shape == (s, chains, d)
+    _assert_parity(got, _in_float64(logistic_fused.logistic_batched_plain, (beta, xT, y, off, link)))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("link", ["bernoulli_logit", "gaussian"])
+@pytest.mark.parametrize("with_offsets", [False, True])
+def test_b2_one_shard_is_the_unsharded_call_bitwise(with_offsets, link):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(9)
+    n, d, c = 60_003, 16, 8
+    xT = torch.randn(1, d, n, device=dev, generator=g)
+    y = (torch.rand(1, n, device=dev, generator=g) < 0.4).float()
+    beta = 0.3 * torch.randn(1, c, d, device=dev, generator=g)
+    off = torch.randn(1, c, n, device=dev, generator=g) if with_offsets else None
+    one = logistic_fused.logistic_batched(beta, xT, y, off, link)
+    flat = logistic_fused.logistic_batched(beta[0], xT[0], y[0], None if off is None else off[0],
+                                           link)
+    for a, b in zip(one, flat):
+        assert torch.equal(a[0], b)
+
+
+def test_b2_shard_axis_matches_separate_launches_and_autograd():
+    """Eight shards at config 2's chain and feature counts against eight
+    unsharded launches (other blocks, so within the tolerances, not
+    bitwise), and through the differentiable op."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(4)
+    s, n, d, c = 8, 20_001, 16, 8
+    xT = torch.randn(s, d, n, device=dev, generator=g)
+    y = (torch.rand(s, n, device=dev, generator=g) < 0.4).float()
+    beta = 0.3 * torch.randn(s, c, d, device=dev, generator=g)
+    val, gb = logistic_fused.logistic_batched(beta, xT, y)
+    for k in range(s):
+        v, gk = logistic_fused.logistic_batched(beta[k], xT[k], y[k])
+        torch.testing.assert_close(val[k], v, rtol=VAL_RTOL, atol=0)
+        torch.testing.assert_close(gb[k], gk, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    b = beta.clone().requires_grad_(True)
+    out = logistic_fused.logistic_loglik(b, xT, y)
+    assert out.shape == (s, c)
+    (2.0 * out).sum().backward()
+    torch.testing.assert_close(b.grad, 2.0 * gb, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="shape"):
+        logistic_fused.logistic_batched(beta, xT[:, :, :-1].contiguous(), y)
+    with pytest.raises(ValueError, match=r"\(S, C, D\)"):
+        logistic_fused.logistic_batched(beta[None], xT, y)

@@ -14,14 +14,19 @@ import torch
 import stark_tpu_torch
 from stark_tpu_torch import (
     chees_sample,
+    consensus_sample,
     prepare_model_data,
     sample,
     sample_until_converged,
+    sghmc_sample,
     supervised_sample,
 )
 from stark_tpu_torch.models import (
+    BayesianMLP,
     FusedHierLogisticGrouped,
     FusedLinearMixedModelGrouped,
+    FusedLogistic,
+    synth_bnn_data,
     synth_lmm_data,
     synth_logistic_data,
 )
@@ -44,7 +49,9 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "stark_tpu_torch.drawstore, stark_tpu_torch.backends, "
         "stark_tpu_torch.backends.cuda_backend, stark_tpu_torch.kernels, "
         "stark_tpu_torch.kernels.nuts, stark_tpu_torch.kernels.hmc, "
-        "stark_tpu_torch.models.eight_schools\n"
+        "stark_tpu_torch.models.eight_schools, stark_tpu_torch.parallel, "
+        "stark_tpu_torch.parallel.consensus, stark_tpu_torch.sghmc, "
+        "stark_tpu_torch.kernels.sghmc, stark_tpu_torch.models.bnn\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'stark_tpu'))\n"
         "print(','.join(bad))\n"
@@ -84,6 +91,8 @@ _ENTRY_MODELS = {
     "flagship": lambda: (FusedHierLogisticGrouped(2, 3),
                          synth_logistic_data(0, 300, 2, num_groups=3)[0]),
     "lmm": lambda: (FusedLinearMixedModelGrouped(2, 3), synth_lmm_data(0, 300, 2, 3)[0]),
+    "consensus": lambda: (FusedLogistic(2), synth_logistic_data(0, 300, 2)[0]),
+    "bnn": lambda: (BayesianMLP(2, hidden=3), synth_bnn_data(0, 300, 2)[0]),
 }
 
 
@@ -98,9 +107,14 @@ def test_entry_points_raise_without_a_card(monkeypatch, family):
         sample(model, raw, kernel="chees", chains=2, num_warmup=2, num_samples=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         prepare_model_data(model, raw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        consensus_sample(model, raw, num_shards=2, chains=2, kernel="chees", num_warmup=2,
+                         num_samples=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sghmc_sample(model, raw, batch_size=10, chains=2, num_warmup=2, num_samples=2)
     # explicit CPU is the one way to run here
     data = prepare_model_data(model, raw, device="cpu")
-    assert data["xT"].device.type == "cpu"
+    assert all(v.device.type == "cpu" for v in data.values() if isinstance(v, torch.Tensor))
 
 
 @pytest.mark.parametrize("family", list(_ENTRY_MODELS))

@@ -1,0 +1,423 @@
+"""Port's SG-HMC (BASELINE config 5) and Bayesian MLP against the JAX package.
+
+`sghmc_step` from the reference's state with the reference's noise and
+minibatch rows (its per-chain keys replayed into the port), with and
+without a momentum refresh; the per-chain NaN freeze; the minibatch
+gradient with ``lik_scale``, rows gathered along each entry's own axis;
+the grad**2 preconditioner `inv_mass_from` at an odd and an even d (the
+reference's ``jnp.median`` averages the two middle values); every
+schedule array of `sghmc_sample`, exactly, as the reference's run feeds
+them to its scans; `BayesianMLP`'s prior, likelihood, forward pass and
+potential; `Posterior.functional`.
+
+Tolerances: one step from the same state, rtol 1e-5 / atol 1e-6 (float32
+arithmetic in the same order on both sides, the gradient through two
+autodiffs); the preconditioner and the schedules exact; the BNN's
+densities rtol 1e-5 and its gradients rtol 1e-4 / atol 1e-5 (float32
+sums over rows in different orders).  The conjugate-normal posterior
+check mirrors tests/test_sghmc.py:73-114 at its own thresholds.
+"""
+
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import stark_tpu.sghmc as rsghmc
+from stark_tpu.kernels import sghmc as rks
+from stark_tpu.model import Model as RefModel
+from stark_tpu.model import ParamSpec as RefParamSpec
+from stark_tpu.model import flatten_model as ref_flatten
+from stark_tpu.models import bnn as rbnn
+from stark_tpu.sampler import Posterior as RefPosterior
+from stark_tpu_torch import sghmc as psghmc
+from stark_tpu_torch import sghmc_sample
+from stark_tpu_torch.kernels import sghmc as pks
+from stark_tpu_torch.model import Model, ParamSpec, flatten_model, normal_logpdf
+from stark_tpu_torch.models import bnn as pbnn
+from stark_tpu_torch.sampler import Posterior
+
+STEP_RTOL, STEP_ATOL = 1e-5, 1e-6
+DENS_RTOL = 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+class ReplayNoise:
+    """Hands out given arrays in order, checking each request's shape."""
+
+    def __init__(self, arrays):
+        self.arrays = list(arrays)
+
+    def _next(self, shape, *_):
+        a = np.array(self.arrays.pop(0))
+        assert a.shape == tuple(shape), (a.shape, tuple(shape))
+        return torch.as_tensor(a)
+
+    normal = randint = _next
+
+    def done(self):
+        return not self.arrays
+
+
+def _bnn_setup(n=200, d=3, hidden=4, batch=16, chains=3, seed=0):
+    rs = np.random.RandomState(seed)
+    data = {"x": rs.standard_normal((n, d)).astype(np.float32),
+            "y": (rs.rand(n) < 0.5).astype(np.float32)}
+    rfm = ref_flatten(rbnn.BayesianMLP(d, hidden), lik_scale=n / batch)
+    pfm = flatten_model(pbnn.BayesianMLP(d, hidden), lik_scale=n / batch)
+    assert pfm.ndim == rfm.ndim
+    z = (0.5 * rs.standard_normal((chains, pfm.ndim))).astype(np.float32)
+    return data, rfm, pfm, z
+
+
+def _step_noise(key, n, batch, d, resample):
+    """The draws one reference sghmc_step makes from ``key``, in the
+    port's order: the refreshed momentum (when asked), the rows, the
+    injected noise."""
+    key_grad, key_noise, key_mom = jax.random.split(key, 3)
+    out = [np.asarray(jax.random.normal(key_mom, (d,)))] if resample else []
+    out.append(np.asarray(jax.random.randint(key_grad, (batch,), 0, n)))
+    out.append(np.asarray(jax.random.normal(key_noise, (d,))))
+    return out
+
+
+def _stack_noise(keys, n, batch, d, resample):
+    per = [_step_noise(k, n, batch, d, resample) for k in keys]
+    return [np.stack(a) for a in zip(*per)]
+
+
+@pytest.mark.parametrize("resample", [False, True])
+def test_sghmc_step_matches_reference(resample):
+    n, batch, C = 200, 16, 3
+    data, rfm, pfm, z = _bnn_setup(n=n, batch=batch, chains=C)
+    d = pfm.ndim
+    rs = np.random.RandomState(1)
+    r = rs.standard_normal((C, d)).astype(np.float32)
+    inv_mass = (0.5 + rs.rand(C, d)).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(3), C)
+    rgrad = rks.make_minibatch_grad(rfm.potential, jax.tree.map(jnp.asarray, data), batch)
+    step, fric = 0.01, 2.0
+
+    def one(key, z, r, im):
+        return rks.sghmc_step(key, rks.SGHMCState(z, r), rgrad, jnp.float32(step),
+                              jnp.float32(fric), im, resample_momentum=resample)
+
+    rst, rinfo, rg = jax.vmap(one)(keys, jnp.asarray(z), jnp.asarray(r), jnp.asarray(inv_mass))
+    tdata = {k: torch.as_tensor(v) for k, v in data.items()}
+    pgrad = pks.make_minibatch_grad(pfm.potential, tdata, batch)
+    noise = ReplayNoise(_stack_noise(keys, n, batch, d, resample))
+    pst, pinfo, pg = pks.sghmc_step(
+        noise, pks.SGHMCState(torch.as_tensor(z), torch.as_tensor(r)), pgrad,
+        torch.tensor(step), torch.tensor(fric), torch.as_tensor(inv_mass),
+        resample_momentum=resample)
+    assert noise.done()
+    for got, want, what in ((pg, rg, "grad"), (pst.r, rst.r, "r"), (pst.z, rst.z, "z"),
+                            (pinfo.kinetic_energy, rinfo.kinetic_energy, "kinetic energy"),
+                            (pinfo.grad_norm, rinfo.grad_norm, "grad norm")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=STEP_RTOL,
+                                   atol=STEP_ATOL, err_msg=what)
+    np.testing.assert_array_equal(pinfo.is_divergent.numpy(), np.asarray(rinfo.is_divergent))
+
+
+def test_sghmc_step_freezes_each_chain_on_nan():
+    """The reference freezes a chain whose position leaves the finite
+    numbers (tests/test_sghmc.py:55-70); here per chain of the batch: the
+    others move on."""
+    z = torch.zeros(3, 2)
+    noise = ReplayNoise([np.ones((3, 2), np.float32), np.full((3, 2), 0.5, np.float32)])
+    state = pks.sghmc_init(noise, z, torch.ones(3, 2))
+
+    def grad(noise, z):
+        g = torch.ones_like(z)
+        g[1] = float("nan")
+        return g
+
+    new, info, _ = pks.sghmc_step(noise, state, grad, 0.01, 1.0, torch.ones(3, 2))
+    assert noise.done()
+    assert info.is_divergent.tolist() == [False, True, False]
+    assert torch.equal(new.z[1], z[1]) and torch.equal(new.r[1], torch.zeros(2))
+    assert torch.all(new.z[[0, 2]] != 0) and torch.all(torch.isfinite(new.z))
+
+
+class _RefRows(RefModel):
+    """One chain, rows on axis 1 of xT and axis 0 of y, a row-less
+    entry: y ~ N(xT^T beta + shift, 1)."""
+
+    def param_spec(self):
+        return {"beta": RefParamSpec((2,))}
+
+    def log_prior(self, p):
+        return jnp.sum(jax.scipy.stats.norm.logpdf(p["beta"]))
+
+    def log_lik(self, p, data):
+        mu = data["xT"].T @ p["beta"] + data["shift"]
+        return jnp.sum(jax.scipy.stats.norm.logpdf(data["y"], mu, 1.0))
+
+
+class _PortRows(Model):
+    """The same with a per-chain batch: xT (C, 2, B), y (C, B)."""
+
+    def param_spec(self):
+        return {"beta": ParamSpec((2,))}
+
+    def log_prior(self, p):
+        return normal_logpdf(p["beta"]).sum(-1)
+
+    def log_lik(self, p, data):
+        mu = torch.einsum("cd,cdb->cb", p["beta"], data["xT"]) + data["shift"]
+        return normal_logpdf(data["y"], mu, 1.0).sum(-1)
+
+
+def test_minibatch_grad_gathers_every_entry_along_its_row_axis():
+    n, batch, C = 90, 12, 4
+    rs = np.random.RandomState(4)
+    data = {"xT": rs.standard_normal((2, n)).astype(np.float32),
+            "y": rs.standard_normal(n).astype(np.float32),
+            "shift": np.float32(0.3)}
+    axes = {"xT": 1, "y": 0, "shift": -1}
+    z = rs.standard_normal((C, 2)).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(5), C)
+    rfm = ref_flatten(_RefRows(), lik_scale=n / batch)
+    rgrad = rks.make_minibatch_grad(rfm.potential, jax.tree.map(jnp.asarray, data), batch,
+                                    row_axes=axes)
+    want = jax.vmap(rgrad)(keys, jnp.asarray(z))
+    pfm = flatten_model(_PortRows(), lik_scale=n / batch)
+    tdata = {"xT": torch.as_tensor(data["xT"]), "y": torch.as_tensor(data["y"]),
+             "shift": torch.tensor(0.3)}
+    pgrad = pks.make_minibatch_grad(pfm.potential, tdata, batch, row_axes=axes)
+    idx = np.stack([np.asarray(jax.random.randint(k, (batch,), 0, n)) for k in keys])
+    got = pgrad(ReplayNoise([idx]), torch.as_tensor(z))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    # the gather itself: chain c's rows of every entry, chain axis first
+    g = pks.gather_rows(tdata["xT"], 1, torch.as_tensor(idx))
+    assert g.shape == (C, 2, batch)
+    np.testing.assert_array_equal(g[2].numpy(), data["xT"][:, idx[2]])
+    # per-chain rows are not one shared batch
+    assert not np.array_equal(idx[0], idx[1])
+
+
+def test_minibatch_grad_is_unbiased():
+    """E[minibatch grad] == full-data grad (tests/test_sghmc.py:42-52)."""
+    rs = np.random.RandomState(0)
+    y = torch.as_tensor((1.5 + rs.standard_normal(64)).astype(np.float32))
+    full = flatten_model(NormalMean()).potential_and_grad(torch.tensor([[0.3]]), {"y": y})[1]
+    fm = flatten_model(NormalMean(), lik_scale=64 / 8)
+    grad_fn = pks.make_minibatch_grad(fm.potential, {"y": y}, 8)
+    noise = psghmc.TorchNoise(torch.Generator().manual_seed(1))
+    est = grad_fn(noise, torch.full((4000, 1), 0.3)).mean(0)
+    np.testing.assert_allclose(est.numpy(), full[0].numpy(), rtol=0.05)
+
+
+def _ref_inv_mass_from(damping, clip):
+    """The reference's ``inv_mass_from`` (a closure inside its
+    sghmc_sample), rebuilt from its code."""
+    code = next(c for c in rsghmc.sghmc_sample.__code__.co_consts
+                if isinstance(c, types.CodeType) and c.co_name == "inv_mass_from")
+    env = {"precond_damping": damping, "precond_clip": clip}
+    cells = tuple(types.CellType(env[v]) for v in code.co_freevars)
+    return types.FunctionType(code, rsghmc.__dict__, None, None, cells)
+
+
+@pytest.mark.parametrize("d", [5, 6, 4225])
+def test_inv_mass_from_matches_reference(d):
+    rs = np.random.RandomState(d)
+    v = np.exp(3.0 * rs.standard_normal((3, d))).astype(np.float32)
+    v[0, : d // 2] = 1e-12  # clipping at both ends
+    ref = _ref_inv_mass_from(1e-8, 100.0)
+    want = np.stack([np.asarray(ref(jnp.asarray(row))) for row in v])
+    got = psghmc.inv_mass_from(torch.as_tensor(v), 1e-8, 100.0).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(psghmc.median_midpoint(torch.as_tensor(v)).numpy(),
+                                  np.asarray(jnp.median(jnp.asarray(v), axis=-1)))
+    if d % 2 == 0:  # torch.median is the lower middle value, not the mean
+        assert not np.array_equal(torch.median(torch.as_tensor(v), -1).values.numpy(),
+                                  psghmc.median_midpoint(torch.as_tensor(v)).numpy())
+
+
+class NormalMean(Model):
+    """y_i ~ N(mu, 1), mu ~ N(0, prior_sd): conjugate (tests/test_sghmc.py)."""
+
+    def __init__(self, prior_sd=10.0):
+        self.prior_sd = prior_sd
+
+    def param_spec(self):
+        return {"mu": ParamSpec(())}
+
+    def log_prior(self, p):
+        return normal_logpdf(p["mu"], 0.0, self.prior_sd)
+
+    def log_lik(self, p, data):
+        y = data["y"]
+        mu = p["mu"].unsqueeze(-1)
+        return normal_logpdf(y, mu, 1.0).sum(-1)
+
+
+class _RefNormalMean(RefModel):
+    def param_spec(self):
+        return {"mu": RefParamSpec(())}
+
+    def log_prior(self, p):
+        return jax.scipy.stats.norm.logpdf(p["mu"], 0.0, 10.0)
+
+    def log_lik(self, p, data):
+        return jnp.sum(jax.scipy.stats.norm.logpdf(data["y"], p["mu"], 1.0))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(num_warmup=30, num_samples=40, thin=1, resample_every=7, cycles=0),
+    dict(num_warmup=25, num_samples=60, thin=2, resample_every=50, cycles=3,
+         cycle_collect_frac=0.3),
+    dict(num_warmup=10, num_samples=24, thin=1, resample_every=0, cycles=4,
+         cycle_collect_frac=0.5),
+])
+def test_schedules_match_reference_exactly(kw, monkeypatch):
+    """Every per-step array the reference's run feeds its scans (refresh
+    flags, the cyclic step multiplier) and the kept draw indices, read
+    off its own run, against `sghmc_schedules`."""
+    seen = {"scan": [], "take": []}
+    scan, take = jax.lax.scan, jnp.take
+
+    def rec_scan(f, init, xs, *a, **k):
+        seen["scan"].append([np.asarray(x) for x in xs[1:]])
+        return scan(f, init, xs, *a, **k)
+
+    def rec_take(a, indices, *args, **k):
+        if not isinstance(indices, jax.core.Tracer):
+            seen["take"].append(np.asarray(indices))
+        return take(a, indices, *args, **k)
+
+    monkeypatch.setattr(jax.lax, "scan", rec_scan)
+    monkeypatch.setattr(jnp, "take", rec_take)
+    y = np.random.RandomState(0).standard_normal(64).astype(np.float32)
+    post = rsghmc.sghmc_sample(_RefNormalMean(), {"y": y}, batch_size=8, chains=1,
+                               step_size=1e-3, seed=0, **kw)
+    monkeypatch.undo()
+    (warm_flags,), (sample_flags, eps_mult) = seen["scan"]
+    sched = psghmc.sghmc_schedules(kw["num_warmup"], kw["num_samples"], kw["thin"],
+                                   kw["resample_every"], kw["cycles"],
+                                   kw.get("cycle_collect_frac", 0.3))
+    np.testing.assert_array_equal(sched.warm_flags, warm_flags)
+    np.testing.assert_array_equal(sched.sample_flags, sample_flags)
+    assert sched.eps_mult.dtype == eps_mult.dtype == np.float32
+    np.testing.assert_array_equal(sched.eps_mult, eps_mult)
+    np.testing.assert_array_equal(sched.keep, seen["take"][0])
+    if kw["cycles"]:
+        np.testing.assert_array_equal(sched.cycle_id, post.sample_stats["cycle_id"])
+    else:
+        assert sched.cycle_id is None and "cycle_id" not in post.sample_stats
+    assert post.draws["mu"].shape[1] == sched.keep.size
+
+
+def test_schedule_refuses_cycles_that_collect_nothing():
+    with pytest.raises(ValueError, match="nothing would be collected"):
+        psghmc.sghmc_schedules(10, 4, 1, 50, cycles=4, cycle_collect_frac=0.1)
+
+
+def test_bnn_densities_and_forward_match_reference():
+    d, h, C = 5, 7, 4
+    rs = np.random.RandomState(2)
+    data = {"x": rs.standard_normal((50, d)).astype(np.float32),
+            "y": (rs.rand(50) < 0.5).astype(np.float32)}
+    rmodel, pmodel = rbnn.BayesianMLP(d, h, weight_scale=1.3), pbnn.BayesianMLP(d, h, 1.3)
+    rfm, pfm = ref_flatten(rmodel), flatten_model(pmodel)
+    z = (0.6 * rs.standard_normal((C, pfm.ndim))).astype(np.float32)
+    rparams = jax.vmap(rfm.constrain)(jnp.asarray(z))
+    pparams = pfm.constrain(torch.as_tensor(z))
+    tdata = {k: torch.as_tensor(v) for k, v in data.items()}
+    np.testing.assert_allclose(pmodel.log_prior(pparams).numpy(),
+                               np.asarray(jax.vmap(rmodel.log_prior)(rparams)), rtol=DENS_RTOL)
+    np.testing.assert_allclose(
+        pmodel.log_lik(pparams, tdata).numpy(),
+        np.asarray(jax.vmap(rmodel.log_lik, in_axes=(0, None))(rparams, data)), rtol=DENS_RTOL)
+    rfwd = jax.vmap(rmodel.forward, in_axes=(0, None))(rparams, data["x"])
+    np.testing.assert_allclose(pmodel.forward(pparams, tdata["x"]).numpy(), np.asarray(rfwd),
+                               rtol=DENS_RTOL, atol=1e-6)
+    # one draw, and a per-chain batch of rows
+    one = {k: v[1] for k, v in pparams.items()}
+    np.testing.assert_allclose(pmodel.forward(one, tdata["x"]).numpy(), np.asarray(rfwd[1]),
+                               rtol=DENS_RTOL, atol=1e-6)
+    xb = torch.stack([tdata["x"][:10], tdata["x"][10:20], tdata["x"][:10], tdata["x"][5:15]])
+    np.testing.assert_allclose(pmodel.forward(pparams, xb)[1].numpy(),
+                               np.asarray(rfwd[1, 10:20]), rtol=DENS_RTOL, atol=1e-6)
+    rv, rg = jax.vmap(jax.value_and_grad(rfm.potential), in_axes=(0, None))(
+        jnp.asarray(z), jax.tree.map(jnp.asarray, data))
+    pv, pg = pfm.potential_and_grad(torch.as_tensor(z), tdata)
+    np.testing.assert_allclose(pv.numpy(), np.asarray(rv), rtol=DENS_RTOL)
+    np.testing.assert_allclose(pg.numpy(), np.asarray(rg), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def test_synth_bnn_data_recipe():
+    data, teacher = pbnn.synth_bnn_data(0, 4000, 6)
+    assert data["x"].shape == (4000, 6) and data["y"].shape == (4000,)
+    assert data["x"].dtype == data["y"].dtype == np.float32
+    assert set(np.unique(data["y"])) == {0.0, 1.0}
+    raw = np.tanh(data["x"] @ teacher["w1"]) @ teacher["w2"]
+    logits = 2.5 * (raw - raw.mean()) / raw.std()
+    # the teacher's own accuracy: the learnable signal the recipe promises
+    assert 0.75 < np.mean((logits > 0) == (data["y"] > 0.5)) < 0.95
+    again, _ = pbnn.synth_bnn_data(0, 4000, 6)
+    np.testing.assert_array_equal(again["y"], data["y"])
+
+
+def test_functional_matches_reference():
+    d, h = 4, 3
+    model_r, model_p = rbnn.BayesianMLP(d, h), pbnn.BayesianMLP(d, h)
+    rs = np.random.RandomState(3)
+    draws = {"w1": rs.standard_normal((2, 5, d, h)).astype(np.float32),
+             "b1": rs.standard_normal((2, 5, h)).astype(np.float32),
+             "w2": rs.standard_normal((2, 5, h)).astype(np.float32),
+             "b2": rs.standard_normal((2, 5)).astype(np.float32)}
+    x = rs.standard_normal((7, d)).astype(np.float32)
+    want = RefPosterior(draws, {}).functional(lambda p: model_r.forward(p, jnp.asarray(x)))
+    got = Posterior(draws, {}).functional(lambda p: model_p.forward(p, torch.as_tensor(x)))
+    assert got.shape == (2, 5, 7)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=DENS_RTOL, atol=1e-6)
+
+
+def test_sghmc_sample_runs_on_cpu():
+    data, _ = pbnn.synth_bnn_data(1, 600, 4)
+    kw = dict(batch_size=32, chains=3, num_warmup=40, num_samples=60, cycles=3,
+              step_size=3e-3, friction=5.0, seed=2, device="cpu")
+    post = sghmc_sample(pbnn.BayesianMLP(4, hidden=5), data, **kw)
+    sched = psghmc.sghmc_schedules(40, 60, 1, 50, 3, 0.3)
+    assert post.draws["w1"].shape == (3, sched.keep.size, 4, 5)
+    assert post.draws_flat.shape == (3, sched.keep.size, 4 * 5 + 5 + 5 + 1)
+    assert np.all(np.isfinite(post.draws_flat))
+    st = post.sample_stats
+    np.testing.assert_array_equal(st["cycle_id"], sched.cycle_id)
+    assert st["kinetic_energy"].shape == (3, sched.keep.size)
+    assert st["num_divergent"].shape == (3,) and int(st["num_ensemble_grad_evals"]) == 100
+    again = sghmc_sample(pbnn.BayesianMLP(4, hidden=5), data, **kw)
+    np.testing.assert_array_equal(again.draws_flat, post.draws_flat)
+    with pytest.raises(ValueError, match="batch_size"):
+        sghmc_sample(pbnn.BayesianMLP(4, hidden=5), data, **{**kw, "batch_size": 601})
+    for bad, item in ((dict(mesh=object()), "A11"), (dict(trace=object()), "A12")):
+        with pytest.raises(NotImplementedError, match=item):
+            sghmc_sample(pbnn.BayesianMLP(4, hidden=5), data, **kw, **bad)
+
+
+@pytest.mark.slow
+def test_sghmc_conjugate_normal_posterior():
+    """tests/test_sghmc.py:73-94 on the port, at its thresholds."""
+    y = (2.0 + np.random.RandomState(42).standard_normal(512)).astype(np.float32)
+    post = sghmc_sample(NormalMean(), {"y": y}, batch_size=64, chains=4, num_warmup=500,
+                        num_samples=2000, step_size=2e-3, friction=5.0, resample_every=50,
+                        seed=3, device="cpu")
+    prec = 1.0 / 10.0**2 + y.size
+    mu_true, var_true = float(y.sum() / prec), 1.0 / prec
+    draws = post.draws["mu"]
+    assert post.num_divergent == 0
+    assert abs(draws.mean() - mu_true) < 0.05
+    # variance within 2x: SG-HMC's stationary variance is step-size biased
+    assert 0.5 * var_true < draws.var() < 2.0 * var_true
