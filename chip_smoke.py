@@ -73,12 +73,12 @@ Phases, in order; any failure exits non-zero (none is caught):
                 flagship's full width with 8 chains, four legs, each with
                 its launch counts: nuts_offset, the reference bench's NUTS
                 leg (bench.py:410-415, :485-487) through sample() on
-                FusedHierLogistic (B2 with offsets), tree depth 6, 100
-                warmup and 100 draws (the bench: 200 and 200);
+                FusedHierLogistic (B2 with offsets), tree depth 6, 50
+                warmup and 50 draws (the bench: 200 and 200);
                 nuts_grouped, the same on FusedHierLogisticGrouped (B1);
                 hmc_grouped, HMC with 32 leapfrog steps, 50 warmup and 50
                 draws (B1); nuts_runner, NUTS through supervised_sample
-                (warmup 50, 3 blocks of 20), whole and then faulted after
+                (warmup 30, 3 blocks of 10), whole and then faulted after
                 block 1's checkpoint,
                 the resumed draws bitwise equal.  Each leg prints, beside
                 the card's name and power limit, its wall with set-up,
@@ -120,10 +120,27 @@ Phases, in order; any failure exits non-zero (none is caught):
                 predictive accuracy on 256 probe rows (>= 0.75, the
                 reference's gate), predictive bulk and tail ESS, R-hat
                 and cycle_mode_ratio
- 16. profile  — one ensemble gradient evaluation of each sampled path at
-                its final state: host-clock time per evaluation, and under
-                torch.profiler the device time by kernel and the share of
-                the window the device sat idle
+ 16. tempering — BASELINE config 4 at its pinned width
+                (stark_tpu/benchmarks.py:718-754): tempered_sample of
+                GaussianMixture(16) on N=50,000 rows (spread 4), init from
+                gmm_init_1d, 2 chains x 8 temperatures, NUTS replicas at
+                tree depth 7, a swap round every 5 transitions, the
+                adaptive ladder, warmup 150 and samples 100 (the bench: 600
+                and 500); then an HMC leg (16 leapfrog steps, 50 + 50).  No
+                hand-written kernel launches.  Each leg prints, beside the
+                card's name and power limit, its wall with set-up,
+                evaluations and ms per evaluation, leaves per transition,
+                swap_accept_rate, the minimum per-pair rate and beta_hot,
+                the cold rung's split R-hat, bulk ESS and ESS/s, the
+                posterior mean of mu against the truth and peak device
+                memory; asserts finite draws, every adapted ladder pinned
+                at 1 and strictly decreasing, and every component's mu
+                within 1.0 of its true mean
+ 17. profile  — one ensemble gradient evaluation of each sampled path at
+                its final state (the GMM's at 16 points of its run):
+                host-clock time per evaluation, and under torch.profiler
+                the device time by kernel and the share of the window the
+                device sat idle
 Each path (and each runner and NUTS leg) sets every launch count to 0
 just before it and reads them just after.  Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and
 the last line ``{"ok": true, "device": {...}}``.
@@ -188,6 +205,14 @@ CONS_D, CONS_N, CONS_SHARDS, CONS_CHAINS = 16, 1_000_000, 8, 8
 BNN_D, BNN_H, BNN_N, BNN_BATCH, BNN_CHAINS = 64, 64, 100_000, 1024, 4
 # the reference's gate on config 5 (stark_tpu/benchmarks.py:838-839)
 BNN_MIN_ACCURACY = 0.75
+# BASELINE config 4 (stark_tpu/benchmarks.py:718-754, bench_gmm_tempered):
+# GaussianMixture(16) on N=50,000 rows (spread 4), 2 chains x 8
+# temperatures, NUTS replicas at tree depth 7, a swap round every 5
+# transitions, the adaptive ladder, init from gmm_init_1d
+GMM_K, GMM_N, GMM_CHAINS, GMM_TEMPS, GMM_SPREAD = 16, 50_000, 2, 8, 4.0
+# every component's posterior mean of mu within this of its true mean:
+# the true means lie GMM_SPREAD apart, so a mis-allocated component fails
+GMM_MU_TOL = 1.0
 
 # B2's shard-axis edge cases (S, N, D, C): one, two, three and eight
 # shards; shards below one 128-row sub-tile (N = 50, 127) and of N = 1,
@@ -268,23 +293,29 @@ class Run:
             self.cons_nuts_budget = dict(max_tree_depth=4, num_warmup=20, num_samples=20)
             self.bnn_n = 4_000
             self.bnn_budget = dict(num_warmup=100, num_samples=200, cycles=4)
+            self.gmm_n = 4_000
+            self.gmm_budget = dict(max_tree_depth=4, num_warmup=20, num_samples=20)
+            self.gmm_hmc_budget = dict(num_leapfrog=4, num_warmup=10, num_samples=10)
         else:
             self.n_full, self.n_ragged = N_FULL, N_RAGGED
             self.lmm_n_full, self.lmm_n_ragged, self.lmm_g = LMM_N_FULL, LMM_N_RAGGED, LMM_G
             self.main_budget = dict(map_init_steps=100, num_warmup=150, num_samples=100)
-            self.off_budget = dict(map_init_steps=30, num_warmup=100, num_samples=10)
-            self.lmm_budget = dict(map_init_steps=100, num_warmup=150, num_samples=100)
-            self.lmm_off_budget = dict(map_init_steps=30, num_warmup=60, num_samples=10)
+            self.off_budget = dict(map_init_steps=30, num_warmup=50, num_samples=10)
+            # config 3's MAP 300, warmup 700, samples 500 cut to fit the
+            # script's time limit
+            self.lmm_budget = dict(map_init_steps=100, num_warmup=50, num_samples=25)
+            self.lmm_off_budget = dict(map_init_steps=30, num_warmup=30, num_samples=10)
             # the bench's MAP, warmup, block and draw budget (bench.py:552-555,
             # :641, :698-712), the stop gate on
             self.runner_budget = dict(map_init_steps=500, num_warmup=400, block_size=100,
                                       max_blocks=5)
-            self.resume_budget = dict(map_init_steps=50, num_warmup=60, block_size=20, max_blocks=3)
+            # the resume legs check bitwise resume, not convergence
+            self.resume_budget = dict(map_init_steps=50, num_warmup=30, block_size=10, max_blocks=3)
             # the reference bench's NUTS leg (bench.py:410-415): 8 chains,
-            # tree depth 6; its 200 warmup and 200 samples cut to 100 each
-            self.nuts_budget = dict(max_tree_depth=6, num_warmup=100, num_samples=100)
+            # tree depth 6; its 200 warmup and 200 samples cut to 50 each
+            self.nuts_budget = dict(max_tree_depth=6, num_warmup=50, num_samples=50)
             self.hmc_budget = dict(num_leapfrog=32, num_warmup=50, num_samples=50)
-            self.nuts_runner_budget = dict(max_tree_depth=6, num_warmup=50, block_size=20,
+            self.nuts_runner_budget = dict(max_tree_depth=6, num_warmup=30, block_size=10,
                                            max_blocks=3)
             self.cons_n = CONS_N
             # config 2's pinned budget (stark_tpu/benchmarks.py:574-624)
@@ -293,6 +324,12 @@ class Run:
             self.bnn_n = BNN_N
             # config 5's pinned budget (stark_tpu/benchmarks.py:757-776)
             self.bnn_budget = dict(num_warmup=2000, num_samples=4000, cycles=8)
+            self.gmm_n = GMM_N
+            # config 4's depth 7; its 600 warmup and 500 samples cut to
+            # 150 and 100 to fit the script's time limit
+            self.gmm_budget = dict(max_tree_depth=7, num_warmup=150, num_samples=100)
+            # the reference's default kernel, HMC, 16 leapfrog steps
+            self.gmm_hmc_budget = dict(num_leapfrog=16, num_warmup=50, num_samples=50)
         # the shard-death leg: 8 shards of 4096 rows, one poisoned
         self.death_n = 8 * 4096
         self.death_budget = dict(map_init_steps=10, num_warmup=10, num_samples=10)
@@ -1081,6 +1118,88 @@ def phase_bnn(run: Run):
     return res
 
 
+def phase_tempering(run: Run):
+    """BASELINE config 4 at its pinned width: tempered_sample of
+    GaussianMixture(16) on the port's synth_gmm_data(0, 50,000, 16,
+    spread=4.0), init from gmm_init_1d, 2 chains x 8 temperatures, NUTS
+    replicas at tree depth 7, a swap round every 5 transitions, the
+    adaptive ladder (stark_tpu/benchmarks.py:718-754), warmup 150 and
+    samples 100 (the bench: 600 and 500); then HMC, the reference's
+    default kernel (16 leapfrog steps, 50 + 50).  No hand-written kernel
+    runs: the reference's GMM likelihood is XLA's (N, K) logsumexp."""
+    from stark_tpu_torch import diagnostics, tempered_sample
+    from stark_tpu_torch.models import GaussianMixture, gmm_init_1d, synth_gmm_data
+
+    dev = {"device": "cpu"} if run.rehearsal else {}
+    data, true = synth_gmm_data(0, run.gmm_n, GMM_K, spread=GMM_SPREAD)
+    t = time.perf_counter()
+    init = gmm_init_1d(data["x"], GMM_K)
+    init_s = time.perf_counter() - t
+    log(f"== tempering (config 4): GaussianMixture({GMM_K}), N={run.gmm_n}, spread "
+        f"{GMM_SPREAD}; gmm_init_1d {init_s:.2f} s on the host, max |init mu - true mu| "
+        f"{float(np.max(np.abs(init['mu'] - true['mu']))):.4f}")
+    model = GaussianMixture(GMM_K)
+    out = {}
+    for label, kw in (("gmm_nuts", dict(kernel="nuts", **run.gmm_budget)),
+                      ("gmm_hmc", dict(kernel="hmc", **run.gmm_hmc_budget))):
+        kw = dict(chains=GMM_CHAINS, num_temps=GMM_TEMPS, swap_every=5, seed=0,
+                  adapt_ladder=True, **kw)
+        log(f"== tempering, leg {label}: tempered_sample(GaussianMixture({GMM_K})), "
+            f"N={run.gmm_n}, init_params=gmm_init_1d, {kw}")
+        post, wall, launches, peak = _counted_leg(
+            run, lambda: tempered_sample(model, data, init_params=init, **kw, **dev))
+        if not run.rehearsal:
+            assert not any(launches.values()), f"{launches} launched on the {label} leg"
+        st = post.sample_stats
+        evals = int(st["num_ensemble_grad_evals"])
+        transitions = kw["num_warmup"] + kw["num_samples"]
+        draws = post.draws_flat
+        assert draws.shape == (GMM_CHAINS, kw["num_samples"], 3 * GMM_K - 1), draws.shape
+        assert np.all(np.isfinite(draws)), f"non-finite draws on the {label} leg"
+        ladder = st["betas_adapted"]
+        assert ladder.shape == (GMM_CHAINS, GMM_TEMPS), ladder.shape
+        assert np.all(ladder[:, 0] == 1.0), f"the cold rung moved: {ladder[:, 0]}"
+        assert np.all(np.diff(ladder, axis=1) < 0), f"a ladder is not decreasing: {ladder}"
+        mu = post.draws["mu"].mean(axis=(0, 1))
+        mu_err = np.abs(mu - true["mu"])
+        bulk = float(np.min(diagnostics.ess_bulk(draws)))
+        res = dict(
+            wall_s=wall, evals=evals, launches=launches, peak_mib=peak,
+            ms_per_eval=1e3 * wall / evals,
+            # the kernel's evaluations: less the initial cache refresh and
+            # one refresh a transition
+            leaves_per_transition=(evals - 1 - transitions) / transitions,
+            swap_accept_rate=float(np.mean(st["swap_accept_rate"])),
+            swap_accept_min_pair=float(np.min(st["swap_accept_per_pair"])),
+            beta_hot=float(np.min(ladder)),
+            max_split_rhat=float(np.max(diagnostics.split_rhat(draws))),
+            min_bulk_ess=bulk, ess_per_s=bulk / wall,
+            divergences=int(np.sum(st["num_divergent"])),
+            step_size_per_temp=np.round(st["step_size_per_temp"].astype(float), 6).tolist(),
+            mu_max_abs_err=float(mu_err.max()), init_s=init_s,
+        )
+        log(f"  {label} [{getattr(run, 'smi', 'cpu rehearsal')}]: wall {wall:.2f} s with set-up; "
+            f"ensemble evaluations {evals} ({res['ms_per_eval']:.4f} ms each); leaves per "
+            f"transition {res['leaves_per_transition']:.2f}; launches {launches}; peak device "
+            f"memory {peak:.1f} MiB")
+        log(f"  {label}: swap_accept_rate {res['swap_accept_rate']:.4f}, min per pair "
+            f"{res['swap_accept_min_pair']:.4f}, beta_hot {res['beta_hot']:.5f}; cold rung: max "
+            f"split R-hat {res['max_split_rhat']:.4f}, min bulk ESS {bulk:.1f}, ESS/s "
+            f"{res['ess_per_s']:.4f}; divergences {res['divergences']}")
+        log(f"  {label}: step sizes per rung {res['step_size_per_temp']}; adapted ladders "
+            f"{np.round(ladder.astype(float), 5).tolist()}")
+        log(f"  {label}: posterior mean of mu {np.round(mu.astype(float), 4).tolist()}; truth "
+            f"{true['mu'].astype(float).tolist()}; max |error| {res['mu_max_abs_err']:.4f} "
+            f"(bound {GMM_MU_TOL})")
+        assert mu_err.max() < GMM_MU_TOL, f"a component of mu is off its truth: {mu_err}"
+        out[label] = res
+    # the profile phase evaluates at R = chains x temps points of the run
+    run.last_z["GaussianMixture"] = torch.as_tensor(
+        post.draws_flat[:, -GMM_TEMPS:].reshape(-1, draws.shape[-1]), device=run.dev)
+    run.gmm_data = data
+    return out
+
+
 def b4_edge_inputs(ids, n, d, q, c, groups, rs):
     """B4's raw rows (x, z, y, g) and (beta, u, intercept), numpy, on small
     dyadic grids: x and z's slopes in halves of [-1, 1], y in quarters of
@@ -1863,6 +1982,7 @@ def main(argv=None) -> int:
         FusedHierLogisticGrouped,
         FusedLinearMixedModel,
         FusedLinearMixedModelGrouped,
+        GaussianMixture,
     )
 
     run = Run(args.cpu_rehearsal)
@@ -1889,6 +2009,7 @@ def main(argv=None) -> int:
         "b2_shards": phase_b2_shards(run),
         "consensus_path": phase_consensus(run),
         "bnn_path": phase_bnn(run),
+        "tempering_path": phase_tempering(run),
     }
     prof = {
         label: phase_profile(run, model, raw, label)
@@ -1898,6 +2019,7 @@ def main(argv=None) -> int:
             ("FusedLinearMixedModelGrouped",
              FusedLinearMixedModelGrouped(LMM_D, run.lmm_g, LMM_Q), lfull),
             ("FusedLinearMixedModel", FusedLinearMixedModel(LMM_D, run.lmm_g, LMM_Q), lfull),
+            ("GaussianMixture", GaussianMixture(GMM_K), run.gmm_data),
         )
     }
     if not run.rehearsal:

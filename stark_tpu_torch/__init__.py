@@ -13,10 +13,10 @@ Entry points — `sample`, `chees_sample`, the adaptive runner
 `sample_until_converged` (blocks until the R-hat/ESS gate passes, with
 checkpoints and a draw store), `supervised_sample` (the runner with
 restart from the last healthy checkpoint), `consensus_sample`
-(consensus Monte Carlo over data shards) and `sghmc_sample`
-(minibatch SG-HMC) — run on ``cuda`` unless the caller passes
-``device="cpu"``; with no card and no explicit CPU device they raise
-(see `_device`).
+(consensus Monte Carlo over data shards), `tempered_sample` (parallel
+tempering) and `sghmc_sample` (minibatch SG-HMC) — run on ``cuda``
+unless the caller passes ``device="cpu"``; with no card and no explicit
+CPU device they raise (see `_device`).
 
 Precision stance: float32 everywhere, no TF32.  This mirrors the JAX
 package's ``highest`` matmul default — MCMC needs accurate energies and
@@ -31,7 +31,7 @@ _torch.backends.cudnn.allow_tf32 = False
 from . import bijectors, diagnostics  # noqa: E402
 from .chees import chees_sample  # noqa: E402
 from .model import Model, ParamSpec, flatten_model, prepare_model_data  # noqa: E402
-from .parallel import consensus_sample  # noqa: E402
+from .parallel import consensus_sample, geometric_ladder, tempered_sample  # noqa: E402
 from .runner import AdaptiveResult, sample_until_converged  # noqa: E402
 from .sampler import Posterior, SamplerConfig, sample  # noqa: E402
 from .sghmc import sghmc_sample  # noqa: E402
@@ -50,9 +50,11 @@ __all__ = [
     "consensus_sample",
     "diagnostics",
     "flatten_model",
+    "geometric_ladder",
     "prepare_model_data",
     "sample",
     "sample_until_converged",
     "sghmc_sample",
     "supervised_sample",
+    "tempered_sample",
 ]

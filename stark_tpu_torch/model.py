@@ -134,6 +134,10 @@ class FlatModel:
     unconstrain: Callable[[Dict[str, torch.Tensor]], torch.Tensor]
     # init_flat(chains, generator, device) -> (chains, d)
     init_flat: Callable[..., torch.Tensor]
+    # potential_parts(z (C, d), data) -> (prior potential (C,),
+    # log-likelihood (C,)): the potential without the likelihood, and
+    # the likelihood it leaves out (parallel tempering scales it per row)
+    potential_parts: Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
     def bind(self, data=None) -> Potential:
         """Close over a dataset -> a Potential for the kernels."""
@@ -185,15 +189,28 @@ def flatten_model(model: Model, prior_scale: float = 1.0, lik_scale: float = 1.0
             for s in range(lead[0])
         ])
 
-    def potential(flat, data=None):
+    def log_parts(flat, data):
+        """(prior log density with the bijectors' fldj, unscaled
+        log-likelihood or None), each over the flattened lead axes."""
         lead = flat.shape[:-1]
         # the prior and bijectors see every shard's chains as one batch
         params, fldj = constrain_with_fldj(flat.reshape(-1, ndim))
         lp = prior_scale * model.log_prior(params) + fldj
-        if data is not None:
-            params = {k: v.reshape(lead + v.shape[1:]) for k, v in params.items()}
-            lp = lp + lik_scale * log_lik(params, data, lead).reshape(lp.shape)
-        return -lp.reshape(lead)
+        if data is None:
+            return lp, None
+        params = {k: v.reshape(lead + v.shape[1:]) for k, v in params.items()}
+        return lp, log_lik(params, data, lead).reshape(lp.shape)
+
+    def potential(flat, data=None):
+        lp, ll = log_parts(flat, data)
+        if ll is not None:
+            lp = lp + lik_scale * ll
+        return -lp.reshape(flat.shape[:-1])
+
+    def potential_parts(flat, data):
+        lp, ll = log_parts(flat, data)
+        lead = flat.shape[:-1]
+        return -lp.reshape(lead), ll.reshape(lead)
 
     def potential_and_grad(flat, data=None):
         with torch.enable_grad():
@@ -222,6 +239,7 @@ def flatten_model(model: Model, prior_scale: float = 1.0, lik_scale: float = 1.0
         constrain=constrain,
         unconstrain=unconstrain,
         init_flat=init_flat,
+        potential_parts=potential_parts,
     )
 
 

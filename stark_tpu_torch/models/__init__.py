@@ -1,11 +1,12 @@
 """Model zoo of the port: 8 schools (BASELINE config 1), flat logistic
 regression (config 2), the flagship hierarchical logistic family, the
-hierarchical linear mixed model (config 3) and the Bayesian 2-layer MLP
-(config 5)."""
+hierarchical linear mixed model (config 3), the Gaussian mixture (config
+4) and the Bayesian 2-layer MLP (config 5)."""
 
 from .bnn import BayesianMLP, synth_bnn_data
 
 from .eight_schools import EightSchools, eight_schools_data
+from .gmm import GaussianMixture, gmm_init_1d, synth_gmm_data
 from .lmm import (
     FusedLinearMixedModel,
     FusedLinearMixedModelGrouped,
@@ -29,11 +30,14 @@ __all__ = [
     "FusedLinearMixedModel",
     "FusedLinearMixedModelGrouped",
     "FusedLogistic",
+    "GaussianMixture",
     "HierLogistic",
     "LinearMixedModel",
     "Logistic",
     "eight_schools_data",
+    "gmm_init_1d",
     "synth_bnn_data",
+    "synth_gmm_data",
     "synth_logistic_data",
     "synth_lmm_data",
 ]

@@ -20,13 +20,16 @@ from stark_tpu_torch import (
     sample_until_converged,
     sghmc_sample,
     supervised_sample,
+    tempered_sample,
 )
 from stark_tpu_torch.models import (
     BayesianMLP,
     FusedHierLogisticGrouped,
     FusedLinearMixedModelGrouped,
     FusedLogistic,
+    GaussianMixture,
     synth_bnn_data,
+    synth_gmm_data,
     synth_lmm_data,
     synth_logistic_data,
 )
@@ -51,7 +54,8 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "stark_tpu_torch.kernels.nuts, stark_tpu_torch.kernels.hmc, "
         "stark_tpu_torch.models.eight_schools, stark_tpu_torch.parallel, "
         "stark_tpu_torch.parallel.consensus, stark_tpu_torch.sghmc, "
-        "stark_tpu_torch.kernels.sghmc, stark_tpu_torch.models.bnn\n"
+        "stark_tpu_torch.kernels.sghmc, stark_tpu_torch.models.bnn, "
+        "stark_tpu_torch.models.gmm, stark_tpu_torch.parallel.tempering\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'stark_tpu'))\n"
         "print(','.join(bad))\n"
@@ -93,6 +97,7 @@ _ENTRY_MODELS = {
     "lmm": lambda: (FusedLinearMixedModelGrouped(2, 3), synth_lmm_data(0, 300, 2, 3)[0]),
     "consensus": lambda: (FusedLogistic(2), synth_logistic_data(0, 300, 2)[0]),
     "bnn": lambda: (BayesianMLP(2, hidden=3), synth_bnn_data(0, 300, 2)[0]),
+    "gmm": lambda: (GaussianMixture(3), synth_gmm_data(0, 300, 3)[0]),
 }
 
 
@@ -112,6 +117,8 @@ def test_entry_points_raise_without_a_card(monkeypatch, family):
                          num_samples=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sghmc_sample(model, raw, batch_size=10, chains=2, num_warmup=2, num_samples=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tempered_sample(model, raw, chains=2, num_temps=2, num_warmup=2, num_samples=2)
     # explicit CPU is the one way to run here
     data = prepare_model_data(model, raw, device="cpu")
     assert all(v.device.type == "cpu" for v in data.values() if isinstance(v, torch.Tensor))
