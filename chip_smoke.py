@@ -87,7 +87,7 @@ Phases, in order; any failure exits non-zero (none is caught):
                 use (the chains' own gradient evaluations over C x the
                 ensemble evaluations of sampling), divergences, split
                 R-hat, bulk ESS and ESS/s, step sizes and peak device
-                memory; a NUTS leg also profiles three transitions at its
+                memory; a NUTS leg also profiles one transition at its
                 final state.  The times phase also times B1 and B2 with
                 offsets at the legs' C=8
  13. b2_shards — B2 with its shard axis (consensus Monte Carlo) at
@@ -125,7 +125,7 @@ Phases, in order; any failure exits non-zero (none is caught):
                 GaussianMixture(16) on N=50,000 rows (spread 4), init from
                 gmm_init_1d, 2 chains x 8 temperatures, NUTS replicas at
                 tree depth 7, a swap round every 5 transitions, the
-                adaptive ladder, warmup 150 and samples 100 (the bench: 600
+                adaptive ladder, warmup 100 and samples 75 (the bench: 600
                 and 500); then an HMC leg (16 leapfrog steps, 50 + 50).  No
                 hand-written kernel launches.  Each leg prints, beside the
                 card's name and power limit, its wall with set-up,
@@ -136,7 +136,26 @@ Phases, in order; any failure exits non-zero (none is caught):
                 memory; asserts finite draws, every adapted ladder pinned
                 at 1 and strictly decreasing, and every component's mu
                 within 1.0 of its true mean
- 17. profile  — one ensemble gradient evaluation of each sampled path at
+ 17. zoo_glm  — the zoo's GLMs and fused LMM at the fused ops' judged
+                width (stark_tpu/benchmarks.py:_fused_vg_case: N=200,000,
+                D=32, G=2000, Q=2), 8 chains: B2's gaussian link without
+                offsets at C=8 against its plain version, a second launch
+                bitwise equal, timed beside its bound; the Poisson and LMM
+                fused ops (plain PyTorch) against autograd at the
+                reference's tolerances, repeated bitwise, timed beside
+                autograd; NUTS (depth 6) through sample() on
+                FusedLinearRegression (B2 gaussian, launches =
+                evaluations) and FusedPoissonRegression (50 + 50), and
+                FusedLMM with STARK_FUSED_LMM=1 (30 + 30; no hand-written
+                kernel), each profiled over one transition; consensus_sample on
+                FusedLinearMixedModel (config 3's data, 8 shards x 8
+                chains, HMC: one B2 launch per shard and evaluation) and
+                sghmc_sample on FusedLinearRegression (4 chains, batches
+                of 1,024: one B2 launch per chain and step).  Each leg
+                prints, beside the card's name and power limit, its
+                evaluations, ms per evaluation, split R-hat, min bulk ESS
+                and max |posterior mean beta - truth|
+ 18. profile  — one ensemble gradient evaluation of each sampled path at
                 its final state (the GMM's at 16 points of its run):
                 host-clock time per evaluation, and under torch.profiler
                 the device time by kernel and the share of the window the
@@ -213,6 +232,19 @@ GMM_K, GMM_N, GMM_CHAINS, GMM_TEMPS, GMM_SPREAD = 16, 50_000, 2, 8, 4.0
 # every component's posterior mean of mu within this of its true mean:
 # the true means lie GMM_SPREAD apart, so a mis-allocated component fails
 GMM_MU_TOL = 1.0
+
+# the zoo's fused ops at their judged width (stark_tpu/benchmarks.py:
+# _fused_vg_case at scale 1, :870 and :877): the flat GLMs at N=200,000,
+# D=32, the LMM at G=2000 groups (Q=2); 8 chains, NUTS at tree depth 6
+ZOO_N, ZOO_D, ZOO_G, ZOO_Q, ZOO_CHAINS = 200_000, 32, 2000, 2, 8
+# the reference's tolerances: the Poisson fused op against autograd (value
+# rtol 1e-5; gradient rtol 1e-4 / atol 1e-3, tests/test_glm_fused.py:45-46);
+# the LMM's (value rtol 1e-5 / atol 1e-4; gradient scaled by its largest
+# magnitude, rtol 1e-4 / atol 2e-5, tests/test_zoo_fused.py:87-91)
+GLM_VAL_RTOL, GLM_GRAD_RTOL, GLM_GRAD_ATOL = 1e-5, 1e-4, 1e-3
+ZLMM_VAL_RTOL, ZLMM_VAL_ATOL, ZLMM_GRAD_RTOL, ZLMM_GRAD_ATOL = 1e-5, 1e-4, 1e-4, 2e-5
+# the SG-HMC repair leg: FusedLinearRegression minibatches of 1024 rows
+ZOO_SGHMC_BATCH, ZOO_SGHMC_CHAINS = 1024, 4
 
 # B2's shard-axis edge cases (S, N, D, C): one, two, three and eight
 # shards; shards below one 128-row sub-tile (N = 50, 127) and of N = 1,
@@ -296,6 +328,11 @@ class Run:
             self.gmm_n = 4_000
             self.gmm_budget = dict(max_tree_depth=4, num_warmup=20, num_samples=20)
             self.gmm_hmc_budget = dict(num_leapfrog=4, num_warmup=10, num_samples=10)
+            self.zoo_n, self.zoo_g = 4_000, 40
+            self.zoo_budget = dict(max_tree_depth=4, num_warmup=20, num_samples=10)
+            self.zoo_lmm_budget = dict(max_tree_depth=4, num_warmup=20, num_samples=10)
+            self.zoo_cons_budget = dict(num_leapfrog=4, num_warmup=10, num_samples=10)
+            self.zoo_sghmc_budget = dict(num_warmup=50, num_samples=100)
         else:
             self.n_full, self.n_ragged = N_FULL, N_RAGGED
             self.lmm_n_full, self.lmm_n_ragged, self.lmm_g = LMM_N_FULL, LMM_N_RAGGED, LMM_G
@@ -326,10 +363,22 @@ class Run:
             self.bnn_budget = dict(num_warmup=2000, num_samples=4000, cycles=8)
             self.gmm_n = GMM_N
             # config 4's depth 7; its 600 warmup and 500 samples cut to
-            # 150 and 100 to fit the script's time limit
-            self.gmm_budget = dict(max_tree_depth=7, num_warmup=150, num_samples=100)
+            # 100 and 75 to fit the script's time limit
+            self.gmm_budget = dict(max_tree_depth=7, num_warmup=100, num_samples=75)
             # the reference's default kernel, HMC, 16 leapfrog steps
             self.gmm_hmc_budget = dict(num_leapfrog=16, num_warmup=50, num_samples=50)
+            self.zoo_n, self.zoo_g = ZOO_N, ZOO_G
+            # the NUTS legs' budget (the reference bench's depth 6)
+            self.zoo_budget = dict(max_tree_depth=6, num_warmup=50, num_samples=50)
+            # the LMM's 50 + 50 cut to 30 + 30 to keep the script well
+            # inside its time limit (the whole script took 1,022.5 s with
+            # 50 + 50 on one H100 80GB HBM3 at 700 W)
+            self.zoo_lmm_budget = dict(max_tree_depth=6, num_warmup=30, num_samples=30)
+            # the repair legs check that the paths run, not convergence;
+            # HMC: ChEES at 20/30/20 took 6,903 evaluations (106 s on one
+            # H100 80GB HBM3 at 700 W)
+            self.zoo_cons_budget = dict(num_leapfrog=16, num_warmup=30, num_samples=20)
+            self.zoo_sghmc_budget = dict(num_warmup=100, num_samples=200)
         # the shard-death leg: 8 shards of 4096 rows, one poisoned
         self.death_n = 8 * 4096
         self.death_budget = dict(map_init_steps=10, num_warmup=10, num_samples=10)
@@ -1123,8 +1172,8 @@ def phase_tempering(run: Run):
     GaussianMixture(16) on the port's synth_gmm_data(0, 50,000, 16,
     spread=4.0), init from gmm_init_1d, 2 chains x 8 temperatures, NUTS
     replicas at tree depth 7, a swap round every 5 transitions, the
-    adaptive ladder (stark_tpu/benchmarks.py:718-754), warmup 150 and
-    samples 100 (the bench: 600 and 500); then HMC, the reference's
+    adaptive ladder (stark_tpu/benchmarks.py:718-754), warmup 100 and
+    samples 75 (the bench: 600 and 500); then HMC, the reference's
     default kernel (16 leapfrog steps, 50 + 50).  No hand-written kernel
     runs: the reference's GMM likelihood is XLA's (N, K) logsumexp."""
     from stark_tpu_torch import diagnostics, tempered_sample
@@ -1626,16 +1675,18 @@ def _nuts_leg(run: Run, fn):
     return out, wall, launches, peak
 
 
-def _check_leg_launches(run: Run, label, counted, launches, evals):
+def _check_leg_launches(run: Run, label, counted, launches, evals, entry=None):
     """The counted kernel launched once per ensemble evaluation and no
-    other kernel; its launches go into the kernels line."""
+    other kernel; its launches go into the kernels line, under ``entry``
+    (the counted kernel's own by default)."""
     if run.rehearsal:
         return
     assert launches[counted] > 0, f"{counted} was never launched on the {label} leg"
     assert launches[counted] == evals, (label, launches, evals)
     others = {k: v for k, v in launches.items() if k != counted and v}
     assert not others, f"{others} launched on the {label} leg"
-    run.kernels[counted]["launches"] = run.kernels[counted].get("launches", 0) + launches[counted]
+    e = run.kernels[entry or counted]
+    e["launches"] = e.get("launches", 0) + launches[counted]
 
 
 def _leg_line(run: Run, label, res):
@@ -1652,6 +1703,44 @@ def _leg_line(run: Run, label, res):
         f"{res['step_size_max']:.5g}); peak device memory {res['peak_mib']:.1f} MiB")
 
 
+def _chain_leg_result(run: Run, label, counted, post, wall, launches, peak, kw, entry=None):
+    """The numbers of a NUTS or HMC leg through sample(): the counted
+    kernel's launches checked against the evaluations (or, with none
+    counted, no hand-written kernel launched), finite draws of the
+    budget's shape, and the leg's line of results."""
+    from stark_tpu_torch import diagnostics
+    from stark_tpu_torch.kernels.nuts import tree_depth_from_leaves
+
+    st = post.sample_stats
+    evals = int(st["num_ensemble_grad_evals"])
+    warm = int(st["num_warmup_ensemble_grad_evals"])
+    if counted:
+        _check_leg_launches(run, label, counted, launches, evals, entry)
+    elif not run.rehearsal:
+        assert not any(launches.values()), f"{launches} launched on the {label} leg"
+    draws = post.draws_flat
+    chains = draws.shape[0]
+    assert draws.shape[1] == kw["num_samples"], draws.shape
+    assert np.all(np.isfinite(draws)), f"non-finite draws on the {label} leg"
+    ngrad = np.asarray(st["num_grad_evals"])
+    bulk = float(np.min(diagnostics.ess_bulk(draws)))
+    depth = tree_depth_from_leaves(ngrad) if kw["kernel"] == "nuts" else None
+    return dict(
+        wall_s=wall, evals=evals, warmup_evals=warm, launches=launches, peak_mib=peak,
+        ms_per_eval=1e3 * wall / evals,
+        mean_depth=float(depth.mean()) if depth is not None else None,
+        max_depth=int(depth.max()) if depth is not None else None,
+        leaves_per_transition=float(ngrad.mean()),
+        lane_use=float(ngrad.sum()) / (chains * (evals - warm)),
+        divergences=int(post.num_divergent),
+        warmup_divergences=int(np.sum(st["num_warmup_divergent"])),
+        max_split_rhat=float(np.max(diagnostics.split_rhat(draws))), min_bulk_ess=bulk,
+        ess_per_s=bulk / wall, step_size_mean=float(np.mean(st["step_size"])),
+        step_size_min=float(np.min(st["step_size"])),
+        step_size_max=float(np.max(st["step_size"])),
+    )
+
+
 def phase_nuts(run: Run, full):
     """NUTS and HMC, the per-chain samplers, at the flagship's full width
     with 8 chains: the reference bench's NUTS leg (bench.py:485-487,
@@ -1660,7 +1749,6 @@ def phase_nuts(run: Run, full):
     with NUTS under supervision, whole and resumed from a fault after
     block 1's checkpoint (bitwise equal)."""
     from stark_tpu_torch import diagnostics, runner, sample, supervised_sample
-    from stark_tpu_torch.kernels.nuts import tree_depth_from_leaves
     from stark_tpu_torch.models import FusedHierLogistic, FusedHierLogisticGrouped
 
     dev = {"device": "cpu"} if run.rehearsal else {}
@@ -1674,33 +1762,11 @@ def phase_nuts(run: Run, full):
             f"chains={NUTS_CHAINS}, {kw}")
         post, wall, launches, peak = _nuts_leg(run, lambda: sample(
             model_cls(D, G), full, chains=NUTS_CHAINS, seed=0, **kw, **dev))
-        st = post.sample_stats
-        evals = int(st["num_ensemble_grad_evals"])
-        warm = int(st["num_warmup_ensemble_grad_evals"])
-        _check_leg_launches(run, label, counted, launches, evals)
-        draws = post.draws_flat
-        assert draws.shape[:2] == (NUTS_CHAINS, kw["num_samples"]), draws.shape
-        assert np.all(np.isfinite(draws)), f"non-finite draws on the {label} leg"
-        ngrad = np.asarray(st["num_grad_evals"])
-        bulk = float(np.min(diagnostics.ess_bulk(draws)))
-        depth = tree_depth_from_leaves(ngrad) if kw["kernel"] == "nuts" else None
-        res = dict(
-            wall_s=wall, evals=evals, warmup_evals=warm, launches=launches, peak_mib=peak,
-            ms_per_eval=1e3 * wall / evals,
-            mean_depth=float(depth.mean()) if depth is not None else None,
-            max_depth=int(depth.max()) if depth is not None else None,
-            leaves_per_transition=float(ngrad.mean()),
-            lane_use=float(ngrad.sum()) / (NUTS_CHAINS * (evals - warm)),
-            divergences=int(post.num_divergent),
-            warmup_divergences=int(np.sum(st["num_warmup_divergent"])),
-            max_split_rhat=float(np.max(diagnostics.split_rhat(draws))), min_bulk_ess=bulk,
-            ess_per_s=bulk / wall, step_size_mean=float(np.mean(st["step_size"])),
-            step_size_min=float(np.min(st["step_size"])),
-            step_size_max=float(np.max(st["step_size"])),
-        )
+        res = _chain_leg_result(run, label, counted, post, wall, launches, peak, kw)
         _leg_line(run, label, res)
         if kw["kernel"] == "nuts":
-            res["profile"] = profile_nuts_transitions(run, model_cls(D, G), full, post, label)
+            res["profile"] = profile_nuts_transitions(run, model_cls(D, G), full, post, label,
+                                                      reps=1)
         out[label] = res
 
     root = REPO / "build" / "chip_smoke_nuts"
@@ -1773,6 +1839,241 @@ def phase_nuts(run: Run, full):
     assert same, "the resumed NUTS draws differ from the whole run's"
     res["resume"] = dict(wall_s=rwall, restarts=len(restarts), bitwise_equal=same)
     out["nuts_runner"] = res
+    return out
+
+
+def _scaled_close(name, got, want, rtol, atol):
+    """The reference's zoo gradient check: each chain's gradient against
+    autograd's, both scaled by the largest magnitude of autograd's; ->
+    the largest scaled error."""
+    worst = 0.0
+    for c in range(got.shape[0]):
+        scale = float(want[c].abs().max()) + 1e-6
+        torch.testing.assert_close(got[c] / scale, want[c] / scale, rtol=rtol, atol=atol)
+        worst = max(worst, float((got[c] - want[c]).abs().max()) / scale)
+    log(f"  {name}: max scaled gradient error {worst:.6g}")
+    return worst
+
+
+def _fused_op_parity(run: Run, label, plain, fused, raw, z, direct, scaled):
+    """A fused model's potential and gradient on the card against its
+    plain model's autograd at the points z (C, d), each at the reference's
+    tolerance; the fused op's direct call and the potential repeat
+    bitwise; both timed (CUDA events, the host's enqueue hidden)."""
+    from stark_tpu_torch.model import flatten_model, prepare_model_data
+
+    pp = flatten_model(plain).bind(prepare_model_data(plain, raw, device=run.dev))
+    fdata = prepare_model_data(fused, raw, device=run.dev)
+    fp = flatten_model(fused).bind(fdata)
+    vp, gp = pp.value_and_grad(z)
+    vf, gf = fp.value_and_grad(z)
+    again = fp.value_and_grad(z)
+    run.sync()
+    val_err = float(((vf - vp).abs() / vp.abs()).max())
+    if scaled:
+        torch.testing.assert_close(vf, vp, rtol=ZLMM_VAL_RTOL, atol=ZLMM_VAL_ATOL)
+        grad_err = _scaled_close(f"{label} potential gradient", gf, gp, ZLMM_GRAD_RTOL,
+                                 ZLMM_GRAD_ATOL)
+    else:
+        torch.testing.assert_close(vf, vp, rtol=GLM_VAL_RTOL, atol=0)
+        torch.testing.assert_close(gf, gp, rtol=GLM_GRAD_RTOL, atol=GLM_GRAD_ATOL)
+        grad_err = float((gf - gp).abs().max())
+    check_repeat(f"{label} potential and gradient", (vf, gf), again)
+    op_args = direct[1](fdata)
+    first = direct[0](*op_args)
+    second = direct[0](*op_args)
+    run.sync()
+    check_repeat(f"{label} fused op (direct)", (first[0], *_flat(first[1])),
+                 (second[0], *_flat(second[1])))
+    fused_ms = timed(run, lambda: fp.value_and_grad(z), 10, launches=8)
+    plain_ms = timed(run, lambda: pp.value_and_grad(z), 10, launches=8)
+    op_ms = timed(run, lambda: direct[0](*op_args), 10, launches=4)
+    log(f"  {label} [{getattr(run, 'smi', 'cpu rehearsal')}]: value max rel err {val_err:.3g}, "
+        f"gradient err {grad_err:.3g}; potential and gradient {fused_ms:.4f} ms fused, "
+        f"{plain_ms:.4f} ms autograd; the fused op alone {op_ms:.4f} ms")
+    return dict(value_rel_err=val_err, grad_err=grad_err, fused_potential_ms=fused_ms,
+                autograd_potential_ms=plain_ms, op_ms=op_ms)
+
+
+def _flat(grads):
+    return grads if isinstance(grads, tuple) else (grads,)
+
+
+def phase_zoo_glm(run: Run, lmm3):
+    """The zoo's GLMs and the knob-gated fused LMM at the fused ops' judged
+    width (stark_tpu/benchmarks.py:_fused_vg_case at scale 1: N=200,000,
+    D=32, G=2000): B2's gaussian link without offsets against its plain
+    version at C=8, timed beside its bound; the Poisson and LMM fused ops
+    (plain PyTorch) against autograd, repeated bitwise; NUTS legs through
+    sample() on FusedLinearRegression (B2 gaussian once per evaluation),
+    FusedPoissonRegression and FusedLMM (STARK_FUSED_LMM=1; no
+    hand-written kernel); and the repairs on the card: consensus_sample on
+    FusedLinearMixedModel (config 3's data, 8 shards x 8 chains, HMC,
+    one B2 launch per shard and evaluation) and sghmc_sample on
+    FusedLinearRegression (one B2 launch per chain and step)."""
+    import os
+
+    from stark_tpu_torch import consensus_sample, sample, sghmc_sample
+    from stark_tpu_torch.models import (
+        FusedLinearMixedModel,
+        FusedLinearRegression,
+        FusedLMM,
+        FusedPoissonRegression,
+        LinearMixedModel,
+        PoissonRegression,
+        synth_linreg_data,
+        synth_lmm_data,
+        synth_poisson_data,
+    )
+    from stark_tpu_torch.model import flatten_model
+    from stark_tpu_torch.ops import glm_fused, lmm_fused
+    from stark_tpu_torch.ops import logistic_fused as lf
+
+    dev = {"device": "cpu"} if run.rehearsal else {}
+    smi = getattr(run, "smi", "cpu rehearsal")
+    n, d, g, C = run.zoo_n, ZOO_D, run.zoo_g, ZOO_CHAINS
+    t = time.perf_counter()
+    lin, lin_true = synth_linreg_data(0, n, d)
+    poi, poi_true = synth_poisson_data(0, n, d)
+    lmm, lmm_true = synth_lmm_data(0, n, d, g, num_random=ZOO_Q)
+    log(f"== zoo_glm [{smi}]: N={n}, D={d}, G={g}, Q={ZOO_Q}, C={C} "
+        f"(data {time.perf_counter() - t:.1f} s)")
+    gen = torch.Generator(device=run.dev).manual_seed(3)
+    out = {}
+
+    # kernel B2's gaussian link without offsets, FusedLinearRegression's
+    xT = torch.as_tensor(np.ascontiguousarray(lin["x"].T), device=run.dev)
+    y = torch.as_tensor(lin["y"], device=run.dev)
+    beta = (torch.as_tensor(lin_true["beta"], device=run.dev)
+            + 0.1 * torch.randn(C, d, generator=gen, device=run.dev))
+    bargs = (beta, xT, y, None)
+    got = lf.logistic_batched(*bargs, link="gaussian")
+    again = lf.logistic_batched(*bargs, link="gaussian")
+    run.sync()
+    want = lf.logistic_batched_plain(*bargs, link="gaussian")
+    err = compare(f"B2 gaussian C={C} D={d} N={n} offsets=False (FusedLinearRegression)",
+                  got, want)
+    check_repeat("B2 gaussian offsets=False", got, again)
+    entry = dict(
+        name="logistic_batched (B2, gaussian link, no offsets)", route="cuda",
+        source="stark_tpu_torch/csrc/logistic_batched.cu",
+        replaces="stark_tpu/ops/logistic_fused.py:130", max_abs_err=err,
+        ms=timed(run, lambda: lf.logistic_batched(*bargs, link="gaussian"), 50),
+        plain_ms=timed(run, lambda: lf.logistic_batched_plain(*bargs, link="gaussian"), 10),
+        **bound(4 * (xT.numel() + y.numel() + 2 * beta.numel() + C), 4 * C * d * n),
+        library_ms=None,
+    )
+    run.kernels["B2g0"] = entry
+    log(f"  B2 gaussian C={C} D={d} N={n} offsets=False [{smi}]: {entry['ms']:.4f} ms, plain "
+        f"{entry['plain_ms']:.4f} ms, {fmt_bound(entry)}")
+
+    # the fused ops against autograd, at points spread about the truth
+    log(f"  the fused ops against autograd (script at {run.elapsed():.1f} s)")
+    spread = torch.linspace(0.01, 0.5, C, device=run.dev)[:, None]
+    z = (torch.as_tensor(poi_true["beta"], device=run.dev)
+         + spread * torch.randn(C, d, generator=gen, device=run.dev))
+    out["poisson_op"] = _fused_op_parity(
+        run, "FusedPoissonRegression", PoissonRegression(d), FusedPoissonRegression(d), poi, z,
+        (glm_fused.poisson_loglik_value_and_grad,
+         lambda data: (z, data["xT"], data["y"])),
+        scaled=False)
+    lmm_model = FusedLMM(d, g, ZOO_Q)
+    tau = torch.as_tensor(lmm_true["tau"], device=run.dev)
+    u = torch.as_tensor(lmm_true["u"], device=run.dev)
+    params = {
+        "intercept": 1.0 + 0.05 * torch.randn(C, generator=gen, device=run.dev),
+        "beta": (torch.as_tensor(lmm_true["beta"], device=run.dev)
+                 + 0.05 * spread * torch.randn(C, d, generator=gen, device=run.dev)),
+        "u_raw": (u / tau + 0.1 * torch.randn(C, g, ZOO_Q, generator=gen, device=run.dev)),
+        "tau": tau.expand(C, ZOO_Q) * (1.0 + 0.1 * spread),
+        "sigma": 0.5 + spread[:, 0],
+    }
+    zl = flatten_model(lmm_model).unconstrain(params)
+    os.environ["STARK_FUSED_LMM"] = "1"
+    try:
+        out["lmm_op"] = _fused_op_parity(
+            run, "FusedLMM", LinearMixedModel(d, g, ZOO_Q), lmm_model, lmm, zl,
+            (lmm_fused.lmm_loglik_value_and_grad,
+             lambda data: (params["beta"], params["u_raw"] * params["tau"][:, None, :],
+                           params["intercept"], params["sigma"], data["xT"], data["z"],
+                           data["g"], data["y"])),
+            scaled=True)
+    finally:
+        del os.environ["STARK_FUSED_LMM"]
+
+    # the three models through sample(): NUTS, 8 chains, tree depth 6
+    for label, model, raw, true, counted, budget, knob in (
+        ("zoo_linreg", FusedLinearRegression(d), lin, lin_true, "B2g", run.zoo_budget, None),
+        ("zoo_poisson", FusedPoissonRegression(d), poi, poi_true, None, run.zoo_budget, None),
+        ("zoo_lmm", FusedLMM(d, g, ZOO_Q), lmm, lmm_true, None, run.zoo_lmm_budget,
+         "STARK_FUSED_LMM"),
+    ):
+        kw = dict(kernel="nuts", chains=C, seed=0, **budget)
+        log(f"== zoo_glm, leg {label} (script at {run.elapsed():.1f} s): "
+            f"sample({type(model).__name__}), N={n}, D={d}"
+            + (f", G={g}, {knob}=1" if knob else "") + f", {kw}")
+        if knob:
+            os.environ[knob] = "1"
+        try:
+            post, wall, launches, peak = _nuts_leg(run, lambda: sample(model, raw, **kw, **dev))
+            res = _chain_leg_result(run, label, counted, post, wall, launches, peak, kw,
+                                    entry="B2g0")
+            beta_err = float(np.max(np.abs(post.draws["beta"].mean(axis=(0, 1))
+                                           - true["beta"])))
+            res["beta_max_abs_err"] = beta_err
+            _leg_line(run, label, res)
+            log(f"  {label}: max |posterior mean beta - true beta| {beta_err:.4g}")
+            res["profile"] = profile_nuts_transitions(run, model, raw, post, label, reps=1)
+        finally:
+            if knob:
+                del os.environ[knob]
+        out[label] = res
+
+    # C1: consensus over shards of FusedLinearMixedModel's transposed X
+    lfull, _, ltrue = lmm3
+    kw = dict(num_shards=CONS_SHARDS, chains=CONS_CHAINS, kernel="hmc", seed=0,
+              **run.zoo_cons_budget)
+    log(f"== zoo_glm, leg zoo_consensus_lmm (script at {run.elapsed():.1f} s): "
+        f"consensus_sample(FusedLinearMixedModel({LMM_D}, {run.lmm_g}, {LMM_Q})), config 3's "
+        f"N={run.lmm_n_full}, {kw}")
+    post, wall, launches, peak = _counted_leg(run, lambda: consensus_sample(
+        FusedLinearMixedModel(LMM_D, run.lmm_g, LMM_Q), lfull, **kw, **dev))
+    st = post.sample_stats
+    evals = int(st["num_ensemble_grad_evals"])
+    if not run.rehearsal:  # the model is not shard-batched: a launch per shard
+        assert launches["B2g"] == CONS_SHARDS * evals, (launches, evals)
+        assert sum(launches.values()) == launches["B2g"], launches
+    assert np.all(np.isfinite(post.draws_flat)) and not st["degraded"], st["degraded"]
+    beta_err = float(np.max(np.abs(post.draws["beta"].mean(axis=(0, 1)) - ltrue["beta"])))
+    out["zoo_consensus_lmm"] = dict(wall_s=wall, evals=evals, launches=launches,
+                                    max_rhat=post.max_rhat(), beta_max_abs_err=beta_err)
+    log(f"  zoo_consensus_lmm [{smi}]: wall {wall:.2f} s, {evals} ensemble evaluations, "
+        f"launches {launches} ({CONS_SHARDS} a evaluation), max split R-hat "
+        f"{post.max_rhat():.4f}, max |consensus mean beta - true beta| {beta_err:.4g}")
+
+    # C2: SG-HMC minibatches of a model that reads no per-chain batch
+    kw = dict(batch_size=ZOO_SGHMC_BATCH, chains=ZOO_SGHMC_CHAINS, step_size=5e-4,
+              friction=500.0, precondition=False, seed=0,
+              init_params={"beta": np.zeros(d, np.float32), "sigma": np.float32(1.0)},
+              **run.zoo_sghmc_budget)
+    log(f"== zoo_glm, leg zoo_sghmc_linreg (script at {run.elapsed():.1f} s): "
+        f"sghmc_sample(FusedLinearRegression({d})), N={n}, "
+        f"{ {k: v for k, v in kw.items() if k != 'init_params'} }, init beta 0, sigma 1")
+    post, wall, launches, peak = _counted_leg(run, lambda: sghmc_sample(
+        FusedLinearRegression(d), lin, **kw, **dev))
+    steps = int(post.sample_stats["num_ensemble_grad_evals"])
+    if not run.rehearsal:  # chain by chain: a launch per chain and step
+        assert launches["B2g"] == ZOO_SGHMC_CHAINS * steps, (launches, steps)
+        assert sum(launches.values()) == launches["B2g"], launches
+    assert np.all(np.isfinite(post.draws_flat))
+    beta_err = float(np.max(np.abs(post.draws["beta"].mean(axis=(0, 1)) - lin_true["beta"])))
+    out["zoo_sghmc_linreg"] = dict(wall_s=wall, steps=steps, launches=launches,
+                                   max_rhat=post.max_rhat(), beta_max_abs_err=beta_err,
+                                   sigma_mean=float(post.draws["sigma"].mean()))
+    log(f"  zoo_sghmc_linreg [{smi}]: wall {wall:.2f} s, {steps} steps of "
+        f"{ZOO_SGHMC_CHAINS} chains ({1e3 * wall / steps:.4f} ms each), launches {launches}, "
+        f"max split R-hat {post.max_rhat():.4f}, max |mean beta - true beta| {beta_err:.4g}, "
+        f"mean sigma {out['zoo_sghmc_linreg']['sigma_mean']:.4f} (truth {lin_true['sigma']})")
     return out
 
 
@@ -2010,6 +2311,7 @@ def main(argv=None) -> int:
         "consensus_path": phase_consensus(run),
         "bnn_path": phase_bnn(run),
         "tempering_path": phase_tempering(run),
+        "zoo_glm": phase_zoo_glm(run, lmm),
     }
     prof = {
         label: phase_profile(run, model, raw, label)

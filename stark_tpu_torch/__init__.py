@@ -35,12 +35,13 @@ from .parallel import consensus_sample, geometric_ladder, tempered_sample  # noq
 from .runner import AdaptiveResult, sample_until_converged  # noqa: E402
 from .sampler import Posterior, SamplerConfig, sample  # noqa: E402
 from .sghmc import sghmc_sample  # noqa: E402
-from .supervise import supervised_sample  # noqa: E402
+from .supervise import ChainHealthError, supervised_sample  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
     "AdaptiveResult",
+    "ChainHealthError",
     "Model",
     "ParamSpec",
     "Posterior",

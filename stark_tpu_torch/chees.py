@@ -375,11 +375,20 @@ def chees_sample(
     map_init_steps: int = 0,
     seed: int = 0,
     init_params: Optional[Dict[str, Any]] = None,
+    dispatch_steps: Optional[int] = None,
     device: DeviceLike = None,
 ) -> Posterior:
     """One-call ChEES-HMC on ``device`` (``cuda`` by default); returns a
     Posterior.  ``data`` is the raw dataset (numpy or tensors); it is
-    prepared for the model and moved to the device here."""
+    prepared for the model and moved to the device here.
+
+    ``dispatch_steps`` is accepted and checked (>= 0), and changes
+    nothing: in the JAX package it bounds the transitions of one device
+    program, and here the host issues every launch, so there is no
+    device program to bound.  The draws are the same with and without it.
+    """
+    if dispatch_steps is not None and dispatch_steps < 0:
+        raise ValueError(f"dispatch_steps must be >= 0, got {dispatch_steps}")
     dev = resolve_device(device)
     cfg = SamplerConfig(
         kernel="chees",

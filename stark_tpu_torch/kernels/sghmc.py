@@ -89,17 +89,22 @@ def gather_rows(x: torch.Tensor, ax: int, idx: torch.Tensor) -> torch.Tensor:
 
 
 def make_minibatch_grad(potential_with_data, data, batch_size: int,
-                        row_axes=None) -> StochasticGradFn:
+                        row_axes=None, chain_batched: bool = True) -> StochasticGradFn:
     """Minibatch gradient estimator over the data rows.
 
     ``potential_with_data(z (C, d), batch) -> (C,)`` must already carry
     the N/batch likelihood scale (``flatten_model(lik_scale=N/batch)``).
-    Each chain draws its own ``batch_size`` rows with replacement, and
-    every entry of the batch holds the SAME rows, gathered along the
-    entry's own row axis (``row_axes``, `Model.data_row_axes`; axis 0
-    by default); the batch's entries gain a leading chain axis, so the
-    model's ``log_lik`` reads a per-chain batch.  An entry whose row axis
-    is negative has no rows and passes through whole.
+    Each chain draws its own ``batch_size`` rows with replacement, all
+    chains in one (C, batch_size) draw, and every entry of the batch holds
+    the SAME rows, gathered along the entry's own row axis (``row_axes``,
+    `Model.data_row_axes`; axis 0 by default).  An entry whose row axis is
+    negative has no rows and passes through whole.
+
+    ``chain_batched`` (a model's `Model.chain_batched_lik`): the batch's
+    entries gain a leading chain axis and one call evaluates every chain
+    on its own rows.  Otherwise each chain is evaluated alone, as
+    ``z[c:c+1]`` against its rows as an ordinary dataset, as the JAX
+    package's ``vmap`` over one chain does.
     """
     if row_axes is None:
         row_axes = {k: 0 for k in data}
@@ -107,16 +112,24 @@ def make_minibatch_grad(potential_with_data, data, batch_size: int,
             if ax >= 0 and isinstance(data[k], torch.Tensor)]
     n = rows[0][0].shape[rows[0][1]]
 
-    def grad_fn(noise, z):
-        idx = noise.randint((z.shape[0], batch_size), n)
-        batch = {
-            k: gather_rows(v, row_axes[k], idx)
-            if isinstance(v, torch.Tensor) and row_axes[k] >= 0 else v
-            for k, v in data.items()
-        }
+    def has_rows(k, v):
+        return isinstance(v, torch.Tensor) and row_axes[k] >= 0
+
+    def grad_of(z, batch):
         with torch.enable_grad():
             zz = z.detach().requires_grad_(True)
             (g,) = torch.autograd.grad(potential_with_data(zz, batch).sum(), zz)
         return g
+
+    def grad_fn(noise, z):
+        idx = noise.randint((z.shape[0], batch_size), n)
+        if chain_batched:
+            return grad_of(z, {k: gather_rows(v, row_axes[k], idx) if has_rows(k, v) else v
+                               for k, v in data.items()})
+        return torch.cat([
+            grad_of(z[c:c + 1], {k: v.index_select(row_axes[k], idx[c])
+                                 if has_rows(k, v) else v for k, v in data.items()})
+            for c in range(z.shape[0])
+        ])
 
     return grad_fn

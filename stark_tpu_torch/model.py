@@ -14,7 +14,10 @@ axis in front, ``(S, C, d)`` against data split into S row blocks: the
 prior and the bijectors see the S*C rows as one batch, and ``log_lik``
 sees parameters with both leading axes when the model declares a
 shard-batched likelihood (`Model.shard_batched_lik`), and one shard at
-a time otherwise (see `parallel.consensus`).
+a time otherwise (see `parallel.consensus`).  SG-HMC hands ``log_lik``
+every chain's own minibatch in one call when the model reads such a
+batch (`Model.chain_batched_lik`), and each chain's alone otherwise (see
+`kernels.sghmc.make_minibatch_grad`).
 """
 
 from __future__ import annotations
@@ -51,6 +54,11 @@ class Model:
     # blocks) and returns (S, C); a model without it is handed the shards
     # one at a time
     shard_batched_lik = False
+    # True when log_lik also reads a per-chain batch: every data entry
+    # with a leading chain axis, chain c's rows against chain c's
+    # parameters (SG-HMC's minibatches); a model without it is handed
+    # each chain's minibatch alone
+    chain_batched_lik = False
 
     def param_spec(self) -> Dict[str, ParamSpec]:
         raise NotImplementedError

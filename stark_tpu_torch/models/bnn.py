@@ -25,6 +25,9 @@ from ..model import Model, ParamSpec, normal_logpdf
 class BayesianMLP(Model):
     """y ~ Bernoulli(sigmoid(MLP(x))); 2 layers, tanh hidden."""
 
+    # log_lik reads a per-chain minibatch (x (C, B, D)) in one call
+    chain_batched_lik = True
+
     def __init__(self, num_features: int, hidden: int = 32, weight_scale: float = 1.0):
         self.num_features = num_features
         self.hidden = hidden

@@ -3,7 +3,7 @@ counterpart of ``stark_tpu/models/lmm.py``.
 
 Random intercepts and random slopes over G groups, non-centered (u =
 tau * u_raw).  Data: {"x": (N, D), "z": (N, Q) random-effects design
-(column 0 ones), "g": (N,) int group ids, "y": (N,)}.  Three models
+(column 0 ones), "g": (N,) int group ids, "y": (N,)}.  Four models
 share one posterior:
 
 * `LinearMixedModel`: plain PyTorch autograd on the rows (the oracle);
@@ -13,11 +13,13 @@ share one posterior:
   autograd's scatter;
 * `FusedLinearMixedModelGrouped`: rows sorted by group, value and every
   gradient from kernel B4 in one pass; falls back to the offset path's
-  layout and kernel when the grouping defeats the layout.
+  layout and kernel when the grouping defeats the layout;
+* `FusedLMM`: behind the default-off ``STARK_FUSED_LMM`` knob, X
+  transposed once and value and every gradient from the one-pass fused
+  op of `ops.lmm_fused` (plain PyTorch); with the knob off it is
+  `LinearMixedModel`.
 
-The reference's ``data_row_axes`` (a data-sharding hook) waits for the
-multi-GPU slice, ROADMAP A11.  Parameters carry a leading chain axis
-(see `model.Model`).
+Parameters carry a leading chain axis (see `model.Model`).
 """
 
 from __future__ import annotations
@@ -29,7 +31,13 @@ import torch
 
 from ..bijectors import Exp, batch_sum
 from ..model import Model, ParamSpec, normal_logpdf
-from .logistic import _transpose_x, check_group_ids
+from .logistic import (
+    KnobGatedFusedMixin,
+    TransposedXMixin,
+    _row_axes_xt,
+    _transpose_x,
+    check_group_ids,
+)
 
 _LOG2 = math.log(2.0)
 
@@ -76,14 +84,44 @@ class LinearMixedModel(Model):
         check_group_ids(g, self.num_groups)
 
 
-class FusedLinearMixedModel(LinearMixedModel):
+class FusedLMM(KnobGatedFusedMixin, LinearMixedModel):
+    """LinearMixedModel with the one-pass fused value-and-grad of
+    `ops.lmm_fused`, behind the default-off ``STARK_FUSED_LMM`` knob.
+
+    Knob off at prepare time: `LinearMixedModel`'s data and likelihood,
+    bit for bit.  Knob on: X transposed once, and the potential's
+    gradient costs one pass (∂beta, ∂u, ∂intercept, ∂sigma) in place of
+    autograd's forward and backward.  Data prepared in the fused layout
+    keeps working after the knob flips off (autograd on the same rows).
+    Distinct from `FusedLinearMixedModel` (kernel B2 with offsets) and
+    `FusedLinearMixedModelGrouped` (kernel B4).
+    """
+
+    _FUSED_FAMILY = "lmm"
+
+    @staticmethod
+    def _fused_enabled():
+        from ..ops.lmm_fused import fused_lmm_enabled
+
+        return fused_lmm_enabled()
+
+    def _fused_log_lik(self, p, data):
+        from ..ops.lmm_fused import lmm_loglik
+
+        return lmm_loglik(
+            p["beta"], self._u(p), p["intercept"], p["sigma"],
+            data["xT"], data["z"], data["g"], data["y"],
+        )
+
+
+class FusedLinearMixedModel(TransposedXMixin, LinearMixedModel):
     """LinearMixedModel with the X pass in kernel B2 (gaussian link); the
     random-effect gather and its scatter-add gradient stay in PyTorch."""
 
     def prepare_data(self, data):
         if "g" in data:
             self.check_groups(data["g"])
-        return _transpose_x(data)
+        return super().prepare_data(data)
 
     def log_lik(self, p, data):
         from ..ops.logistic_fused import gaussian_offset_loglik
@@ -116,6 +154,15 @@ class FusedLinearMixedModelGrouped(LinearMixedModel):
             out = _transpose_x(data)
             out["offsets_path"] = True
         return out
+
+    def data_row_axes(self, data):
+        if "gl" not in data:  # the offset path's layout shards like its rows
+            return _row_axes_xt(data)
+        raise NotImplementedError(
+            "FusedLinearMixedModelGrouped's tile layout is global: rows "
+            "cannot be re-sharded. Use FusedLinearMixedModel for "
+            "data-sharded meshes; chain parallelism still applies."
+        )
 
     def log_lik(self, p, data):
         if "gl" not in data:  # fallback layout

@@ -133,15 +133,66 @@ def _row_axes_xt(data):
     return {k: ax(k, v) for k, v in data.items()}
 
 
-class FusedLogistic(Logistic):
-    """Logistic with value and gradient from kernel B2 in one pass over
-    the transposed X."""
+class TransposedXMixin:
+    """Layout hooks shared by the fused models: ``prepare_data`` replaces
+    the (N, D) rows with their (D, N) transpose once, on the host, and
+    ``data_row_axes`` says the rows of ``xT`` lie on its axis 1."""
 
     def prepare_data(self, data):
         return _transpose_x(data)
 
     def data_row_axes(self, data):
         return _row_axes_xt(data)
+
+
+class KnobGatedFusedMixin:
+    """Hooks shared by the default-off fused zoo variants (`FusedLMM`):
+    the transposed layout only when the family's knob is on at prepare
+    time, layout-aware row axes, and a ``log_lik`` that takes the fused
+    op, or autograd when the knob is off.  With the knob off at prepare
+    time the variant is its parent model; data prepared in the fused
+    layout keeps working after the knob flips off (autograd on the
+    de-transposed rows).
+
+    Subclasses set ``_FUSED_FAMILY`` and implement ``_fused_enabled()``
+    and ``_fused_log_lik(p, data)``.
+    """
+
+    _FUSED_FAMILY: str
+
+    @staticmethod
+    def _fused_enabled() -> bool:
+        raise NotImplementedError
+
+    def prepare_data(self, data):
+        if self._fused_enabled():
+            return super().prepare_data(_transpose_x(data))
+        return super().prepare_data(data)
+
+    def data_row_axes(self, data):
+        if "xT" in data:
+            return _row_axes_xt(data)
+        return super().data_row_axes(data)
+
+    def fused_tag(self):
+        """The fused family this model runs, or None on autograd."""
+        return self._FUSED_FAMILY if self._fused_enabled() else None
+
+    def log_lik(self, p, data):
+        if "xT" not in data:
+            return super().log_lik(p, data)
+        if not self._fused_enabled():
+            rows = {k: v for k, v in data.items() if k != "xT"}
+            return super().log_lik(p, {**rows, "x": data["xT"].transpose(-1, -2)})
+        return self._fused_log_lik(p, data)
+
+    def _fused_log_lik(self, p, data):
+        raise NotImplementedError
+
+
+class FusedLogistic(TransposedXMixin, Logistic):
+    """Logistic with value and gradient from kernel B2 in one pass over
+    the transposed X."""
 
     def log_lik(self, p, data):
         from ..ops.logistic_fused import logistic_loglik
@@ -149,17 +200,14 @@ class FusedLogistic(Logistic):
         return logistic_loglik(p["beta"], data["xT"], data["y"])
 
 
-class FusedHierLogistic(HierLogistic):
+class FusedHierLogistic(TransposedXMixin, HierLogistic):
     """HierLogistic with the X pass in kernel B2; the intercept gather and
     its scatter-add gradient stay in PyTorch."""
 
     def prepare_data(self, data):
         if "g" in data:
             self.check_groups(data["g"])
-        return _transpose_x(data)
-
-    def data_row_axes(self, data):
-        return _row_axes_xt(data)
+        return super().prepare_data(data)
 
     def log_lik(self, p, data):
         from ..ops.logistic_fused import logistic_offset_loglik
@@ -189,6 +237,16 @@ class FusedHierLogisticGrouped(HierLogistic):
             out = _transpose_x(data)
             out["offsets_path"] = True
         return out
+
+    def data_row_axes(self, data):
+        if "gl" not in data:  # the offset path's layout shards like its rows
+            return _row_axes_xt(data)
+        raise NotImplementedError(
+            "FusedHierLogisticGrouped's tile layout is global (first_gid "
+            "indexes absolute lane tiles): rows cannot be re-sharded. "
+            "Use FusedHierLogistic for data-sharded meshes; chain "
+            "parallelism still applies."
+        )
 
     def log_lik(self, p, data):
         alpha = self._alpha(p)

@@ -38,14 +38,13 @@ import torch
 from .. import _build
 from .logistic_fused import (
     _link_parts,
-    _per_chain,
     check_kernel_args,
     normal_loglik_from_ssr,
     scratch_words,
     sigma_grad,
     subtile_split,
 )
-from .precision import check_knobs, x_stream_dtype
+from .precision import check_knobs, per_chain, x_stream_dtype
 
 # The reference's layout constants, kept so the port builds bit-identical
 # layouts: the lane-tile cap, the per-slab element budget it was sized by,
@@ -384,7 +383,7 @@ class _LmmGroupedLoglik(torch.autograd.Function):
         inv2 = 1.0 / (sigma * sigma)
         s = ct * inv2
         return (
-            _per_chain(s, gbeta), _per_chain(s, gu), s * sresid,
+            per_chain(s, gbeta), per_chain(s, gu), s * sresid,
             sigma_grad(ct, ssr, ctx.n, sigma, inv2),
             None, None, None, None, None, None,
         )

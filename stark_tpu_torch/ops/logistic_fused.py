@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .precision import check_knobs
+from .precision import check_knobs, per_chain
 
 #: B3's row blocks are multiples of this many rows
 KERNEL_ROW_TILE = 128
@@ -335,11 +335,6 @@ def _pass(beta, xT, y, offsets, link):
     return logistic_batched(beta, xT, y, offsets, link)
 
 
-def _per_chain(ct, g):
-    """Cotangent (C,) or () times per-chain gradients (C, ...) or (...)."""
-    return ct.reshape(ct.shape + (1,) * (g.ndim - ct.ndim)) * g
-
-
 class _LogisticOffsetLoglik(torch.autograd.Function):
     @staticmethod
     def forward(ctx, beta, offsets, xT, y):
@@ -350,7 +345,7 @@ class _LogisticOffsetLoglik(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         gbeta, resid = ctx.saved_tensors
-        return _per_chain(ct, gbeta), _per_chain(ct, resid), None, None
+        return per_chain(ct, gbeta), per_chain(ct, resid), None, None
 
 
 class _LogisticLoglik(torch.autograd.Function):
@@ -363,7 +358,7 @@ class _LogisticLoglik(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         (gbeta,) = ctx.saved_tensors
-        return _per_chain(ct, gbeta), None, None
+        return per_chain(ct, gbeta), None, None
 
 
 def logistic_offset_loglik(beta, offsets, xT, y):
@@ -406,7 +401,7 @@ class _GaussianOffsetLoglik(torch.autograd.Function):
         inv2 = 1.0 / (sigma * sigma)
         s = ct * inv2
         return (
-            _per_chain(s, xresid), _per_chain(s, resid), None, None,
+            per_chain(s, xresid), per_chain(s, resid), None, None,
             sigma_grad(ct, ssr, ctx.n, sigma, inv2),
         )
 
@@ -425,7 +420,7 @@ class _GaussianLoglik(torch.autograd.Function):
         xresid, ssr, sigma = ctx.saved_tensors
         inv2 = 1.0 / (sigma * sigma)
         return (
-            _per_chain(ct * inv2, xresid), None, None,
+            per_chain(ct * inv2, xresid), None, None,
             sigma_grad(ct, ssr, ctx.n, sigma, inv2),
         )
 

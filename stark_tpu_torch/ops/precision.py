@@ -9,11 +9,22 @@ runs the kernels' arithmetic as float32 FMAs on the CUDA cores and
 streams X as float32: ``highest`` and ``f32``.  Any other value raises
 and names the ROADMAP item that brings it, so a knob is never silently
 ignored.
+
+The scaffold half of the reference's module lives here too: the
+``STARK_FUSED_<FAMILY>`` model knobs (`fused_knob`), the clip band of a
+link (`clip_band`) and the one-pass fused-op contract
+(`fused_value_and_grad`).  The JAX package keys its jit cache on the
+resolved knobs; the port traces nothing, so every fused op reads the
+knobs when it is called (`check_knobs` first, then the family knob at
+the model's call), and a knob flipped between two calls takes effect
+at the next one.
 """
 
 from __future__ import annotations
 
+import inspect
 import os
+from typing import Callable, Tuple
 
 import torch
 
@@ -59,3 +70,72 @@ def check_knobs() -> None:
     """Raise unless both knobs resolve to what the port runs."""
     dot_precision()
     x_stream_dtype()
+
+
+def fused_knob(name: str, default: bool = False) -> bool:
+    """Boolean ``STARK_FUSED_<FAMILY>`` model knob: unset -> ``default``,
+    ``"0"`` -> off, anything else -> on.  It picks the execution path of
+    a ``Fused*`` model (the fused op or autograd); read at every call."""
+    val = os.environ.get(name)
+    if val is None:
+        return default
+    return val != "0"
+
+
+def clip_band(eta_raw: torch.Tensor, clip: float):
+    """(eta, inside): the linear predictor clipped to [-clip, clip] and
+    the float mask, 1 strictly inside the band, that zeroes a saturated
+    row's gradient terms (autograd's sensitivity through a clamp there)."""
+    eta = torch.clamp(eta_raw, -clip, clip)
+    inside = (eta_raw.abs() < clip).to(eta_raw.dtype)
+    return eta, inside
+
+
+def per_chain(ct: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Cotangent (C,) or () times a gradient (C, ...) or (...)."""
+    return ct.reshape(ct.shape + (1,) * (g.ndim - ct.ndim)) * g
+
+
+def fused_value_and_grad(vg: Callable, ndiff: int) -> Tuple[Callable, Callable]:
+    """One residual function -> the fused-op contract.
+
+    ``vg(*args) -> (value, grads)`` computes the log-likelihood (one
+    value per chain, or a scalar) and the tuple of its gradients with
+    respect to the first ``ndiff`` arguments in one pass over the data
+    arguments (positions ``ndiff`` onward).  Returns
+
+    * ``op(*args)``: differentiable through a ``torch.autograd.Function``
+      whose backward scales the saved gradients by the cotangent and
+      never reads the data arguments again (their gradients are None);
+    * ``op_value_and_grad(*args) -> (value, grads)``: the direct entry.
+
+    Both call `check_knobs` first, so a precision or X-stream knob the
+    port does not run is refused, not ignored.
+    """
+    nargs = len(inspect.signature(vg).parameters)
+    if not 0 < ndiff <= nargs:
+        raise ValueError(f"ndiff={ndiff} out of range for {nargs}-arg vg")
+
+    class _Op(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            val, grads = vg(*args)
+            ctx.save_for_backward(*grads)
+            return val
+
+        @staticmethod
+        def backward(ctx, ct):
+            grads = tuple(per_chain(ct, g) for g in ctx.saved_tensors)
+            return grads + (None,) * (nargs - ndiff)
+
+    def op(*args):
+        check_knobs()
+        return _Op.apply(*args)
+
+    def op_value_and_grad(*args):
+        check_knobs()
+        with torch.no_grad():
+            return vg(*args)
+
+    _Op.__name__ = f"Fused{vg.__name__}"  # names its backward in profiles
+    return op, op_value_and_grad

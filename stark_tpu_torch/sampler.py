@@ -25,6 +25,8 @@ transition; the sampling stream every sampling transition.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
@@ -33,6 +35,7 @@ import torch
 
 from . import diagnostics
 from ._device import DeviceLike
+from ._unported import refuse
 from .adaptation import (
     DualAveragingState,
     WelfordState,
@@ -468,6 +471,31 @@ def make_chain_runner(fm, cfg: SamplerConfig):
     return run
 
 
+def _no_nan(value: torch.Tensor, model_cls, what: str) -> torch.Tensor:
+    if torch.isnan(value).any():
+        raise FloatingPointError(f"{model_cls.__name__}.{what} gave NaN (debug_nans)")
+    return value
+
+
+def nan_checked(model):
+    """A copy of ``model`` whose ``log_prior`` and ``log_lik`` raise
+    FloatingPointError as soon as one gives NaN (one device-to-host
+    check per evaluation; `sample(debug_nans=True)`)."""
+    base = type(model)
+
+    class NanChecked(base):
+        def log_prior(self, p):
+            return _no_nan(base.log_prior(self, p), base, "log_prior")
+
+        def log_lik(self, p, data):
+            return _no_nan(base.log_lik(self, p, data), base, "log_lik")
+
+    NanChecked.__name__ = NanChecked.__qualname__ = base.__name__
+    checked = copy.copy(model)
+    checked.__class__ = NanChecked
+    return checked
+
+
 def sample(
     model,
     data: Any = None,
@@ -477,6 +505,8 @@ def sample(
     init_params: Optional[Dict[str, Any]] = None,
     backend: Any = None,
     device: DeviceLike = None,
+    debug_nans: bool = False,
+    trace: Any = None,
     **cfg_kwargs,
 ):
     """Run MCMC and return a Posterior: NUTS unless ``kernel=`` says
@@ -484,14 +514,29 @@ def sample(
     ``device``, ``cuda`` unless the caller asks for the CPU) runs it;
     ``CudaBackend(dispatch_steps=n)`` bounds each host loop segment of a
     per-chain run to ``n`` transitions and draws what the single loop
-    draws."""
+    draws.
+
+    debug_nans: the first NaN the model's densities give raises, where
+    it would otherwise surface later as a frozen chain: a NaN log-prior
+    or log-likelihood raises FloatingPointError naming it (`nan_checked`),
+    and a NaN in a gradient raises autograd's anomaly-mode RuntimeError,
+    which names the operation and the model code that built it.  The
+    draws are the same with it on.  ``trace=`` (run telemetry) is refused.
+    """
     from .backends import CudaBackend
 
+    if trace is not None:
+        refuse("run telemetry (sample(trace=))", "A12")
     if backend is None:
         backend = CudaBackend(device)
     elif device is not None and torch.device(device) != backend.device:
         raise ValueError(f"device={device!r} disagrees with the backend's {backend.device}")
-    return backend.run(
-        model, data, SamplerConfig(**cfg_kwargs), chains=chains, seed=seed,
-        init_params=init_params,
-    )
+    anomaly = contextlib.nullcontext()
+    if debug_nans:
+        model = nan_checked(model)
+        anomaly = torch.autograd.detect_anomaly(check_nan=True)
+    with anomaly:
+        return backend.run(
+            model, data, SamplerConfig(**cfg_kwargs), chains=chains, seed=seed,
+            init_params=init_params,
+        )

@@ -136,11 +136,13 @@ def sghmc_sample(
 
     Rows may lie on any axis of an entry (`Model.data_row_axes`); the
     likelihood is scaled by N / batch_size so the stochastic gradient is
-    unbiased for the full-data potential.  ``sample_stats``: the kept
-    draws' ``kinetic_energy`` (C, T), ``num_divergent`` (C,) over burn-in
-    and sampling, ``step_size`` (C,), ``cycle_id`` (T,) when cycling, and
-    ``num_ensemble_grad_evals`` (one minibatch gradient of every chain per
-    step).
+    unbiased for the full-data potential.  A model whose ``log_lik``
+    reads a per-chain batch (`Model.chain_batched_lik`) evaluates every
+    chain's minibatch in one call; any other model, one chain at a time.
+    ``sample_stats``: the kept draws' ``kinetic_energy`` (C, T),
+    ``num_divergent`` (C,) over burn-in and sampling, ``step_size`` (C,),
+    ``cycle_id`` (T,) when cycling, and ``num_ensemble_grad_evals`` (one
+    minibatch gradient of every chain per step).
     """
     if mesh is not None:
         refuse("SG-HMC chains over a device mesh (mesh=)", "A11")
@@ -154,7 +156,8 @@ def sghmc_sample(
     if batch_size > n:
         raise ValueError(f"batch_size={batch_size} > rows={n}")
     fm = flatten_model(model, lik_scale=n / batch_size)
-    grad_fn = make_minibatch_grad(fm.potential, data, batch_size, row_axes=row_axes)
+    grad_fn = make_minibatch_grad(fm.potential, data, batch_size, row_axes=row_axes,
+                                  chain_batched=model.chain_batched_lik)
     sched = sghmc_schedules(num_warmup, num_samples, thin, resample_every, cycles,
                             cycle_collect_frac)
     total = num_samples * thin

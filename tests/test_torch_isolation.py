@@ -26,12 +26,17 @@ from stark_tpu_torch.models import (
     BayesianMLP,
     FusedHierLogisticGrouped,
     FusedLinearMixedModelGrouped,
+    FusedLinearRegression,
+    FusedLMM,
     FusedLogistic,
+    FusedPoissonRegression,
     GaussianMixture,
     synth_bnn_data,
     synth_gmm_data,
+    synth_linreg_data,
     synth_lmm_data,
     synth_logistic_data,
+    synth_poisson_data,
 )
 
 REPO = Path(__file__).resolve().parents[1]
@@ -55,7 +60,9 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         "stark_tpu_torch.models.eight_schools, stark_tpu_torch.parallel, "
         "stark_tpu_torch.parallel.consensus, stark_tpu_torch.sghmc, "
         "stark_tpu_torch.kernels.sghmc, stark_tpu_torch.models.bnn, "
-        "stark_tpu_torch.models.gmm, stark_tpu_torch.parallel.tempering\n"
+        "stark_tpu_torch.models.gmm, stark_tpu_torch.parallel.tempering, "
+        "stark_tpu_torch.models.glm, stark_tpu_torch.ops.glm_fused, "
+        "stark_tpu_torch.ops.lmm_fused, stark_tpu_torch.ops.precision\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'stark_tpu'))\n"
         "print(','.join(bad))\n"
@@ -98,6 +105,9 @@ _ENTRY_MODELS = {
     "consensus": lambda: (FusedLogistic(2), synth_logistic_data(0, 300, 2)[0]),
     "bnn": lambda: (BayesianMLP(2, hidden=3), synth_bnn_data(0, 300, 2)[0]),
     "gmm": lambda: (GaussianMixture(3), synth_gmm_data(0, 300, 3)[0]),
+    "linreg": lambda: (FusedLinearRegression(2), synth_linreg_data(0, 300, 2)[0]),
+    "poisson": lambda: (FusedPoissonRegression(2), synth_poisson_data(0, 300, 2)[0]),
+    "fused_lmm": lambda: (FusedLMM(2, 3), synth_lmm_data(0, 300, 2, 3)[0]),
 }
 
 

@@ -10,9 +10,17 @@ schedule array of `sghmc_sample`, exactly, as the reference's run feeds
 them to its scans; `BayesianMLP`'s prior, likelihood, forward pass and
 potential; `Posterior.functional`.
 
+Every other ported model (its ``log_lik`` reads no per-chain batch,
+`Model.chain_batched_lik` False) takes one step per chain on its own
+rows, as the reference's ``vmap`` of one chain does: one step of each
+against the reference's, rows and noise replayed.
+
 Tolerances: one step from the same state, rtol 1e-5 / atol 1e-6 (float32
 arithmetic in the same order on both sides, the gradient through two
-autodiffs); the preconditioner and the schedules exact; the BNN's
+autodiffs; the fused models' likelihood kernels' plain versions against
+the reference's kernels in interpret mode at rtol 1e-4 / atol 1e-4, the
+fused gradient tolerances of tests/test_hier_fused.py:80-87 at this
+step's N/batch likelihood scale); the preconditioner and the schedules exact; the BNN's
 densities rtol 1e-5 and its gradients rtol 1e-4 / atol 1e-5 (float32
 sums over rows in different orders).  The conjugate-normal posterior
 check mirrors tests/test_sghmc.py:73-114 at its own thresholds.
@@ -248,6 +256,8 @@ def test_inv_mass_from_matches_reference(d):
 class NormalMean(Model):
     """y_i ~ N(mu, 1), mu ~ N(0, prior_sd): conjugate (tests/test_sghmc.py)."""
 
+    chain_batched_lik = True
+
     def __init__(self, prior_sd=10.0):
         self.prior_sd = prior_sd
 
@@ -421,3 +431,135 @@ def test_sghmc_conjugate_normal_posterior():
     assert abs(draws.mean() - mu_true) < 0.05
     # variance within 2x: SG-HMC's stationary variance is step-size biased
     assert 0.5 * var_true < draws.var() < 2.0 * var_true
+
+
+def _c2_cases():
+    """C2's six models and the GLMs: (reference model, port model, raw
+    data).  Small: N=256 rows, 4 features, 4 groups."""
+    from stark_tpu import models as rm
+    from stark_tpu_torch import models as pm
+
+    rs = np.random.RandomState(11)
+    n, d, g = 256, 4, 4
+    x = rs.standard_normal((n, d)).astype(np.float32)
+    logit = {"x": x, "y": (rs.rand(n) < 0.5).astype(np.float32),
+             "g": rs.randint(0, g, n).astype(np.int32)}
+    flat = {"x": x, "y": logit["y"]}
+    lmm = {k: np.asarray(v) for k, v in rm.synth_lmm_data(jax.random.PRNGKey(2), n, d, g)[0]
+           .items()}
+    reg = {"x": x, "y": (x @ rs.standard_normal(d) + 0.5 * rs.standard_normal(n))
+           .astype(np.float32)}
+    counts = {"x": x, "y": rs.poisson(np.exp(0.3 * x @ rs.standard_normal(d)))
+              .astype(np.float32)}
+    return {
+        "Logistic": (rm.Logistic(d), pm.Logistic(d), flat),
+        "FusedLogistic": (rm.FusedLogistic(d), pm.FusedLogistic(d), flat),
+        "HierLogistic": (rm.HierLogistic(d, g), pm.HierLogistic(d, g), logit),
+        "FusedHierLogistic": (rm.FusedHierLogistic(d, g), pm.FusedHierLogistic(d, g), logit),
+        "LinearMixedModel": (rm.LinearMixedModel(d, g), pm.LinearMixedModel(d, g), lmm),
+        "FusedLinearMixedModel": (rm.FusedLinearMixedModel(d, g),
+                                  pm.FusedLinearMixedModel(d, g), lmm),
+        "LinearRegression": (rm.LinearRegression(d), pm.LinearRegression(d), reg),
+        "FusedLinearRegression": (rm.FusedLinearRegression(d), pm.FusedLinearRegression(d),
+                                  reg),
+        "PoissonRegression": (rm.PoissonRegression(d), pm.PoissonRegression(d), counts),
+        "FusedPoissonRegression": (rm.FusedPoissonRegression(d),
+                                   pm.FusedPoissonRegression(d), counts),
+    }
+
+
+C2_MODELS = ["Logistic", "FusedLogistic", "HierLogistic", "FusedHierLogistic",
+             "LinearMixedModel", "FusedLinearMixedModel", "LinearRegression",
+             "FusedLinearRegression", "PoissonRegression", "FusedPoissonRegression"]
+
+
+@pytest.mark.parametrize("name", C2_MODELS)
+def test_sghmc_step_per_chain_matches_reference(name):
+    """One SG-HMC step of 3 chains, each on its own minibatch, against the
+    reference's vmap of one chain: the same rows (along each entry's row
+    axis: xT's axis 1 for a fused model) and the same noise."""
+    from stark_tpu.model import prepare_model_data as ref_prepare
+
+    rmodel, pmodel, raw = _c2_cases()[name]
+    assert not pmodel.chain_batched_lik
+    n, batch, C = 256, 16, 3
+    rdata = ref_prepare(rmodel, raw)
+    pdata = {k: torch.as_tensor(np.array(v)) for k, v in pmodel.prepare_data(raw).items()}
+    raxes, paxes = rmodel.data_row_axes(rdata), pmodel.data_row_axes(pdata)
+    assert paxes == raxes
+    rfm = ref_flatten(rmodel, lik_scale=n / batch)
+    pfm = flatten_model(pmodel, lik_scale=n / batch)
+    d = pfm.ndim
+    rs = np.random.RandomState(1)
+    z = (0.3 * rs.standard_normal((C, d))).astype(np.float32)
+    r = rs.standard_normal((C, d)).astype(np.float32)
+    inv_mass = (0.5 + rs.rand(C, d)).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(3), C)
+    rgrad = rks.make_minibatch_grad(rfm.potential, rdata, batch, row_axes=raxes)
+
+    def one(key, z, r, im):
+        return rks.sghmc_step(key, rks.SGHMCState(z, r), rgrad, jnp.float32(0.01),
+                              jnp.float32(2.0), im)
+
+    rst, rinfo, rg = jax.jit(jax.vmap(one))(keys, jnp.asarray(z), jnp.asarray(r),
+                                            jnp.asarray(inv_mass))
+    pgrad = pks.make_minibatch_grad(pfm.potential, pdata, batch, row_axes=paxes,
+                                    chain_batched=False)
+    noise = ReplayNoise(_stack_noise(keys, n, batch, d, False))
+    pst, pinfo, pg = pks.sghmc_step(
+        noise, pks.SGHMCState(torch.as_tensor(z), torch.as_tensor(r)), pgrad,
+        torch.tensor(0.01), torch.tensor(2.0), torch.as_tensor(inv_mass))
+    assert noise.done()
+    rtol, atol = (1e-4, 1e-4) if name.startswith("Fused") else (STEP_RTOL, STEP_ATOL)
+    for got, want, what in ((pg, rg, "grad"), (pst.r, rst.r, "r"), (pst.z, rst.z, "z"),
+                            (pinfo.kinetic_energy, rinfo.kinetic_energy, "kinetic energy")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol, atol=atol,
+                                   err_msg=what)
+
+
+@pytest.mark.parametrize("name", C2_MODELS)
+def test_sghmc_sample_runs_on_every_model(name):
+    """sghmc_sample runs on every model the reference runs it on (each
+    raised before the chain-by-chain estimator): finite draws, the same
+    draws again for the same seed."""
+    _, pmodel, raw = _c2_cases()[name]
+    kw = dict(batch_size=16, chains=2, num_warmup=5, num_samples=5, seed=1, device="cpu")
+    post = sghmc_sample(pmodel, raw, **kw)
+    assert post.draws_flat.shape == (2, 5, flatten_model(pmodel).ndim)
+    assert np.all(np.isfinite(post.draws_flat))
+    again = sghmc_sample(pmodel, raw, **kw)
+    np.testing.assert_array_equal(again.draws_flat, post.draws_flat)
+
+
+def test_bnn_minibatch_gradient_stays_one_batched_call():
+    """BayesianMLP reads a per-chain batch (`chain_batched_lik`): its
+    estimator is the one batched call it was, bit for bit — every
+    chain's rows gathered along axis 0 into (C, B, ...) and one
+    autograd pass — and sghmc_sample takes that path."""
+    n, batch, C = 200, 16, 3
+    data, _, pfm, z = _bnn_setup(n=n, batch=batch, chains=C)
+    assert pbnn.BayesianMLP.chain_batched_lik
+    tdata = {k: torch.as_tensor(v) for k, v in data.items()}
+    idx = np.random.RandomState(6).randint(0, n, (C, batch))
+    got = pks.make_minibatch_grad(pfm.potential, tdata, batch, chain_batched=True)(
+        ReplayNoise([idx]), torch.as_tensor(z))
+    zz = torch.as_tensor(z).requires_grad_(True)
+    batched = {k: pks.gather_rows(v, 0, torch.as_tensor(idx)) for k, v in tdata.items()}
+    (want,) = torch.autograd.grad(pfm.potential(zz, batched).sum(), zz)
+    assert torch.equal(got, want)
+    # chain by chain, the same gradient to float32 roundoff (rows summed
+    # in another grouping)
+    one = pks.make_minibatch_grad(pfm.potential, tdata, batch, chain_batched=False)(
+        ReplayNoise([idx]), torch.as_tensor(z))
+    np.testing.assert_allclose(one.numpy(), want.numpy(), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    seen = []
+    real = psghmc.make_minibatch_grad
+    try:
+        psghmc.make_minibatch_grad = lambda *a, **k: seen.append(k) or real(*a, **k)
+        sghmc_sample(pbnn.BayesianMLP(3, hidden=4), data, batch_size=batch, chains=2,
+                     num_warmup=2, num_samples=2, device="cpu")
+        sghmc_sample(NormalMean(), {"y": data["x"][:, 0]}, batch_size=batch, chains=2,
+                     num_warmup=2, num_samples=2, device="cpu")
+    finally:
+        psghmc.make_minibatch_grad = real
+    assert [k["chain_batched"] for k in seen] == [True, True]
