@@ -73,12 +73,12 @@ Phases, in order; any failure exits non-zero (none is caught):
                 flagship's full width with 8 chains, four legs, each with
                 its launch counts: nuts_offset, the reference bench's NUTS
                 leg (bench.py:410-415, :485-487) through sample() on
-                FusedHierLogistic (B2 with offsets), tree depth 6, 50
-                warmup and 50 draws (the bench: 200 and 200);
+                FusedHierLogistic (B2 with offsets), tree depth 6, 10
+                warmup and 10 draws (the bench: 200 and 200);
                 nuts_grouped, the same on FusedHierLogisticGrouped (B1);
-                hmc_grouped, HMC with 32 leapfrog steps, 50 warmup and 50
+                hmc_grouped, HMC with 32 leapfrog steps, 10 warmup and 10
                 draws (B1); nuts_runner, NUTS through supervised_sample
-                (warmup 30, 3 blocks of 10), whole and then faulted after
+                (warmup 10, 3 blocks of 5), whole and then faulted after
                 block 1's checkpoint,
                 the resumed draws bitwise equal.  Each leg prints, beside
                 the card's name and power limit, its wall with set-up,
@@ -103,19 +103,21 @@ Phases, in order; any failure exits non-zero (none is caught):
  14. consensus — BASELINE config 2 at its pinned width (tools/
                 consensus_1m.py, stark_tpu/benchmarks.py:574-624):
                 consensus_sample(FusedLogistic(16)) on N=1,000,000 rows, 8
-                shards x 8 chains, ChEES, MAP 200, warmup 300, samples
-                300, dispatch_steps 6, combine precision_full: wall,
+                shards x 8 chains, ChEES, MAP 100, warmup 150, samples
+                150 (its pinned 200/300/300 halved), dispatch_steps 6, combine precision_full: wall,
                 ESS/s, split R-hat and combine_rel_err against a full-data
-                chees_sample at the same budget (outside the wall); every
-                ensemble evaluation one shard-batched B2 launch and no
-                other kernel; then a NUTS leg (depth 6, 50 + 50) and a
+                chees_sample (MAP 30, warmup 60, samples 60, outside
+                the wall); every ensemble evaluation one shard-batched B2
+                launch and no other kernel; then a NUTS leg (depth 6,
+                20 + 20) and a
                 shard-death leg (8 shards of 4,096 rows, one shard's y
                 NaN: one restart, degraded, that shard lost, finite
                 combined draws)
  15. bnn      — BASELINE config 5 at its pinned settings
                 (stark_tpu/benchmarks.py:757-839): sghmc_sample of
                 BayesianMLP(64, hidden=64) on N=100,000 rows, batches of
-                1024, 4 chains, warmup 2000, samples 4000, 8 cycles, step
+                1024, 4 chains, warmup 1000, samples 2000 (its pinned
+                2000 + 4000 halved), 8 cycles, step
                 3e-3, friction 5.0; no hand-written kernel launches;
                 predictive accuracy on 256 probe rows (>= 0.75, the
                 reference's gate), predictive bulk and tail ESS, R-hat
@@ -125,8 +127,8 @@ Phases, in order; any failure exits non-zero (none is caught):
                 GaussianMixture(16) on N=50,000 rows (spread 4), init from
                 gmm_init_1d, 2 chains x 8 temperatures, NUTS replicas at
                 tree depth 7, a swap round every 5 transitions, the
-                adaptive ladder, warmup 100 and samples 75 (the bench: 600
-                and 500); then an HMC leg (16 leapfrog steps, 50 + 50).  No
+                adaptive ladder, warmup 15 and samples 10 (the bench: 600
+                and 500); then an HMC leg (16 leapfrog steps, 10 + 10).  No
                 hand-written kernel launches.  Each leg prints, beside the
                 card's name and power limit, its wall with set-up,
                 evaluations and ms per evaluation, leaves per transition,
@@ -145,8 +147,8 @@ Phases, in order; any failure exits non-zero (none is caught):
                 reference's tolerances, repeated bitwise, timed beside
                 autograd; NUTS (depth 6) through sample() on
                 FusedLinearRegression (B2 gaussian, launches =
-                evaluations) and FusedPoissonRegression (50 + 50), and
-                FusedLMM with STARK_FUSED_LMM=1 (30 + 30; no hand-written
+                evaluations) and FusedPoissonRegression (20 + 20), and
+                FusedLMM with STARK_FUSED_LMM=1 (10 + 10; no hand-written
                 kernel), each profiled over one transition; consensus_sample on
                 FusedLinearMixedModel (config 3's data, 8 shards x 8
                 chains, HMC: one B2 launch per shard and evaluation) and
@@ -155,7 +157,29 @@ Phases, in order; any failure exits non-zero (none is caught):
                 prints, beside the card's name and power limit, its
                 evaluations, ms per evaluation, split R-hat, min bulk ESS
                 and max |posterior mean beta - truth|
- 18. profile  — one ensemble gradient evaluation of each sampled path at
+ 18. zoo_rest — the rest of the zoo at the reference's judged widths
+                (stark_tpu/benchmarks.py:884-901): IRT 2,000 persons x 200
+                items, the ordinal model (K=5), Student-t, negative
+                binomial, horseshoe and Cox PH at N=200,000, D=32,
+                stochastic volatility at T=512; 8 chains.  The three fused
+                ops (plain PyTorch; IRT's grid, the ordinal and the
+                Student-t, each with its knob on) against their plain
+                models' autograd at 8 points spread about the truth (value
+                rtol 1e-5 / atol 1e-4; gradients scaled by their largest
+                magnitude, rtol 1e-4 / atol 2e-5), repeated bitwise and
+                timed beside autograd; IRT's triples op the same on the
+                responses without every third; then seven NUTS legs
+                (depth 6, 30 + 30) through sample(): FusedIRT2PL,
+                FusedOrderedLogistic and FusedStudentTRegression with
+                their knobs on, NegBinomialRegression,
+                HorseshoeRegression, CoxPH and StochasticVolatility, each
+                profiled over one transition; no hand-written kernel
+                launches.  Each leg prints, beside the card's name and
+                power limit, its evaluations, ms per evaluation, split
+                R-hat and its distance from the truth (max |mean beta -
+                beta|; corr(theta_hat, theta) for IRT; corr(h_hat, h) and
+                mean mu for SV)
+ 19. profile  — one ensemble gradient evaluation of each sampled path at
                 its final state (the GMM's at 16 points of its run):
                 host-clock time per evaluation, and under torch.profiler
                 the device time by kernel and the share of the window the
@@ -245,6 +269,13 @@ GLM_VAL_RTOL, GLM_GRAD_RTOL, GLM_GRAD_ATOL = 1e-5, 1e-4, 1e-3
 ZLMM_VAL_RTOL, ZLMM_VAL_ATOL, ZLMM_GRAD_RTOL, ZLMM_GRAD_ATOL = 1e-5, 1e-4, 1e-4, 2e-5
 # the SG-HMC repair leg: FusedLinearRegression minibatches of 1024 rows
 ZOO_SGHMC_BATCH, ZOO_SGHMC_CHAINS = 1024, 4
+# the rest of the zoo at the reference's judged widths (stark_tpu/
+# benchmarks.py:884-901, _fused_vg_case at scale 1): IRT 2,000 persons x
+# 200 items (400,000 responses); the ordinal model N=200,000, D=32, K=5;
+# the row families (Student-t, negative binomial, horseshoe, Cox PH) at
+# the flat GLMs' N=200,000, D=32; stochastic volatility at T=512, the one
+# width the reference runs it at (tests/test_model_zoo.py:99-116)
+IRT_P, IRT_I, ORD_K, SV_T = 2000, 200, 5, 512
 
 # B2's shard-axis edge cases (S, N, D, C): one, two, three and eight
 # shards; shards below one 128-row sub-tile (N = 50, 127) and of N = 1,
@@ -322,6 +353,7 @@ class Run:
                                            max_blocks=3)
             self.cons_n = 8 * 2048
             self.cons_budget = dict(map_init_steps=20, num_warmup=60, num_samples=60)
+            self.cons_full_budget = self.cons_budget
             self.cons_nuts_budget = dict(max_tree_depth=4, num_warmup=20, num_samples=20)
             self.bnn_n = 4_000
             self.bnn_budget = dict(num_warmup=100, num_samples=200, cycles=4)
@@ -333,55 +365,70 @@ class Run:
             self.zoo_lmm_budget = dict(max_tree_depth=4, num_warmup=20, num_samples=10)
             self.zoo_cons_budget = dict(num_leapfrog=4, num_warmup=10, num_samples=10)
             self.zoo_sghmc_budget = dict(num_warmup=50, num_samples=100)
+            self.irt_p, self.irt_i, self.sv_t = 100, 20, 128
+            self.zoo_rest_budget = dict(max_tree_depth=4, num_warmup=20, num_samples=10)
         else:
             self.n_full, self.n_ragged = N_FULL, N_RAGGED
             self.lmm_n_full, self.lmm_n_ragged, self.lmm_g = LMM_N_FULL, LMM_N_RAGGED, LMM_G
-            self.main_budget = dict(map_init_steps=100, num_warmup=150, num_samples=100)
-            self.off_budget = dict(map_init_steps=30, num_warmup=50, num_samples=10)
-            # config 3's MAP 300, warmup 700, samples 500 cut to fit the
-            # script's time limit
-            self.lmm_budget = dict(map_init_steps=100, num_warmup=50, num_samples=25)
-            self.lmm_off_budget = dict(map_init_steps=30, num_warmup=30, num_samples=10)
+            # every budget cut below keeps the script inside its time
+            # limit; the one it had before the zoo_rest phase came is noted
+            # (100/150/100 and 30/50/10)
+            self.main_budget = dict(map_init_steps=100, num_warmup=100, num_samples=50)
+            self.off_budget = dict(map_init_steps=20, num_warmup=20, num_samples=10)
+            # config 3's MAP 300, warmup 700, samples 500 (100/50/25 and
+            # 30/30/10)
+            self.lmm_budget = dict(map_init_steps=30, num_warmup=15, num_samples=10)
+            self.lmm_off_budget = dict(map_init_steps=20, num_warmup=15, num_samples=10)
             # the bench's MAP, warmup, block and draw budget (bench.py:552-555,
             # :641, :698-712), the stop gate on
             self.runner_budget = dict(map_init_steps=500, num_warmup=400, block_size=100,
                                       max_blocks=5)
-            # the resume legs check bitwise resume, not convergence
-            self.resume_budget = dict(map_init_steps=50, num_warmup=30, block_size=10, max_blocks=3)
+            # the resume legs check bitwise resume, not convergence (MAP 50,
+            # warmup 30, 3 blocks of 10)
+            self.resume_budget = dict(map_init_steps=10, num_warmup=10, block_size=5, max_blocks=3)
             # the reference bench's NUTS leg (bench.py:410-415): 8 chains,
-            # tree depth 6; its 200 warmup and 200 samples cut to 50 each
-            self.nuts_budget = dict(max_tree_depth=6, num_warmup=50, num_samples=50)
-            self.hmc_budget = dict(num_leapfrog=32, num_warmup=50, num_samples=50)
-            self.nuts_runner_budget = dict(max_tree_depth=6, num_warmup=30, block_size=10,
+            # tree depth 6; its 200 warmup and 200 samples cut to 10 each
+            # (50 each), HMC's too (50 + 50); the runner's (warmup 30, 3
+            # blocks of 10)
+            self.nuts_budget = dict(max_tree_depth=6, num_warmup=10, num_samples=10)
+            self.hmc_budget = dict(num_leapfrog=32, num_warmup=10, num_samples=10)
+            self.nuts_runner_budget = dict(max_tree_depth=6, num_warmup=10, block_size=5,
                                            max_blocks=3)
             self.cons_n = CONS_N
-            # config 2's pinned budget (stark_tpu/benchmarks.py:574-624)
-            self.cons_budget = dict(map_init_steps=200, num_warmup=300, num_samples=300)
-            self.cons_nuts_budget = dict(max_tree_depth=6, num_warmup=50, num_samples=50)
+            # config 2's pinned budget, 200/300/300 (stark_tpu/benchmarks.py:
+            # 574-624), halved
+            self.cons_budget = dict(map_init_steps=100, num_warmup=150, num_samples=150)
+            # the full-data run the combine is held against, and the NUTS
+            # leg (config 2's budget, and 50 + 50)
+            self.cons_full_budget = dict(map_init_steps=30, num_warmup=60, num_samples=60)
+            self.cons_nuts_budget = dict(max_tree_depth=6, num_warmup=20, num_samples=20)
             self.bnn_n = BNN_N
-            # config 5's pinned budget (stark_tpu/benchmarks.py:757-776)
-            self.bnn_budget = dict(num_warmup=2000, num_samples=4000, cycles=8)
+            # config 5's pinned budget, 2000 + 4000 (stark_tpu/benchmarks.py:
+            # 757-776), halved
+            self.bnn_budget = dict(num_warmup=1000, num_samples=2000, cycles=8)
             self.gmm_n = GMM_N
             # config 4's depth 7; its 600 warmup and 500 samples cut to
-            # 100 and 75 to fit the script's time limit
-            self.gmm_budget = dict(max_tree_depth=7, num_warmup=100, num_samples=75)
-            # the reference's default kernel, HMC, 16 leapfrog steps
-            self.gmm_hmc_budget = dict(num_leapfrog=16, num_warmup=50, num_samples=50)
+            # 15 and 10 (100 and 75)
+            self.gmm_budget = dict(max_tree_depth=7, num_warmup=15, num_samples=10)
+            # the reference's default kernel, HMC, 16 leapfrog steps (50 + 50)
+            self.gmm_hmc_budget = dict(num_leapfrog=16, num_warmup=10, num_samples=10)
             self.zoo_n, self.zoo_g = ZOO_N, ZOO_G
-            # the NUTS legs' budget (the reference bench's depth 6)
-            self.zoo_budget = dict(max_tree_depth=6, num_warmup=50, num_samples=50)
-            # the LMM's 50 + 50 cut to 30 + 30 to keep the script well
-            # inside its time limit (the whole script took 1,022.5 s with
-            # 50 + 50 on one H100 80GB HBM3 at 700 W)
-            self.zoo_lmm_budget = dict(max_tree_depth=6, num_warmup=30, num_samples=30)
+            # the NUTS legs' budget (the reference bench's depth 6; 50 + 50)
+            self.zoo_budget = dict(max_tree_depth=6, num_warmup=20, num_samples=20)
+            # the LMM's (30 + 30; 50 + 50 took the whole script to 1,022.5
+            # s on one H100 80GB HBM3 at 700 W)
+            self.zoo_lmm_budget = dict(max_tree_depth=6, num_warmup=10, num_samples=10)
             # the repair legs check that the paths run, not convergence;
-            # HMC: ChEES at 20/30/20 took 6,903 evaluations (106 s on one
-            # H100 80GB HBM3 at 700 W)
-            self.zoo_cons_budget = dict(num_leapfrog=16, num_warmup=30, num_samples=20)
+            # HMC (30 + 20): ChEES at 20/30/20 took 6,903 evaluations (106 s
+            # on one H100 80GB HBM3 at 700 W)
+            self.zoo_cons_budget = dict(num_leapfrog=16, num_warmup=10, num_samples=10)
             self.zoo_sghmc_budget = dict(num_warmup=100, num_samples=200)
+            self.irt_p, self.irt_i, self.sv_t = IRT_P, IRT_I, SV_T
+            # the rest of the zoo's seven NUTS legs: depth 6, 30 + 30
+            self.zoo_rest_budget = dict(max_tree_depth=6, num_warmup=30, num_samples=30)
         # the shard-death leg: 8 shards of 4096 rows, one poisoned
         self.death_n = 8 * 4096
-        self.death_budget = dict(map_init_steps=10, num_warmup=10, num_samples=10)
+        self.death_budget = dict(map_init_steps=5, num_warmup=5, num_samples=5)
         self.t0 = time.perf_counter()
         self.kernels = {}
         self.last_z = {}
@@ -1023,10 +1070,10 @@ def _check_shard_launches(run: Run, label, launches, evals):
 def phase_consensus(run: Run):
     """BASELINE config 2 at its pinned width: consensus_sample of
     FusedLogistic(16) over 8 shards of N=1,000,000 rows, 8 chains a shard,
-    ChEES (stark_tpu/benchmarks.py:574-624, tools/consensus_1m.py); its
-    combine against a full-data chees_sample at the same budget, outside
-    the timed wall; a NUTS leg; and a shard-death leg (one shard's y
-    NaN)."""
+    ChEES (stark_tpu/benchmarks.py:574-624, tools/consensus_1m.py) at half
+    its pinned budget; its combine against a full-data chees_sample (MAP
+    30, warmup 60, samples 60), outside the timed wall; a NUTS leg; and a
+    shard-death leg (one shard's y NaN)."""
     from stark_tpu_torch import chees_sample, consensus_sample, diagnostics
     from stark_tpu_torch.models import FusedLogistic, synth_logistic_data
 
@@ -1060,11 +1107,11 @@ def phase_consensus(run: Run):
     log(f"  max split R-hat {rhat:.5f}; min bulk ESS {bulk:.1f}; ESS/s {bulk / wall:.3f}; "
         f"divergences {res['divergences']}; step sizes {np.round(res['step_size'], 5).tolist()}; "
         f"trajectory lengths {np.round(res['traj_length'], 4).tolist()}")
-    # the combine against a full-data run at the same budget (evidence of
+    # the combine against a full-data run (evidence of
     # correctness, not part of the consensus wall)
     t = time.perf_counter()
     full = chees_sample(FusedLogistic(CONS_D), raw, chains=CONS_CHAINS, init_step_size=0.1,
-                        seed=1, **budget, **dev)
+                        seed=1, **run.cons_full_budget, **dev)
     full_wall = time.perf_counter() - t
     mc = post.draws["beta"].mean(axis=(0, 1))
     mf = full.draws["beta"].mean(axis=(0, 1))
@@ -1119,8 +1166,8 @@ def phase_consensus(run: Run):
 def phase_bnn(run: Run):
     """BASELINE config 5 at its pinned settings: sghmc_sample of
     BayesianMLP(64, hidden=64) on N=100,000 rows, batches of 1024, 4
-    chains, warmup 2000, samples 4000, 8 cycles, step 3e-3, friction 5.0
-    (stark_tpu/benchmarks.py:757-776); diagnostics in predictive space at
+    chains, warmup 1000, samples 2000 (the pinned 2000 + 4000 halved), 8
+    cycles, step 3e-3, friction 5.0 (stark_tpu/benchmarks.py:757-776); diagnostics in predictive space at
     256 probe rows (:785-830), the reference's accuracy gate (:838-839).
     No hand-written kernel runs: the reference's BNN is plain XLA."""
     from stark_tpu_torch import diagnostics, sghmc_sample
@@ -1172,9 +1219,9 @@ def phase_tempering(run: Run):
     GaussianMixture(16) on the port's synth_gmm_data(0, 50,000, 16,
     spread=4.0), init from gmm_init_1d, 2 chains x 8 temperatures, NUTS
     replicas at tree depth 7, a swap round every 5 transitions, the
-    adaptive ladder (stark_tpu/benchmarks.py:718-754), warmup 100 and
-    samples 75 (the bench: 600 and 500); then HMC, the reference's
-    default kernel (16 leapfrog steps, 50 + 50).  No hand-written kernel
+    adaptive ladder (stark_tpu/benchmarks.py:718-754), warmup 15 and
+    samples 10 (the bench: 600 and 500); then HMC, the reference's
+    default kernel (16 leapfrog steps, 10 + 10).  No hand-written kernel
     runs: the reference's GMM likelihood is XLA's (N, K) logsumexp."""
     from stark_tpu_torch import diagnostics, tempered_sample
     from stark_tpu_torch.models import GaussianMixture, gmm_init_1d, synth_gmm_data
@@ -1911,8 +1958,6 @@ def phase_zoo_glm(run: Run, lmm3):
     FusedLinearMixedModel (config 3's data, 8 shards x 8 chains, HMC,
     one B2 launch per shard and evaluation) and sghmc_sample on
     FusedLinearRegression (one B2 launch per chain and step)."""
-    import os
-
     from stark_tpu_torch import consensus_sample, sample, sghmc_sample
     from stark_tpu_torch.models import (
         FusedLinearMixedModel,
@@ -1989,17 +2034,13 @@ def phase_zoo_glm(run: Run, lmm3):
         "sigma": 0.5 + spread[:, 0],
     }
     zl = flatten_model(lmm_model).unconstrain(params)
-    os.environ["STARK_FUSED_LMM"] = "1"
-    try:
-        out["lmm_op"] = _fused_op_parity(
-            run, "FusedLMM", LinearMixedModel(d, g, ZOO_Q), lmm_model, lmm, zl,
-            (lmm_fused.lmm_loglik_value_and_grad,
-             lambda data: (params["beta"], params["u_raw"] * params["tau"][:, None, :],
-                           params["intercept"], params["sigma"], data["xT"], data["z"],
-                           data["g"], data["y"])),
-            scaled=True)
-    finally:
-        del os.environ["STARK_FUSED_LMM"]
+    out["lmm_op"] = _with_knob("STARK_FUSED_LMM", lambda: _fused_op_parity(
+        run, "FusedLMM", LinearMixedModel(d, g, ZOO_Q), lmm_model, lmm, zl,
+        (lmm_fused.lmm_loglik_value_and_grad,
+         lambda data: (params["beta"], params["u_raw"] * params["tau"][:, None, :],
+                       params["intercept"], params["sigma"], data["xT"], data["z"],
+                       data["g"], data["y"])),
+        scaled=True))
 
     # the three models through sample(): NUTS, 8 chains, tree depth 6
     for label, model, raw, true, counted, budget, knob in (
@@ -2012,9 +2053,8 @@ def phase_zoo_glm(run: Run, lmm3):
         log(f"== zoo_glm, leg {label} (script at {run.elapsed():.1f} s): "
             f"sample({type(model).__name__}), N={n}, D={d}"
             + (f", G={g}, {knob}=1" if knob else "") + f", {kw}")
-        if knob:
-            os.environ[knob] = "1"
-        try:
+
+        def leg():
             post, wall, launches, peak = _nuts_leg(run, lambda: sample(model, raw, **kw, **dev))
             res = _chain_leg_result(run, label, counted, post, wall, launches, peak, kw,
                                     entry="B2g0")
@@ -2024,10 +2064,9 @@ def phase_zoo_glm(run: Run, lmm3):
             _leg_line(run, label, res)
             log(f"  {label}: max |posterior mean beta - true beta| {beta_err:.4g}")
             res["profile"] = profile_nuts_transitions(run, model, raw, post, label, reps=1)
-        finally:
-            if knob:
-                del os.environ[knob]
-        out[label] = res
+            return res
+
+        out[label] = _with_knob(knob, leg)
 
     # C1: consensus over shards of FusedLinearMixedModel's transposed X
     lfull, _, ltrue = lmm3
@@ -2074,6 +2113,163 @@ def phase_zoo_glm(run: Run, lmm3):
         f"{ZOO_SGHMC_CHAINS} chains ({1e3 * wall / steps:.4f} ms each), launches {launches}, "
         f"max split R-hat {post.max_rhat():.4f}, max |mean beta - true beta| {beta_err:.4g}, "
         f"mean sigma {out['zoo_sghmc_linreg']['sigma_mean']:.4f} (truth {lin_true['sigma']})")
+    return out
+
+
+def _with_knob(knob, fn):
+    """``fn()`` with the model knob ``knob`` set to 1 (None: as it is)."""
+    import os
+
+    if knob is None:
+        return fn()
+    os.environ[knob] = "1"
+    try:
+        return fn()
+    finally:
+        del os.environ[knob]
+
+
+def _corr(a, b):
+    return float(np.corrcoef(np.asarray(a, np.float64), np.asarray(b, np.float64))[0, 1])
+
+
+def phase_zoo_rest(run: Run):
+    """The rest of the zoo at the reference's judged widths (IRT 2,000 x
+    200; ordinal, Student-t, negative binomial, horseshoe and Cox PH at
+    N=200,000, D=32; stochastic volatility at T=512): the three fused
+    ops (plain PyTorch, each behind its knob) against their plain
+    models' autograd at 8 points spread about the truth, at the
+    reference's zoo bands, repeated bitwise and timed beside autograd;
+    IRT's triples path on a response set without every third row; then
+    seven NUTS legs through sample() (8 chains, depth 6), each profiled
+    over one transition.  No hand-written kernel launches."""
+    from stark_tpu_torch import sample
+    from stark_tpu_torch.model import flatten_model
+    from stark_tpu_torch.models import (
+        CoxPH,
+        FusedIRT2PL,
+        FusedOrderedLogistic,
+        FusedStudentTRegression,
+        HorseshoeRegression,
+        IRT2PL,
+        NegBinomialRegression,
+        OrderedLogistic,
+        StochasticVolatility,
+        StudentTRegression,
+        synth_horseshoe_data,
+        synth_irt_data,
+        synth_negbinom_data,
+        synth_ordinal_data,
+        synth_studentt_data,
+        synth_survival_data,
+        synth_sv_data,
+    )
+    from stark_tpu_torch.ops import irt_fused, ordinal_fused, robust_fused
+
+    dev = {"device": "cpu"} if run.rehearsal else {}
+    smi = getattr(run, "smi", "cpu rehearsal")
+    n, d, C, P, I, T = run.zoo_n, ZOO_D, ZOO_CHAINS, run.irt_p, run.irt_i, run.sv_t
+    t = time.perf_counter()
+    irt, irt_true = synth_irt_data(0, P, I)
+    ordd, ord_true = synth_ordinal_data(0, n, d, num_categories=ORD_K)
+    stu, stu_true = synth_studentt_data(0, n, d)
+    nb, nb_true = synth_negbinom_data(0, n, d)
+    hs, hs_true = synth_horseshoe_data(0, n, d)
+    cox, cox_true = synth_survival_data(0, n, d)
+    sv, sv_true = synth_sv_data(0, T)
+    log(f"== zoo_rest [{smi}]: IRT P={P} x I={I}; N={n}, D={d} (ordinal K={ORD_K}); SV T={T}; "
+        f"C={C} (data {time.perf_counter() - t:.1f} s)")
+    gen = torch.Generator(device=run.dev).manual_seed(5)
+    spread = torch.linspace(0.01, 0.5, C, device=run.dev)[:, None]
+    out = {}
+
+    def near(true, scale=1.0):
+        v = torch.as_tensor(true, device=run.dev)
+        return v + scale * spread * torch.randn((C,) + v.shape, generator=gen, device=run.dev)
+
+    # the fused ops against autograd, each with its knob on
+    log(f"  the fused ops against autograd (script at {run.elapsed():.1f} s)")
+    rob = FusedStudentTRegression(d)
+    rp = {"beta": near(stu_true["beta"]), "sigma": 0.5 * (1.0 + spread[:, 0]),
+          "nu": 4.0 * (1.0 + spread[:, 0])}
+    out["robust_op"] = _with_knob("STARK_FUSED_ROBUST", lambda: _fused_op_parity(
+        run, "FusedStudentTRegression", StudentTRegression(d), rob, stu,
+        flatten_model(rob).unconstrain(rp),
+        (robust_fused.studentt_loglik_value_and_grad,
+         lambda data: (rp["beta"], rp["sigma"], rp["nu"], data["xT"], data["y"])),
+        scaled=True))
+    orm = FusedOrderedLogistic(d, ORD_K)
+    op = {"beta": near(ord_true["beta"]),
+          "cutpoints": torch.sort(near(ord_true["cutpoints"], 0.2), -1).values}
+    out["ordinal_op"] = _with_knob("STARK_FUSED_ORDINAL", lambda: _fused_op_parity(
+        run, "FusedOrderedLogistic", OrderedLogistic(d, ORD_K), orm, ordd,
+        flatten_model(orm).unconstrain(op),
+        (ordinal_fused.ordinal_loglik_value_and_grad,
+         lambda data: (op["beta"], op["cutpoints"], data["xT"], data["y"])),
+        scaled=True))
+    irm = FusedIRT2PL(P, I)
+    ip = {"theta": near(irt_true["theta"]),
+          "a": torch.as_tensor(irt_true["a"], device=run.dev) * torch.exp(
+              0.2 * spread * torch.randn(C, I, generator=gen, device=run.dev)),
+          "b": near(irt_true["b"])}
+    zi = flatten_model(irm).unconstrain(ip)
+    out["irt_grid_op"] = _with_knob("STARK_FUSED_IRT", lambda: _fused_op_parity(
+        run, "FusedIRT2PL (grid)", IRT2PL(P, I), irm, irt, zi,
+        (irt_fused.irt_grid_loglik_value_and_grad,
+         lambda data: (ip["theta"], ip["a"], ip["b"], data["y_grid"])),
+        scaled=True))
+    keep = np.arange(P * I) % 3 != 0
+    ragged = {k: v[keep] for k, v in irt.items()}
+    out["irt_triples_op"] = _with_knob("STARK_FUSED_IRT", lambda: _fused_op_parity(
+        run, "FusedIRT2PL (triples, every third response dropped)", IRT2PL(P, I), irm, ragged,
+        zi, (irt_fused.irt_loglik_value_and_grad,
+             lambda data: (ip["theta"], ip["a"], ip["b"], data["person"], data["item"],
+                           data["y"])),
+        scaled=True))
+
+    def hs_beta(post):
+        return (post.draws["z"] * post.draws["lam"] * post.draws["tau"][..., None]).mean((0, 1))
+
+    def beta_err(true):
+        return lambda post: ("max |posterior mean beta - true beta|", float(np.max(np.abs(
+            post.draws["beta"].mean((0, 1)) - true["beta"]))))
+
+    def sv_metric(post):
+        h_hat = post.functional(StochasticVolatility(T).latent_h).mean((0, 1))
+        return ("corr(h_hat, h)", _corr(h_hat, sv_true["h"]),
+                "mean mu", float(post.draws["mu"].mean()), "true mu", sv_true["mu"])
+
+    # seven NUTS legs through sample(): 8 chains, tree depth 6
+    budget = run.zoo_rest_budget
+    for label, model, raw, knob, metric in (
+        ("zoo_robust", FusedStudentTRegression(d), stu, "STARK_FUSED_ROBUST", beta_err(stu_true)),
+        ("zoo_ordinal", FusedOrderedLogistic(d, ORD_K), ordd, "STARK_FUSED_ORDINAL",
+         beta_err(ord_true)),
+        ("zoo_irt", FusedIRT2PL(P, I), irt, "STARK_FUSED_IRT", lambda post: (
+            "corr(theta_hat, theta)", _corr(post.draws["theta"].mean((0, 1)),
+                                            irt_true["theta"]))),
+        ("zoo_negbinom", NegBinomialRegression(d), nb, None, beta_err(nb_true)),
+        ("zoo_horseshoe", HorseshoeRegression(d), hs, None, lambda post: (
+            "max |posterior mean beta - true beta|",
+            float(np.max(np.abs(hs_beta(post) - hs_true["beta"]))))),
+        ("zoo_coxph", CoxPH(d), cox, None, beta_err(cox_true)),
+        ("zoo_sv", StochasticVolatility(T), sv, None, sv_metric),
+    ):
+        kw = dict(kernel="nuts", chains=C, seed=0, **budget)
+        log(f"== zoo_rest, leg {label} (script at {run.elapsed():.1f} s): "
+            f"sample({type(model).__name__})" + (f", {knob}=1" if knob else "") + f", {kw}")
+
+        def leg():
+            post, wall, launches, peak = _nuts_leg(run, lambda: sample(model, raw, **kw, **dev))
+            res = _chain_leg_result(run, label, None, post, wall, launches, peak, kw)
+            m = metric(post)
+            res["truth"] = dict(zip(m[::2], m[1::2]))
+            _leg_line(run, label, res)
+            log(f"  {label}: " + "; ".join(f"{k} {v:.4g}" for k, v in res["truth"].items()))
+            res["profile"] = profile_nuts_transitions(run, model, raw, post, label, reps=1)
+            return res
+
+        out[label] = _with_knob(knob, leg)
     return out
 
 
@@ -2312,6 +2508,7 @@ def main(argv=None) -> int:
         "bnn_path": phase_bnn(run),
         "tempering_path": phase_tempering(run),
         "zoo_glm": phase_zoo_glm(run, lmm),
+        "zoo_rest": phase_zoo_rest(run),
     }
     prof = {
         label: phase_profile(run, model, raw, label)

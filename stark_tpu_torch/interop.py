@@ -27,8 +27,11 @@ from .kernels.chees import init_ensemble
 
 #: array keys of the ported models' prepared data: the rows (x, or its
 #: transpose xT), the LMM's random-effect design (z, or zT), the
-#: response, the group ids and the grouped layout (gl, first_gid)
-DATA_KEYS = ("x", "xT", "z", "zT", "y", "g", "gl", "first_gid")
+#: response, the group ids and the grouped layout (gl, first_gid); the
+#: IRT triples (person, item) and grid (y_grid); survival times and
+#: event flags (t, event)
+DATA_KEYS = ("x", "xT", "z", "zT", "y", "g", "gl", "first_gid", "person", "item", "y_grid",
+             "t", "event")
 
 
 def data_from_reference(ref_data: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:

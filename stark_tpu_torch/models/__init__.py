@@ -2,8 +2,11 @@
 regression (config 2), the flagship hierarchical logistic family, the
 hierarchical linear mixed model (config 3) and its knob-gated fused
 variant `FusedLMM`, the Gaussian mixture (config 4), the Bayesian
-2-layer MLP (config 5), and Bayesian linear and Poisson regression with
-their fused variants."""
+2-layer MLP (config 5), Bayesian linear and Poisson regression with
+their fused variants, and the rest of the reference's zoo: the IRT 2PL
+model, ordered logistic, Student-t, negative-binomial and horseshoe
+regression (with the knob-gated fused IRT, ordinal and Student-t
+variants), Cox proportional hazards and stochastic volatility."""
 
 from .bnn import BayesianMLP, synth_bnn_data
 
@@ -17,6 +20,7 @@ from .glm import (
     synth_poisson_data,
 )
 from .gmm import GaussianMixture, gmm_init_1d, synth_gmm_data
+from .irt import FusedIRT2PL, IRT2PL, synth_irt_data
 from .lmm import (
     FusedLMM,
     FusedLinearMixedModel,
@@ -32,30 +36,59 @@ from .logistic import (
     Logistic,
     synth_logistic_data,
 )
+from .ordinal import FusedOrderedLogistic, OrderedLogistic, synth_ordinal_data
+from .robust import (
+    FusedStudentTRegression,
+    HorseshoeRegression,
+    NegBinomialRegression,
+    StudentTRegression,
+    synth_horseshoe_data,
+    synth_negbinom_data,
+    synth_studentt_data,
+)
+from .survival import CoxPH, synth_survival_data
+from .timeseries import StochasticVolatility, synth_sv_data
 
 __all__ = [
     "BayesianMLP",
+    "CoxPH",
     "EightSchools",
     "FusedHierLogistic",
     "FusedHierLogisticGrouped",
+    "FusedIRT2PL",
     "FusedLMM",
     "FusedLinearMixedModel",
     "FusedLinearMixedModelGrouped",
     "FusedLinearRegression",
-    "FusedPoissonRegression",
     "FusedLogistic",
+    "FusedOrderedLogistic",
+    "FusedPoissonRegression",
+    "FusedStudentTRegression",
     "GaussianMixture",
     "HierLogistic",
+    "HorseshoeRegression",
+    "IRT2PL",
     "LinearMixedModel",
     "LinearRegression",
-    "PoissonRegression",
     "Logistic",
+    "NegBinomialRegression",
+    "OrderedLogistic",
+    "PoissonRegression",
+    "StochasticVolatility",
+    "StudentTRegression",
     "eight_schools_data",
     "gmm_init_1d",
     "synth_bnn_data",
     "synth_gmm_data",
+    "synth_horseshoe_data",
+    "synth_irt_data",
     "synth_linreg_data",
     "synth_lmm_data",
-    "synth_poisson_data",
     "synth_logistic_data",
+    "synth_negbinom_data",
+    "synth_ordinal_data",
+    "synth_poisson_data",
+    "synth_studentt_data",
+    "synth_survival_data",
+    "synth_sv_data",
 ]

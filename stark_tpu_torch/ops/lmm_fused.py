@@ -10,10 +10,10 @@ so here it is plain PyTorch (`ops.precision.fused_value_and_grad`).
 The (G, Q) gradient ∂u is a segment sum of ``z_q * resid`` over group
 ids that need not be sorted.  ``index_add_`` and ``scatter_add_`` sum
 with float atomics on CUDA, so their sums are not repeatable bit for
-bit.  Here it is ``index_put_(..., accumulate=True)``, which CUDA runs
-sort-based: the ids are sorted stably and each id's run of rows is
-summed in that order, so the same inputs give the same bits (on the
-CPU it sums row by row).
+bit.  Here it is `ops.precision.segment_sum`, an accumulating
+``index_put_`` that CUDA runs sort-based: the ids are sorted stably
+and each id's run of rows is summed in that order, so the same inputs
+give the same bits (on the CPU it sums row by row).
 
 Model side: `models.lmm.FusedLMM` routes through `lmm_loglik` behind
 the default-off ``STARK_FUSED_LMM`` knob.
@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from .precision import fused_knob, fused_value_and_grad
+from .precision import fused_knob, fused_value_and_grad, segment_sum
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -33,16 +33,6 @@ _LOG_2PI = math.log(2.0 * math.pi)
 def fused_lmm_enabled() -> bool:
     """The STARK_FUSED_LMM knob (default off: opt-in fused path)."""
     return fused_knob("STARK_FUSED_LMM")
-
-
-def _segment_sum(vals, g, num_groups: int):
-    """Deterministic sums of ``vals`` (..., N, Q) over the row ids ``g``
-    (N,) -> (..., G, Q): rows to the front, one sort-based accumulating
-    ``index_put_`` for every leading index at once."""
-    rows = vals.movedim(-2, 0)  # (N, ..., Q)
-    out = rows.new_zeros((num_groups,) + rows.shape[1:])
-    out.index_put_((g,), rows, accumulate=True)
-    return out.movedim(0, -2)
 
 
 def _lmm_vg(beta, u, intercept, sigma, xT, z, g, y):
@@ -60,7 +50,7 @@ def _lmm_vg(beta, u, intercept, sigma, xT, z, g, y):
     val = -0.5 * ssr / sigma**2 - n * torch.log(sigma) - 0.5 * n * _LOG_2PI
     inv2 = 1.0 / (sigma * sigma)
     g_beta = inv2[..., None] * (resid @ xT.transpose(-1, -2))
-    g_u = inv2[..., None, None] * _segment_sum(resid[..., None] * z, g, u.shape[-2])
+    g_u = inv2[..., None, None] * segment_sum(resid[..., None] * z, g, u.shape[-2], dim=-2)
     g_intercept = inv2 * resid.sum(-1)
     g_sigma = ssr * inv2 / sigma - n / sigma
     return val, (g_beta, g_u, g_intercept, g_sigma)

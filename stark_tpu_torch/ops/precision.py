@@ -12,7 +12,8 @@ ignored.
 
 The scaffold half of the reference's module lives here too: the
 ``STARK_FUSED_<FAMILY>`` model knobs (`fused_knob`), the clip band of a
-link (`clip_band`) and the one-pass fused-op contract
+link (`clip_band`), the deterministic segment sum of a gradient over
+row ids (`segment_sum`) and the one-pass fused-op contract
 (`fused_value_and_grad`).  The JAX package keys its jit cache on the
 resolved knobs; the port traces nothing, so every fused op reads the
 knobs when it is called (`check_knobs` first, then the family knob at
@@ -89,6 +90,21 @@ def clip_band(eta_raw: torch.Tensor, clip: float):
     eta = torch.clamp(eta_raw, -clip, clip)
     inside = (eta_raw.abs() < clip).to(eta_raw.dtype)
     return eta, inside
+
+
+def segment_sum(vals: torch.Tensor, ids: torch.Tensor, num_segments: int,
+                dim: int = -1) -> torch.Tensor:
+    """Deterministic sums of ``vals`` over the row ids ``ids`` (N,) along
+    ``dim`` (of length N) -> the same shape with ``num_segments`` there;
+    an id without rows sums to exactly 0.  One accumulating
+    ``index_put_`` for every other index at once: CUDA runs it
+    sort-based (the ids sorted stably, each id's run of rows summed in
+    that order), so the same inputs give the same bits, where
+    ``index_add_`` and ``scatter_add_`` sum with float atomics."""
+    rows = vals.movedim(dim, 0)  # (N, ...)
+    out = rows.new_zeros((num_segments,) + rows.shape[1:])
+    out.index_put_((ids,), rows, accumulate=True)
+    return out.movedim(0, dim)
 
 
 def per_chain(ct: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

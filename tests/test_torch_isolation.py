@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -161,3 +162,72 @@ def test_precision_stance_set_at_import():
     assert stark_tpu_torch is not None
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_zoo_modules_leave_jax_and_reference_out_of_sys_modules():
+    """The rest of the zoo's models and fused ops import neither JAX nor
+    the JAX package."""
+    code = (
+        "import sys, stark_tpu_torch.models.irt, stark_tpu_torch.models.ordinal, "
+        "stark_tpu_torch.models.robust, stark_tpu_torch.models.survival, "
+        "stark_tpu_torch.models.timeseries, stark_tpu_torch.ops.irt_fused, "
+        "stark_tpu_torch.ops.ordinal_fused, stark_tpu_torch.ops.robust_fused\n"
+        "from stark_tpu_torch.models import (CoxPH, FusedIRT2PL, FusedOrderedLogistic, "
+        "FusedStudentTRegression, HorseshoeRegression, IRT2PL, NegBinomialRegression, "
+        "OrderedLogistic, StochasticVolatility, StudentTRegression, synth_horseshoe_data, "
+        "synth_irt_data, synth_negbinom_data, synth_ordinal_data, synth_studentt_data, "
+        "synth_survival_data, synth_sv_data)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'stark_tpu'))\n"
+        "print(','.join(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def _zoo_entry(family):
+    from stark_tpu_torch import models as m
+
+    return {
+        "irt": lambda: (m.FusedIRT2PL(20, 5), m.synth_irt_data(0, 20, 5)[0],
+                        "STARK_FUSED_IRT"),
+        "ordinal": lambda: (m.FusedOrderedLogistic(2, 3),
+                            m.synth_ordinal_data(0, 300, 2, num_categories=3)[0],
+                            "STARK_FUSED_ORDINAL"),
+        "robust": lambda: (m.FusedStudentTRegression(2), m.synth_studentt_data(0, 300, 2)[0],
+                           "STARK_FUSED_ROBUST"),
+        "negbinom": lambda: (m.NegBinomialRegression(2), m.synth_negbinom_data(0, 300, 2)[0],
+                             None),
+        "horseshoe": lambda: (m.HorseshoeRegression(6), m.synth_horseshoe_data(0, 300, 6)[0],
+                              None),
+        "coxph": lambda: (m.CoxPH(2), m.synth_survival_data(0, 300, 2)[0], None),
+        "sv": lambda: (m.StochasticVolatility(64), m.synth_sv_data(0, 64)[0], None),
+    }[family]()
+
+
+@pytest.mark.parametrize("family", ["irt", "ordinal", "robust", "negbinom", "horseshoe",
+                                    "coxph", "sv"])
+def test_zoo_models_default_to_the_card(monkeypatch, family):
+    """Each of the rest of the zoo's models is built at its default
+    device, the card: with none present, preparing its data and sampling
+    raise; the CPU is taken only when asked for."""
+    model, raw, knob = _zoo_entry(family)
+    if knob:
+        monkeypatch.setenv(knob, "1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prepare_model_data(model, raw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sample(model, raw, chains=2, num_warmup=2, num_samples=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tempered_sample(model, raw, chains=2, num_temps=2, num_warmup=2, num_samples=2)
+    data = prepare_model_data(model, raw, device="cpu")
+    assert all(v.device.type == "cpu" for v in data.values())
+    post = sample(model, raw, chains=2, num_warmup=3, num_samples=3, max_tree_depth=3,
+                  device="cpu")
+    assert np.all(np.isfinite(post.draws_flat))

@@ -172,3 +172,97 @@ def test_consensus_on_fused_lmm_shards_xT_along_its_rows():
     assert post.draws["beta"].shape == (C, 5, 8)
     assert post.draws["u_raw"].shape == (C, 5, 4, 2)
     assert np.all(np.isfinite(post.draws_flat)) and not post.sample_stats["degraded"]
+
+
+def _zoo_rows(kind, n=512):
+    from stark_tpu.models import irt as rirt
+    from stark_tpu.models import ordinal as rord
+    from stark_tpu.models import robust as rrob
+    from stark_tpu.models import survival as rsurv
+    from stark_tpu.models import timeseries as rts
+
+    key = jax.random.PRNGKey(4)
+    data = {
+        "studentt": lambda: rrob.synth_studentt_data(key, n, 4)[0],
+        "negbinom": lambda: rrob.synth_negbinom_data(key, n, 4)[0],
+        "horseshoe": lambda: rrob.synth_horseshoe_data(key, n, 4, num_nonzero=2)[0],
+        "ordinal": lambda: rord.synth_ordinal_data(key, n, 4, num_categories=4)[0],
+        "irt": lambda: rirt.synth_irt_data(key, 32, 16)[0],
+        "survival": lambda: rsurv.synth_survival_data(key, n, 4)[0],
+        "sv": lambda: rts.synth_sv_data(key, 128)[0],
+    }[kind]()
+    return {k: np.array(v) for k, v in data.items()}
+
+
+#: the rest of the zoo: name -> (reference model, port model, raw data,
+#: knob to set)
+ZOO_CASES = {
+    "StudentTRegression": lambda: (rm.StudentTRegression(4), pm.StudentTRegression(4),
+                                   _zoo_rows("studentt")),
+    "FusedStudentTRegression": lambda: (rm.FusedStudentTRegression(4),
+                                        pm.FusedStudentTRegression(4), _zoo_rows("studentt")),
+    "FusedStudentTRegression knob on": lambda: (
+        rm.FusedStudentTRegression(4), pm.FusedStudentTRegression(4), _zoo_rows("studentt"),
+        "STARK_FUSED_ROBUST"),
+    "NegBinomialRegression": lambda: (rm.NegBinomialRegression(4), pm.NegBinomialRegression(4),
+                                      _zoo_rows("negbinom")),
+    "HorseshoeRegression": lambda: (rm.HorseshoeRegression(4), pm.HorseshoeRegression(4),
+                                    _zoo_rows("horseshoe")),
+    "OrderedLogistic": lambda: (rm.OrderedLogistic(4, 4), pm.OrderedLogistic(4, 4),
+                                _zoo_rows("ordinal")),
+    "FusedOrderedLogistic": lambda: (rm.FusedOrderedLogistic(4, 4),
+                                     pm.FusedOrderedLogistic(4, 4), _zoo_rows("ordinal")),
+    "FusedOrderedLogistic knob on": lambda: (
+        rm.FusedOrderedLogistic(4, 4), pm.FusedOrderedLogistic(4, 4), _zoo_rows("ordinal"),
+        "STARK_FUSED_ORDINAL"),
+    "IRT2PL": lambda: (rm.IRT2PL(32, 16), pm.IRT2PL(32, 16), _zoo_rows("irt")),
+    "FusedIRT2PL": lambda: (rm.FusedIRT2PL(32, 16), pm.FusedIRT2PL(32, 16), _zoo_rows("irt")),
+    "FusedIRT2PL knob on (grid)": lambda: (rm.FusedIRT2PL(32, 16), pm.FusedIRT2PL(32, 16),
+                                           _zoo_rows("irt"), "STARK_FUSED_IRT"),
+    "FusedIRT2PL knob on (ragged triples)": lambda: (
+        rm.FusedIRT2PL(32, 16), pm.FusedIRT2PL(32, 16),
+        {k: v[1:] for k, v in _zoo_rows("irt").items()}, "STARK_FUSED_IRT"),
+    "CoxPH": lambda: (rm.CoxPH(4), pm.CoxPH(4), _zoo_rows("survival")),
+    "StochasticVolatility": lambda: (rm.StochasticVolatility(128), pm.StochasticVolatility(128),
+                                     _zoo_rows("sv")),
+}
+#: the cases whose layout couples every row, and the refusal's words
+ZOO_REFUSED = {"FusedIRT2PL knob on (grid)": "grid layout", "CoxPH": "risk-set",
+               "StochasticVolatility": "minibatched"}
+
+
+@pytest.mark.parametrize("case", list(ZOO_CASES))
+def test_zoo_row_axes_match_reference(case, monkeypatch):
+    """The rest of the zoo: every entry's row axis equals the reference's,
+    or both packages refuse with the same message (the IRT grid, the Cox
+    risk sets, the SV path)."""
+    rmodel, pmodel, raw, *knob = ZOO_CASES[case]()
+    for k in knob:
+        monkeypatch.setenv(k, "1")
+    rprep, pprep = rmodel.prepare_data(raw), pmodel.prepare_data(raw)
+    assert sorted(pprep) == sorted(rprep)
+    want, got = _axes(rmodel, rprep), _axes(pmodel, pprep)
+    assert got == want
+    if case in ZOO_REFUSED:
+        assert got.startswith("refused") and ZOO_REFUSED[case] in got
+    else:
+        assert got == {k: (1 if k == "xT" else 0) for k in pprep}
+
+
+@pytest.mark.parametrize("case", list(ZOO_REFUSED))
+def test_zoo_refusals_through_sghmc_and_consensus(case, monkeypatch):
+    """sghmc_sample and consensus_sample refuse the layouts that couple
+    every row, with the reference's message."""
+    rmodel, pmodel, raw, *knob = ZOO_CASES[case]()
+    for k in knob:
+        monkeypatch.setenv(k, "1")
+    want = _axes(rmodel, rmodel.prepare_data(raw))[len("refused: "):]
+    for run in (
+        lambda: sghmc_sample(pmodel, raw, batch_size=16, chains=2, num_warmup=2, num_samples=2,
+                             device="cpu"),
+        lambda: consensus_sample(pmodel, raw, num_shards=4, chains=2, kernel="hmc",
+                                 num_warmup=2, num_samples=2, device="cpu"),
+    ):
+        with pytest.raises(NotImplementedError) as e:
+            run()
+        assert str(e.value) == want

@@ -563,3 +563,104 @@ def test_bnn_minibatch_gradient_stays_one_batched_call():
     finally:
         psghmc.make_minibatch_grad = real
     assert [k["chain_batched"] for k in seen] == [True, True]
+
+
+def _zoo_cases():
+    """The rest of the zoo's row models: (reference model, port model, raw
+    data, knob to set).  N=256 rows (IRT: 16 persons x 16 items), 4
+    features."""
+    from stark_tpu import models as rm
+    from stark_tpu_torch import models as pm
+
+    key = jax.random.PRNGKey(6)
+    n, d = 256, 4
+
+    def host(data):
+        return {k: np.array(v) for k, v in data[0].items()}
+
+    stu = host(rm.synth_studentt_data(key, n, d))
+    ordd = host(rm.synth_ordinal_data(key, n, d, num_categories=4))
+    irt = host(rm.synth_irt_data(key, 16, 16))
+    return {
+        "StudentTRegression": (rm.StudentTRegression(d), pm.StudentTRegression(d), stu),
+        "FusedStudentTRegression": (rm.FusedStudentTRegression(d),
+                                    pm.FusedStudentTRegression(d), stu, "STARK_FUSED_ROBUST"),
+        "NegBinomialRegression": (rm.NegBinomialRegression(d), pm.NegBinomialRegression(d),
+                                  host(rm.synth_negbinom_data(key, n, d))),
+        "HorseshoeRegression": (rm.HorseshoeRegression(d), pm.HorseshoeRegression(d),
+                                host(rm.synth_horseshoe_data(key, n, d, num_nonzero=2))),
+        "OrderedLogistic": (rm.OrderedLogistic(d, 4), pm.OrderedLogistic(d, 4), ordd),
+        "FusedOrderedLogistic": (rm.FusedOrderedLogistic(d, 4), pm.FusedOrderedLogistic(d, 4),
+                                 ordd, "STARK_FUSED_ORDINAL"),
+        "IRT2PL": (rm.IRT2PL(16, 16), pm.IRT2PL(16, 16), irt),
+        # the triples layout (the knob off): the grid refuses minibatches
+        "FusedIRT2PL": (rm.FusedIRT2PL(16, 16), pm.FusedIRT2PL(16, 16), irt),
+    }
+
+
+ZOO_ROW_MODELS = ["StudentTRegression", "FusedStudentTRegression", "NegBinomialRegression",
+                  "HorseshoeRegression", "OrderedLogistic", "FusedOrderedLogistic", "IRT2PL",
+                  "FusedIRT2PL"]
+
+
+@pytest.mark.parametrize("name", ZOO_ROW_MODELS)
+def test_zoo_sghmc_step_per_chain_matches_reference(name, monkeypatch):
+    """One SG-HMC step of 3 chains of each of the rest of the zoo's row
+    models (the fused ones with their knob on), each chain on its own
+    minibatch, against the reference's vmap of one chain: the same rows
+    along each entry's row axis and the same noise."""
+    from stark_tpu.model import prepare_model_data as ref_prepare
+
+    rmodel, pmodel, raw, *knob = _zoo_cases()[name]
+    for k in knob:
+        monkeypatch.setenv(k, "1")
+    assert not pmodel.chain_batched_lik
+    batch, C = 16, 3
+    rdata = ref_prepare(rmodel, raw)
+    pdata = {k: torch.as_tensor(np.array(v)) for k, v in pmodel.prepare_data(raw).items()}
+    raxes, paxes = rmodel.data_row_axes(rdata), pmodel.data_row_axes(pdata)
+    assert paxes == raxes
+    n = next(v.shape[paxes[k]] for k, v in pdata.items())
+    rfm = ref_flatten(rmodel, lik_scale=n / batch)
+    pfm = flatten_model(pmodel, lik_scale=n / batch)
+    d = pfm.ndim
+    rs = np.random.RandomState(1)
+    z = (0.3 * rs.standard_normal((C, d))).astype(np.float32)
+    r = rs.standard_normal((C, d)).astype(np.float32)
+    inv_mass = (0.5 + rs.rand(C, d)).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(3), C)
+    rgrad = rks.make_minibatch_grad(rfm.potential, rdata, batch, row_axes=raxes)
+
+    def one(key, z, r, im):
+        return rks.sghmc_step(key, rks.SGHMCState(z, r), rgrad, jnp.float32(0.01),
+                              jnp.float32(2.0), im)
+
+    rst, rinfo, rg = jax.jit(jax.vmap(one))(keys, jnp.asarray(z), jnp.asarray(r),
+                                            jnp.asarray(inv_mass))
+    pgrad = pks.make_minibatch_grad(pfm.potential, pdata, batch, row_axes=paxes,
+                                    chain_batched=False)
+    noise = ReplayNoise(_stack_noise(keys, n, batch, d, False))
+    pst, pinfo, pg = pks.sghmc_step(
+        noise, pks.SGHMCState(torch.as_tensor(z), torch.as_tensor(r)), pgrad,
+        torch.tensor(0.01), torch.tensor(2.0), torch.as_tensor(inv_mass))
+    assert noise.done()
+    rtol, atol = (1e-4, 1e-4) if knob else (STEP_RTOL, STEP_ATOL)
+    for got, want, what in ((pg, rg, "grad"), (pst.r, rst.r, "r"), (pst.z, rst.z, "z"),
+                            (pinfo.kinetic_energy, rinfo.kinetic_energy, "kinetic energy")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol, atol=atol,
+                                   err_msg=what)
+
+
+@pytest.mark.parametrize("name", ZOO_ROW_MODELS)
+def test_zoo_sghmc_sample_runs_on_every_row_model(name, monkeypatch):
+    """sghmc_sample runs on each of the rest of the zoo's row models:
+    finite draws, the same draws again for the same seed."""
+    _, pmodel, raw, *knob = _zoo_cases()[name]
+    for k in knob:
+        monkeypatch.setenv(k, "1")
+    kw = dict(batch_size=16, chains=2, num_warmup=5, num_samples=5, seed=1, device="cpu")
+    post = sghmc_sample(pmodel, raw, **kw)
+    assert post.draws_flat.shape == (2, 5, flatten_model(pmodel).ndim)
+    assert np.all(np.isfinite(post.draws_flat))
+    again = sghmc_sample(pmodel, raw, **kw)
+    np.testing.assert_array_equal(again.draws_flat, post.draws_flat)
