@@ -53,19 +53,32 @@ Phases, in order; any failure exits non-zero (none is caught):
  11. runner   — the adaptive runner (ROADMAP A6) through
                 stark_tpu_torch.supervised_sample on the flagship
                 (FusedHierLogisticGrouped(32, 1000), N=1,000,000, 64
-                chains, B1 on every gradient), two legs, each with its
-                launch counts: (a) gated: the bench's MAP 500, warmup 400,
-                blocks of 100 up to 5, under the R-hat < 1.01 / ESS > 400
-                stop gate; prints whether and where the gate stopped, wall
-                time split into set-up, MAP, warmup and sampling, the
-                validation pass's R-hat and ESS, ESS/s (min bulk ESS over
-                wall, set-up included), and per block the seconds in the
-                gate, the checkpoint and the draw-store append; asserts
-                the stop was validated (or the run spent its budget), the
-                draw store reads back equal to the posterior, the
-                checkpoint's block count equals the history's, and B1's
-                launches equal the evaluations; (b) resume: a small budget
-                run uninterrupted, then under supervision with the first
+                chains, B1 on every gradient), three legs, each with its
+                launch counts (B1's launches = the kept evaluations + those
+                of a speculative block the pipelined loop threw away):
+                (a) gated: the bench's MAP 500, warmup 400, blocks of 100
+                up to 5, under the R-hat < 1.01 / ESS > 400 stop gate, in
+                the pipelined loop, exporting its adaptation; prints
+                whether and where the gate stopped, wall time split into
+                set-up, MAP, warmup and sampling, the validation pass's
+                R-hat and ESS, ESS/s (min bulk ESS over wall, set-up
+                included), the thrown-away block's evaluations and
+                seconds, and per block the seconds in the gate, the
+                checkpoint and the draw-store append, those hidden behind
+                the next block and the wait for the verdict; asserts the
+                stop was validated (or the run spent its budget), the draw
+                store reads back equal to the posterior, the checkpoint's
+                block count equals the history's, and the artifact was
+                written; (b) adapt_import: sample_until_converged
+                importing that artifact (no MAP, warmup 400 so an
+                80-transition touch-up, 2 blocks of 50, seed 1); asserts
+                the import, the artifact unchanged and the touch-up's
+                evaluations below 0.6 of the gated warmup's; prints the
+                touch-up's seconds and evaluations beside the gated
+                warmup's, the streaming R-hat after 2 blocks and the
+                largest |posterior mean - the gated leg's| in the gated
+                leg's posterior sds; (c) resume: a small budget run
+                uninterrupted, then under supervision with the first
                 attempt faulted after block 1's checkpoint; one restart
                 record, and the resumed draws bitwise equal to the
                 uninterrupted ones
@@ -90,6 +103,12 @@ Phases, in order; any failure exits non-zero (none is caught):
                 memory; a NUTS leg also profiles one transition at its
                 final state.  The times phase also times B1 and B2 with
                 offsets at the legs' C=8
+ 12b. pipeline_equiv — the serial block loop (sync_blocks=True) on the
+                budgets of the runner's uninterrupted ChEES leg and of
+                nuts_runner, at full width: draws, block records but their
+                timing fields, checkpoint arrays and accounting meta and
+                draw-store bytes bitwise equal to the pipelined runs';
+                prints both loops' walls
  13. b2_shards — B2 with its shard axis (consensus Monte Carlo) at
                 config 2's width (S=8 shards of n=125,000 rows, C=8, D=16,
                 and a ragged 125,003) against the plain version, a second
@@ -193,6 +212,12 @@ the plain versions (no build, no launch counts, no device times); it is
 a rehearsal of the control flow, not a result.  There the edge cases'
 "kernel" is the float32 plain version itself, so it is held to the
 float32 plain version, not to float64.
+
+``--pipeline-turns`` instead runs the runner's legs (the resume legs'
+ChEES budget, nuts_runner's and the gated leg's, at full width) in the
+pipelined and the serial block loop in turns on one card (pipelined,
+serial, serial, pipelined), draws bitwise equal, and prints each run's
+wall and where its sampling time went.
 
 ``--compare-with TREE`` instead times the kernels that TREE (another
 checkout, e.g. the parent commit's) shares with this one: B1, B2 (both
@@ -347,6 +372,7 @@ class Run:
             self.lmm_off_budget = dict(map_init_steps=5, num_warmup=20, num_samples=5)
             self.runner_budget = dict(map_init_steps=10, num_warmup=30, block_size=10, max_blocks=5)
             self.resume_budget = dict(map_init_steps=5, num_warmup=20, block_size=10, max_blocks=3)
+            self.import_budget = dict(num_warmup=30, block_size=10, max_blocks=2)
             self.nuts_budget = dict(max_tree_depth=4, num_warmup=20, num_samples=10)
             self.hmc_budget = dict(num_leapfrog=8, num_warmup=20, num_samples=10)
             self.nuts_runner_budget = dict(max_tree_depth=4, num_warmup=20, block_size=10,
@@ -386,6 +412,9 @@ class Run:
             # the resume legs check bitwise resume, not convergence (MAP 50,
             # warmup 30, 3 blocks of 10)
             self.resume_budget = dict(map_init_steps=10, num_warmup=10, block_size=5, max_blocks=3)
+            # the adapt_import leg: the gated leg's warmup length, so an
+            # 80-transition touch-up (0.2 of 400), then 2 blocks of 50
+            self.import_budget = dict(num_warmup=400, block_size=50, max_blocks=2)
             # the reference bench's NUTS leg (bench.py:410-415): 8 chains,
             # tree depth 6; its 200 warmup and 200 samples cut to 10 each
             # (50 each), HMC's too (50 + 50); the runner's (warmup 30, 3
@@ -1565,6 +1594,19 @@ def _runner_leg(run: Run, label, fn):
     return out, wall, launches
 
 
+#: a block record's timing fields: they differ between the pipelined and
+#: the serial loop, every other field is the same
+TIMING_KEYS = ("wall_s", "t_dispatch_s", "t_diag_s", "t_store_s", "t_ckpt_s", "t_wait_s",
+               "t_hidden_s")
+
+
+def _launched_evals(post) -> int:
+    """The ensemble evaluations a runner call launched: those it kept and
+    those of a speculative block the pipelined loop threw away."""
+    st = post.sample_stats
+    return int(st["num_ensemble_grad_evals"]) + int(st["num_discarded_ensemble_grad_evals"])
+
+
 def _check_b1_launches(run: Run, launches, evals, label):
     if run.rehearsal:
         return
@@ -1588,14 +1630,19 @@ def phase_runner(run: Run, full):
     if run.rehearsal:
         common["device"] = "cpu"
     budget = run.runner_budget
-    log(f"== runner (gated): supervised_sample(FusedHierLogisticGrouped({D}, {G})), "
-        f"N={run.n_full}, 64 chains, R-hat < 1.01 and ESS > 400, {budget}")
     wd = root / "gated"
+    artifact = wd / "adapt.npz"
+    log(f"== runner (gated): supervised_sample(FusedHierLogisticGrouped({D}, {G})), "
+        f"N={run.n_full}, 64 chains, R-hat < 1.01 and ESS > 400, {budget}, the pipelined "
+        f"loop, exporting its adaptation")
     post, wall, launches = _runner_leg(run, "gated leg", lambda: supervised_sample(
         FusedHierLogisticGrouped(D, G), full, workdir=str(wd), min_blocks=2,
-        rhat_target=1.01, ess_target=400.0, **budget, **common))
+        rhat_target=1.01, ess_target=400.0, adapt_export_path=str(artifact), **budget,
+        **common))
     evals = int(post.sample_stats["num_ensemble_grad_evals"])
-    _check_b1_launches(run, launches, evals, "gated leg")
+    discarded = int(post.sample_stats["num_discarded_ensemble_grad_evals"])
+    _check_b1_launches(run, launches, evals + discarded, "gated leg")
+    assert artifact.exists(), "the gated leg exported no adaptation"
     recs = [json.loads(line) for line in open(wd / "metrics.jsonl")]
     assert not [r for r in recs if r["event"] == "restart"], "the gated leg restarted"
     (warm,) = [r for r in recs if r["event"] == "warmup_done"]
@@ -1618,12 +1665,13 @@ def phase_runner(run: Run, full):
     assert meta["blocks_done"] == len(blocks), (meta["blocks_done"], len(blocks))
     split = float(np.max(diagnostics.split_rhat(draws)))
     bulk = float(np.min(diagnostics.ess_bulk(draws)))
+    # the processing hidden behind the next block is not the run's time
     sampling = sum(r["t_dispatch_s"] + r["t_diag_s"] + r["t_store_s"] + r["t_ckpt_s"]
-                   for r in blocks)
+                   - r["t_hidden_s"] for r in blocks)
     per_block = []
     for r in blocks:
         row = {k: r[k] for k in ("block", "draws_per_chain", "max_rhat", "min_ess", "t_dispatch_s",
-                                 "t_diag_s", "t_store_s", "t_ckpt_s")}
+                                 "t_diag_s", "t_store_s", "t_ckpt_s", "t_wait_s", "t_hidden_s")}
         row["evals"] = r["block_grad_evals"] // 64
         row["ms_per_eval"] = 1e3 * r["t_dispatch_s"] / max(row["evals"], 1)
         row.update({k: r[k] for k in ("full_max_rhat", "full_min_ess") if k in r})
@@ -1640,8 +1688,10 @@ def phase_runner(run: Run, full):
         ess_per_s=bulk / wall, wall_to_rhat_s=wall if post.converged else None,
         evals=evals, b1_launches=launches["B1"], ms_per_eval=1e3 * wall / evals,
         gate_s=[r["t_diag_s"] for r in blocks], ckpt_s=[r["t_ckpt_s"] for r in blocks],
-        store_s=[r["t_store_s"] for r in blocks], per_block=per_block,
-        divergences=int(post.num_divergent),
+        store_s=[r["t_store_s"] for r in blocks], wait_s=[r["t_wait_s"] for r in blocks],
+        hidden_s=[r["t_hidden_s"] for r in blocks], per_block=per_block,
+        divergences=int(post.num_divergent), discarded_evals=discarded,
+        discarded_s=post.discarded_s, step_size=warm["step_size"],
     )
     log(f"  {stop}; {len(blocks)} blocks, {draws.shape[1]} draws per chain")
     log(f"  wall {wall:.2f} s with set-up: set-up {warm['t_setup_s']:.2f}, MAP "
@@ -1651,23 +1701,28 @@ def phase_runner(run: Run, full):
     log(f"  validation pass: full_max_rhat {last.get('full_max_rhat')}, full_min_ess "
         f"{last.get('full_min_ess')}; max split R-hat {split:.5f}, min bulk ESS {bulk:.1f}; "
         f"ESS/s {bulk / wall:.4f}; divergences {int(post.num_divergent)}")
-    log(f"  ensemble gradient evaluations {evals} = B1 launches {launches['B1']}; "
-        f"{1e3 * wall / evals:.4f} ms per evaluation (set-up included)")
+    log(f"  ensemble gradient evaluations {evals} + {discarded} of the thrown-away block = "
+        f"B1 launches {launches['B1']}; {1e3 * wall / evals:.4f} ms per evaluation (set-up "
+        f"included)")
+    log(f"  the speculative block thrown away at the stop: {discarded} evaluations, "
+        f"{post.discarded_s:.3f} s [{getattr(run, 'smi', 'cpu rehearsal')}]")
     for r in per_block:
         valid = (f", validation pass R-hat {r['full_max_rhat']:.5f} ESS {r['full_min_ess']:.1f}"
                  if "full_max_rhat" in r else "")
         log(f"  block {r['block']}: to {r['draws_per_chain']} draws; {r['evals']} evaluations in "
             f"{r['t_dispatch_s']:.3f} s ({r['ms_per_eval']:.4f} ms each); streaming R-hat "
             f"{r['max_rhat']} ESS {r['min_ess']}{valid}; gate {r['t_diag_s']:.4f} s, "
-            f"draw-store append {r['t_store_s']:.4f} s, flush and checkpoint {r['t_ckpt_s']:.4f} s")
+            f"draw-store append {r['t_store_s']:.4f} s, flush and checkpoint {r['t_ckpt_s']:.4f} s; "
+            f"hidden behind the next block {r['t_hidden_s']:.4f} s, wait for the verdict "
+            f"{r['t_wait_s']:.4f} s")
+    res["adapt_import"] = _adapt_import_leg(run, full, post, res, artifact, root, common)
 
     small = dict(run.resume_budget, rhat_target=0.0)
     log(f"== runner (resume): the same model, {small}, uninterrupted and then faulted "
         f"after block 1's checkpoint, restarted without a reseed")
-    whole, _, launches = _runner_leg(run, "uninterrupted", lambda: supervised_sample(
+    whole, whole_wall, launches = _runner_leg(run, "uninterrupted", lambda: supervised_sample(
         FusedHierLogisticGrouped(D, G), full, workdir=str(root / "whole"), **small, **common))
-    _check_b1_launches(run, launches, int(whole.sample_stats["num_ensemble_grad_evals"]),
-                       "uninterrupted leg")
+    _check_b1_launches(run, launches, _launched_evals(whole), "uninterrupted leg")
     real = runner.sample_until_converged
     attempts = []
 
@@ -1677,7 +1732,10 @@ def phase_runner(run: Run, full):
         attempts.append(kw.get("resume_from"))
         if len(attempts) == 1:
             first = real(model, data, **dict(kw, time_budget_s=0.0))
-            attempts.append(int(first.sample_stats["num_ensemble_grad_evals"]))
+            attempts.append(_launched_evals(first))
+            log(f"  the first attempt: stopped by its time budget after block 1; the block "
+                f"thrown away: {int(first.sample_stats['num_discarded_ensemble_grad_evals'])} "
+                f"evaluations, {first.discarded_s:.3f} s")
             raise RuntimeError("fault injected after block 1's checkpoint")
         return real(model, data, **kw)
 
@@ -1689,9 +1747,7 @@ def phase_runner(run: Run, full):
     finally:
         runner.sample_until_converged = real
     assert attempts[0] is None and attempts[2] is not None, attempts
-    _check_b1_launches(run, launches,
-                       attempts[1] + int(resumed.sample_stats["num_ensemble_grad_evals"]),
-                       "resume leg")
+    _check_b1_launches(run, launches, attempts[1] + _launched_evals(resumed), "resume leg")
     restarts = [json.loads(line) for line in open(root / "faulted" / "metrics.jsonl")]
     restarts = [r for r in restarts if r["event"] == "restart"]
     assert len(restarts) == 1, restarts
@@ -1701,7 +1757,62 @@ def phase_runner(run: Run, full):
         f"{'yes' if same else 'no'}")
     assert same, "the resumed draws differ from the uninterrupted run's"
     res["resume"] = dict(restarts=len(restarts), bitwise_equal=same,
-                         draws_per_chain=int(whole.draws_flat.shape[1]))
+                         draws_per_chain=int(whole.draws_flat.shape[1]), whole_wall_s=whole_wall)
+    return res
+
+
+def _adapt_import_leg(run: Run, full, gated, gres, artifact, root, common):
+    """A run importing the gated leg's adaptation (ROADMAP A6): the
+    touch-up instead of warmup, the artifact left as it was."""
+    from stark_tpu_torch import sample_until_converged
+    from stark_tpu_torch.models import FusedHierLogisticGrouped
+
+    budget = run.import_budget
+    chains = common["chains"]
+    kw = dict(common, seed=1, adapt_path=str(artifact), map_init_steps=0, min_blocks=2,
+              adaptive_blocks=False, **budget)
+    log(f"== runner (adapt_import): sample_until_converged(FusedHierLogisticGrouped({D}, "
+        f"{G})), N={run.n_full}, {kw}")
+    before = artifact.read_bytes()
+    metrics = root / "import.jsonl"
+    post, wall, launches = _runner_leg(run, "adapt_import leg", lambda: sample_until_converged(
+        FusedHierLogisticGrouped(D, G), full, metrics_path=str(metrics), **kw))
+    evals = int(post.sample_stats["num_ensemble_grad_evals"])
+    _check_b1_launches(run, launches, _launched_evals(post), "adapt_import leg")
+    recs = [json.loads(line) for line in open(metrics)]
+    (warm,) = [r for r in recs if r["event"] == "warmup_done"]
+    assert warm.get("adapt_imported") is True, warm
+    assert {"event": "adapt_export_skipped", "reason": "imported"} in recs, recs[:3]
+    assert artifact.read_bytes() == before, "the import changed the artifact"
+    touch = warm["warmup_grad_evals"] // chains
+    ratio = touch / gres["warmup_evals"]
+    if not run.rehearsal:
+        # the JAX package's bound (tests/test_adapt_reuse.py:52-55), here
+        # against the gated leg's warmup without its MAP steps
+        assert ratio < 0.6, (touch, gres["warmup_evals"])
+    draws = post.draws_flat
+    n = budget["block_size"] * budget["max_blocks"]
+    assert draws.shape == (chains, n, gated.draws_flat.shape[2]), draws.shape
+    assert np.all(np.isfinite(draws)), "non-finite draws on the adapt_import leg"
+    ref = gated.draws_flat.reshape(-1, draws.shape[2])
+    dist = float(np.max(np.abs(draws.reshape(-1, draws.shape[2]).mean(0) - ref.mean(0))
+                        / ref.std(0)))
+    last = post.history[-1]
+    res = dict(wall_s=wall, touchup_s=warm["t_warmup_s"], touchup_evals=touch,
+               touchup_ratio=ratio, gated_warmup_s=gres["warmup_s"],
+               gated_warmup_evals=gres["warmup_evals"], evals=evals,
+               discarded_evals=int(post.sample_stats["num_discarded_ensemble_grad_evals"]),
+               b1_launches=launches["B1"], streaming_max_rhat=last["max_rhat"],
+               streaming_min_ess=last["min_ess"], max_mean_shift_sd=dist,
+               step_size=warm["step_size"], gated_step_size=gres["step_size"])
+    log(f"  [{getattr(run, 'smi', 'cpu rehearsal')}] touch-up {warm['t_warmup_s']:.2f} s, "
+        f"{touch} evaluations, against the gated leg's warmup {gres['warmup_s']:.2f} s, "
+        f"{gres['warmup_evals']} evaluations (ratio {ratio:.4f}); step size "
+        f"{warm['step_size']:.5g} (gated {gres['step_size']:.5g}); wall {wall:.2f} s with set-up")
+    log(f"  after {len(post.history)} blocks: streaming R-hat {last['max_rhat']}, ESS "
+        f"{last['min_ess']}; largest |posterior mean - the gated leg's| {dist:.4f} of the gated "
+        f"leg's posterior sd; evaluations {evals} = B1 launches {launches['B1']}; artifact "
+        f"unchanged")
     return res
 
 
@@ -1825,7 +1936,7 @@ def phase_nuts(run: Run, full):
     whole, wall, launches, peak = _nuts_leg(run, lambda: supervised_sample(
         FusedHierLogisticGrouped(D, G), full, workdir=str(root / "whole"), **budget))
     evals = int(whole.sample_stats["num_ensemble_grad_evals"])
-    _check_leg_launches(run, "nuts_runner", "B1", launches, evals)
+    _check_leg_launches(run, "nuts_runner", "B1", launches, _launched_evals(whole))
     recs = [json.loads(line) for line in open(root / "whole" / "metrics.jsonl")]
     (warm,) = [r for r in recs if r["event"] == "warmup_done"]
     draws = whole.draws_flat
@@ -1862,7 +1973,7 @@ def phase_nuts(run: Run, full):
         attempts.append(kw.get("resume_from"))
         if len(attempts) == 1:
             first = real(model, data, **dict(kw, time_budget_s=0.0))
-            attempts.append(int(first.sample_stats["num_ensemble_grad_evals"]))
+            attempts.append(_launched_evals(first))
             raise RuntimeError("fault injected after block 1's checkpoint")
         return real(model, data, **kw)
 
@@ -1875,7 +1986,7 @@ def phase_nuts(run: Run, full):
         runner.sample_until_converged = real
     assert attempts[0] is None and attempts[2] is not None, attempts
     _check_leg_launches(run, "nuts_runner (resume)", "B1", launches,
-                        attempts[1] + int(resumed.sample_stats["num_ensemble_grad_evals"]))
+                        attempts[1] + _launched_evals(resumed))
     restarts = [json.loads(line) for line in open(root / "faulted" / "metrics.jsonl")]
     restarts = [r for r in restarts if r["event"] == "restart"]
     assert len(restarts) == 1, restarts
@@ -1886,6 +1997,65 @@ def phase_nuts(run: Run, full):
     assert same, "the resumed NUTS draws differ from the whole run's"
     res["resume"] = dict(wall_s=rwall, restarts=len(restarts), bitwise_equal=same)
     out["nuts_runner"] = res
+    return out
+
+
+def _same_run_files(label, serial, pipe_dir: Path, serial_dir: Path):
+    """The serial run against the pipelined run's files: draws, block
+    records but their timing, checkpoint arrays and accounting meta, and
+    draw-store bytes, all bitwise."""
+    from stark_tpu_torch.checkpoint import load_checkpoint
+    from stark_tpu_torch.drawstore import read_draws
+
+    stored = np.asarray(read_draws(str(pipe_dir / "draws.stkr"))[0]).transpose(1, 0, 2)
+    assert np.array_equal(stored, serial.draws_flat), f"{label}: the draws differ"
+    recs = [json.loads(line) for line in open(pipe_dir / "metrics.jsonl")]
+
+    def strip(history):
+        return [{k: v for k, v in r.items() if k not in TIMING_KEYS} for r in history]
+
+    assert strip([r for r in recs if r["event"] == "block"]) == strip(serial.history), label
+    arr_p, meta_p = load_checkpoint(str(pipe_dir / "chain.ckpt.npz"))
+    arr_s, meta_s = load_checkpoint(str(serial_dir / "chain.ckpt.npz"))
+    assert sorted(arr_p) == sorted(arr_s), label
+    for k in arr_p:
+        assert np.array_equal(arr_p[k], arr_s[k]), f"{label}: checkpoint array {k} differs"
+    for k in ("blocks_done", "block_size", "draw_rows", "num_divergent", "model", "kernel"):
+        assert meta_p[k] == meta_s[k], (label, k)
+    assert ((pipe_dir / "draws.stkr").read_bytes()
+            == (serial_dir / "draws.stkr").read_bytes()), f"{label}: the draw stores differ"
+
+
+def phase_pipeline_equiv(run: Run, full, runner_res, nuts_res):
+    """The serial loop (sync_blocks=True) on the budgets of the ChEES
+    resume leg and the NUTS runner leg, at full width, held bitwise
+    against their pipelined runs (ROADMAP A6)."""
+    from stark_tpu_torch import supervised_sample
+    from stark_tpu_torch.models import FusedHierLogisticGrouped
+
+    dev = {"device": "cpu"} if run.rehearsal else {}
+    out = {}
+    for label, root, kw, pipe_wall in (
+        ("chees", REPO / "build" / "chip_smoke_runner",
+         dict(run.resume_budget, kernel="chees", chains=64, init_step_size=0.1, seed=0),
+         runner_res["resume"]["whole_wall_s"]),
+        ("nuts", REPO / "build" / "chip_smoke_nuts",
+         dict(run.nuts_runner_budget, kernel="nuts", chains=NUTS_CHAINS, seed=0),
+         nuts_res["nuts_runner"]["wall_s"]),
+    ):
+        log(f"== pipeline_equiv ({label}): supervised_sample(FusedHierLogisticGrouped({D}, {G})), "
+            f"N={run.n_full}, {kw}, sync_blocks=True, against the pipelined run")
+        serial, wall, launches = _runner_leg(run, f"{label} serial", lambda: supervised_sample(
+            FusedHierLogisticGrouped(D, G), full, workdir=str(root / "whole_serial"),
+            rhat_target=0.0, sync_blocks=True, **kw, **dev))
+        assert int(serial.sample_stats["num_discarded_ensemble_grad_evals"]) == 0
+        _check_b1_launches(run, launches, int(serial.sample_stats["num_ensemble_grad_evals"]),
+                           f"pipeline_equiv {label} leg")
+        _same_run_files(label, serial, root / "whole", root / "whole_serial")
+        log(f"  [{getattr(run, 'smi', 'cpu rehearsal')}] {label}: bitwise equal (draws, records "
+            f"but timing, checkpoint, draw store); wall pipelined {pipe_wall:.2f} s, serial "
+            f"{wall:.2f} s")
+        out[label] = dict(bitwise_equal=True, pipelined_wall_s=pipe_wall, serial_wall_s=wall)
     return out
 
 
@@ -2431,6 +2601,54 @@ def shared_kernel_times(tree: str) -> dict:
     return out
 
 
+def pipeline_turns(run: Run) -> int:
+    """The pipelined and the serial block loop in turns on one card
+    (pipelined, serial, serial, pipelined) on the flagship at full width:
+    the resume legs' ChEES budget, nuts_runner's, and the gated leg's.
+    Prints each run's wall and where its sampling time went; the four
+    runs of a leg must give bitwise the same draws."""
+    from stark_tpu_torch import supervised_sample
+    from stark_tpu_torch.models import FusedHierLogisticGrouped
+
+    phase_card(run)
+    phase_build(run)
+    full = make_flagship_data(run)[0]
+    root = REPO / "build" / "chip_smoke_turns"
+    dev = {"device": "cpu"} if run.rehearsal else {}
+    chees = dict(kernel="chees", chains=64, init_step_size=0.1, seed=0)
+    legs = (
+        ("chees small", dict(run.resume_budget, rhat_target=0.0, **chees)),
+        ("nuts small", dict(run.nuts_runner_budget, rhat_target=0.0, kernel="nuts",
+                            chains=NUTS_CHAINS, seed=0)),
+        ("gated", dict(run.runner_budget, min_blocks=2, rhat_target=1.01, ess_target=400.0,
+                       **chees)),
+    )
+    for label, kw in legs:
+        log(f"== turns, {label}: supervised_sample(FusedHierLogisticGrouped({D}, {G})), "
+            f"N={run.n_full}, {kw} [{getattr(run, 'smi', 'cpu rehearsal')}]")
+        draws = None
+        for i, sync in enumerate((False, True, True, False)):
+            shutil.rmtree(root, ignore_errors=True)
+            post, wall, _ = _runner_leg(run, f"{'serial' if sync else 'pipelined'} {i + 1}",
+                                        lambda: supervised_sample(
+                FusedHierLogisticGrouped(D, G), full, workdir=str(root), sync_blocks=sync,
+                **kw, **dev))
+            if draws is None:
+                draws = post.draws_flat
+            assert np.array_equal(post.draws_flat, draws), f"{label}: the draws differ"
+            h = post.history
+            drive = sum(r["t_dispatch_s"] for r in h)
+            host = sum(r["t_diag_s"] + r["t_store_s"] + r["t_ckpt_s"] for r in h)
+            n = sum(r["block_grad_evals"] for r in h) // post.draws_flat.shape[0]
+            log(f"    blocks {len(h)}: driving {drive:.3f} s ({1e3 * drive / max(n, 1):.4f} ms "
+                f"an evaluation), processing {host:.3f} s, of it hidden "
+                f"{sum(r['t_hidden_s'] for r in h):.3f} s, waited "
+                f"{sum(r['t_wait_s'] for r in h):.3f} s; thrown away "
+                f"{int(post.sample_stats['num_discarded_ensemble_grad_evals'])} evaluations")
+    log(json.dumps({"pipeline_turns": True, "ok": True}))
+    return 0
+
+
 def compare_with(other: str) -> int:
     here = str(REPO)
     other = str(Path(other).resolve())
@@ -2463,6 +2681,8 @@ def main(argv=None) -> int:
     ap.add_argument("--compare-with", metavar="TREE",
                     help="time the kernels of TREE and of this checkout, in turns")
     ap.add_argument("--shared-kernel-times", metavar="TREE", help=argparse.SUPPRESS)
+    ap.add_argument("--pipeline-turns", action="store_true",
+                    help="time the pipelined and the serial block loop in turns")
     args = ap.parse_args(argv)
     if not args.cpu_rehearsal and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2472,6 +2692,8 @@ def main(argv=None) -> int:
         return 0
     if args.compare_with:
         return compare_with(args.compare_with)
+    if args.pipeline_turns:
+        return pipeline_turns(Run(args.cpu_rehearsal))
 
     # fails here, before any result, outside a checkout of the repo
     from stark_tpu_torch.models import (
@@ -2503,6 +2725,10 @@ def main(argv=None) -> int:
         "single_path": phase_single(run, full),
         "runner_path": phase_runner(run, full),
         "nuts_path": phase_nuts(run, full),
+    }
+    paths["pipeline_equiv"] = phase_pipeline_equiv(run, full, paths["runner_path"],
+                                                   paths["nuts_path"])
+    paths |= {
         "b2_shards": phase_b2_shards(run),
         "consensus_path": phase_consensus(run),
         "bnn_path": phase_bnn(run),
@@ -2526,7 +2752,7 @@ def main(argv=None) -> int:
         # kernel time of one evaluation (profile phase, same potential)
         rp = paths["runner_path"]
         per_eval = prof["FusedHierLogisticGrouped"]["kernel_ms_per_eval"]
-        busy = rp["evals"] * per_eval / 1e3
+        busy = (rp["evals"] + rp["discarded_evals"]) * per_eval / 1e3
         rp["idle_share_derived"] = 1 - busy / rp["wall_s"]
         log(f"== runner path: {rp['evals']} evaluations x {per_eval:.4f} ms of kernels each = "
             f"{busy:.1f} s busy of {rp['wall_s']:.1f} s wall: idle share {rp['idle_share_derived']:.4f}")

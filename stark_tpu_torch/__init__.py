@@ -32,7 +32,12 @@ from . import bijectors, diagnostics  # noqa: E402
 from .chees import chees_sample  # noqa: E402
 from .model import Model, ParamSpec, flatten_model, prepare_model_data  # noqa: E402
 from .parallel import consensus_sample, geometric_ladder, tempered_sample  # noqa: E402
-from .runner import AdaptiveResult, sample_until_converged  # noqa: E402
+from .runner import (  # noqa: E402
+    AdaptiveResult,
+    data_fingerprint,
+    load_adapt_state,
+    sample_until_converged,
+)
 from .sampler import Posterior, SamplerConfig, sample  # noqa: E402
 from .sghmc import sghmc_sample  # noqa: E402
 from .supervise import ChainHealthError, supervised_sample  # noqa: E402
@@ -49,9 +54,11 @@ __all__ = [
     "bijectors",
     "chees_sample",
     "consensus_sample",
+    "data_fingerprint",
     "diagnostics",
     "flatten_model",
     "geometric_ladder",
+    "load_adapt_state",
     "prepare_model_data",
     "sample",
     "sample_until_converged",

@@ -40,15 +40,26 @@ class AdaptiveParts(NamedTuple):
                       divergences, evaluations): warmup schedule steps
                       [start, stop)
       finalize        warmup carry -> sampling carry
-      samp_j          samp_j(carry, diag, noise, start, length, *extra) ->
-                      (carry, diag, Block): sampling transitions
-                      [start, start + length); ``diag`` is the
-                      streaming-diagnostics accumulator or None
+      samp_j          samp_j(carry, diag, noise, start, length, *extra,
+                      stop=None) -> (carry, diag, Block): sampling
+                      transitions [start, start + length); ``diag`` is the
+                      streaming-diagnostics accumulator or None; ``stop``,
+                      when given, is called after each transition and ends
+                      the block early when it returns True (the Block
+                      then holds the transitions made)
       warm_arrays     warmup carry -> host arrays of a warmup checkpoint
       warm_carry      those arrays -> the warmup carry, on the device
       run_arrays      sampling carry -> host arrays of a sampling
                       checkpoint (z, pe, grad, step_size, inv_mass, ...)
       run_carry       those arrays -> the sampling carry, on the device
+      import_carry    import_carry(carry, imported) -> the warmup carry
+                      with an imported adaptation (host arrays z,
+                      log_eps, log_T, inv_mass); None for a sampler that
+                      takes no part in adaptation reuse (NUTS, HMC)
+      touch_j         touch_j(carry, noise, start, stop, total, *extra) ->
+                      (carry, divergences, evaluations): steps [start,
+                      stop) of the imported run's touch-up of ``total``
+                      transitions; None with import_carry
 
     ``noise`` is a `kernels.chees.TorchNoise`: the warmup stream for
     init_j and warm_j, the sampling stream for samp_j.  The JAX package's
@@ -71,6 +82,8 @@ class AdaptiveParts(NamedTuple):
     warm_carry: Any
     run_arrays: Any
     run_carry: Any
+    import_carry: Any = None
+    touch_j: Any = None
 
 
 @runtime_checkable

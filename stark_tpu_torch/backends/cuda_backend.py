@@ -19,12 +19,13 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
-from ..adaptation import DualAveragingState, WelfordState
+from ..adaptation import DualAveragingState, WelfordState, da_init
 from ..chees import (
     AdamState,
     CheesRunCarry,
     CheesWarmCarry,
     chees_init_positions,
+    chees_touchup_arrays,
     make_chees_parts,
     run_chees,
 )
@@ -207,12 +208,12 @@ def _chees_parts(fm, cfg: SamplerConfig, put, device) -> Dict[str, Any]:
         )
         return carry, n_div, n_leap
 
-    def samp_j(carry, diag, noise, start, length, data=None):
+    def samp_j(carry, diag, noise, start, length, data=None, stop=None):
         us = (2.0 * halton(length, start=start)).astype(np.float32)
         if diag is None:
-            carry, outs = parts.sample_segment(carry, noise, us, data)
+            carry, outs = parts.sample_segment(carry, noise, us, data, stop=stop)
         else:
-            carry, diag, outs = parts.sample_segment_diag(carry, diag, noise, us, data)
+            carry, diag, outs = parts.sample_segment_diag(carry, diag, noise, us, data, stop=stop)
         zs, accept, divergent, n_leap = outs
         n = int(np.sum(n_leap))
         # the block is draw-major (n, chains, d): the gate reads a
@@ -242,9 +243,29 @@ def _chees_parts(fm, cfg: SamplerConfig, put, device) -> Dict[str, Any]:
         return CheesRunCarry(states=_hmc_state(arrays, put), log_eps=put(arrays["log_eps"]),
                              log_T=put(arrays["log_T"]), inv_mass=put(arrays["inv_mass"]))
 
+    def import_carry(carry: CheesWarmCarry, imported):
+        """The carry after the initial evaluation and MAP steps, with the
+        imported adaptation: step-size averaging anchored at the imported
+        step (mu = log eps, not the cold start's log(10 eps)), and the
+        imported trajectory length and inverse mass."""
+        log_eps = put(np.asarray(imported["log_eps"], np.float32))
+        return carry._replace(
+            da=da_init(torch.exp(log_eps), mu=log_eps),
+            log_T=put(np.asarray(imported["log_T"], np.float32)),
+            inv_mass=put(np.asarray(imported["inv_mass"], np.float32)),
+        )
+
+    def touch_j(carry, noise, start, stop, total, data=None):
+        us, idxs, aoff, woff = chees_touchup_arrays(total)
+        carry, (n_div, n_leap) = parts.warm_segment(
+            carry, noise, us[start:stop], idxs[start:stop], aoff[start:stop], woff[start:stop], data,
+        )
+        return carry, n_div, n_leap
+
     return dict(init_positions=positions, init_j=init_j, warm_j=warm_j,
                 finalize=parts.finalize, samp_j=samp_j, warm_arrays=warm_arrays,
-                warm_carry=warm_carry, run_arrays=run_arrays, run_carry=run_carry)
+                warm_carry=warm_carry, run_arrays=run_arrays, run_carry=run_carry,
+                import_carry=import_carry, touch_j=touch_j)
 
 
 def _chain_parts(fm, cfg: SamplerConfig, put, device) -> Dict[str, Any]:
@@ -265,10 +286,10 @@ def _chain_parts(fm, cfg: SamplerConfig, put, device) -> Dict[str, Any]:
     def finalize(carry: WarmCarry):
         return carry.states, warm.finalize(carry), carry.inv_mass
 
-    def samp_j(carry, diag, noise, start, length, data=None):
+    def samp_j(carry, diag, noise, start, length, data=None, stop=None):
         state, step_size, inv_mass = carry
         state, diag, zs, accept, divergent, _, ngrad, n = make_block_runner(fm, cfg, length)(
-            noise, state, diag, step_size, inv_mass, data)
+            noise, state, diag, step_size, inv_mass, data, stop=stop)
         record = {"grad_eval_basis": basis}
         if cfg.kernel == "nuts":
             depth = tree_depth_from_leaves(ngrad)

@@ -21,8 +21,9 @@ import torch.nn.functional as F
 
 
 def batch_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum over every axis but the leading batch (chain) axis."""
-    return t.reshape(t.shape[0], -1).sum(-1)
+    """Sum over every axis but the leading batch (chain) axis (a batch of
+    no rows too)."""
+    return t.reshape(t.shape[0], math.prod(t.shape[1:])).sum(-1)
 
 
 class Bijector:

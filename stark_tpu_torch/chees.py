@@ -212,10 +212,11 @@ def make_chees_parts(fm, cfg: SamplerConfig) -> CheesParts:
             inv_mass=carry.inv_mass,
         )
 
-    def sample_loop(carry: CheesRunCarry, diag, noise, us, data):
+    def sample_loop(carry: CheesRunCarry, diag, noise, us, data, stop=None):
         """The one sampling loop of both segment variants: the
         accumulator only reads each draw, so the draws are the same bits
-        with it or without it."""
+        with it or without it.  ``stop``, checked after each transition,
+        ends the loop early."""
         potential_fn = fm.bind(data)
         step_size = torch.exp(carry.log_eps)
         zs, acc, div, nleap = [], [], [], []
@@ -233,6 +234,8 @@ def make_chees_parts(fm, cfg: SamplerConfig) -> CheesParts:
             acc.append(info.accept_prob.cpu())
             div.append(info.is_divergent.cpu())
             nleap.append(info.num_leapfrog)
+            if stop is not None and stop():
+                break
         carry = CheesRunCarry(states, carry.log_eps, carry.log_T, carry.inv_mass)
         if not zs:
             return carry, diag, None
@@ -244,17 +247,17 @@ def make_chees_parts(fm, cfg: SamplerConfig) -> CheesParts:
         )
         return carry, diag, outs
 
-    def sample_segment(carry: CheesRunCarry, noise, us, data=None):
+    def sample_segment(carry: CheesRunCarry, noise, us, data=None, stop=None):
         """Sampling transitions; returns (carry, outs) with outs the
         host-side step-major (zs, accept_prob, is_divergent, nleap): zs
         (T, [S,] C, d), nleap the ensemble evaluations of each."""
-        carry, _, outs = sample_loop(carry, None, noise, us, data)
+        carry, _, outs = sample_loop(carry, None, noise, us, data, stop)
         return carry, outs
 
-    def sample_segment_diag(carry: CheesRunCarry, diag, noise, us, data=None):
+    def sample_segment_diag(carry: CheesRunCarry, diag, noise, us, data=None, stop=None):
         """`sample_segment` that also folds every draw into ``diag`` (a
         `kernels.base.StreamDiagState`); returns (carry, diag, outs)."""
-        return sample_loop(carry, diag, noise, us, data)
+        return sample_loop(carry, diag, noise, us, data, stop)
 
     return CheesParts(
         init_carry=init_carry,
@@ -277,6 +280,20 @@ def chees_schedule_arrays(parts: CheesParts, cfg: SamplerConfig):
         (2.0 * halton(cfg.num_warmup)).astype(np.float32),
         (2.0 * halton(total)).astype(np.float32),
         np.arange(cfg.num_warmup),
+    )
+
+
+def chees_touchup_arrays(num: int):
+    """The per-step inputs of an imported run's touch-up of ``num``
+    transitions, (us, idxs, aflags, wflags): the Halton jitter 2 *
+    halton(num); every index -1, below the T ascent's start, so log T
+    stays at the imported value; no mass accumulation and no window end,
+    so the imported inverse mass stays.  Only the step size re-tunes."""
+    return (
+        (2.0 * halton(num)).astype(np.float32),
+        np.full(num, -1),
+        np.zeros(num, bool),
+        np.zeros(num, bool),
     )
 
 

@@ -1,6 +1,6 @@
 """Adaptive runner: sample in blocks until R-hat < target — counterpart of
 ``stark_tpu/runner.py``: its ChEES branch and its per-chain branch (NUTS,
-HMC) with the serial block loop.
+HMC), with the pipelined block loop (the default) and the serial one.
 
 Warmup runs in segments of ``block_size`` transitions, each checkpointed,
 then the sampler draws blocks until the stop gate passes or the budget
@@ -12,15 +12,33 @@ appends its draws to the draw store, flushes it, writes a checkpoint
 and one JSONL metrics record.  `supervise.supervised_sample` restarts a
 faulted run from the last healthy checkpoint.
 
-The loop is the JAX package's serial one (its pipelined loop gives the
-same draws; the port's is ROADMAP A6's remainder).  The random streams
-are the port's own: one ``torch.Generator`` each for the initial
-positions, the warmup and the sampling transitions, where the JAX
-package splits keys (`sampler.chain_streams`, the streams of `sample`
-too).  Checkpoints carry the warmup and sampling generators' states
-(under the JAX package's array names ``key_warm`` and ``key``) and the
-count of draws (``draw_rows``, ChEES's Halton position), so a run
-resumed from a checkpoint draws bitwise what the uninterrupted run
+The pipelined loop overlaps block k's host work (the gate, the store,
+the health check, the checkpoint) with block k+1.  The host drives every
+transition here (ChEES and NUTS read a count back per transition), so
+the overlap takes a second host thread: the main thread drives block
+k+1 while one worker thread processes block k.  Before block k+1 starts,
+the main thread copies to the host all that block k's processing reads
+(draws, the accumulator, the sampling state, the generator state, the
+draw count); the worker touches no tensor.  A stop at block k cuts block
+k+1 short at its next transition and throws it away unseen: its
+evaluations are counted apart (``num_discarded_ensemble_grad_evals``).
+Both loops give bitwise the same draws, records (but their timing
+fields), checkpoints and draw store.
+
+Adaptation reuse (ChEES): after a fresh full warmup the tuned step
+size, trajectory length, inverse mass and end-of-warmup positions are
+exported (``adapt_export_path``); a later run on the same kernel, model,
+width and data (`data_fingerprint`) imports them (``adapt_path``),
+starts near the saved positions, and replaces the warmup with a short
+touch-up in which only the step size re-tunes.
+
+The random streams are the port's own: one ``torch.Generator`` each for
+the initial positions, the warmup and the sampling transitions, where
+the JAX package splits keys (`sampler.chain_streams`, the streams of
+`sample` too).  Checkpoints carry the warmup and sampling generators'
+states (under the JAX package's array names ``key_warm`` and ``key``)
+and the count of draws (``draw_rows``, ChEES's Halton position), so a
+run resumed from a checkpoint draws bitwise what the uninterrupted run
 draws, whatever the block boundaries; ``reseed`` branches both streams.
 
 The runner knows no sampler: it calls the backend's `AdaptiveParts`,
@@ -45,6 +63,8 @@ import hashlib
 import json
 import logging
 import os
+import queue
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -69,7 +89,10 @@ class AdaptiveResult(Posterior):
     ``sample_stats["num_ensemble_grad_evals"]`` counts the ensemble
     potential-gradient evaluations THIS call made (the initial state, MAP
     steps, warmup and sampling leapfrogs; a resumed call counts from its
-    checkpoint on): one likelihood kernel launch each.
+    checkpoint on): one likelihood kernel launch each.  Those of a
+    speculative block the pipelined loop threw away are counted apart,
+    in ``num_discarded_ensemble_grad_evals``, so the launches of a call
+    are the sum of the two.
     """
 
     def __init__(self, *args, history=None, converged=False, wall_s=0.0, **kw):
@@ -78,12 +101,131 @@ class AdaptiveResult(Posterior):
         self.converged = converged
         self.wall_s = wall_s
         self.budget_exhausted = False
+        # seconds the pipelined loop spent driving the block it threw away
+        self.discarded_s = 0.0
         # estimated draws beyond the ESS target at the measured ESS rate
         # (None when unconverged or without a rate estimate)
         self.overshoot_draws = None
         # the JAX package's statistical-health verdict; its monitor is
         # ROADMAP A12, so None here (never an empty claim of health)
         self.health_warnings = None
+
+
+# ------------------------------------------------- adaptation artifacts
+
+_ADAPT_KEYS = ("z", "log_eps", "log_T", "inv_mass")
+_FP_SAMPLE_BYTES = 65536
+
+
+def _leaf_digest(leaf) -> bytes:
+    """``shape|dtype|`` and a strided sample of at most 64 KiB of a leaf's
+    bytes; ``repr`` for a leaf that is not a buffer.  A tensor is sampled
+    on its device and only the sample crosses to the host; a CPU tensor
+    gives the bytes of the same numpy array."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().contiguous()
+        try:
+            dtype = str(torch.empty((), dtype=t.dtype).numpy().dtype)
+        except TypeError:  # no numpy dtype (bfloat16)
+            dtype = str(t.dtype)
+        b = t.reshape(-1).view(torch.uint8)
+        if b.numel() > _FP_SAMPLE_BYTES:
+            idx = np.linspace(0, b.numel() - 1, _FP_SAMPLE_BYTES).astype(np.int64)
+            b = b[torch.from_numpy(idx).to(b.device)]
+        return f"{tuple(t.shape)}|{dtype}|".encode() + b.cpu().numpy().tobytes()
+    try:
+        a = np.ascontiguousarray(np.asarray(leaf))
+        b = a.view(np.uint8).ravel()
+        if b.size > _FP_SAMPLE_BYTES:
+            b = b[np.linspace(0, b.size - 1, _FP_SAMPLE_BYTES).astype(np.int64)]
+        return f"{a.shape}|{a.dtype}|".encode() + b.tobytes()
+    except (TypeError, ValueError):  # not a buffer (object, scalar)
+        return repr(leaf).encode()
+
+
+def data_fingerprint(data) -> str:
+    """Order-stable fingerprint of a data tree: its structure (dicts by
+    sorted key, lists and tuples), every leaf's shape and dtype, and a
+    strided sample of at most 64 KiB of each leaf's bytes, so N=1M stays
+    cheap; ``"none"`` for None.  It keys the adaptation artifact to the
+    dataset it was tuned on (same model and width, another dataset must
+    not be imported).  The JAX package's recipe; its hex differs (that
+    package hashes the repr of a JAX tree structure), so an artifact one
+    package wrote is another dataset to the other, never silently
+    reused."""
+    if data is None:
+        return "none"
+    leaves: List[Any] = []
+
+    def structure(x) -> str:
+        if x is None:
+            return "none"
+        if isinstance(x, dict):
+            return "{" + ",".join(f"{k!r}:{structure(x[k])}" for k in sorted(x)) + "}"
+        if isinstance(x, list):
+            return "[" + ",".join(structure(v) for v in x) + "]"
+        if isinstance(x, tuple):
+            return f"{type(x).__name__}(" + ",".join(structure(v) for v in x) + ")"
+        leaves.append(x)
+        return "*"
+
+    h = hashlib.sha1(structure(data).encode())
+    for leaf in leaves:
+        h.update(_leaf_digest(leaf))
+    return h.hexdigest()[:16]
+
+
+def load_adapt_state(path, *, kernel, model_name, ndim, data_fp=None):
+    """Load and validate an adaptation artifact (``adapt_path``).
+
+    -> ``(arrays, None)`` when it is usable; ``(None, None)`` when there
+    is no file; ``(None, reason)`` otherwise: missing arrays, another
+    kernel, model or width, another dataset (``data_fp`` given and not
+    the artifact's), or the repr of the load error.  The one validation
+    the runner's import and a caller's own decision share."""
+    if not path or not os.path.exists(path):
+        return None, None
+    try:
+        arrays, meta = load_checkpoint(path)
+        missing = [k for k in _ADAPT_KEYS if k not in arrays]
+        if missing:
+            return None, f"missing arrays: {missing}"
+        if (
+            meta.get("kernel") != kernel
+            or meta.get("model") != model_name
+            or int(arrays["inv_mass"].shape[-1]) != ndim
+        ):
+            return None, (
+                f"mismatch: kernel={meta.get('kernel')} "
+                f"model={meta.get('model')} "
+                f"ndim={arrays['inv_mass'].shape[-1]} "
+                f"(want {kernel}/{model_name}/{ndim})"
+            )
+        if data_fp is not None and meta.get("data_fp") != data_fp:
+            return None, (
+                f"mismatch: data_fp={meta.get('data_fp')} (want {data_fp}; "
+                "artifact was adapted on a different dataset)"
+            )
+        return arrays, None
+    except Exception as e:  # noqa: BLE001 — a corrupt artifact is a reason, not a crash
+        return None, repr(e)
+
+
+def import_starts(z: np.ndarray, chains: int, seed: int) -> np.ndarray:
+    """The imported run's start positions: the saved ``z`` sliced to
+    ``chains`` (tiled when there are more), jittered by half the
+    per-dimension cross-chain spread (0.05 where it is 0), so the starts
+    stay overdispersed and tiled copies separate.  numpy, as in the JAX
+    package, so both give the same bits for one artifact and seed."""
+    z = np.asarray(z)
+    if z.shape[0] >= chains:
+        z = z[:chains]
+    else:
+        reps = -(-chains // z.shape[0])
+        z = np.tile(z, (reps, 1))[:chains]
+    sd = z.std(axis=0)
+    sd = np.where(sd > 0, sd, 0.05).astype(z.dtype)
+    return z + 0.5 * sd * np.random.default_rng(seed).standard_normal(z.shape).astype(z.dtype)
 
 
 # ---------------------------------------------------------------- streams
@@ -111,6 +253,95 @@ def _gen_from_state(device: torch.device, state: np.ndarray, reseed: Optional[in
         )
     g.set_state(torch.from_numpy(state.copy()))
     return g
+
+
+# ----------------------------------------------------------- pipelining
+
+#: seconds the main thread waits for a block's verdict once it has driven
+#: the next block; past it the run raises.  The slowest processing is a
+#: validation pass over a long history (18.7 s at the flagship's 500
+#: draws per chain on an H100 host)
+BLOCK_VERDICT_TIMEOUT_S = 600.0
+
+
+class _Abandoned(Exception):
+    """The run no longer waits for this block's processing."""
+
+
+class _Job:
+    def __init__(self, fn, arg):
+        self.fn, self.arg = fn, arg
+        self.done = threading.Event()
+        self.value: Any = None
+        self.error: Optional[BaseException] = None
+        self.start = self.end = 0.0
+
+
+class _BlockWorker:
+    """The pipelined loop's second host thread: processes the submitted
+    blocks one at a time, in order, while the main thread drives the
+    next.  `stopping` turns true once a verdict stops the run or a
+    block's processing raised, so the main thread cuts the block it is
+    driving short at a transition boundary."""
+
+    def __init__(self):
+        self._jobs: "queue.Queue[Optional[_Job]]" = queue.Queue()
+        self._stop = threading.Event()
+        self.closed = self.stalled = False
+        self._thread = threading.Thread(target=self._serve, name="stark-block-worker", daemon=True)
+        self._thread.start()
+
+    def stopping(self) -> bool:
+        return self._stop.is_set()
+
+    def check_open(self) -> None:
+        """Raise `_Abandoned` once the run has stopped waiting (called by
+        the processing before each step that writes)."""
+        if self.closed:
+            raise _Abandoned
+
+    def submit(self, fn, arg) -> _Job:
+        job = _Job(fn, arg)
+        self._jobs.put(job)
+        return job
+
+    def _serve(self) -> None:
+        while True:
+            job = self._jobs.get()
+            if job is None:
+                return
+            job.start = time.perf_counter()
+            try:
+                job.value = job.fn(job.arg)
+                if job.value[1]:
+                    self._stop.set()
+            except Exception as e:  # noqa: BLE001 — raised again on the main thread
+                job.error = e
+                self._stop.set()
+            job.end = time.perf_counter()
+            job.done.set()
+
+    def result(self, job: _Job, what: str):
+        """The job's value, or its exception raised here; TimeoutError
+        after `BLOCK_VERDICT_TIMEOUT_S`."""
+        if not job.done.wait(BLOCK_VERDICT_TIMEOUT_S):
+            self.stalled = True
+            raise TimeoutError(
+                f"{what}'s processing gave no verdict within {BLOCK_VERDICT_TIMEOUT_S} s"
+            )
+        if job.error is not None:
+            raise job.error
+        return job.value
+
+    def close(self) -> None:
+        """Stop taking work and wait for the thread to finish the block
+        in hand (not for one that already timed out); a processing step
+        that returns after this skips its remaining writes."""
+        self.closed = True
+        self._jobs.put(None)
+        self._thread.join(0.0 if self.stalled else BLOCK_VERDICT_TIMEOUT_S)
+        if self._thread.is_alive():
+            log.warning("the block worker is still busy; the run ends without it")
 
 
 # ------------------------------------------------------------------ gate
@@ -188,12 +419,6 @@ class StopGate:
         """Draws per chain so far."""
         return self.draws.rows
 
-    def more(self) -> bool:
-        """Whether the budget allows another block."""
-        if self.adaptive_blocks:
-            return self.draws.rows < self.max_draws
-        return self.blocks_done < self.max_blocks
-
     def _rate_and_deficit(self, points):
         """(rate, deficit) from a (draws, min_ess) trail: the rate over
         the last two finite points when positive, else the cumulative
@@ -212,18 +437,22 @@ class StopGate:
             rate = ess_u / draws_u
         return rate, self.ess_target - ess_u
 
-    def next_block_len(self) -> int:
-        """Length of the next block (0: the budget is spent).  The
-        forecast reads the trail only up to block m-2 when sizing block m,
-        as the JAX package's pipelined loop must; its serial loop and a
-        resumed run read the same window, so every mode sizes every block
+    def next_block_len(self, blocks: Optional[int] = None, draws: Optional[int] = None) -> int:
+        """Length of the next block after ``blocks`` blocks and ``draws``
+        draws per chain dispatched (default: those processed; the
+        pipelined loop dispatches one block ahead); 0 when the budget is
+        spent.  The forecast reads the trail only up to block m-2 when
+        sizing block m, which is what the pipelined loop knows then
+        (block m-1 is being processed); the serial loop and a resumed
+        run read the same window, so every mode sizes every block
         alike."""
+        m = self.blocks_done if blocks is None else blocks  # 0-based ordinal of the next block
         if not self.adaptive_blocks:
-            return self.block_size
-        remaining = self.max_draws - self.draws.rows
+            return self.block_size if m < self.max_blocks else 0
+        draws = self.draws.rows if draws is None else draws
+        remaining = self.max_draws - draws
         if remaining <= 0:
             return 0
-        m = self.blocks_done  # 0-based ordinal of the next block
         n = min(self.cap, self.quantum * (2 ** min(m, 8)))
         rate, deficit = self._rate_and_deficit(self.points[: max(0, m - 1)])
         if rate and deficit is not None and deficit > 0:
@@ -359,28 +588,44 @@ def sample_until_converged(
     blocks by the ESS forecast (see `StopGate`); ``diag_lags`` is the
     accumulator's L.
 
-    Besides the JAX package's fields, a block record carries
-    ``t_dispatch_s`` (the sampling segment), ``t_diag_s`` (the gate: the
-    accumulator's read-back, the streaming statistics and any validation
-    pass), ``t_store_s`` (the draw-store append) and ``t_ckpt_s`` (flush
-    and checkpoint), and for NUTS ``tree_depth_mean`` and
-    ``tree_depth_max`` of the block's transitions (the JAX package reads
-    them in its health monitor, ROADMAP A12); ``warmup_done`` carries
-    ``t_setup_s`` (data preparation), ``t_map_s`` (the initial
-    evaluation and MAP descent or step-size search) and ``t_warmup_s``;
-    its ``warmup_grad_evals`` (per-chain units, times chains) counts the
-    ensemble evaluations after the initial state's and before sampling
-    for NUTS and HMC too (their step-size search and warmup).
+    ``sync_blocks``: False (the default unless ``STARK_SYNC_BLOCKS=1``)
+    runs the pipelined loop, True the serial one; both give the same
+    draws, records (but their timing), checkpoints and store bytes.
+    ``adapt_path`` (ChEES): import the adaptation artifact there when
+    `load_adapt_state` accepts it (the same kernel, model, width and
+    `data_fingerprint` of ``data`` as the caller passed it), start near
+    its positions (`import_starts`) and replace warmup by a touch-up of
+    ``max(20, int(num_warmup * adapt_touchup_frac))`` transitions that
+    re-tunes the step size alone; a rejected artifact is an
+    ``adapt_import_rejected`` record and a full warmup.
+    ``adapt_export_path`` (default ``adapt_path``): after a fresh full
+    warmup, export the artifact there; never after an import (an
+    ``adapt_export_skipped`` record, the artifact left as it was) or a
+    resume, never a non-finite state.  NUTS and HMC neither import nor
+    export, as in the JAX package.
 
-    Not ported, each refused with its ROADMAP item: the pipelined loop
-    (``sync_blocks=False``), adaptation reuse (``adapt_path``,
-    ``adapt_export_path``), ``trace`` and ``profile_dir``, and ragged
-    NUTS (``STARK_RAGGED_NUTS=1``).
+    Besides the JAX package's fields, a block record carries
+    ``t_dispatch_s`` (driving the block, and the copy to the host of
+    what its processing reads), ``t_diag_s`` (the gate: the streaming
+    statistics and any validation pass), ``t_store_s`` (the draw-store
+    append), ``t_ckpt_s`` (flush and checkpoint), ``t_wait_s`` (the main
+    thread's wait for the block's verdict after driving the next block;
+    0 in the serial loop, whose main thread does the processing itself)
+    and ``t_hidden_s`` (the seconds of the block's processing that ran
+    while the next block was driven; 0 in the serial loop), and for NUTS
+    ``tree_depth_mean`` and ``tree_depth_max`` of the block's transitions
+    (the JAX package reads them in its health monitor, ROADMAP A12);
+    ``warmup_done`` carries ``t_setup_s`` (data preparation), ``t_map_s``
+    (the initial evaluation and MAP descent or step-size search) and
+    ``t_warmup_s`` (warmup or touch-up), and ``adapt_imported`` after an
+    import; its ``warmup_grad_evals`` (per-chain units, times chains)
+    counts the ensemble evaluations after the initial state's and before
+    sampling (the touch-up's after an import), for NUTS and HMC too
+    (their step-size search and warmup).
+
+    Not ported, each refused with its ROADMAP item: ``trace`` and
+    ``profile_dir``, and ragged NUTS (``STARK_RAGGED_NUTS=1``).
     """
-    if sync_blocks is False:
-        refuse("the pipelined block loop (sync_blocks=False)", "A6, the pipelined loop")
-    if adapt_path is not None or adapt_export_path is not None:
-        refuse("adaptation reuse (adapt_path / adapt_export_path)", "A6, adaptation reuse")
     if trace is not None:
         refuse("run telemetry (trace=)", "A12")
     if profile_dir is not None:
@@ -395,20 +640,31 @@ def sample_until_converged(
     stream_diag = True if stream_diag is None else bool(stream_diag)
     adaptive_blocks = True if adaptive_blocks is None else bool(adaptive_blocks)
     diag_lags = STREAM_DIAG_LAGS if diag_lags is None else int(diag_lags)
+    if sync_blocks is None:
+        sync_blocks = os.environ.get("STARK_SYNC_BLOCKS", "") == "1"
     checkpoint_path = rank_path(checkpoint_path)
     resume_from = rank_path(resume_from)
     metrics_path = rank_path(metrics_path)
     draw_store_path = rank_path(draw_store_path)
+    adapt_path = rank_path(adapt_path)
+    # a caller can import a pinned artifact and export elsewhere
+    adapt_export_path = rank_path(adapt_export_path) or adapt_path
+    # the caller's data, before the backend prepares it: a caller holding
+    # the same raw data computes the same key
+    adapt_fp = data_fingerprint(data) if (adapt_path or adapt_export_path) else None
 
     t_call = time.perf_counter()
     ap = backend.adaptive_parts(model, cfg, data)
     t_setup = time.perf_counter() - t_call
     fm, extra = ap.fm, ap.extra
     dev = backend.device
+    reuses = ap.import_carry is not None  # the sampler takes part in adaptation reuse
 
     t_start = time.perf_counter()
     metrics_f = open(metrics_path, "a") if metrics_path else None
     evals = 0  # ensemble gradient evaluations of this call
+    discarded = 0  # those of the speculative block thrown away
+    discarded_s = 0.0
 
     def emit(rec):
         # flushed and fsynced line by line: the trail documents crashes,
@@ -466,10 +722,63 @@ def sample_until_converged(
                 save_warmup_checkpoint(carry, g_samp, g_warm, e, n_div, n_warm)
         return carry, n_div, n_warm, here
 
-    def finish_warmup(carry, n_div, n_warm, t_map, t_warm, resumed_from=None):
-        """The sampling carry after warmup, and the ``warmup_done``
-        record."""
+    def run_touchup(carry, g_warm, n_warm):
+        """The imported run's touch-up in segments of at most
+        ``block_size``, on the warmup stream, with no checkpoint (a fault
+        here restarts from the artifact).  -> as `run_warmup`."""
+        noise = TorchNoise(g_warm)
+        total = max(20, int(cfg.num_warmup * adapt_touchup_frac))
+        n_div = here = 0
+        for s in range(0, total, block_size):
+            e = min(s + block_size, total)
+            carry, nd, n = ap.touch_j(carry, noise, s, e, total, *extra)
+            n_div += int(nd)
+            here += int(n)
+        return carry, n_div, n_warm + here, here
+
+    def load_adapt_import():
+        """The accepted artifact's arrays, the start positions jittered
+        (`import_starts`), or None: no file, or a rejected one (recorded;
+        the run then warms up in full)."""
+        arrays, reason = load_adapt_state(
+            adapt_path, kernel=cfg.kernel, model_name=type(model).__name__, ndim=fm.ndim,
+            data_fp=adapt_fp,
+        )
+        if arrays is None:
+            if reason is not None:
+                emit({"event": "adapt_import_rejected", "reason": reason})
+            return None
+        imported = {k: np.asarray(arrays[k]) for k in _ADAPT_KEYS}
+        imported["z"] = import_starts(imported["z"], chains, seed)
+        return imported
+
+    def save_adapt(run_carry):
+        """Export the adaptation (atomically, in the checkpoint format);
+        a non-finite state is never exported: it would poison every run
+        that imports it."""
+        arrays = ap.run_arrays(run_carry)
+        leaves = {k: arrays[k] for k in _ADAPT_KEYS}
+        if not all(np.all(np.isfinite(a)) for a in leaves.values()):
+            emit({"event": "adapt_export_skipped", "reason": "non-finite warmup state"})
+            return
+        save_checkpoint(adapt_export_path, leaves, {
+            "kernel": cfg.kernel,
+            "model": type(model).__name__,
+            "num_warmup": cfg.num_warmup,
+            "data_fp": adapt_fp,
+        })
+
+    def finish_warmup(carry, n_div, n_warm, t_map, t_warm, resumed_from=None, imported=False):
+        """The sampling carry after warmup, the adaptation export of a
+        fresh run, and the ``warmup_done`` record."""
         run_carry = ap.finalize(carry)
+        if reuses and adapt_export_path and resumed_from is None:
+            if imported:
+                # the artifact stays byte-identical: a touch-up's re-tuned
+                # step would trade a full warmup's state for noise
+                emit({"event": "adapt_export_skipped", "reason": "imported"})
+            else:
+                save_adapt(run_carry)
         rec = {
             "event": "warmup_done",
             "wall_s": time.perf_counter() - t_start,
@@ -483,6 +792,8 @@ def sample_until_converged(
         }
         if resumed_from is not None:
             rec["resumed_from_step"] = int(resumed_from)
+        if imported:
+            rec["adapt_imported"] = True
         emit(rec)
         return run_carry
 
@@ -541,17 +852,26 @@ def sample_until_converged(
         else:
             g_init, g_warm, g_samp = chain_streams(seed, dev)
             drawn = 0
+            imported = load_adapt_import() if reuses and adapt_path else None
             t = time.perf_counter()
-            z0 = ap.init_positions(g_init, chains, init_params)
+            if imported is not None:
+                z0 = ap.put_chains(np.asarray(imported["z"], np.float32))
+            else:
+                z0 = ap.init_positions(g_init, chains, init_params)
             # the initial state, then MAP steps or the step-size search
             # (warmup stream)
             carry, n_pre = ap.init_j(TorchNoise(g_warm), z0, *extra)
             evals += 1 + n_pre
             t_map = time.perf_counter() - t
             t = time.perf_counter()
-            carry, n_div, n_warm, here = run_warmup(carry, 0, g_samp, g_warm, 0, n_pre)
+            if imported is not None:
+                carry, n_div, n_warm, here = run_touchup(ap.import_carry(carry, imported), g_warm,
+                                                         n_pre)
+            else:
+                carry, n_div, n_warm, here = run_warmup(carry, 0, g_samp, g_warm, 0, n_pre)
             evals += here
-            run_carry = finish_warmup(carry, n_div, n_warm, t_map, time.perf_counter() - t)
+            run_carry = finish_warmup(carry, n_div, n_warm, t_map, time.perf_counter() - t,
+                                      imported=imported is not None)
 
         gate = StopGate(
             chains, fm.ndim, block_size=block_size, max_blocks=max_blocks,
@@ -571,80 +891,144 @@ def sample_until_converged(
             )
             diag = StreamDiagState(**{k: ap.put_chains(v) for k, v in host.items()})
         noise = TorchNoise(g_samp)
-        draw_store = None
+        draw_store = worker = None
         converged = budget_exhausted = False
+        blocks_dispatched = blocks_done
+
+        def dispatch(stop=None):
+            """Drive the next block on this thread -> its snapshot: the
+            block and, on the host, everything its processing reads
+            (the accumulator, the sampling state and generator state for
+            the checkpoint and the health check), taken before the next
+            block can advance them; None when the budget allows no block.
+            ``stop`` is checked after each transition."""
+            nonlocal run_carry, diag, drawn, blocks_dispatched
+            length = gate.next_block_len(blocks_dispatched, drawn)
+            if length <= 0:
+                return None
+            t0 = time.perf_counter()
+            run_carry, diag, blk = ap.samp_j(run_carry, diag, noise, drawn, length, *extra,
+                                             stop=stop)
+            drawn += length
+            blocks_dispatched += 1
+            snap = {"blk": blk, "block": blocks_dispatched, "arrays": None, "diag": None, "t0": t0}
+            if health_check or checkpoint_path:
+                snap["arrays"] = ap.run_arrays(run_carry)
+                snap["arrays"]["key"] = _gen_state(g_samp)
+            if stream_diag:
+                snap["diag"] = tuple(ap.collect(diag))
+            snap["t1"] = time.perf_counter()
+            return snap
+
+        def process_block(snap):
+            """Block k's host work, in order: the health check, the gate
+            (and any validation pass), the draw-store append, the record
+            and the checkpoint.  On the worker thread in the pipelined
+            loop: it reads only the snapshot and host state.  -> (the
+            record, whether the run stops)."""
+            nonlocal total_div, converged, budget_exhausted
+            blk = snap["blk"]
+            if snap["arrays"] is not None:
+                check_finite(snap["arrays"])
+            t = time.perf_counter()
+            grec, converged = gate.observe(blk.zs, snap["diag"])
+            t_diag = time.perf_counter() - t
+            if worker is not None:
+                worker.check_open()
+            t = time.perf_counter()
+            if draw_store is not None:
+                draw_store.append(blk.zs)
+            t_store = time.perf_counter() - t
+            total_div += int(np.sum(blk.divergent))
+            rec = {
+                "event": "block",
+                **grec,
+                "num_divergent": total_div,
+                "mean_accept": float(np.mean(blk.accept)),
+                "t_dispatch_s": snap["t1"] - snap["t0"],
+                "t_diag_s": t_diag,
+                "t_store_s": t_store,
+                "block_grad_evals": blk.grads,
+                **blk.record,
+                "wall_s": time.perf_counter() - t_start,
+            }
+            history.append(rec)
+            if worker is not None:
+                worker.check_open()
+            t = time.perf_counter()
+            if checkpoint_path:
+                arrays = snap["arrays"]
+                if draw_store is None:
+                    # no store: the draws ride in the checkpoint
+                    arrays["draws"] = gate.draws.view()
+                else:
+                    draw_store.flush()  # the store on disk before the state advances
+                save_checkpoint(checkpoint_path, arrays, {
+                    "blocks_done": gate.blocks_done,
+                    "block_size": block_size,
+                    "draw_rows": gate.rows,
+                    "num_divergent": total_div,
+                    "history": history,
+                    "model": type(model).__name__,
+                    "kernel": cfg.kernel,
+                })
+            rec["t_ckpt_s"] = time.perf_counter() - t
+            if (not converged and time_budget_s is not None
+                    and time.perf_counter() - t_start > time_budget_s):
+                # after the block is recorded and checkpointed, so the
+                # result accounts for every draw
+                budget_exhausted = True
+            return rec, converged or budget_exhausted
+
+        def account(snap, rec, t_wait, t_hidden):
+            """Count a processed block's evaluations and emit its record
+            (on the main thread, like every record)."""
+            nonlocal evals
+            evals += snap["blk"].evals
+            rec["t_wait_s"] = t_wait
+            rec["t_hidden_s"] = t_hidden
+            emit(rec)
+            if budget_exhausted:
+                emit({
+                    "event": "budget_exhausted",
+                    "time_budget_s": float(time_budget_s),
+                    "wall_s": time.perf_counter() - t_start,
+                })
+
         try:
             if draw_store_path:
                 from .drawstore import DrawStore
 
                 draw_store = DrawStore(draw_store_path, chains, fm.ndim)
-            while gate.more():
-                length = gate.next_block_len()
-                if length <= 0:
-                    break
-                t_blk = time.perf_counter()
-                run_carry, diag, blk = ap.samp_j(run_carry, diag, noise, drawn, length, *extra)
-                drawn += length
-                t_dispatch = time.perf_counter() - t_blk
-                evals += blk.evals
-                arrays = None
-                if health_check or checkpoint_path:
-                    arrays = ap.run_arrays(run_carry)
-                    check_finite(arrays)
-                t = time.perf_counter()
-                diag_host = tuple(ap.collect(diag)) if stream_diag else None
-                grec, converged = gate.observe(blk.zs, diag_host)
-                t_diag = time.perf_counter() - t
-                t = time.perf_counter()
-                if draw_store is not None:
-                    draw_store.append(blk.zs)
-                t_store = time.perf_counter() - t
-                total_div += int(np.sum(blk.divergent))
-                rec = {
-                    "event": "block",
-                    **grec,
-                    "num_divergent": total_div,
-                    "mean_accept": float(np.mean(blk.accept)),
-                    "t_dispatch_s": t_dispatch,
-                    "t_diag_s": t_diag,
-                    "t_store_s": t_store,
-                    "block_grad_evals": blk.grads,
-                    **blk.record,
-                    "wall_s": time.perf_counter() - t_start,
-                }
-                history.append(rec)
-                t = time.perf_counter()
-                if checkpoint_path:
-                    arrays["key"] = _gen_state(g_samp)
-                    if draw_store is None:
-                        # no store: the draws ride in the checkpoint
-                        arrays["draws"] = gate.draws.view()
-                    else:
-                        draw_store.flush()  # the store on disk before the state advances
-                    save_checkpoint(checkpoint_path, arrays, {
-                        "blocks_done": gate.blocks_done,
-                        "block_size": block_size,
-                        "draw_rows": gate.rows,
-                        "num_divergent": total_div,
-                        "history": history,
-                        "model": type(model).__name__,
-                        "kernel": cfg.kernel,
-                    })
-                rec["t_ckpt_s"] = time.perf_counter() - t
-                emit(rec)
-                if converged:
-                    break
-                if time_budget_s is not None and time.perf_counter() - t_start > time_budget_s:
-                    # after the block is recorded and checkpointed, so the
-                    # result accounts for every draw
-                    budget_exhausted = True
-                    emit({
-                        "event": "budget_exhausted",
-                        "time_budget_s": float(time_budget_s),
-                        "wall_s": time.perf_counter() - t_start,
-                    })
-                    break
+            if not sync_blocks:
+                worker = _BlockWorker()
+            cur = dispatch()
+            while cur is not None:
+                if worker is None:
+                    rec, stop = process_block(cur)
+                    account(cur, rec, 0.0, 0.0)
+                    nxt = None if stop else dispatch()
+                else:
+                    # the overlap: block k+1 on this thread while the
+                    # worker processes block k; a stop verdict cuts k+1 short
+                    job = worker.submit(process_block, cur)
+                    nxt = dispatch(worker.stopping)
+                    t = time.perf_counter()
+                    rec, stop = worker.result(job, f"block {cur['block']}")
+                    t_wait = time.perf_counter() - t
+                    hidden = (max(0.0, min(job.end, nxt["t1"]) - max(job.start, nxt["t0"]))
+                              if nxt else 0.0)
+                    account(cur, rec, t_wait, hidden)
+                    if stop and nxt is not None:
+                        # the speculative block: the serial loop never ran
+                        # it, and none of its draws, rows or state is kept
+                        discarded += nxt["blk"].evals
+                        discarded_s += nxt["t1"] - nxt["t0"]
+                        nxt = None
+                cur = nxt
         finally:
+            if worker is not None:
+                worker.close()
             if draw_store is not None:
                 draw_store.close()
     finally:
@@ -655,6 +1039,7 @@ def sample_until_converged(
     stats = {
         "num_divergent": np.asarray(total_div),
         "num_ensemble_grad_evals": np.asarray(evals),
+        "num_discarded_ensemble_grad_evals": np.asarray(discarded),
     }
     result = AdaptiveResult(
         constrain_draws(fm, all_draws),
@@ -666,5 +1051,6 @@ def sample_until_converged(
         wall_s=time.perf_counter() - t_start,
     )
     result.budget_exhausted = budget_exhausted
+    result.discarded_s = discarded_s
     result.overshoot_draws = gate.overshoot() if converged else None
     return result

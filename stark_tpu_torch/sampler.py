@@ -337,10 +337,12 @@ def _empty_outs(chains, d, torch_dtype):
     )
 
 
-def _transitions(kernel, n, noise, state, potential_fn, step_size, inv_mass, diag=None):
-    """``n`` sampling transitions; every draw and stat goes to the host as
-    it is made (the device holds no draw history).  Returns (state, diag,
-    outs, ensemble evaluations)."""
+def _transitions(kernel, n, noise, state, potential_fn, step_size, inv_mass, diag=None,
+                 stop=None):
+    """``n`` sampling transitions, fewer when ``stop()`` (checked after
+    each) turns true; every draw and stat goes to the host as it is made
+    (the device holds no draw history).  Returns (state, diag, outs,
+    ensemble evaluations)."""
     rows = ([], [], [], [], [])
     evals = 0
     for _ in range(n):
@@ -352,6 +354,8 @@ def _transitions(kernel, n, noise, state, potential_fn, step_size, inv_mass, dia
         for lst, t in zip(rows, (state.z, info.accept_prob, info.is_divergent, info.energy,
                                  info.num_grad_evals)):
             lst.append(t.cpu())
+        if stop is not None and stop():
+            break
     if n:
         outs = tuple(torch.stack(r, 1).numpy() for r in rows)  # chain-major (C, n, ...)
     else:
@@ -380,21 +384,23 @@ def refuse_ragged_nuts():
 def make_block_runner(fm, cfg: SamplerConfig, block_size: int, ragged: bool = False):
     """One draw block of the segmented loop and the adaptive runner:
 
-      block_run(noise, state, diag, step_size, inv_mass, data)
+      block_run(noise, state, diag, step_size, inv_mass, data, stop=None)
         -> (HMCState, diag, zs, accept, divergent, energy, ngrad, evaluations)
 
     zs (C, block_size, d) and the (C, block_size) stats on the host;
     evaluations is the block's ensemble evaluations.  ``diag`` is the
     streaming-diagnostics accumulator, or None; it only reads each draw,
-    so the draws are the same with it or without it.  ``ragged`` (the JAX
+    so the draws are the same with it or without it.  ``stop``, checked
+    between transitions, ends the block early.  ``ragged`` (the JAX
     package's step-synchronized NUTS) is refused."""
     if ragged:
         refuse_ragged_nuts()
     kernel = make_kernel(cfg)
 
-    def block_run(noise, state, diag, step_size, inv_mass, data=None):
+    def block_run(noise, state, diag, step_size, inv_mass, data=None, stop=None):
         state, diag, outs, evals = _transitions(
-            kernel, block_size, noise, state, fm.bind(data), step_size, inv_mass, diag=diag
+            kernel, block_size, noise, state, fm.bind(data), step_size, inv_mass, diag=diag,
+            stop=stop,
         )
         return (state, diag, *outs, evals)
 

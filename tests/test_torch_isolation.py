@@ -231,3 +231,27 @@ def test_zoo_models_default_to_the_card(monkeypatch, family):
     post = sample(model, raw, chains=2, num_warmup=3, num_samples=3, max_tree_depth=3,
                   device="cpu")
     assert np.all(np.isfinite(post.draws_flat))
+
+
+def test_adaptation_reuse_and_the_pipeline_stand_alone(monkeypatch, tmp_path):
+    """The runner's adaptation-reuse exports are the package's, its
+    worker thread is plain threading, and with adaptation reuse and the
+    pipelined loop asked for, no card still means a raise before any
+    file is written (the fingerprint reads the caller's data only)."""
+    from stark_tpu_torch import runner
+
+    assert stark_tpu_torch.data_fingerprint is runner.data_fingerprint
+    assert stark_tpu_torch.load_adapt_state is runner.load_adapt_state
+    assert {"data_fingerprint", "load_adapt_state"} <= set(stark_tpu_torch.__all__)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model, raw = _ENTRY_MODELS["flagship"]()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sample_until_converged(model, raw, kernel="chees", chains=2, num_warmup=2,
+                               max_blocks=1, sync_blocks=False,
+                               adapt_path=str(tmp_path / "a.npz"),
+                               metrics_path=str(tmp_path / "m.jsonl"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        supervised_sample(model, raw, workdir=str(tmp_path / "w"), kernel="chees", chains=2,
+                          num_warmup=2, max_blocks=1, adapt_path=str(tmp_path / "a.npz"),
+                          adapt_touchup_frac=0.5)
+    assert list(tmp_path.iterdir()) == []

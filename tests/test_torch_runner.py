@@ -289,9 +289,8 @@ def test_backend_takes_the_card_unless_told_otherwise(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(sync_blocks=False), "A6"), (dict(adapt_path="x.npz"), "A6"),
-    (dict(adapt_export_path="x.npz"), "A6"), (dict(trace=object()), "A12"),
-    (dict(profile_dir="p"), "A12"), (dict(kernel="nuts", env={"STARK_RAGGED_NUTS": "1"}), "A8"),
+    (dict(trace=object()), "A12"), (dict(profile_dir="p"), "A12"),
+    (dict(kernel="nuts", env={"STARK_RAGGED_NUTS": "1"}), "A8"),
 ])
 def test_unported_options_are_refused(kw, item, monkeypatch):
     kw = dict(kw)
@@ -319,3 +318,21 @@ def test_flagship_model_through_the_backend_and_the_supervisor(tmp_path):
     np.testing.assert_array_equal(stored.transpose(1, 0, 2), post.draws_flat)
     _, meta = load_checkpoint(str(tmp_path / "w" / "chain.ckpt.npz"))
     assert meta["blocks_done"] == len(post.history)
+
+
+def test_a_run_without_blocks_gives_no_draws_like_the_reference():
+    """max_blocks=0: warmup only, and every parameter's draws of length
+    0, as the JAX package gives (a bijector's log-det once failed on a
+    batch of no rows)."""
+    from stark_tpu.models.eight_schools import EightSchools as RefEightSchools
+    from stark_tpu.models.eight_schools import eight_schools_data as ref_data
+    from stark_tpu_torch.models import EightSchools, eight_schools_data
+
+    kw = dict(chains=4, kernel="chees", num_warmup=10, block_size=5, max_blocks=0,
+              init_step_size=0.1)
+    ref = stark_tpu.sample_until_converged(RefEightSchools(), ref_data(), **kw)
+    post = sample_until_converged(EightSchools(), eight_schools_data(), device="cpu", **kw)
+    assert post.draws_flat.shape == ref.draws_flat.shape == (4, 0, 10)
+    assert {k: v.shape for k, v in post.draws.items()} == {
+        k: tuple(v.shape) for k, v in ref.draws.items()}
+    assert post.history == [] and not post.converged
