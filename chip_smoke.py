@@ -188,7 +188,7 @@ Phases, in order; any failure exits non-zero (none is caught):
                 magnitude, rtol 1e-4 / atol 2e-5), repeated bitwise and
                 timed beside autograd; IRT's triples op the same on the
                 responses without every third; then seven NUTS legs
-                (depth 6, 30 + 30) through sample(): FusedIRT2PL,
+                (depth 6, 20 + 20) through sample(): FusedIRT2PL,
                 FusedOrderedLogistic and FusedStudentTRegression with
                 their knobs on, NegBinomialRegression,
                 HorseshoeRegression, CoxPH and StochasticVolatility, each
@@ -198,7 +198,31 @@ Phases, in order; any failure exits non-zero (none is caught):
                 R-hat and its distance from the truth (max |mean beta -
                 beta|; corr(theta_hat, theta) for IRT; corr(h_hat, h) and
                 mean mu for SV)
- 19. profile  — one ensemble gradient evaluation of each sampled path at
+ 19. precision — STARK_FUSED_PRECISION=high and =default (ROADMAP B6):
+                every instantiation of B1 (C=64, C=8), B2 (bernoulli C=32
+                with and without offsets; gaussian at config 3's width and
+                at C=8, D=32, N=200,000; the shard axis at config 2's) and
+                B4 (config 3) against its plain version at the same
+                precision in float64 on dyadic inputs of the same shapes,
+                whose logits are exact (the highest tolerances plus, at the
+                bernoulli link, `link_slack`: rows whose rounded resid the
+                two may take apart), the plain version at highest shown
+                to fail default's check; B1 also at N=40,003, C=70; on
+                normal inputs a second launch bitwise equal, and against
+                the kernel at highest inside the reference's band (tools/
+                precision_parity.py:19-21); B2's and B4's edge cases at
+                high and default; CUDA-event times beside the bound (bf16
+                tensor cores, and the FP32 CUDA cores the kernels run on); then
+                chees_sample on the flagship (B1), its offset path (B2),
+                config 3 (B4) and its offset path (B2 gaussian), and
+                consensus_sample on config 2 (the shard axis) under each
+                precision, launches = evaluations, all at that precision;
+                then each fused model's potential and gradient under each
+                precision against its plain model at highest, inside the
+                band.  (The runner phase reruns its adapt_import leg at
+                high, warmup 100 and 2 blocks of 15: each parameter's
+                posterior mean shift in the gated leg's sds, below 0.3.)
+ 20. profile  — one ensemble gradient evaluation of each sampled path at
                 its final state (the GMM's at 16 points of its run):
                 host-clock time per evaluation, and under torch.profiler
                 the device time by kernel and the share of the window the
@@ -232,7 +256,9 @@ redesign, is expected to be).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -373,6 +399,7 @@ class Run:
             self.runner_budget = dict(map_init_steps=10, num_warmup=30, block_size=10, max_blocks=5)
             self.resume_budget = dict(map_init_steps=5, num_warmup=20, block_size=10, max_blocks=3)
             self.import_budget = dict(num_warmup=30, block_size=10, max_blocks=2)
+            self.import_precision_budget = self.import_budget
             self.nuts_budget = dict(max_tree_depth=4, num_warmup=20, num_samples=10)
             self.hmc_budget = dict(num_leapfrog=8, num_warmup=20, num_samples=10)
             self.nuts_runner_budget = dict(max_tree_depth=4, num_warmup=20, block_size=10,
@@ -393,6 +420,7 @@ class Run:
             self.zoo_sghmc_budget = dict(num_warmup=50, num_samples=100)
             self.irt_p, self.irt_i, self.sv_t = 100, 20, 128
             self.zoo_rest_budget = dict(max_tree_depth=4, num_warmup=20, num_samples=10)
+            self.precision_budget = dict(map_init_steps=5, num_warmup=10, num_samples=5)
         else:
             self.n_full, self.n_ragged = N_FULL, N_RAGGED
             self.lmm_n_full, self.lmm_n_ragged, self.lmm_g = LMM_N_FULL, LMM_N_RAGGED, LMM_G
@@ -415,6 +443,9 @@ class Run:
             # the adapt_import leg: the gated leg's warmup length, so an
             # 80-transition touch-up (0.2 of 400), then 2 blocks of 50
             self.import_budget = dict(num_warmup=400, block_size=50, max_blocks=2)
+            # its rerun at high: a 20-transition touch-up (0.2 of 100), 2
+            # blocks of 15
+            self.import_precision_budget = dict(num_warmup=100, block_size=15, max_blocks=2)
             # the reference bench's NUTS leg (bench.py:410-415): 8 chains,
             # tree depth 6; its 200 warmup and 200 samples cut to 10 each
             # (50 each), HMC's too (50 + 50); the runner's (warmup 30, 3
@@ -453,8 +484,14 @@ class Run:
             self.zoo_cons_budget = dict(num_leapfrog=16, num_warmup=10, num_samples=10)
             self.zoo_sghmc_budget = dict(num_warmup=100, num_samples=200)
             self.irt_p, self.irt_i, self.sv_t = IRT_P, IRT_I, SV_T
-            # the rest of the zoo's seven NUTS legs: depth 6, 30 + 30
-            self.zoo_rest_budget = dict(max_tree_depth=6, num_warmup=30, num_samples=30)
+            # the rest of the zoo's seven NUTS legs: depth 6, 20 + 20 (30 +
+            # 30 until PR 14's precision phases)
+            self.zoo_rest_budget = dict(max_tree_depth=6, num_warmup=20, num_samples=20)
+            # the precision phase's legs check the paths at each precision,
+            # not convergence: ChEES, MAP 3, warmup 3, samples 3 (MAP 10,
+            # warmup 10, samples 5: 98 s for the ten legs on one H100 80GB
+            # HBM3 at 700 W; 5 / 5 / 5: 42 s)
+            self.precision_budget = dict(map_init_steps=3, num_warmup=3, num_samples=3)
         # the shard-death leg: 8 shards of 4096 rows, one poisoned
         self.death_n = 8 * 4096
         self.death_budget = dict(map_init_steps=5, num_warmup=5, num_samples=5)
@@ -485,9 +522,20 @@ def counters():
     }
 
 
+def precision_counters():
+    """Kernel name -> the wrapper whose ``precision_launches`` count its
+    launches by dot precision."""
+    from stark_tpu_torch.ops import hier_fused as hf
+    from stark_tpu_torch.ops import logistic_fused as lf
+
+    return {"B1": hf.hier_grouped, "B2": lf.logistic_batched, "B4": hf.lmm_grouped}
+
+
 def reset_counts():
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
+    for fn in precision_counters().values():
+        fn.precision_launches = dict.fromkeys(fn.precision_launches, 0)
 
 
 def read_counts():
@@ -677,9 +725,9 @@ def _lmm_offset_inputs(run: Run, raw, chains, gen):
     return beta, xT, y, off
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_rate=FP32_FLOP_PER_S):
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / FP32_FLOP_PER_S
+    t_ops = 1e3 * flops / flop_rate
     return dict(
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -891,16 +939,20 @@ def times_at_nuts_chains(run: Run, full, gen):
     return out
 
 
-def b2_edge_inputs(n, d, c, link, gen, dev):
+def b2_edge_inputs(n, d, c, link, gen, dev, fine=False):
     """B2's arguments on small dyadic grids: x in {-1, -1/2, 0, 1/2, 1},
     beta in eighths of [-1/2, 1/2], offsets in quarters of [-1, 1], a
     gaussian y in quarters of [-2, 2].  The logits are then exact in
     float32, and so is every step of the gaussian link, so a wrong or
-    missing row shows at any width and float32 rounding does not."""
+    missing row shows at any width and float32 rounding does not.
+    ``fine``: x in steps of 2^-9 (up to 10 significant bits, so bf16
+    rounds it and x_lo is not 0), the logits still exact (multiples of
+    2^-12 below 2^8): the operands the dot precisions round are exercised
+    and the kernel and the plain version round the same values."""
     def grid(shape, k, step):
         return torch.randint(-k, k + 1, shape, generator=gen, device=dev).float() * step
 
-    xT = grid((d, n), 2, 0.5)
+    xT = grid((d, n), 512, 2.0 ** -9) if fine else grid((d, n), 2, 0.5)
     if link == "gaussian":
         y = grid((n,), 8, 0.25)
     else:
@@ -932,27 +984,61 @@ def plain_in_float64(fn, *args, **kw):
     return tuple(o.float() for o in out)
 
 
-def phase_b2_edges(run: Run, gen):
+def phase_b2_edges(run: Run, gen, prec="highest"):
     """B2 on its edge cases (B2_EDGE_CASES), both links, with and without
     offsets, against the plain version in float64, a second launch
     bitwise equal; then each width of B2_REFUSED refused before any
-    launch."""
+    launch.  At another dot precision ``prec``: the kernel at ``prec``
+    against the plain version at ``prec`` in float64, the bernoulli
+    link's rows near a rounding boundary of resid allowed their
+    `link_slack` (the logits are exact); at default on `b2_edge_inputs`'
+    fine grid, at high on its coarse one, whose gradient sums are exact
+    in float32 (x_lo is 0 there, so high's staging of every shape is
+    checked and its rounding by `phase_precision_kernels`).  On the fine
+    grid high's three float32 FMAs a product stand, at the widest
+    shapes, about as far from float64 sums as highest's tolerance: that
+    distance is measured, beside highest's on the same inputs."""
     from stark_tpu_torch.ops import logistic_fused as lf
 
     worst = 0.0
+    fine = prec == "default"
     for n, d, c in B2_EDGE_CASES:
         for link in ("bernoulli_logit", "gaussian"):
-            xT, y, beta, offsets = b2_edge_inputs(n, d, c, link, gen, run.dev)
+            xT, y, beta, offsets = b2_edge_inputs(n, d, c, link, gen, run.dev, fine)
             for off in (None, offsets):
-                got = lf.logistic_batched(beta, xT, y, off, link)
-                again = lf.logistic_batched(beta, xT, y, off, link)
+                with env(PREC_KNOB, prec):
+                    got = lf.logistic_batched(beta, xT, y, off, link)
+                    again = lf.logistic_batched(beta, xT, y, off, link)
                 run.sync()
-                want = yardstick(run, lf.logistic_batched_plain, beta, xT, y, off, link=link)
-                worst = max(worst, compare(f"B2 N={n} D={d} C={c} {link}", got, want, quiet=True))
+                want = yardstick(run, lf.logistic_batched_plain, beta, xT, y, off, link=link,
+                                 prec=prec)
+                name = f"B2 N={n} D={d} C={c} {link}"
+                if prec != "highest":
+                    slack = b2_link_slack((beta, xT, y, off), prec, link)
+                    err, excess = compare_slack(name, got, want, slack, GRAD_RTOL, GRAD_ATOL,
+                                                quiet=True)
+                    assert excess <= 0, f"{name}: error exceeds its bound by {excess:.4g}"
+                else:
+                    err = compare(name, got, want, quiet=True)
+                worst = max(worst, err)
                 assert all(torch.equal(a, b) for a, b in zip(got, again)), (n, d, c, link)
-    log(f"  B2 edge cases: {len(B2_EDGE_CASES)} shapes x 2 links x with/without offsets "
-        f"match the plain version in {yardstick_name(run)} (max abs err {worst:.6g}), second launches "
-        f"bitwise equal")
+    log(f"  B2 edge cases at {prec}{' on the fine grid' if fine else ''}: {len(B2_EDGE_CASES)} "
+        f"shapes x 2 links x with/without offsets match the plain version in "
+        f"{yardstick_name(run)} (max abs err {worst:.6g}), second launches bitwise equal")
+    if prec == "high":
+        n, d, c = 60_002, 300, 32
+        xT, y, beta, _ = b2_edge_inputs(n, d, c, "gaussian", gen, run.dev, fine=True)
+        for p in ("highest", "high"):
+            with env(PREC_KNOB, p):
+                got = lf.logistic_batched(beta, xT, y, None, "gaussian")
+            want = yardstick(run, lf.logistic_batched_plain, beta, xT, y, None, link="gaussian",
+                             prec=p)
+            err, excess = compare_slack("", got, want, [], GRAD_RTOL, GRAD_ATOL, quiet=True)
+            log(f"  B2 N={n} D={d} C={c} gaussian on the fine grid at {p} (measured): max abs "
+                f"err {err:.6g} against {yardstick_name(run)}, largest excess over highest's "
+                f"tolerances {excess:.4g}")
+    if prec != "highest":
+        return
     # why float64 is the yardstick: normal inputs, the kernel and the
     # float32 plain version each held against the float64 plain version
     n, d, c = 40_003, 32, 20
@@ -1325,12 +1411,14 @@ def phase_tempering(run: Run):
     return out
 
 
-def b4_edge_inputs(ids, n, d, q, c, groups, rs):
+def b4_edge_inputs(ids, n, d, q, c, groups, rs, fine=False):
     """B4's raw rows (x, z, y, g) and (beta, u, intercept), numpy, on small
     dyadic grids: x and z's slopes in halves of [-1, 1], y in quarters of
     [-2, 2], beta in eighths of [-1/2, 1/2], u and the intercepts in
     quarters of [-1, 1]; mu and resid are then exact in float32.  ``ids``
-    picks the group ids (B4_EDGE_CASES)."""
+    picks the group ids (B4_EDGE_CASES).  ``fine``: x in steps of 2^-9,
+    so that the dot precisions round x and resid, mu and resid z still
+    exact (`b2_edge_inputs`)."""
     def grid(shape, k, step):
         return (rs.randint(-k, k + 1, size=shape) * step).astype(np.float32)
 
@@ -1347,39 +1435,48 @@ def b4_edge_inputs(ids, n, d, q, c, groups, rs):
         margin = 5 if ids == "ends" else 0
         g = rs.randint(margin, groups - margin, size=n).astype(np.int32)
     n = g.shape[0]
-    raw = {"x": grid((n, d), 2, 0.5),
+    raw = {"x": grid((n, d), 512, 2.0 ** -9) if fine else grid((n, d), 2, 0.5),
            "z": np.concatenate([np.ones((n, 1), np.float32), grid((n, q - 1), 2, 0.5)], 1),
            "y": grid((n,), 8, 0.25), "g": g}
     return raw, (grid((c, d), 4, 0.125), grid((c, groups, q), 4, 0.25), grid((c,), 4, 0.25))
 
 
-def phase_b4_edges(run: Run, b4_args):
+def phase_b4_edges(run: Run, b4_args, prec="highest"):
     """B4 on its edge cases (B4_EDGE_CASES) against the plain version in
     float64, a second launch bitwise equal, ids without rows exactly 0;
     B4_REFUSED refused before any launch; and on config 3's inputs
     (``b4_args``) the kernel's and the float32 plain version's largest
-    distance from float64."""
+    distance from float64.  At another dot precision ``prec``: the edge
+    cases on `b4_edge_inputs`' fine grid, the kernel at ``prec`` against
+    the plain version at ``prec`` in float64 (every operand exact, so
+    the two round the same values); at high on the coarse grid, whose
+    sums are exact (`phase_b2_edges`)."""
     from stark_tpu_torch.ops import hier_fused as hf
 
     rs = np.random.RandomState(6)
     worst = 0.0
     for ids, n, d, q, c, groups in B4_EDGE_CASES:
-        raw, params = b4_edge_inputs(ids, n, d, q, c, groups, rs)
+        raw, params = b4_edge_inputs(ids, n, d, q, c, groups, rs, fine=prec == "default")
         prep = hf.prepare_grouped(raw, d + q, transpose_keys=("x", "z"))
         assert prep is not None, (ids, n, d, q, c)
         t = [torch.as_tensor(prep[k], device=run.dev) for k in ("xT", "zT", "y", "gl", "first_gid")]
         args = (*(torch.as_tensor(a, device=run.dev) for a in params), *t, prep["lane_tile"])
-        got = hf.lmm_grouped(*args)
-        again = hf.lmm_grouped(*args)
+        with env(PREC_KNOB, prec):
+            got = hf.lmm_grouped(*args)
+            again = hf.lmm_grouped(*args)
         run.sync()
-        want = yardstick(run, hf.lmm_grouped_plain, *args)
+        want = yardstick(run, hf.lmm_grouped_plain, *args, prec=prec)
         name = f"B4 {ids} N={prep['y'].shape[0]} D={d} Q={q} C={c}"
         worst = max(worst, compare(name, got, want, LMM_RTOL, LMM_ATOL, quiet=True))
         assert all(torch.equal(a, b) for a, b in zip(got, again)), name
         empty = np.setdiff1d(np.arange(groups), raw["g"])
         assert torch.all(got[3][:, torch.as_tensor(empty, device=run.dev).long(), :] == 0), name
-    log(f"  B4 edge cases: {len(B4_EDGE_CASES)} shapes match the plain version in {yardstick_name(run)} "
-        f"(max abs err {worst:.6g}), second launches bitwise equal, ids without rows 0")
+    log(f"  B4 edge cases at {prec}{' on the fine grid' if prec == 'default' else ''}: "
+        f"{len(B4_EDGE_CASES)} shapes match the plain version in "
+        f"{yardstick_name(run)} (max abs err {worst:.6g}), second launches bitwise equal, ids "
+        f"without rows 0")
+    if prec != "highest":
+        return
     want = plain_in_float64(hf.lmm_grouped_plain, *b4_args)
     kern, plain = hf.lmm_grouped(*b4_args), hf.lmm_grouped_plain(*b4_args)
     log(f"  B4 config 3 (N={b4_args[3].shape[1]}) normal inputs, largest |error| against "
@@ -1410,19 +1507,11 @@ def phase_b4_edges(run: Run, b4_args):
 def b1_float64_distance(run: Run, gen):
     """B1's and the float32 plain version's largest distance from the
     plain version in float64, on normal inputs at N = 40,003, D = 32,
-    C = 70 (B1's 'N=3 mod 4' edge case)."""
+    C = 70 (B1's 'N=3 mod 4' edge case, `b1_edge_args`)."""
     from stark_tpu_torch.ops import hier_fused as hf
 
-    n, d, c, groups = 40_003, 32, 70, 300
-    rs = np.random.RandomState(7)
-    raw = {"x": rs.standard_normal((n, d)).astype(np.float32),
-           "y": (rs.rand(n) < 0.4).astype(np.float32),
-           "g": rs.randint(0, groups, size=n).astype(np.int32)}
-    prep = hf.prepare_grouped(raw, d)
-    t = [torch.as_tensor(prep[k], device=run.dev) for k in ("xT", "y", "gl", "first_gid")]
-    beta = 0.3 * torch.randn(c, d, generator=gen, device=run.dev)
-    alpha = torch.randn(c, groups, generator=gen, device=run.dev)
-    args = (beta, alpha, *t, prep["lane_tile"])
+    args = b1_edge_args(run, gen)
+    (c, d), n = args[0].shape, args[2].shape[1]
     want = plain_in_float64(hf.hier_grouped_plain, *args)
     kern, plain = hf.hier_grouped(*args), hf.hier_grouped_plain(*args)
     log(f"  B1 N={n} D={d} C={c} normal inputs, largest |error| against float64 of the beta "
@@ -1716,6 +1805,8 @@ def phase_runner(run: Run, full):
             f"hidden behind the next block {r['t_hidden_s']:.4f} s, wait for the verdict "
             f"{r['t_wait_s']:.4f} s")
     res["adapt_import"] = _adapt_import_leg(run, full, post, res, artifact, root, common)
+    res["adapt_import_high"] = _adapt_import_leg(run, full, post, res, artifact, root, common,
+                                                 prec="high")
 
     small = dict(run.resume_budget, rhat_target=0.0)
     log(f"== runner (resume): the same model, {small}, uninterrupted and then faulted "
@@ -1761,24 +1852,37 @@ def phase_runner(run: Run, full):
     return res
 
 
-def _adapt_import_leg(run: Run, full, gated, gres, artifact, root, common):
+def _adapt_import_leg(run: Run, full, gated, gres, artifact, root, common, prec="highest"):
     """A run importing the gated leg's adaptation (ROADMAP A6): the
-    touch-up instead of warmup, the artifact left as it was."""
+    touch-up instead of warmup, the artifact left as it was.  At another
+    dot precision ``prec`` (high; STARK_FUSED_PRECISION) its B1 launches
+    are all at ``prec``, and each parameter's posterior mean shift from
+    the gated leg's (at highest), in the gated leg's sds, is printed and
+    held to 0.3.  (Default is not run here: it rounds beta to bf16, whose
+    spacing at the flagship's N = 1M is about one posterior sd, and the
+    chains stall; PERF.md, PR 14.)"""
     from stark_tpu_torch import sample_until_converged
     from stark_tpu_torch.models import FusedHierLogisticGrouped
 
-    budget = run.import_budget
+    budget = run.import_budget if prec == "highest" else run.import_precision_budget
     chains = common["chains"]
     kw = dict(common, seed=1, adapt_path=str(artifact), map_init_steps=0, min_blocks=2,
               adaptive_blocks=False, **budget)
-    log(f"== runner (adapt_import): sample_until_converged(FusedHierLogisticGrouped({D}, "
-        f"{G})), N={run.n_full}, {kw}")
+    log(f"== runner (adapt_import, STARK_FUSED_PRECISION={prec}): sample_until_converged("
+        f"FusedHierLogisticGrouped({D}, {G})), N={run.n_full}, {kw}")
     before = artifact.read_bytes()
-    metrics = root / "import.jsonl"
-    post, wall, launches = _runner_leg(run, "adapt_import leg", lambda: sample_until_converged(
-        FusedHierLogisticGrouped(D, G), full, metrics_path=str(metrics), **kw))
+    metrics = root / f"import_{prec}.jsonl"
+    with env(PREC_KNOB, prec):
+        post, wall, launches = _runner_leg(run, "adapt_import leg", lambda: sample_until_converged(
+            FusedHierLogisticGrouped(D, G), full, metrics_path=str(metrics), **kw))
     evals = int(post.sample_stats["num_ensemble_grad_evals"])
-    _check_b1_launches(run, launches, _launched_evals(post), "adapt_import leg")
+    by_prec = read_precision_counts()["B1"]
+    if prec == "highest":
+        _check_b1_launches(run, launches, _launched_evals(post), "adapt_import leg")
+    elif not run.rehearsal:  # its launches go into the kernels line from the precision phase
+        assert launches["B1"] == _launched_evals(post) == by_prec[prec], (launches, by_prec)
+        others = {k: v for k, v in launches.items() if k != "B1" and v}
+        assert not others, f"{others} launched on the adapt_import leg at {prec}"
     recs = [json.loads(line) for line in open(metrics)]
     (warm,) = [r for r in recs if r["event"] == "warmup_done"]
     assert warm.get("adapt_imported") is True, warm
@@ -1786,9 +1890,11 @@ def _adapt_import_leg(run: Run, full, gated, gres, artifact, root, common):
     assert artifact.read_bytes() == before, "the import changed the artifact"
     touch = warm["warmup_grad_evals"] // chains
     ratio = touch / gres["warmup_evals"]
-    if not run.rehearsal:
+    if not run.rehearsal and prec == "highest":
         # the JAX package's bound (tests/test_adapt_reuse.py:52-55), here
-        # against the gated leg's warmup without its MAP steps
+        # against the gated leg's warmup without its MAP steps; at another
+        # precision the touch-up adapts the step size to that precision's
+        # energy error, so its length is measured, not bounded
         assert ratio < 0.6, (touch, gres["warmup_evals"])
     draws = post.draws_flat
     n = budget["block_size"] * budget["max_blocks"]
@@ -1811,8 +1917,15 @@ def _adapt_import_leg(run: Run, full, gated, gres, artifact, root, common):
         f"{warm['step_size']:.5g} (gated {gres['step_size']:.5g}); wall {wall:.2f} s with set-up")
     log(f"  after {len(post.history)} blocks: streaming R-hat {last['max_rhat']}, ESS "
         f"{last['min_ess']}; largest |posterior mean - the gated leg's| {dist:.4f} of the gated "
-        f"leg's posterior sd; evaluations {evals} = B1 launches {launches['B1']}; artifact "
-        f"unchanged")
+        f"leg's posterior sd; evaluations {evals} = B1 launches {launches['B1']} (by precision "
+        f"{by_prec}); artifact unchanged")
+    if prec != "highest":
+        shift = (draws.reshape(-1, draws.shape[2]).mean(0) - ref.mean(0)) / ref.std(0)
+        res["mean_shift_sd"] = shift.tolist()
+        log(f"  each parameter's posterior mean shift at {prec} in the gated leg's sds: "
+            f"{np.round(shift, 4).tolist()}")
+        if not run.rehearsal:
+            assert dist < 0.3, f"the posterior at {prec} moved {dist:.4f} gated sds"
     return res
 
 
@@ -2204,13 +2317,14 @@ def phase_zoo_glm(run: Run, lmm3):
         "sigma": 0.5 + spread[:, 0],
     }
     zl = flatten_model(lmm_model).unconstrain(params)
-    out["lmm_op"] = _with_knob("STARK_FUSED_LMM", lambda: _fused_op_parity(
-        run, "FusedLMM", LinearMixedModel(d, g, ZOO_Q), lmm_model, lmm, zl,
-        (lmm_fused.lmm_loglik_value_and_grad,
-         lambda data: (params["beta"], params["u_raw"] * params["tau"][:, None, :],
-                       params["intercept"], params["sigma"], data["xT"], data["z"],
-                       data["g"], data["y"])),
-        scaled=True))
+    with env("STARK_FUSED_LMM", "1"):
+        out["lmm_op"] = _fused_op_parity(
+            run, "FusedLMM", LinearMixedModel(d, g, ZOO_Q), lmm_model, lmm, zl,
+            (lmm_fused.lmm_loglik_value_and_grad,
+             lambda data: (params["beta"], params["u_raw"] * params["tau"][:, None, :],
+                           params["intercept"], params["sigma"], data["xT"], data["z"],
+                           data["g"], data["y"])),
+            scaled=True)
 
     # the three models through sample(): NUTS, 8 chains, tree depth 6
     for label, model, raw, true, counted, budget, knob in (
@@ -2236,7 +2350,8 @@ def phase_zoo_glm(run: Run, lmm3):
             res["profile"] = profile_nuts_transitions(run, model, raw, post, label, reps=1)
             return res
 
-        out[label] = _with_knob(knob, leg)
+        with env(knob, "1"):
+            out[label] = leg()
 
     # C1: consensus over shards of FusedLinearMixedModel's transposed X
     lfull, _, ltrue = lmm3
@@ -2284,19 +2399,6 @@ def phase_zoo_glm(run: Run, lmm3):
         f"max split R-hat {post.max_rhat():.4f}, max |mean beta - true beta| {beta_err:.4g}, "
         f"mean sigma {out['zoo_sghmc_linreg']['sigma_mean']:.4f} (truth {lin_true['sigma']})")
     return out
-
-
-def _with_knob(knob, fn):
-    """``fn()`` with the model knob ``knob`` set to 1 (None: as it is)."""
-    import os
-
-    if knob is None:
-        return fn()
-    os.environ[knob] = "1"
-    try:
-        return fn()
-    finally:
-        del os.environ[knob]
 
 
 def _corr(a, b):
@@ -2362,40 +2464,44 @@ def phase_zoo_rest(run: Run):
     rob = FusedStudentTRegression(d)
     rp = {"beta": near(stu_true["beta"]), "sigma": 0.5 * (1.0 + spread[:, 0]),
           "nu": 4.0 * (1.0 + spread[:, 0])}
-    out["robust_op"] = _with_knob("STARK_FUSED_ROBUST", lambda: _fused_op_parity(
-        run, "FusedStudentTRegression", StudentTRegression(d), rob, stu,
-        flatten_model(rob).unconstrain(rp),
-        (robust_fused.studentt_loglik_value_and_grad,
-         lambda data: (rp["beta"], rp["sigma"], rp["nu"], data["xT"], data["y"])),
-        scaled=True))
+    with env("STARK_FUSED_ROBUST", "1"):
+        out["robust_op"] = _fused_op_parity(
+            run, "FusedStudentTRegression", StudentTRegression(d), rob, stu,
+            flatten_model(rob).unconstrain(rp),
+            (robust_fused.studentt_loglik_value_and_grad,
+             lambda data: (rp["beta"], rp["sigma"], rp["nu"], data["xT"], data["y"])),
+            scaled=True)
     orm = FusedOrderedLogistic(d, ORD_K)
     op = {"beta": near(ord_true["beta"]),
           "cutpoints": torch.sort(near(ord_true["cutpoints"], 0.2), -1).values}
-    out["ordinal_op"] = _with_knob("STARK_FUSED_ORDINAL", lambda: _fused_op_parity(
-        run, "FusedOrderedLogistic", OrderedLogistic(d, ORD_K), orm, ordd,
-        flatten_model(orm).unconstrain(op),
-        (ordinal_fused.ordinal_loglik_value_and_grad,
-         lambda data: (op["beta"], op["cutpoints"], data["xT"], data["y"])),
-        scaled=True))
+    with env("STARK_FUSED_ORDINAL", "1"):
+        out["ordinal_op"] = _fused_op_parity(
+            run, "FusedOrderedLogistic", OrderedLogistic(d, ORD_K), orm, ordd,
+            flatten_model(orm).unconstrain(op),
+            (ordinal_fused.ordinal_loglik_value_and_grad,
+             lambda data: (op["beta"], op["cutpoints"], data["xT"], data["y"])),
+            scaled=True)
     irm = FusedIRT2PL(P, I)
     ip = {"theta": near(irt_true["theta"]),
           "a": torch.as_tensor(irt_true["a"], device=run.dev) * torch.exp(
               0.2 * spread * torch.randn(C, I, generator=gen, device=run.dev)),
           "b": near(irt_true["b"])}
     zi = flatten_model(irm).unconstrain(ip)
-    out["irt_grid_op"] = _with_knob("STARK_FUSED_IRT", lambda: _fused_op_parity(
-        run, "FusedIRT2PL (grid)", IRT2PL(P, I), irm, irt, zi,
-        (irt_fused.irt_grid_loglik_value_and_grad,
-         lambda data: (ip["theta"], ip["a"], ip["b"], data["y_grid"])),
-        scaled=True))
+    with env("STARK_FUSED_IRT", "1"):
+        out["irt_grid_op"] = _fused_op_parity(
+            run, "FusedIRT2PL (grid)", IRT2PL(P, I), irm, irt, zi,
+            (irt_fused.irt_grid_loglik_value_and_grad,
+             lambda data: (ip["theta"], ip["a"], ip["b"], data["y_grid"])),
+            scaled=True)
     keep = np.arange(P * I) % 3 != 0
     ragged = {k: v[keep] for k, v in irt.items()}
-    out["irt_triples_op"] = _with_knob("STARK_FUSED_IRT", lambda: _fused_op_parity(
-        run, "FusedIRT2PL (triples, every third response dropped)", IRT2PL(P, I), irm, ragged,
-        zi, (irt_fused.irt_loglik_value_and_grad,
-             lambda data: (ip["theta"], ip["a"], ip["b"], data["person"], data["item"],
-                           data["y"])),
-        scaled=True))
+    with env("STARK_FUSED_IRT", "1"):
+        out["irt_triples_op"] = _fused_op_parity(
+            run, "FusedIRT2PL (triples, every third response dropped)", IRT2PL(P, I), irm, ragged,
+            zi, (irt_fused.irt_loglik_value_and_grad,
+                 lambda data: (ip["theta"], ip["a"], ip["b"], data["person"], data["item"],
+                               data["y"])),
+            scaled=True)
 
     def hs_beta(post):
         return (post.draws["z"] * post.draws["lam"] * post.draws["tau"][..., None]).mean((0, 1))
@@ -2439,7 +2545,544 @@ def phase_zoo_rest(run: Run):
             res["profile"] = profile_nuts_transitions(run, model, raw, post, label, reps=1)
             return res
 
-        out[label] = _with_knob(knob, leg)
+        with env(knob, "1"):
+            out[label] = leg()
+    return out
+
+
+# --- STARK_FUSED_PRECISION=high|default (ROADMAP B6) ------------------------
+
+#: the dot precisions besides highest, and the H100 SXM's dense bf16
+#: tensor-core rate (the peak for bf16 products, on which both run)
+PREC_KNOB = "STARK_FUSED_PRECISION"
+PRECISION_MODES = ("high", "default")
+BF16_FLOP_PER_S = 989e12
+#: bf16 passes per product of each precision
+PASSES = {"highest": 1, "high": 3, "default": 1}
+#: the reference's parity bands of a precision against ``highest``
+#: (tools/precision_parity.py:19-21), (value, gradient) in the metrics
+#: of `parity_error`: ``high`` tight, ``default`` wide
+PARITY_BANDS = {"high": (1e-4, 1e-3), "default": (2e-2, 5e-2)}
+#: bound on |kernel resid - exact resid| of the bernoulli link at the
+#: same logit: the kernels' approximate exp, log and division (3.6e-7,
+#: csrc/hier_grouped.cu and csrc/logistic_batched.cu) plus its float32
+#: rounding; the gaussian link's resid is y - l, exact at an exact logit
+LINK_ERR = 3.6e-7 + 2.0 ** -24
+
+
+def parity_error(val0, grad0, val1, grad1):
+    """The reference's parity metrics (tools/precision_parity.py:245-249)
+    of (val1, grad1) against (val0, grad0), at each point and then the
+    largest over the points: |val1 - val0| / (1 + |val0|), and max
+    |grad1 - grad0| / (1e-6 + max |grad0|).  A value () is one point;
+    values (P,) or (S, C) are points, each with the gradient entries of
+    its leading index; float64."""
+    v0 = torch.as_tensor(val0).double().reshape(-1)
+    v1 = torch.as_tensor(val1).double().reshape(-1)
+    g0 = torch.as_tensor(grad0).double().reshape(v0.numel(), -1)
+    g1 = torch.as_tensor(grad1).double().reshape(v0.numel(), -1)
+    val_rel = float(((v1 - v0).abs() / (1.0 + v0.abs())).max())
+    grad_rel = float(((g1 - g0).abs().amax(1) / (1e-6 + g0.abs().amax(1))).max())
+    return val_rel, grad_rel
+
+
+@contextlib.contextmanager
+def env(name, value):
+    """The environment variable ``name`` set to ``value`` inside the
+    block and restored after (``name`` None: nothing set): a model knob
+    (``STARK_FUSED_<FAMILY>``) or the dot precision (PREC_KNOB), which
+    every wrapper and fused op reads at its call."""
+    if name is None:
+        yield
+        return
+    before = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = before
+
+
+def operand_jump(r, delta, prec):
+    """How far the operand a dot at ``prec`` takes of a computed value
+    can move when the value moves within ``delta`` of ``r``: where r
+    lies that close to a rounding boundary of bf16 (default) or of r_lo
+    (high), a kernel and the plain version round it apart.  The rounding
+    is monotone, so the move is at most op(r + delta) - op(r - delta); at
+    high a move of r_hi also moves r_hi x_lo, by 2^-9 of it.  0 where both
+    ends round alike."""
+    from stark_tpu_torch.ops.precision import bf16_round, bf16_split
+
+    r = r.double()
+    lo, hi = r - delta, r + delta
+    if prec == "default":
+        return (bf16_round(hi) - bf16_round(lo)).abs()
+    lo_hi, lo_lo = bf16_split(lo)
+    hi_hi, hi_lo = bf16_split(hi)
+    return ((hi_hi + hi_lo) - (lo_hi + lo_lo)).abs() + 2.0 ** -9 * (hi_hi - lo_hi).abs()
+
+
+def link_slack(r, xT, prec, groups=None, num_groups=0):
+    """Per output (val, gbeta[, galpha]), what a kernel's gradients at
+    ``prec`` may stand from the plain version in float64 beyond the
+    tolerances, on dyadic inputs whose logits are exact (`dyadic_inputs`):
+    the bernoulli link's resid is within LINK_ERR of the exact one, so
+    only rows whose resid lies that close to a rounding boundary of its
+    operand can round apart (`operand_jump`), each moving its gradient
+    terms by the jump times |x| (each x operand at most (1 + 2^-8) |x|).
+    A kernel that rounds any operand otherwise is not covered.  ``r``:
+    the exact resid, float64."""
+    jump = operand_jump(r, LINK_ERR, prec).float()
+    out = [None, (jump @ xT.abs().float().transpose(-1, -2)) * (1 + 2.0 ** -8)]
+    if groups is not None:
+        out.append(jump.new_zeros(jump.shape[:-1] + (num_groups,)).index_add_(-1, groups, jump))
+    return out
+
+
+def b1_resid(args, prec):
+    """B1's exact resid at ``prec`` on ``args`` (float64), its xT, its
+    rows' groups and the number of groups."""
+    from stark_tpu_torch.ops import hier_fused as hf
+    from stark_tpu_torch.ops.precision import dot, dot_operand
+
+    beta, alpha, xT, y, gl, fg, lane_tile = (a.double() if torch.is_tensor(a)
+                                            and a.is_floating_point() else a for a in args)
+    g = hf.absolute_groups(gl, fg, lane_tile)
+    r = y - torch.sigmoid(dot(beta, xT, prec) + dot_operand(alpha, prec)[:, g])
+    return r, xT, g, alpha.shape[1]
+
+
+def b1_link_slack(args, prec):
+    """`link_slack` of B1's arguments."""
+    r, xT, g, groups = b1_resid(args, prec)
+    return link_slack(r, xT, prec, g, groups)
+
+
+def b1_resid_unrounded(args, prec):
+    """B1's gradients (gbeta, galpha) at ``prec`` in float64, but with
+    resid left unrounded where the dots take it: what a kernel that left
+    out only that rounding would give."""
+    from stark_tpu_torch.ops.precision import dot_operand
+
+    r, xT, g, groups = b1_resid(args, prec)
+    galpha = r.new_zeros(r.shape[0], groups).index_add_(1, g, r)
+    return (r @ dot_operand(xT, prec).T).float(), galpha.float()
+
+
+def b2_link_slack(args, prec, link):
+    """`link_slack` of B2's arguments (val, gbeta[, resid]); None at the
+    gaussian link, whose resid is exact at an exact logit."""
+    from stark_tpu_torch.ops.precision import dot
+
+    beta, xT, y, off = args
+    if link == "gaussian":
+        return []
+    logits = dot(beta.double(), xT.double(), prec)
+    if off is not None:
+        logits = logits + off.double()
+    y = y.double().unsqueeze(-2) if beta.ndim == 3 else y.double()
+    out = link_slack(y - torch.sigmoid(logits), xT, prec)
+    return out + [None] if off is not None else out
+
+
+def compare_slack(name, got, want, slack, rtol, atol, quiet=False):
+    """`compare` with, per output, ``slack`` (or None) added to what each
+    entry may stand from the plain version: |got - want| <= atol + rtol
+    |want| + slack (the value: rtol VAL_RTOL, atol 0).  -> the largest
+    absolute error, and the largest excess over the bound (<= 0 passes)."""
+    worst, excess = 0.0, -float("inf")
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = (g - w).abs()
+        rt, at = (VAL_RTOL, 0.0) if i == 0 else (rtol, atol)
+        allowed = at + rt * w.abs()
+        s = slack[i] if i < len(slack) else None
+        if s is not None:
+            allowed = allowed + s
+        excess = max(excess, float((err - allowed).max()))
+        if not quiet:
+            extra = f", largest slack {float(s.max()):.4g}" if s is not None else ""
+            log(f"  {name} out{i} {tuple(g.shape)}: max_abs_err={float(err.max()):.6g}{extra}")
+        worst = max(worst, float(err.max()))
+    return worst, excess
+
+
+def band_check(name, prec, base, got):
+    """The reference's parity metrics (tools/precision_parity.py:245-249)
+    of a kernel's outputs at ``prec`` against its outputs at highest:
+    the first output is the value at each point (chain), the others
+    together its gradient there, as the sweep takes a point's whole
+    gradient; both inside the band of ``prec``
+    (tools/precision_parity.py:19-21)."""
+    tol_v, tol_g = PARITY_BANDS[prec]
+    points = base[0].numel()
+    flat = lambda out: torch.cat([o.reshape(points, -1) for o in out[1:]], 1)
+    val_rel, grad_rel = parity_error(base[0], flat(base), got[0], flat(got))
+    log(f"  {name}: against highest val_rel {val_rel:.3g} (band {tol_v:g}), grad_rel "
+        f"{grad_rel:.3g} (band {tol_g:g})")
+    assert val_rel <= tol_v and grad_rel <= tol_g, (name, prec, val_rel, grad_rel)
+    return val_rel, grad_rel
+
+
+def dyadic(like, step, limit, gen):
+    """A tensor of ``like``'s shape on the grid ``step`` within [-limit,
+    limit]."""
+    k = int(limit / step)
+    return torch.randint(-k, k + 1, like.shape, generator=gen, device=like.device).float() * step
+
+
+def dyadic_inputs(kind, args, gen):
+    """``args`` of B1, B2 or B4 (``kind``) with every float input on a
+    dyadic grid, the same shapes, layout and 0/1 labels: x in steps of
+    2^-9 in [-1, 1] and beta, alpha and u in steps of 2^-11 in [-1/4,
+    1/4], each up to 10 significant bits, so that bf16 rounds them and
+    their a_lo is not 0; offsets, intercepts, a gaussian y in quarters and
+    B4's z in halves.  Every logit (mu) is then a multiple of 2^-20 below
+    16 in magnitude (D <= 32), exact in float32 in any order of its sums
+    and at every precision, and so is every gaussian resid and resid z_q:
+    a kernel and the plain version round the same values (the bernoulli
+    resid up to LINK_ERR, `link_slack`)."""
+    fine = lambda t: dyadic(t, 2.0 ** -11, 0.25, gen)
+    x = lambda t: dyadic(t, 2.0 ** -9, 1.0, gen)
+    quarters = lambda t, limit=1.0: dyadic(t, 0.25, limit, gen)
+    if kind == "B1":
+        beta, alpha, xT, *rest = args
+        return (fine(beta), fine(alpha), x(xT), *rest)
+    if kind in ("bernoulli_logit", "gaussian"):
+        beta, xT, y, off = args
+        if kind == "gaussian":
+            y = quarters(y, 2.0)
+        return fine(beta), x(xT), y, None if off is None else quarters(off)
+    beta, u, ic, xT, zT, y, *rest = args
+    return (fine(beta), fine(u), quarters(ic), x(xT), dyadic(zT, 0.5, 1.0, gen),
+            quarters(y, 2.0), *rest)
+
+
+def b1_edge_args(run: Run, gen):
+    """B1's arguments at N = 40,003 (N = 3 mod 4), D = 32, C = 70, 300
+    groups, normal inputs."""
+    from stark_tpu_torch.ops import hier_fused as hf
+
+    n, d, c, groups = 40_003, 32, 70, 300
+    rs = np.random.RandomState(7)
+    raw = {"x": rs.standard_normal((n, d)).astype(np.float32),
+           "y": (rs.rand(n) < 0.4).astype(np.float32),
+           "g": rs.randint(0, groups, size=n).astype(np.int32)}
+    prep = hf.prepare_grouped(raw, d)
+    t = [torch.as_tensor(prep[k], device=run.dev) for k in ("xT", "y", "gl", "first_gid")]
+    beta = 0.3 * torch.randn(c, d, generator=gen, device=run.dev)
+    alpha = torch.randn(c, groups, generator=gen, device=run.dev)
+    return (beta, alpha, *t, prep["lane_tile"])
+
+
+def precision_cases(run: Run, full, lfull, gen):
+    """The kernel instantiations of both precisions, at full width: key,
+    wrapper, plain version, normal arguments and their dyadic twins, link
+    keywords, slack, bytes, products, tolerances, and the kernels-line
+    entry (or None)."""
+    from stark_tpu_torch.ops import hier_fused as hf
+    from stark_tpu_torch.ops import logistic_fused as lf
+
+    cases = []
+
+    def b1_case(key, args, entry):
+        beta, alpha, xT, y, gl, fg, _ = args
+        c = beta.shape[0]
+        nbytes = 4 * (xT.numel() + y.numel() + gl.numel() + fg.numel() + 2 * alpha.numel()
+                      + 2 * beta.numel() + c)
+        cases.append(dict(key=key, wrapper=hf.hier_grouped, plain=hf.hier_grouped_plain,
+                          args=args, fine=dyadic_inputs("B1", args, gen), kw={},
+                          slack=b1_link_slack, resid_unrounded=b1_resid_unrounded,
+                          bytes=nbytes,
+                          products=2 * c * xT.shape[0] * xT.shape[1], tol=(GRAD_RTOL, GRAD_ATOL),
+                          entry=entry, name="hier_grouped (B1"))
+
+    def b2_case(key, args, link, entry, name):
+        beta, xT, y, off = args
+        c, d = beta.shape[-2:]
+        lead = beta.shape[0] if beta.ndim == 3 else 1
+        nbytes = 4 * (xT.numel() + y.numel() + 2 * beta.numel() + lead * c
+                      + (2 * off.numel() if off is not None else 0))
+        cases.append(dict(key=key, wrapper=lf.logistic_batched, plain=lf.logistic_batched_plain,
+                          args=args, fine=dyadic_inputs(link, args, gen), kw=dict(link=link),
+                          slack=lambda a, p: b2_link_slack(a, p, link), bytes=nbytes,
+                          products=2 * lead * c * d * xT.shape[-1], tol=(GRAD_RTOL, GRAD_ATOL),
+                          entry=entry, name=name))
+
+    b1_case("B1 C=64", _grouped_inputs(run, full, 64, gen)[0], "B1")
+    b1_case(f"B1 C={NUTS_CHAINS}", _grouped_inputs(run, full, NUTS_CHAINS, gen)[0], None)
+    b1_case("B1 C=70 N=40,003 G=300", b1_edge_args(run, gen), None)
+    b2_case("B2 C=32 offsets=False", _batched_inputs(run, full, 32, gen, False),
+            "bernoulli_logit", None, "")
+    b2_case("B2 C=32 offsets=True", _batched_inputs(run, full, 32, gen, True),
+            "bernoulli_logit", "B2", "logistic_batched (B2, offsets")
+    b2_case(f"B2 gaussian C={LMM_CHAINS} D={LMM_D} offsets=True (config 3)",
+            _lmm_offset_inputs(run, lfull, LMM_CHAINS, gen), "gaussian", "B2g",
+            "logistic_batched (B2, gaussian link, offsets")
+    n = min(run.zoo_n, full["y"].shape[0])
+    xT = torch.as_tensor(np.ascontiguousarray(full["x"][:n].T), device=run.dev)
+    y = torch.randn(n, generator=gen, device=run.dev)
+    beta = 0.3 * torch.randn(ZOO_CHAINS, D, generator=gen, device=run.dev)
+    b2_case(f"B2 gaussian C={ZOO_CHAINS} D={D} N={n} offsets=False", (beta, xT, y, None),
+            "gaussian", None, "")
+    beta, xT, y, _ = b2_shard_inputs(CONS_SHARDS, run.cons_n // CONS_SHARDS, CONS_D, CONS_CHAINS,
+                                     gen, run.dev)
+    b2_case(f"B2 shards S={CONS_SHARDS} C={CONS_CHAINS} D={CONS_D}", (beta, xT, y, None),
+            "bernoulli_logit", "B2s", "logistic_batched (B2, shard axis")
+    args, _ = _lmm_inputs(run, lfull, LMM_CHAINS, gen)
+    beta, u, ic, xT, zT, y, gl, fg, _ = args
+    c, d = beta.shape
+    n, q = xT.shape[1], zT.shape[0]
+    cases.append(dict(
+        key=f"B4 C={c} (config 3)", wrapper=hf.lmm_grouped, plain=hf.lmm_grouped_plain,
+        args=args, fine=dyadic_inputs("B4", args, gen), kw={}, slack=lambda a, p: [],
+        bytes=4 * (xT.numel() + zT.numel() + y.numel() + gl.numel() + fg.numel()
+                   + 2 * u.numel() + 2 * beta.numel() + 3 * c),
+        products=2 * c * n * (d + q), tol=(LMM_RTOL, LMM_ATOL), entry="B4",
+        name="lmm_grouped (B4"))
+    return cases
+
+
+def phase_precision_kernels(run: Run, flag, lmm):
+    """Each kernel instantiation of high and default at full width: on
+    `dyadic_inputs` of the same shapes, against its plain version at the
+    same precision in float64, within the highest tolerances (plus, at
+    the bernoulli link, `link_slack`); and at default, the plain version
+    at highest (no operand rounded) shown to fall outside that bound, so
+    the check tells the roundings apart.  On normal inputs: a second
+    launch bitwise equal, inside the reference's band against the kernel
+    at highest, and CUDA-event times beside the bound.  Then B2's and
+    B4's edge cases at each precision."""
+    full, _, _ = flag
+    lfull, _, _ = lmm
+    smi = getattr(run, "smi", "cpu rehearsal")
+    log(f"== precision: STARK_FUSED_PRECISION=high|default, kernels B1, B2, B4 [{smi}]")
+    gen = torch.Generator(device=run.dev).manual_seed(11)
+    out = {}
+    for case in precision_cases(run, full, lmm[0], gen):
+        wrapper, plain, args, fine, kw = (case[k] for k in ("wrapper", "plain", "args", "fine",
+                                                             "kw"))
+        with env(PREC_KNOB, "highest"):
+            base = wrapper(*args, **kw)
+        unrounded = yardstick(run, plain, *fine, **kw, prec="highest")
+        for prec in PRECISION_MODES:
+            label = f"{case['key']} {prec}"
+            with env(PREC_KNOB, prec):
+                got = wrapper(*fine, **kw)
+                run.sync()
+                want = yardstick(run, plain, *fine, **kw, prec=prec)
+                slack = case["slack"](fine, prec)
+                err, excess = compare_slack(f"{label} (dyadic, against {yardstick_name(run)})",
+                                            got, want, slack, *case["tol"])
+                assert excess <= 0, f"{label}: error exceeds its bound by {excess:.4g}"
+                _, teeth = compare_slack(label, unrounded, want, slack, *case["tol"], quiet=True)
+                log(f"  {label}: the plain version at highest against this bound: excess "
+                    f"{teeth:.4g} (> 0: outside it)")
+                assert prec != "default" or teeth > 0, f"{label}: highest passes default's check"
+                mutant = None
+                if prec == "default" and "resid_unrounded" in case:
+                    mut = (want[0], *case["resid_unrounded"](fine, prec))
+                    _, mutant = compare_slack(label, mut, want, slack, *case["tol"], quiet=True)
+                    log(f"  {label}: resid left unrounded (the rest as the plain version) against "
+                        f"this bound: excess {mutant:.4g} (> 0: outside it)")
+                    assert mutant > 0, f"{label}: an unrounded resid passes default's check"
+                got = wrapper(*args, **kw)
+                check_repeat(label, got, wrapper(*args, **kw))
+                val_rel, grad_rel = band_check(label, prec, base, got)
+                ms = timed(run, lambda: wrapper(*args, **kw), 20)
+                plain_ms = timed(run, lambda: plain(*args, **kw, prec=prec), 5)
+            flops = 2 * case["products"] * PASSES[prec]
+            e = bound(case["bytes"], flops, BF16_FLOP_PER_S)
+            cuda_core = bound(case["bytes"], flops)
+            e.update(max_abs_err=err, excess=excess, unrounded_excess=teeth,
+                     resid_unrounded_excess=mutant, ms=ms,
+                     plain_ms=plain_ms, val_rel=val_rel, grad_rel=grad_rel,
+                     cuda_core_bound_ms=cuda_core["bound_ms"],
+                     cuda_core_bound_by=cuda_core["bound_by"])
+            out[label] = e
+            log(f"  {label} [{smi}]: {ms:.4f} ms, plain {plain_ms:.4f} ms, {fmt_bound(e)} "
+                f"on bf16 tensor cores; {cuda_core['bound_ms']:.4f} ms by "
+                f"{cuda_core['bound_by']} on the FP32 CUDA cores")
+            if case["entry"]:
+                run.kernels[f"{case['entry']} {prec}"] = dict(
+                    name=f"{case['name']}, {prec})", route="cuda",
+                    source=run.kernels[case["entry"]]["source"],
+                    replaces=run.kernels[case["entry"]]["replaces"], max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=e["bound_ms"], bound_by=e["bound_by"],
+                    library_ms=None)
+    for prec in PRECISION_MODES:
+        phase_b2_edges(run, gen, prec)
+        phase_b4_edges(run, None, prec)
+    return out
+
+
+def read_precision_counts():
+    """Launches by dot precision of B1, B2 (both links, with or without
+    the shard axis) and B4."""
+    return {k: dict(fn.precision_launches) for k, fn in precision_counters().items()}
+
+
+def _precision_leg(run: Run, prec, label, fn, counted, entry, evals_of):
+    """One sampled leg under STARK_FUSED_PRECISION=``prec``: counts to 0
+    just before, read just after; the counted kernel launched once per
+    ensemble evaluation, every launch of its wrapper at ``prec`` and no
+    other kernel launched; finite draws."""
+    with env(PREC_KNOB, prec):
+        post, wall, launches, _ = _counted_leg(run, fn)
+    by_prec = read_precision_counts()
+    evals = evals_of(post)
+    draws = post.draws_flat
+    assert np.all(np.isfinite(draws)), f"non-finite draws on the {label} leg"
+    log(f"  {label} [{getattr(run, 'smi', 'cpu rehearsal')}]: wall {wall:.2f} s, {evals} "
+        f"ensemble evaluations, launches {launches}, by precision {by_prec}; max split R-hat "
+        f"{post.max_rhat():.4f}")
+    if not run.rehearsal:
+        wrapper = {"B1": "B1", "B2": "B2", "B2g": "B2", "B2s": "B2", "B4": "B4"}[counted]
+        assert launches[counted] > 0 and launches[counted] == evals, (label, launches, evals)
+        assert by_prec[wrapper][prec] == launches[counted], (label, by_prec)
+        if counted == "B2s":  # a shard-batched launch counts as a B2 launch too
+            assert launches["B2"] == launches["B2s"], (label, launches)
+        allowed = {counted, "B2"} if counted == "B2s" else {counted}
+        others = {k: v for k, v in launches.items() if k not in allowed and v}
+        assert not others, f"{others} launched on the {label} leg"
+        e = run.kernels[f"{entry} {prec}"]
+        e["launches"] = e.get("launches", 0) + launches[counted]
+    return dict(wall_s=wall, evals=evals, launches=launches, max_rhat=post.max_rhat())
+
+
+def phase_precision_paths(run: Run, flag, lmm):
+    """The port's normal entry points under each precision, at full
+    width: the flagship chees_sample (B1), its offset path (B2), config
+    3 (B4) and its offset path (B2 gaussian), and config 2's consensus
+    (the shard axis), each leg with launches = evaluations, all at that
+    precision, and finite draws."""
+    from stark_tpu_torch import chees_sample, consensus_sample
+    from stark_tpu_torch.models import (
+        FusedHierLogistic,
+        FusedHierLogisticGrouped,
+        FusedLinearMixedModel,
+        FusedLinearMixedModelGrouped,
+        FusedLogistic,
+        synth_logistic_data,
+    )
+
+    full, _, _ = flag
+    lfull, _, _ = lmm
+    dev = {"device": "cpu"} if run.rehearsal else {}
+    budget = run.precision_budget
+    ensemble = lambda post: int(post.sample_stats["num_ensemble_grad_evals"])
+    cons, _ = synth_logistic_data(0, run.cons_n, CONS_D)
+    legs = (
+        ("flagship", "B1", "B1", lambda: chees_sample(
+            FusedHierLogisticGrouped(D, G), full, chains=64, init_step_size=0.1, seed=0,
+            **budget, **dev)),
+        ("offset path", "B2", "B2", lambda: chees_sample(
+            FusedHierLogistic(D, G), full, chains=32, init_step_size=0.1, seed=0, **budget,
+            **dev)),
+        ("config 3", "B4", "B4", lambda: chees_sample(
+            FusedLinearMixedModelGrouped(LMM_D, run.lmm_g, LMM_Q), lfull, chains=LMM_CHAINS,
+            init_step_size=0.1, seed=0, **budget, **dev)),
+        ("config 3 offset path", "B2g", "B2g", lambda: chees_sample(
+            FusedLinearMixedModel(LMM_D, run.lmm_g, LMM_Q), lfull, chains=LMM_CHAINS,
+            init_step_size=0.1, seed=0, **budget, **dev)),
+        ("config 2 consensus", "B2s", "B2s", lambda: consensus_sample(
+            FusedLogistic(CONS_D), cons, num_shards=CONS_SHARDS, chains=CONS_CHAINS,
+            kernel="chees", init_step_size=0.1, seed=0, **budget, **dev)),
+    )
+    out = {}
+    for prec in PRECISION_MODES:
+        log(f"== precision paths at {prec}: chees_sample / consensus_sample, {budget} "
+            f"(script at {run.elapsed():.1f} s)")
+        for label, counted, entry, fn in legs:
+            out[f"{label} {prec}"] = _precision_leg(run, prec, f"{label} at {prec}", fn, counted,
+                                                    entry, ensemble)
+    return out
+
+
+def phase_precision_potentials(run: Run, flag, lmm):
+    """The potential and gradient of each model with a fused op (the
+    zoo's, each with its knob on, and the flagship and config 3 families)
+    on the card under each precision, against its plain model's autograd
+    at highest, at 8 points z = 0.4 (s / 3.5) N(0, 1), s = 0 .. 7 (the
+    reference sweep's 0.4 s N(0, 1), tools/precision_parity.py:177-186),
+    inside the reference's band."""
+    from stark_tpu_torch.model import flatten_model, prepare_model_data
+    from stark_tpu_torch.models import (
+        FusedHierLogistic,
+        FusedHierLogisticGrouped,
+        FusedIRT2PL,
+        FusedLinearMixedModel,
+        FusedLinearMixedModelGrouped,
+        FusedLinearRegression,
+        FusedLMM,
+        FusedOrderedLogistic,
+        FusedPoissonRegression,
+        FusedStudentTRegression,
+        HierLogistic,
+        IRT2PL,
+        LinearMixedModel,
+        LinearRegression,
+        OrderedLogistic,
+        PoissonRegression,
+        StudentTRegression,
+        synth_irt_data,
+        synth_linreg_data,
+        synth_lmm_data,
+        synth_ordinal_data,
+        synth_poisson_data,
+        synth_studentt_data,
+    )
+    full, _, _ = flag
+    lfull, _, _ = lmm
+    smi = getattr(run, "smi", "cpu rehearsal")
+    n, d, g = run.zoo_n, ZOO_D, run.zoo_g
+    log(f"== precision potentials: fused models under high and default against their plain "
+        f"models at highest [{smi}] (script at {run.elapsed():.1f} s)")
+    cases = (
+        ("FusedHierLogisticGrouped", FusedHierLogisticGrouped(D, G), HierLogistic(D, G), full,
+         None),
+        ("FusedHierLogistic", FusedHierLogistic(D, G), HierLogistic(D, G), full, None),
+        ("FusedLinearMixedModelGrouped", FusedLinearMixedModelGrouped(LMM_D, run.lmm_g, LMM_Q),
+         LinearMixedModel(LMM_D, run.lmm_g, LMM_Q), lfull, None),
+        ("FusedLinearMixedModel", FusedLinearMixedModel(LMM_D, run.lmm_g, LMM_Q),
+         LinearMixedModel(LMM_D, run.lmm_g, LMM_Q), lfull, None),
+        ("FusedLinearRegression", FusedLinearRegression(d), LinearRegression(d),
+         synth_linreg_data(0, n, d)[0], None),
+        ("FusedPoissonRegression", FusedPoissonRegression(d), PoissonRegression(d),
+         synth_poisson_data(0, n, d)[0], None),
+        ("FusedLMM", FusedLMM(d, g, ZOO_Q), LinearMixedModel(d, g, ZOO_Q),
+         synth_lmm_data(0, n, d, g, num_random=ZOO_Q)[0], "STARK_FUSED_LMM"),
+        ("FusedStudentTRegression", FusedStudentTRegression(d), StudentTRegression(d),
+         synth_studentt_data(0, n, d)[0], "STARK_FUSED_ROBUST"),
+        ("FusedOrderedLogistic", FusedOrderedLogistic(d, ORD_K), OrderedLogistic(d, ORD_K),
+         synth_ordinal_data(0, n, d, num_categories=ORD_K)[0], "STARK_FUSED_ORDINAL"),
+        ("FusedIRT2PL (grid)", FusedIRT2PL(run.irt_p, run.irt_i), IRT2PL(run.irt_p, run.irt_i),
+         synth_irt_data(0, run.irt_p, run.irt_i)[0], "STARK_FUSED_IRT"),
+    )
+    gen = torch.Generator(device=run.dev).manual_seed(13)
+    out = {}
+    for label, fused, plain, raw, knob in cases:
+        pp = flatten_model(plain).bind(prepare_model_data(plain, raw, device=run.dev))
+        scale = 0.4 * torch.arange(8, device=run.dev)[:, None] / 3.5
+        z = scale * torch.randn(8, flatten_model(plain).ndim, generator=gen, device=run.dev)
+        v0, g0 = pp.value_and_grad(z)
+
+        def fused_vg(prec):
+            with env(PREC_KNOB, prec):
+                fp = flatten_model(fused).bind(prepare_model_data(fused, raw, device=run.dev))
+                return fp.value_and_grad(z)
+
+        for prec in PRECISION_MODES:
+            with env(knob, "1"):
+                v1, g1 = fused_vg(prec)
+            val_rel, grad_rel = parity_error(v0, g0, v1, g1)
+            tol_v, tol_g = PARITY_BANDS[prec]
+            log(f"  {label} at {prec}: val_rel {val_rel:.3g} (band {tol_v:g}), grad_rel "
+                f"{grad_rel:.3g} (band {tol_g:g})")
+            assert val_rel <= tol_v and grad_rel <= tol_g, (label, prec, val_rel, grad_rel)
+            out[f"{label} {prec}"] = dict(val_rel=val_rel, grad_rel=grad_rel)
     return out
 
 
@@ -2735,6 +3378,9 @@ def main(argv=None) -> int:
         "tempering_path": phase_tempering(run),
         "zoo_glm": phase_zoo_glm(run, lmm),
         "zoo_rest": phase_zoo_rest(run),
+        "precision_kernels": phase_precision_kernels(run, flag, lmm),
+        "precision_paths": phase_precision_paths(run, flag, lmm),
+        "precision_potentials": phase_precision_potentials(run, flag, lmm),
     }
     prof = {
         label: phase_profile(run, model, raw, label)

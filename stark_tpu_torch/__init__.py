@@ -20,7 +20,9 @@ CPU device they raise (see `_device`).
 
 Precision stance: float32 everywhere, no TF32.  This mirrors the JAX
 package's ``highest`` matmul default — MCMC needs accurate energies and
-gradients for Hamiltonian energy conservation.
+gradients for Hamiltonian energy conservation.  ``STARK_FUSED_PRECISION=
+high|default`` opts the fused likelihood dots into the reference's three
+or one bf16 passes (`ops.precision`).
 """
 
 import torch as _torch

@@ -5,9 +5,12 @@
 // bernoulli link (log_sigmoid, sigmoid; B3) and stark_error_string (every
 // library).  Each kernel's pass is in its own source: hier_grouped.cu
 // (B1), logistic_batched.cu (B2), logistic_single.cu (B3), lmm_grouped.cu
-// (B4, which has its own arguments, partials and second kernel).
+// (B4, which has its own arguments, partials and second kernel).  Also
+// the dot precisions (STARK_FUSED_PRECISION) of B1, B2 and B4 and what
+// each takes of an operand (below).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -16,6 +19,100 @@ namespace stark {
 constexpr int kThreads = 256;   // threads of a block of finish
 constexpr int kBernoulli = 0;   // link codes of the C entry points
 constexpr int kGaussian = 1;
+
+// Dot precisions, the codes of the C entry points
+// (stark_tpu_torch/ops/precision.py:PRECISIONS).  kHighest: float32
+// products.  kDefault: one bf16 pass, both operands rounded to bf16 (to
+// nearest even).  kHigh: three bf16 passes, a = a_hi + a_lo with a_hi =
+// bf16(a), a_lo = bf16(a - a_hi), a.b taken as a_hi b_hi + a_hi b_lo +
+// a_lo b_hi.  A product of two bf16 values is exact in float32, so each
+// pass is float32 FMAs on the CUDA cores, summed in float32.
+constexpr int kHighest = 0;
+constexpr int kHigh = 1;
+constexpr int kDefault = 2;
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// An operand as a kernel stages it in shared memory for the dots at
+// kPrec: x (highest); bf16(x) (default); for high, a_hi and a_lo packed
+// in one 32-bit word, a_hi's 16 bits above a_lo's, so a staged tile
+// keeps its size and layout (hi_of and lo_of unpack them).
+template <int kPrec>
+__device__ __forceinline__ float stage_operand(float x) {
+  if (kPrec == kDefault) return bf16_round(x);
+  if (kPrec == kHigh) {
+    const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+    const __nv_bfloat16 lo = __float2bfloat16_rn(x - __bfloat162float(hi));
+    return __uint_as_float((unsigned)__bfloat16_as_ushort(hi) << 16 |
+                           (unsigned)__bfloat16_as_ushort(lo));
+  }
+  return x;
+}
+
+__device__ __forceinline__ float hi_of(float w) {
+  return __uint_as_float(__float_as_uint(w) & 0xffff0000u);
+}
+
+__device__ __forceinline__ float lo_of(float w) {
+  return __uint_as_float(__float_as_uint(w) << 16);
+}
+
+// a.b of two staged operands at kPrec, added to acc: one FMA, or for
+// high the three passes in their order.
+template <int kPrec>
+__device__ __forceinline__ float fma_staged(float a, float b, float acc) {
+  if (kPrec != kHigh) return fmaf(a, b, acc);
+  const float ah = hi_of(a), bh = hi_of(b);
+  acc = fmaf(ah, bh, acc);
+  acc = fmaf(ah, lo_of(b), acc);
+  return fmaf(lo_of(a), bh, acc);
+}
+
+// What a dot at kPrec takes of x against an exact 0/1 operand (a one-hot
+// of group ids, which the kernels take as a gather or a segment sum): x,
+// bf16(x), or a_hi + a_lo (one float32 add, as the plain version's).
+template <int kPrec>
+__device__ __forceinline__ float onehot_operand(float x) {
+  if (kPrec == kDefault) return bf16_round(x);
+  if (kPrec == kHigh) {
+    const float hi = bf16_round(x);
+    return hi + bf16_round(x - hi);
+  }
+  return x;
+}
+
+// The four staged operands of v for the dots at kPrec.
+template <int kPrec>
+__device__ __forceinline__ float4 stage_operand4(float4 v) {
+  return make_float4(stage_operand<kPrec>(v.x), stage_operand<kPrec>(v.y),
+                     stage_operand<kPrec>(v.z), stage_operand<kPrec>(v.w));
+}
+
+// Round for the dots at kPrec, in place, the rows [0, nrows) of a
+// sub-tile [row][kRowsT] (stride kLdT) that this thread copied: the
+// mapping of the kernels' stage (i -> row i / (kRowsT / 4), 4 columns
+// from 4 (i % (kRowsT / 4)), i stepping by kThreadsT), after the
+// thread's cp.async wait and before the barrier that shows the sub-tile
+// to the block, so it costs no barrier.
+template <int kPrec, int kRowsT, int kLdT, int kThreadsT>
+__device__ __forceinline__ void stage_rows(float* tile, int nrows) {
+  if (kPrec == kHighest) return;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < nrows * (kRowsT / 4); i += kThreadsT) {
+    float4* v = reinterpret_cast<float4*>(tile + (i / (kRowsT / 4)) * kLdT +
+                                          (i % (kRowsT / 4)) * 4);
+    *v = stage_operand4<kPrec>(*v);
+  }
+}
+
+// A staged operand's value against a 0/1 operand: a_hi + a_lo of a
+// packed word (high), the value itself otherwise.
+template <int kPrec>
+__device__ __forceinline__ float staged_value(float w) {
+  return kPrec == kHigh ? hi_of(w) + lo_of(w) : w;
+}
 
 struct Params {
   const float* xT;    // (D, N) row-major

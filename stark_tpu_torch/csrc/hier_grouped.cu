@@ -64,6 +64,24 @@
 //            only when C > kChains or D > kFeat).
 // The strides put the float4 operands of a warp in distinct banks.
 //
+// Dot precision (STARK_FUSED_PRECISION; kPrec, csrc/fused_pass.cuh).  The
+// reference passes it to the kernel's four dots: beta x, alpha against
+// the one-hot groups, resid x^T and resid against the one-hot groups.
+// Each operand is rounded once, where it is staged, never in the FMA
+// loops: x in shared memory when its sub-tile has landed (each thread
+// its own copies, after its wait and before the barrier: no barrier
+// more), beta when the block stages it, alpha when it is loaded, resid
+// when it is written to shared memory (after the value sums took it
+// whole).  At default a staged operand is its bf16 value and the loops
+// are highest's; at high it is a_hi and a_lo packed in one word (the
+// layout and its widths are highest's), and each product is three FMAs
+// in the passes' order.  Against the one-hot groups alpha enters as
+// bf16(alpha) or alpha_hi + alpha_lo, and the segment sums add resid's
+// staged values.  Rows past N are zeros before any rounding.  On CUDA
+// cores the operations are 1 (default) or 3 (high) times highest's, so
+// high's bound is 3 x 122 us; bf16 tensor cores would make both bound by
+// bytes (40.6 us).
+//
 // Every sum runs in a fixed order: per thread in row and feature order;
 // the row groups of a warp by a fixed shuffle tree; the row slices of the
 // gradient and the two warps of a row-group pair one after the other in
@@ -217,8 +235,9 @@ __device__ __forceinline__ void stage(const Params& p, float* xs, float* ys, int
 
 // kOneTile: one_tile(C, D), the flagship's case (two x buffers, one
 // chunk, the gradient tile in registers throughout), compiled apart so
-// that none of the other cases' state takes its registers.
-template <bool kOneTile>
+// that none of the other cases' state takes its registers.  kPrec: the
+// dot precision.
+template <bool kOneTile, int kPrec>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hier_pass(Params p, int nblk) {
   extern __shared__ __align__(16) float smem[];
   const int C = p.C, D = p.D, N = p.N, G = p.G;
@@ -253,7 +272,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hier_pass(Params p, in
 
   for (int i = t; i < D * cb + cp - cb; i += kThreads) {  // beta [d][c]
     const int d = i / cb, c = i - d * cb;
-    bsh[i] = d < D && c < C ? p.beta[(size_t)c * D + d] : 0.f;
+    bsh[i] = d < D && c < C ? stage_operand<kPrec>(p.beta[(size_t)c * D + d]) : 0.f;
   }
   if (two) {  // padded feature rows of both buffers
     for (int i = t; i < (L.xrows - D) * kLd; i += kThreads) {
@@ -326,6 +345,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hier_pass(Params p, in
     const int row0 = sub * kRows;
     const int nvalid = min(kRows, N - row0);
     cp_async_wait_all();
+    stage_rows<kPrec, kRows, kLd, kThreads>(xs + buf * xbuf, D);
     __syncthreads();  // this sub-tile has landed; the other buffer is free
     if (two && sub + 1 < sub1) {
       const int nrow0 = row0 + kRows;
@@ -377,7 +397,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hier_pass(Params p, in
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(bb[i], xx[j], acc[i][j]);
+            for (int j = 0; j < 8; ++j) acc[i][j] = fma_staged<kPrec>(bb[i], xx[j], acc[i][j]);
         }
 
         // ---- link, one exp per element
@@ -392,7 +412,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hier_pass(Params p, in
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               const int c = k + 4 * cg + i;
-              a[i] = c < C ? __ldg(p.alpha + (size_t)c * G + g) : 0.f;
+              a[i] = c < C ? onehot_operand<kPrec>(__ldg(p.alpha + (size_t)c * G + g)) : 0.f;
             }
             gprev = g;
           }
@@ -411,11 +431,12 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hier_pass(Params p, in
           }
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < 4; ++i) {  // resid, staged as the dots' operand
           float* rp = rs + (4 * cg + i) * kLd + 4 * rg;
-          *reinterpret_cast<float4*>(rp) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          *reinterpret_cast<float4*>(rp) =
+              stage_operand4<kPrec>(make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
           *reinterpret_cast<float4*>(rp + kRows / 2) =
-              make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+              stage_operand4<kPrec>(make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
         }
         if (cp > kChains) fold_values(k);  // more chunks: values to shared memory
       }
@@ -430,7 +451,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hier_pass(Params p, in
           const int r0 = segs[si], r1 = segs[si + 1];
           const int gid = gbase + glcur[r0];
           float sg = 0.f;
-          for (int r = r0 + q; r < r1; r += 4) sg += rp[r];
+          for (int r = r0 + q; r < r1; r += 4) sg += staged_value<kPrec>(rp[r]);
           sg += __shfl_xor_sync(0xffffffffu, sg, 2);
           sg += __shfl_xor_sync(0xffffffffu, sg, 1);
           if (q == 0 && c < C) {
@@ -467,10 +488,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hier_pass(Params p, in
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               float s = gacc[i][j];
-              s = fmaf(rv[i].x, xv.x, s);
-              s = fmaf(rv[i].y, xv.y, s);
-              s = fmaf(rv[i].z, xv.z, s);
-              gacc[i][j] = fmaf(rv[i].w, xv.w, s);
+              s = fma_staged<kPrec>(rv[i].x, xv.x, s);
+              s = fma_staged<kPrec>(rv[i].y, xv.y, s);
+              s = fma_staged<kPrec>(rv[i].z, xv.z, s);
+              gacc[i][j] = fma_staged<kPrec>(rv[i].w, xv.w, s);
             }
           }
         }
@@ -510,6 +531,15 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hier_pass(Params p, in
   }
 }
 
+using Kernel = void (*)(Params, int);
+
+template <bool kOneTile>
+inline Kernel pick(int prec) {
+  return prec == kHigh      ? hier_pass<kOneTile, kHigh>
+         : prec == kDefault ? hier_pass<kOneTile, kDefault>
+                            : hier_pass<kOneTile, kHighest>;
+}
+
 }  // namespace b1
 }  // namespace stark
 
@@ -517,7 +547,7 @@ extern "C" int stark_hier_grouped(
     const float* xT, const float* y, const int* gl, const int* first_gid,
     const float* beta, const float* alpha, float* val, float* gbeta,
     float* galpha, float* scratch, int C, int D, int N, int G, int lane_tile,
-    int nblk, void* stream) {
+    int nblk, int prec, void* stream) {
   stark::Params p{};
   p.xT = xT;
   p.y = y;
@@ -536,11 +566,14 @@ extern "C" int stark_hier_grouped(
   if (nblk != (nsub < stark::b1::kBlocks ? nsub : stark::b1::kBlocks)) {
     return (int)cudaErrorInvalidValue;
   }
+  if (prec != stark::kHighest && prec != stark::kHigh && prec != stark::kDefault) {
+    return (int)cudaErrorInvalidValue;
+  }
   stark::carve_scratch(p, scratch, nblk);
   auto s = static_cast<cudaStream_t>(stream);
   const size_t bytes = (size_t)stark::b1::layout(C, D).words * sizeof(float);
-  auto* kern = stark::b1::one_tile(C, D) ? stark::b1::hier_pass<true>
-                                         : stark::b1::hier_pass<false>;
+  const stark::b1::Kernel kern =
+      stark::b1::one_tile(C, D) ? stark::b1::pick<true>(prec) : stark::b1::pick<false>(prec);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)bytes);
   if (e != cudaSuccess) return (int)e;

@@ -42,7 +42,9 @@
 // 16, no lane computes a chain that does not exist, and the chains' lanes
 // meet once per block), and a general one in chunks of 32 chains and
 // kFeat features.  Every instantiation fits 80 registers a thread (three
-// blocks of 256 threads per SM) without spilling.  Per sub-tile:
+// blocks of 256 threads per SM) without spilling, but the one-tile 32-chain
+// ones at high and default, which fit 128 (two blocks; blocks_per_sm).
+// Per sub-tile:
 //   segments warp 0 finds the rows whose group differs from the previous
 //            row's, each row's segment, each segment's group, and whether
 //            ids are skipped (an id without rows).
@@ -85,6 +87,23 @@
 //            gu = 0 from the block; block 0 writes the ids before the first
 //            row's group and the last block those after the last row's.
 //
+// Dot precision (STARK_FUSED_PRECISION; kPrec, csrc/fused_pass.cuh), as
+// B1 takes it: the reference passes it to the dots beta x, u_q against
+// the one-hot groups, resid x^T and resid z_q against the one-hot groups.
+// x is rounded when its sub-tile has landed (each thread its own copies,
+// before the barrier), beta when the block stages it, u when the logits
+// load it from the staged rows (a loop of its own spilled registers): u
+// enters as bf16(u) or u_hi + u_lo and is multiplied by z in float32,
+// outside the dot, as there.  resid stays whole in rs (ssr,
+// sresid and the group sums read it): before the sums, each thread of the
+// sums phase takes resid^2 and resid over its own rows, in the sums'
+// order, and stages those rows for the gradient in the u rows' buffer,
+// which nothing reads again until the next chunk stages its u rows; the
+// gradient reads them there.  The group sums round each product
+// resid z_q.  At high a staged x, beta or resid is a_hi and a_lo
+// packed in one word (the layout and its widths are highest's) and each
+// product is three FMAs.
+//
 // Second kernel (b4_finish): a warp per entry of gbeta, ssr and sresid,
 // whose lanes take every 32nd block in order and meet in a fixed shuffle
 // tree (as B2's b2_finish); and one thread per (block, first or last
@@ -101,6 +120,13 @@ namespace b4 {
 
 constexpr int kThreads = 256;     // 8 warps
 constexpr int kBlocksPerSm = 3;
+// blocks per SM that an instantiation is compiled for: three (80 registers
+// a thread), but two (128) for the one-tile 32-chain chunks at high and
+// default, whose rounding spills at 80 (the grid stays kBlocks, one and a
+// half waves of them)
+constexpr int blocks_per_sm(int kcc, bool one, int prec) {
+  return kcc == 32 && one && prec != kHighest ? 2 : kBlocksPerSm;
+}
 constexpr int kBlocks = 132 * kBlocksPerSm;  // H100 SXM: 132 SMs
 constexpr int kThreePerSm = 75 * 1024;  // most shared memory of a block, in
                                         // bytes, with three blocks on an SM
@@ -310,8 +336,9 @@ __device__ __forceinline__ float lane_sum(float s) {
 
 // kCC: chains per chunk.  kOneTile: one_tile(C, D), one chunk of chains
 // (C <= kCC) and of features: the chains' lanes meet once per block.
-template <int kCC, bool kOneTile>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm) b4_pass(Args p, int nblk) {
+// kPrec: the dot precision.
+template <int kCC, bool kOneTile, int kPrec>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(kCC, kOneTile, kPrec)) b4_pass(Args p, int nblk) {
   constexpr int kHalf = kCC / 2;             // chains per thread in the logits
   constexpr int kLanes = kThreads / kCC;     // threads per chain in the sums
   static_assert(kLanes >= kFeat && kLanes <= 32, "a lane per feature, within one warp");
@@ -357,7 +384,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b4_pass(Args p, int nb
 
   for (int i = t; i < xrows * cp; i += kThreads) {
     const int d = i / cp, c = i - d * cp;
-    bsh[i] = d < D && c < C ? p.beta[(size_t)c * D + d] : 0.f;
+    bsh[i] = d < D && c < C ? stage_operand<kPrec>(p.beta[(size_t)c * D + d]) : 0.f;
   }
   for (int c = t; c < cp; c += kThreads) ics[c] = c < C ? p.ic[c] : 0.f;
   for (int i = t; i < cp * Q; i += kThreads) {
@@ -394,6 +421,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b4_pass(Args p, int nb
     const int row0 = sub * kRows;
     const int nvalid = min(kRows, N - row0);
     cp_async_wait_all();
+    stage_rows<kPrec, kRows, kLd, kThreads>(xs + buf * xbuf, D);
     __syncthreads();  // this sub-tile has landed; the last one's readers are done
     const float* xcur = xs + buf * xbuf;
     const float* zcur = zs + buf * zbuf;
@@ -479,10 +507,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b4_pass(Args p, int nb
 #pragma unroll
             for (int j = 0; j < kPass; j += 4) {
               const float4 bv = *reinterpret_cast<const float4*>(bp + d * cp + j);
-              acc[j] = fmaf(bv.x, xv, acc[j]);
-              acc[j + 1] = fmaf(bv.y, xv, acc[j + 1]);
-              acc[j + 2] = fmaf(bv.z, xv, acc[j + 2]);
-              acc[j + 3] = fmaf(bv.w, xv, acc[j + 3]);
+              acc[j] = fma_staged<kPrec>(bv.x, xv, acc[j]);
+              acc[j + 1] = fma_staged<kPrec>(bv.y, xv, acc[j + 1]);
+              acc[j + 2] = fma_staged<kPrec>(bv.z, xv, acc[j + 2]);
+              acc[j + 3] = fma_staged<kPrec>(bv.w, xv, acc[j + 3]);
             }
           }
           if (kPass < kHalf) {
@@ -507,10 +535,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b4_pass(Args p, int nb
 #pragma unroll
             for (int j = 0; j < kPass; j += 4) {
               const float4 uv = *reinterpret_cast<const float4*>(up + e * kCC + j0 + j);
-              acc[j] = fmaf(zv, uv.x, acc[j]);
-              acc[j + 1] = fmaf(zv, uv.y, acc[j + 1]);
-              acc[j + 2] = fmaf(zv, uv.z, acc[j + 2]);
-              acc[j + 3] = fmaf(zv, uv.w, acc[j + 3]);
+              acc[j] = fmaf(zv, onehot_operand<kPrec>(uv.x), acc[j]);
+              acc[j + 1] = fmaf(zv, onehot_operand<kPrec>(uv.y), acc[j + 1]);
+              acc[j + 2] = fmaf(zv, onehot_operand<kPrec>(uv.z), acc[j + 2]);
+              acc[j + 3] = fmaf(zv, onehot_operand<kPrec>(uv.w), acc[j + 3]);
             }
           }
 #pragma unroll
@@ -525,6 +553,22 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b4_pass(Args p, int nb
       // ---- sums: thread (chain scl, lane sq); rows 4 sq + 4 kLanes i
       {
         const float* rp = rs + scl * kLd;
+        if (kPrec != kHighest) {
+          // resid^2 and resid in the same order as below, and the thread's
+          // resid rows staged for the gradient in the u rows' buffer
+          float* qp = us + scl * kLd;
+#pragma unroll 1
+          for (int r = 4 * sq; r < kRows; r += 4 * kLanes) {
+            const float4 rv = *reinterpret_cast<const float4*>(rp + r);
+            vacc = fmaf(rv.x, rv.x, vacc);
+            vacc = fmaf(rv.y, rv.y, vacc);
+            vacc = fmaf(rv.z, rv.z, vacc);
+            vacc = fmaf(rv.w, rv.w, vacc);
+            racc += (rv.x + rv.y) + (rv.z + rv.w);
+            *reinterpret_cast<float4*>(qp + r) = stage_operand4<kPrec>(rv);
+          }
+          rp = qp;
+        }
         float gacc[kFeat];
         for (int f0 = 0; f0 < xrows; f0 += kFeat) {
 #pragma unroll
@@ -537,7 +581,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b4_pass(Args p, int nb
 #pragma unroll 1
             for (int r = 4 * sq; r < kRows; r += 4 * kLanes) {
               const float4 rv = *reinterpret_cast<const float4*>(rp + r);
-              if (f0 == 0 && fh == 0) {
+              if (kPrec == kHighest && f0 == 0 && fh == 0) {
                 vacc = fmaf(rv.x, rv.x, vacc);
                 vacc = fmaf(rv.y, rv.y, vacc);
                 vacc = fmaf(rv.z, rv.z, vacc);
@@ -548,10 +592,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b4_pass(Args p, int nb
               for (int f = fh; f < fh + kFeat / 2; ++f) {
                 const float4 xv = *reinterpret_cast<const float4*>(xp + f * kLd + r);
                 float s = gacc[f];
-                s = fmaf(rv.x, xv.x, s);
-                s = fmaf(rv.y, xv.y, s);
-                s = fmaf(rv.z, xv.z, s);
-                gacc[f] = fmaf(rv.w, xv.w, s);
+                s = fma_staged<kPrec>(rv.x, xv.x, s);
+                s = fma_staged<kPrec>(rv.y, xv.y, s);
+                s = fma_staged<kPrec>(rv.z, xv.z, s);
+                gacc[f] = fma_staged<kPrec>(rv.w, xv.w, s);
               }
             }
           }
@@ -588,7 +632,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b4_pass(Args p, int nb
         const float* rp = rs + cl * kLd;
         const float* zp = zcur + e * kLd;
         float sg = 0.f;
-        for (int r = segs[s]; r < segs[s + 1]; ++r) sg = fmaf(rp[r], zp[r], sg);
+        for (int r = segs[s]; r < segs[s + 1]; ++r) {
+          sg = kPrec == kHighest ? fmaf(rp[r], zp[r], sg)
+                                 : sg + onehot_operand<kPrec>(rp[r] * zp[r]);
+        }
         if (s == 0) bnd[cl * Q + e] = sg;
         else if (s == nseg - 1) bnd[(kCC + cl) * Q + e] = sg;
         else p.gu[((size_t)(k + cl) * G + sgid[s]) * Q + e] = sg;
@@ -729,9 +776,17 @@ __global__ void b4_finish(Args p, int nblk, float* ssr, float* sresid, float* gb
 
 using Kernel = void (*)(Args, int);
 
-inline Kernel pick(int C, int D) {
-  if (!one_tile(C, D)) return b4_pass<kWide, false>;
-  return C <= 8 ? b4_pass<8, true> : C <= 16 ? b4_pass<16, true> : b4_pass<32, true>;
+template <int kPrec>
+inline Kernel pick_width(int C, int D) {
+  if (!one_tile(C, D)) return b4_pass<kWide, false, kPrec>;
+  return C <= 8 ? b4_pass<8, true, kPrec> : C <= 16 ? b4_pass<16, true, kPrec>
+                                                    : b4_pass<32, true, kPrec>;
+}
+
+inline Kernel pick(int C, int D, int prec) {
+  return prec == kHigh      ? pick_width<kHigh>(C, D)
+         : prec == kDefault ? pick_width<kDefault>(C, D)
+                            : pick_width<kHighest>(C, D);
 }
 
 }  // namespace b4
@@ -742,11 +797,14 @@ extern "C" int stark_lmm_grouped(
     const int* first_gid, const float* beta, const float* u,
     const float* intercept, float* ssr, float* sresid, float* gbeta,
     float* gu, float* scratch, int C, int D, int Q, int N, int G,
-    int lane_tile, int nblk, void* stream) {
+    int lane_tile, int nblk, int prec, void* stream) {
   namespace b4 = stark::b4;
   // the block split of stark_tpu_torch/ops/hier_fused.py:b4_blocks, no other
   const int nsub = (N + b4::kRows - 1) / b4::kRows;
   if (nblk != (nsub < b4::kBlocks ? nsub : b4::kBlocks) || nblk < 1 || lane_tile % b4::kRows) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (prec != stark::kHighest && prec != stark::kHigh && prec != stark::kDefault) {
     return (int)cudaErrorInvalidValue;
   }
   b4::Args p{};
@@ -775,7 +833,7 @@ extern "C" int stark_lmm_grouped(
   p.bhi = reinterpret_cast<int*>(scratch + k.bhi);
   auto s = static_cast<cudaStream_t>(stream);
   const size_t bytes = (size_t)b4::layout(C, D, Q).words * sizeof(float);
-  const b4::Kernel kern = b4::pick(C, D);
+  const b4::Kernel kern = b4::pick(C, D, prec);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)bytes);
   if (e != cudaSuccess) return (int)e;

@@ -93,6 +93,18 @@
 //            only when C > kChains or D > kFeat).
 // The strides put the float4 operands of a warp in distinct banks.
 //
+// Dot precision (STARK_FUSED_PRECISION; kPrec, csrc/fused_pass.cuh), as
+// B1 (csrc/hier_grouped.cu) takes it: the reference passes it to the two
+// dots beta x and resid x^T.  x is rounded when its sub-tile has landed
+// (each thread its own copies, before the barrier), beta when the block
+// stages it, resid when it goes to rs for the gradient: as the link
+// stores it, without offsets; with offsets, resid goes to device memory
+// whole, so the store rounds what it read and one barrier more lets the
+// gradient read it.  At high a staged operand is a_hi and a_lo packed in one
+// word (the layout and its widths are highest's) and each product is
+// three FMAs.  The offsets and the value sums are not rounded: the
+// reference adds the offsets after its dot.
+//
 // Every sum runs in a fixed order: per thread in row and feature order;
 // the row groups of a warp by a fixed shuffle tree; the row slices of the
 // gradient and the two warps of a row-group pair one after the other in
@@ -265,8 +277,8 @@ __device__ __forceinline__ Params shard_view(Params p, int s, int nblk) {
   return p;
 }
 
-// kShards: S > 1, blockIdx.y the shard.
-template <bool kOneTile, int kLink, bool kShards>
+// kShards: S > 1, blockIdx.y the shard.  kPrec: the dot precision.
+template <bool kOneTile, int kLink, bool kShards, int kPrec>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int nblk) {
   extern __shared__ __align__(16) float smem[];
   if (kShards) p = shard_view(p, blockIdx.y, nblk);
@@ -299,7 +311,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
 
   for (int i = t; i < D * cb + cp - cb; i += kThreads) {  // beta [d][c]
     const int d = i / cb, c = i - d * cb;
-    bsh[i] = d < D && c < C ? p.beta[(size_t)c * D + d] : 0.f;
+    bsh[i] = d < D && c < C ? stage_operand<kPrec>(p.beta[(size_t)c * D + d]) : 0.f;
   }
   if (two) {  // padded feature rows of both buffers
     for (int i = t; i < (L.xrows - D) * kLd; i += kThreads) {
@@ -368,6 +380,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
     const int row0 = sub * kRows;
     const int nvalid = min(kRows, N - row0);
     cp_async_wait_all();
+    stage_rows<kPrec, kRows, kLd, kThreads>(xs + buf * xbuf, D);
     __syncthreads();  // this sub-tile has landed; the other buffer is free
     if (two && sub + 1 < sub1) {
       const int nrow0 = row0 + kRows;
@@ -410,7 +423,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(bb[i], xx[j], acc[i][j]);
+            for (int j = 0; j < 8; ++j) acc[i][j] = fma_staged<kPrec>(bb[i], xx[j], acc[i][j]);
         }
       }
 
@@ -439,12 +452,19 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
           acc[i][j] = ok ? res : 0.f;
         }
       }
+      // resid, staged as the gradient's operand; with offsets rs keeps it
+      // whole until the store below has read it
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float* rp = rcur + (4 * cg + i) * kLd + 4 * rg;
-        *reinterpret_cast<float4*>(rp) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        *reinterpret_cast<float4*>(rp + kRows / 2) =
-            make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+        float4 w0 = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        float4 w1 = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+        if (!offs) {
+          w0 = stage_operand4<kPrec>(w0);
+          w1 = stage_operand4<kPrec>(w1);
+        }
+        *reinterpret_cast<float4*>(rp) = w0;
+        *reinterpret_cast<float4*>(rp + kRows / 2) = w1;
       }
       if (cp > kChains) fold_values(k);  // more chunks: values to shared memory
       __syncthreads();  // resid is in place
@@ -455,7 +475,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
           const int cl = i / (kRows / 4), r = (i % (kRows / 4)) * 4;
           if (k + cl >= C || r >= nvalid) continue;
           const size_t off = (size_t)(k + cl) * N + row0 + r;
-          const float4 v = *reinterpret_cast<const float4*>(rcur + cl * kLd + r);
+          float4* rv = reinterpret_cast<float4*>(rcur + cl * kLd + r);
+          const float4 v = *rv;
           if (r16 && (off & 3) == 0 && r + 4 <= nvalid) {
             __stcs(reinterpret_cast<float4*>(p.resid + off), v);
           } else {
@@ -464,7 +485,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
             for (int e = 0; e < 4; ++e)
               if (r + e < nvalid) __stcs(p.resid + off + e, vv[e]);
           }
+          if (kPrec != kHighest) *rv = stage_operand4<kPrec>(v);  // the gradient's operand
         }
+        if (kPrec != kHighest) __syncthreads();  // the rounded resid is in place
       }
 
       // ---- gradient: chains k + gcg + 8 i, features f0 + fg + 4 j,
@@ -484,10 +507,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               float s = gacc[i][j];
-              s = fmaf(rv[i].x, xv.x, s);
-              s = fmaf(rv[i].y, xv.y, s);
-              s = fmaf(rv[i].z, xv.z, s);
-              gacc[i][j] = fmaf(rv[i].w, xv.w, s);
+              s = fma_staged<kPrec>(rv[i].x, xv.x, s);
+              s = fma_staged<kPrec>(rv[i].y, xv.y, s);
+              s = fma_staged<kPrec>(rv[i].z, xv.z, s);
+              gacc[i][j] = fma_staged<kPrec>(rv[i].w, xv.w, s);
             }
           }
         }
@@ -548,10 +571,17 @@ __global__ void b2_finish(Params p, int nblk, int S, float* val, float* gbeta) {
 
 using Kernel = void (*)(Params, int);
 
+template <bool kOneTile, bool kShards, int kPrec>
+inline Kernel pick_link(int link) {
+  return link == kGaussian ? b2_pass<kOneTile, kGaussian, kShards, kPrec>
+                           : b2_pass<kOneTile, kBernoulli, kShards, kPrec>;
+}
+
 template <bool kOneTile, bool kShards>
-inline Kernel pick(int link) {
-  return link == kGaussian ? b2_pass<kOneTile, kGaussian, kShards>
-                           : b2_pass<kOneTile, kBernoulli, kShards>;
+inline Kernel pick(int link, int prec) {
+  return prec == kHigh      ? pick_link<kOneTile, kShards, kHigh>(link)
+         : prec == kDefault ? pick_link<kOneTile, kShards, kDefault>(link)
+                            : pick_link<kOneTile, kShards, kHighest>(link);
 }
 
 }  // namespace b2
@@ -560,7 +590,7 @@ inline Kernel pick(int link) {
 extern "C" int stark_logistic_batched(
     const float* xT, const float* y, const float* offsets, const float* beta,
     float* val, float* gbeta, float* resid, float* scratch, int C, int D, int N,
-    int S, int nblk, int link, void* stream) {
+    int S, int nblk, int link, int prec, void* stream) {
   namespace b2 = stark::b2;
   stark::Params p{};
   p.xT = xT;
@@ -577,13 +607,17 @@ extern "C" int stark_logistic_batched(
   const int most = b2::kBlocks / S > 1 ? b2::kBlocks / S : 1;
   if (nblk != (nsub < most ? nsub : most)) return (int)cudaErrorInvalidValue;
   if (link != stark::kBernoulli && link != stark::kGaussian) return (int)cudaErrorInvalidValue;
+  if (prec != stark::kHighest && prec != stark::kHigh && prec != stark::kDefault) {
+    return (int)cudaErrorInvalidValue;
+  }
   stark::carve_scratch(p, scratch, nblk * S);  // shard s: blocks s * nblk ..
 
   auto s = static_cast<cudaStream_t>(stream);
   const size_t bytes = (size_t)b2::layout(C, D).words * sizeof(float);
   const bool one = b2::one_tile(C, D);
-  const b2::Kernel kern = S > 1 ? (one ? b2::pick<true, true>(link) : b2::pick<false, true>(link))
-                                : (one ? b2::pick<true, false>(link) : b2::pick<false, false>(link));
+  const b2::Kernel kern =
+      S > 1 ? (one ? b2::pick<true, true>(link, prec) : b2::pick<false, true>(link, prec))
+            : (one ? b2::pick<true, false>(link, prec) : b2::pick<false, false>(link, prec));
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)bytes);
   if (e != cudaSuccess) return (int)e;

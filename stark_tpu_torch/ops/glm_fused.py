@@ -7,7 +7,8 @@ every chain in one product, the clip band, ``mu = exp(eta)``, the value,
 and ``grad = resid @ xT.T``.  The backward only rescales the saved
 gradient, so X is read once per evaluation.  The reference leaves these
 two products to XLA, outside any Pallas kernel, so here they are two
-``torch.matmul`` calls and no hand-written kernel.
+``torch.matmul`` calls at STARK_FUSED_PRECISION (`ops.precision.dot`)
+and no hand-written kernel.
 
 Model side: `models.glm.FusedPoissonRegression` routes through
 `poisson_loglik` behind ``STARK_FUSED_GLM`` (default on; ``0`` falls
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .precision import clip_band, fused_knob, fused_value_and_grad
+from .precision import clip_band, dot, dot_precision, fused_knob, fused_value_and_grad
 
 #: clip bound of the log-link rate, as models.glm.PoissonRegression's
 #: (a warmup excursion must not overflow float32 through exp)
@@ -39,13 +40,14 @@ def _poisson_vg(beta, xT, y):
     lies outside the clip band contribute no gradient, as autograd
     through ``torch.clamp`` gives.
     """
-    eta, inside = clip_band(beta @ xT, LOG_RATE_CLIP)
+    prec = dot_precision()
+    eta, inside = clip_band(dot(beta, xT, prec), LOG_RATE_CLIP)
     if eta.ndim == 3:
         y = y.unsqueeze(-2)
     mu = torch.exp(eta)
     ll = (y * eta - mu - torch.lgamma(y + 1.0)).sum(-1)
     resid = (y - mu) * inside
-    return ll, (resid @ xT.transpose(-1, -2),)
+    return ll, (dot(resid, xT.transpose(-1, -2), prec),)
 
 
 _op, _op_vg = fused_value_and_grad(_poisson_vg, ndiff=1)

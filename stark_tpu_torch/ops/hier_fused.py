@@ -24,6 +24,10 @@ yields the SSR, sum(resid), ∂/∂beta and ∂/∂u (C, G, Q), scale-free
 Each kernel splits the rows by its own function of N (`b1_blocks`,
 `b4_blocks`) and refuses, before launching, widths whose block would not
 fit the card's shared memory (`b1_shared_memory`, `b4_shared_memory`).
+Both take their dots at STARK_FUSED_PRECISION, read at each call
+(`ops.precision`: one instantiation of each kernel per precision, the
+plain versions through `dot` and `dot_operand`); the widths each
+admits are the same at every precision.
 """
 
 from __future__ import annotations
@@ -44,7 +48,14 @@ from .logistic_fused import (
     sigma_grad,
     subtile_split,
 )
-from .precision import check_knobs, per_chain, x_stream_dtype
+from .precision import (
+    PRECISIONS,
+    check_knobs,
+    dot,
+    dot_operand,
+    per_chain,
+    x_stream_dtype,
+)
 
 # The reference's layout constants, kept so the port builds bit-identical
 # layouts: the lane-tile cap, the per-slab element budget it was sized by,
@@ -128,14 +139,17 @@ def absolute_groups(gl, first_gid, lane_tile):
     return first_gid.long()[tile] + gl.long()
 
 
-def hier_grouped_plain(beta, alpha, xT, y, gl, first_gid, lane_tile):
-    """Plain PyTorch version of kernel B1: -> (val (C,), gbeta (C, D),
-    galpha (C, G))."""
+def hier_grouped_plain(beta, alpha, xT, y, gl, first_gid, lane_tile, prec="highest"):
+    """Plain PyTorch version of kernel B1 at the dot precision ``prec``:
+    -> (val (C,), gbeta (C, D), galpha (C, G)).  Its four dots are the
+    reference's: beta x and resid x^T (`dot`); alpha and resid against
+    the rows' one-hot groups, a gather and a segment sum of
+    `dot_operand`."""
     g = absolute_groups(gl, first_gid, lane_tile)
-    logits = beta @ xT + alpha[:, g]
+    logits = dot(beta, xT, prec) + dot_operand(alpha, prec)[:, g]
     val_terms, resid = _link_parts(y, logits)
-    galpha = torch.zeros_like(alpha).index_add_(1, g, resid)
-    return val_terms.sum(-1), resid @ xT.T, galpha
+    galpha = torch.zeros_like(alpha).index_add_(1, g, dot_operand(resid, prec))
+    return val_terms.sum(-1), dot(resid, xT.T, prec), galpha
 
 
 #: rows per staged sub-tile of csrc/hier_grouped.cu (b1::kRows)
@@ -150,7 +164,7 @@ def b1_blocks(n: int):
     return subtile_split(n, B1_ROW_TILE, B1_BLOCKS)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -170,11 +184,14 @@ def hier_grouped(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
     """Kernel B1: -> (val (C,), gbeta (C, D), galpha (C, G)).
 
     beta (C, D), alpha (C, G), xT (D, N), y (N,) float32; gl (N,),
-    first_gid (ceil(N / lane_tile),) int32; rows sorted by group.
+    first_gid (ceil(N / lane_tile),) int32; rows sorted by group.  The
+    dots run at STARK_FUSED_PRECISION, read at the call; launches count
+    in ``hier_grouped.launches`` and, by precision, in
+    ``hier_grouped.precision_launches``.
     """
-    check_knobs()
+    prec = check_knobs()
     if beta.device.type == "cpu":
-        return hier_grouped_plain(beta, alpha, xT, y, gl, first_gid, lane_tile)
+        return hier_grouped_plain(beta, alpha, xT, y, gl, first_gid, lane_tile, prec)
     if beta.device.type != "cuda":
         raise ValueError(f"hier_grouped runs on cuda or cpu, not {beta.device}")
     c, d = beta.shape
@@ -210,16 +227,19 @@ def hier_grouped(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
         xT.data_ptr(), y.data_ptr(), gl.data_ptr(), first_gid.data_ptr(),
         beta.data_ptr(), alpha.data_ptr(), val.data_ptr(), gbeta.data_ptr(),
         galpha.data_ptr(), scratch.data_ptr(),
-        c, d, n, g_total, lane_tile, nblk,
+        c, d, n, g_total, lane_tile, nblk, PRECISIONS[prec],
         torch.cuda.current_stream(beta.device).cuda_stream,
     )
     _build.check("hier_grouped", err)
     hier_grouped.launches += 1
+    hier_grouped.precision_launches[prec] += 1
     return val, gbeta, galpha
 
 
-#: launches of the CUDA kernel in this process (CPU calls do not count)
+#: launches of the CUDA kernel in this process (CPU calls do not count),
+#: in all and by dot precision
 hier_grouped.launches = 0
+hier_grouped.precision_launches = dict.fromkeys(PRECISIONS, 0)
 
 
 class _HierLogisticLoglik(torch.autograd.Function):
@@ -248,14 +268,21 @@ def hier_logistic_loglik(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
     return val[0] if single else val
 
 
-def lmm_grouped_plain(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile):
-    """Plain PyTorch version of kernel B4: -> (ssr (C,), sum_resid (C,),
-    gbeta (C, D), gu (C, G, Q))."""
+def lmm_grouped_plain(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile,
+                      prec="highest"):
+    """Plain PyTorch version of kernel B4 at the dot precision ``prec``:
+    -> (ssr (C,), sum_resid (C,), gbeta (C, D), gu (C, G, Q)).  Its dots
+    are the reference's: beta x and resid x^T (`dot`); u and resid z_q
+    against the rows' one-hot groups, a gather and a segment sum of
+    `dot_operand` (z_q multiplies the gathered u in float32, outside the
+    dot, as there)."""
     g = absolute_groups(gl, first_gid, lane_tile)
-    mu = intercept[:, None] + beta @ xT + torch.einsum("qn,cnq->cn", zT, u[:, g, :])
+    mu = (intercept[:, None] + dot(beta, xT, prec)
+          + torch.einsum("qn,cnq->cn", zT, dot_operand(u, prec)[:, g, :]))
     _, resid = _link_parts(y, mu, "gaussian")
-    gu = torch.zeros_like(u).index_add_(1, g, resid[:, :, None] * zT.T[None])
-    return (resid * resid).sum(-1), resid.sum(-1), resid @ xT.T, gu
+    gu = torch.zeros_like(u).index_add_(
+        1, g, dot_operand(resid[:, :, None] * zT.T[None], prec))
+    return (resid * resid).sum(-1), resid.sum(-1), dot(resid, xT.T, prec), gu
 
 
 #: rows per staged sub-tile of csrc/lmm_grouped.cu (b4::kRows)
@@ -302,7 +329,7 @@ def b4_shared_memory(c: int, d: int, q: int, device: int):
     return need.value, limit.value
 
 
-_LMM_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_LMM_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def lmm_grouped(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile: int):
@@ -310,11 +337,13 @@ def lmm_grouped(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile: int):
 
     beta (C, D), u (C, G, Q), intercept (C,), xT (D, N), zT (Q, N), y
     (N,) float32; gl (N,), first_gid (ceil(N / lane_tile),) int32; rows
-    sorted by group.
+    sorted by group.  The dots run at STARK_FUSED_PRECISION, read at the
+    call; launches count as `hier_grouped`'s do.
     """
-    check_knobs()
+    prec = check_knobs()
     if beta.device.type == "cpu":
-        return lmm_grouped_plain(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile)
+        return lmm_grouped_plain(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile,
+                                 prec)
     if beta.device.type != "cuda":
         raise ValueError(f"lmm_grouped runs on cuda or cpu, not {beta.device}")
     c, d = beta.shape
@@ -353,16 +382,19 @@ def lmm_grouped(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile: int):
         first_gid.data_ptr(), beta.data_ptr(), u.data_ptr(),
         intercept.data_ptr(), ssr.data_ptr(), sresid.data_ptr(),
         gbeta.data_ptr(), gu.data_ptr(), scratch.data_ptr(),
-        c, d, q, n, g_total, lane_tile, nblk,
+        c, d, q, n, g_total, lane_tile, nblk, PRECISIONS[prec],
         torch.cuda.current_stream(beta.device).cuda_stream,
     )
     _build.check("lmm_grouped", err)
     lmm_grouped.launches += 1
+    lmm_grouped.precision_launches[prec] += 1
     return ssr, sresid, gbeta, gu
 
 
-#: launches of the CUDA kernel in this process (CPU calls do not count)
+#: launches of the CUDA kernel in this process (CPU calls do not count),
+#: in all and by dot precision
 lmm_grouped.launches = 0
+lmm_grouped.precision_launches = dict.fromkeys(PRECISIONS, 0)
 
 
 class _LmmGroupedLoglik(torch.autograd.Function):

@@ -18,7 +18,9 @@ Two layouts, each one pass:
   segment sums (`ops.precision.segment_sum`, deterministic on the card).
 
 The reference leaves both to XLA, outside any Pallas kernel, so here
-they are plain PyTorch and no hand-written kernel.
+they are plain PyTorch and no hand-written kernel.  The grid's two
+products run at STARK_FUSED_PRECISION (`ops.precision.dot`), as the
+reference passes the knob to them; the triples take no dot.
 
 Model side: `models.irt.FusedIRT2PL` routes through `irt_grid_loglik`
 or `irt_loglik` behind the default-off ``STARK_FUSED_IRT`` knob.
@@ -29,7 +31,14 @@ from __future__ import annotations
 import numpy as np
 import torch.nn.functional as F
 
-from .precision import fused_knob, fused_value_and_grad, segment_sum, x_stream_dtype
+from .precision import (
+    dot,
+    dot_precision,
+    fused_knob,
+    fused_value_and_grad,
+    segment_sum,
+    x_stream_dtype,
+)
 
 
 def fused_irt_enabled() -> bool:
@@ -74,14 +83,15 @@ def _irt_grid_vg(theta, a, b, y):
     axis.  y (P, I) in {0, 1}.  No gathers, no scatters: the residual
     matrix feeds two matrix-vector products and a column sum.
     """
+    prec = dot_precision()
     gap = theta[..., :, None] - b[..., None, :]
     logits = a[..., None, :] * gap
     ll = _bernoulli_terms(logits, y).sum((-2, -1))
     resid = y - logits.sigmoid()  # ([C,] P, I)
     colsum = resid.sum(-2)  # ([C,] I)
-    g_theta = (resid @ a[..., :, None]).squeeze(-1)
+    g_theta = dot(resid, a[..., :, None], prec).squeeze(-1)
     # sum_p resid[p, i] gap[p, i] = (theta @ resid)[i] - b[i] colsum[i]
-    g_a = (theta[..., None, :] @ resid).squeeze(-2) - b * colsum
+    g_a = dot(theta[..., None, :], resid, prec).squeeze(-2) - b * colsum
     g_b = -a * colsum
     return ll, (g_theta, g_a, g_b)
 

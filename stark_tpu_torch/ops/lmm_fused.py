@@ -5,7 +5,9 @@ counterpart of ``stark_tpu/ops/lmm_fused.py``.
 value and every parameter gradient (∂beta, ∂u, ∂intercept, ∂sigma), and
 the backward only rescales them, so the data are read once per
 evaluation.  The reference runs this at the XLA level, not in Pallas,
-so here it is plain PyTorch (`ops.precision.fused_value_and_grad`).
+so here it is plain PyTorch (`ops.precision.fused_value_and_grad`),
+its two X products at STARK_FUSED_PRECISION (`ops.precision.dot`), as
+the reference passes the knob to them and to nothing else.
 
 The (G, Q) gradient ∂u is a segment sum of ``z_q * resid`` over group
 ids that need not be sorted.  ``index_add_`` and ``scatter_add_`` sum
@@ -25,7 +27,7 @@ import math
 
 import torch
 
-from .precision import fused_knob, fused_value_and_grad, segment_sum
+from .precision import dot, dot_precision, fused_knob, fused_value_and_grad, segment_sum
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -43,13 +45,14 @@ def _lmm_vg(beta, u, intercept, sigma, xT, z, g, y):
     xT (D, N), X transposed; z (N, Q); g (N,) group ids; y (N,).
     ``ll = sum_i Normal(y_i | intercept + x_i beta + z_i . u[g_i], sigma)``.
     """
-    eta = beta @ xT + intercept[..., None] + (z * u[..., g, :]).sum(-1)
+    prec = dot_precision()
+    eta = dot(beta, xT, prec) + intercept[..., None] + (z * u[..., g, :]).sum(-1)
     resid = y - eta
     ssr = (resid * resid).sum(-1)
     n = y.shape[-1]
     val = -0.5 * ssr / sigma**2 - n * torch.log(sigma) - 0.5 * n * _LOG_2PI
     inv2 = 1.0 / (sigma * sigma)
-    g_beta = inv2[..., None] * (resid @ xT.transpose(-1, -2))
+    g_beta = inv2[..., None] * dot(resid, xT.transpose(-1, -2), prec)
     g_u = inv2[..., None, None] * segment_sum(resid[..., None] * z, g, u.shape[-2], dim=-2)
     g_intercept = inv2 * resid.sum(-1)
     g_sigma = ssr * inv2 / sigma - n / sigma

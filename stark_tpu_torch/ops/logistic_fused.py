@@ -24,6 +24,10 @@ to the other.  B2 splits the rows by `b2_blocks` and refuses, before
 launching, widths whose block would not fit the card's shared memory
 (`b2_shared_memory`); B3 splits them by `row_blocks`.
 
+B2 takes its two dots at STARK_FUSED_PRECISION, read at each call
+(`ops.precision`); B3 takes none, as the reference's single-chain
+kernel multiplies on its vector unit, so the knob leaves it as it is.
+
 `logistic_offset_loglik`, `logistic_loglik`, `gaussian_offset_loglik`
 and `gaussian_loglik` wrap them in ``torch.autograd.Function``s whose
 backward only rescales the gradients the forward pass already computed,
@@ -42,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .precision import check_knobs, per_chain
+from .precision import PRECISIONS, check_knobs, dot, per_chain
 
 #: B3's row blocks are multiples of this many rows
 KERNEL_ROW_TILE = 128
@@ -129,23 +133,25 @@ def check_kernel_args(named, *, device, dtypes, shapes):
             raise ValueError(f"{name} must be contiguous")
 
 
-def logistic_batched_plain(beta, xT, y, offsets=None, link="bernoulli_logit"):
+def logistic_batched_plain(beta, xT, y, offsets=None, link="bernoulli_logit",
+                           prec="highest"):
     """Plain PyTorch version of kernel B2 (same outputs), with or
-    without the shard axis."""
-    logits = beta @ xT
+    without the shard axis, its two dots (beta x, resid x^T) at the dot
+    precision ``prec`` (`dot`)."""
+    logits = dot(beta, xT, prec)
     if offsets is not None:
         logits = logits + offsets
     if beta.ndim == 3:  # shards: y (S, n) against logits (S, C, n)
         y = y.unsqueeze(-2)
     val_terms, resid = _link_parts(y, logits, link)
     val = val_terms.sum(-1)
-    gbeta = resid @ xT.transpose(-1, -2)
+    gbeta = dot(resid, xT.transpose(-1, -2), prec)
     if offsets is not None:
         return val, gbeta, resid
     return val, gbeta
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -179,15 +185,17 @@ def logistic_batched(
     ``logistic_batched.launches`` (bernoulli_logit) and
     ``logistic_batched.gaussian_launches`` (gaussian), one per launch
     whatever the number of shards; a launch with a shard axis also counts
-    in ``logistic_batched.shard_launches``.
+    in ``logistic_batched.shard_launches``, and every launch in
+    ``logistic_batched.precision_launches`` by its dot precision
+    (STARK_FUSED_PRECISION, read at the call).
     """
-    check_knobs()
+    prec = check_knobs()
     code = _link_code(link)
     if beta.ndim not in (2, 3):
         raise ValueError(f"logistic_batched takes beta (C, D) or (S, C, D); got "
                          f"{tuple(beta.shape)}")
     if beta.device.type == "cpu":
-        return logistic_batched_plain(beta, xT, y, offsets, link)
+        return logistic_batched_plain(beta, xT, y, offsets, link, prec)
     if beta.device.type != "cuda":
         raise ValueError(f"logistic_batched runs on cuda or cpu, not {beta.device}")
     lead = tuple(beta.shape[:-2])  # () or (S,)
@@ -221,10 +229,11 @@ def logistic_batched(
         offsets.data_ptr() if offsets is not None else None,
         beta.data_ptr(), val.data_ptr(), gbeta.data_ptr(),
         resid.data_ptr() if resid is not None else None,
-        scratch.data_ptr(), c, d, n, s, nblk, code,
+        scratch.data_ptr(), c, d, n, s, nblk, code, PRECISIONS[prec],
         torch.cuda.current_stream(beta.device).cuda_stream,
     )
     _build.check("logistic_batched", err)
+    logistic_batched.precision_launches[prec] += 1
     if link == "gaussian":
         logistic_batched.gaussian_launches += 1
     else:
@@ -237,10 +246,12 @@ def logistic_batched(
 
 
 #: launches of the CUDA kernel in this process, per link (CPU calls do
-#: not count); shard_launches also counts those with a shard axis
+#: not count); shard_launches also counts those with a shard axis, and
+#: precision_launches every launch by its dot precision
 logistic_batched.launches = 0
 logistic_batched.gaussian_launches = 0
 logistic_batched.shard_launches = 0
+logistic_batched.precision_launches = dict.fromkeys(PRECISIONS, 0)
 
 
 def logistic_single_plain(beta, xT, y, offsets=None, link="bernoulli_logit"):
@@ -268,7 +279,9 @@ def logistic_single(
 ):
     """Kernel B3: -> (val (), gbeta (D,)[, resid (N,)]).
 
-    beta (D,), xT (D, N), y (N,), offsets (N,) or None; float32.
+    beta (D,), xT (D, N), y (N,), offsets (N,) or None; float32.  It
+    takes no dot (the reference's kernel multiplies and sums on its
+    vector unit), so STARK_FUSED_PRECISION does not change it.
     """
     check_knobs()
     code = _link_code(link)

@@ -20,7 +20,10 @@ with the rows' one-hot categories over the K+1 bins: the products sum
 exactly one nonzero term per row (so the gather is exact), and the
 reduction is a matrix product with no float atomics, so it repeats bit
 for bit on the card.  The reference leaves all of this to XLA, so here
-it is plain PyTorch and no hand-written kernel.
+it is plain PyTorch and no hand-written kernel.  The two X products run
+at STARK_FUSED_PRECISION (`ops.precision.dot`), as the reference passes
+the knob to them; the one-hot products stand for the reference's exact
+gathers and segment sums and stay float32.
 
 Model side: `models.ordinal.FusedOrderedLogistic` routes through
 `ordinal_loglik` behind the default-off ``STARK_FUSED_ORDINAL`` knob.
@@ -31,7 +34,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .precision import fused_knob, fused_value_and_grad
+from .precision import dot, dot_precision, fused_knob, fused_value_and_grad
 
 #: the stable form's clamp on log(1 - e^{l-u}); models.ordinal's exactly
 GAP_EPS = -1e-6
@@ -77,7 +80,8 @@ def _ordinal_vg(beta, cutpoints, xT, y):
     and chain, (S, C, ...) against xT (S, D, n), y (S, n).  xT (D, N) is
     X transposed; y (N,) categories in {0 .. K-1}.
     """
-    eta = beta @ xT
+    prec = dot_precision()
+    eta = dot(beta, xT, prec)
     cpad = pad_cutpoints(cutpoints)
     oh_lo, oh_up = category_onehots(y, cpad.shape[-1], eta.dtype)
     upper = take_bins(cpad, oh_up) - eta
@@ -94,7 +98,7 @@ def _ordinal_vg(beta, cutpoints, xT, y):
     d_lower = -torch.sigmoid(lower) - r
     # d eta / d(upper, lower) = -1 each; the r terms cancel in the sum
     d_eta = -(d_upper + d_lower)
-    g_beta = d_eta @ xT.transpose(-1, -2)
+    g_beta = dot(d_eta, xT.transpose(-1, -2), prec)
     # both cutpoint scatters in one sum over the padded bins
     g_cpad = torch.cat([d_upper, d_lower], -1) @ torch.cat([oh_up, oh_lo], -2)
     return val, (g_beta, g_cpad[..., 1:-1])

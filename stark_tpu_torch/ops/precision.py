@@ -1,14 +1,28 @@
 """Knob resolution for the fused ops — counterpart of the knob half of
-``stark_tpu/ops/precision.py``.
+``stark_tpu/ops/precision.py`` — and the arithmetic of each dot
+precision.
 
 The JAX package honours two process-wide knobs:
 ``STARK_FUSED_PRECISION`` (highest | high | default) for the kernels'
 dot passes and ``STARK_FUSED_X_DTYPE`` (f32 | bf16 | int8 | fp8e4m3 |
 fp8e5m2) for the storage type of the streamed design matrix.  The port
-runs the kernels' arithmetic as float32 FMAs on the CUDA cores and
-streams X as float32: ``highest`` and ``f32``.  Any other value raises
-and names the ROADMAP item that brings it, so a knob is never silently
-ignored.
+runs every precision; it streams X as float32 only, and any other
+X dtype raises and names the ROADMAP item that brings it, so a knob is
+never silently ignored.
+
+What a precision computes is the reference's own definition
+(`dot_precision`): ``highest`` is the float32 product; ``default`` one
+bf16 pass, both operands rounded to bf16 (to nearest even) and the
+products summed in float32; ``high`` three bf16 passes, each operand a
+split into ``a_hi = bf16(a)`` and ``a_lo = bf16(a - a_hi)`` and the
+product taken as ``a_hi b_hi + a_hi b_lo + a_lo b_hi`` in float32, in
+that order.  `dot` computes it in plain PyTorch: the definition every
+kernel (``csrc/``) and every plain version is held to.  A product of
+two bf16 values is exact in float32, so a kernel and `dot` differ only
+in the order of their float32 sums.  A dot against an exact 0/1 matrix
+(a one-hot of group ids, which the kernels take as a gather or a
+segment sum) reduces to `dot_operand`: ``a`` rounded to bf16, or
+``a_hi + a_lo``, then exact products with 0 and 1.
 
 The scaffold half of the reference's module lives here too: the
 ``STARK_FUSED_<FAMILY>`` model knobs (`fused_knob`), the clip band of a
@@ -29,7 +43,10 @@ from typing import Callable, Tuple
 
 import torch
 
-_PRECISION_PENDING = ("high", "default")
+#: the values of STARK_FUSED_PRECISION, and the code each has in the C
+#: entry points of the kernels (csrc/fused_pass.cuh: kHighest, kHigh,
+#: kDefault)
+PRECISIONS = {"highest": 0, "high": 1, "default": 2}
 _X_DTYPE_F32 = ("f32", "float32")
 _X_DTYPE_PENDING = (
     "bf16", "bfloat16", "int8", "fp8e4m3", "float8_e4m3fn", "fp8e5m2",
@@ -38,17 +55,52 @@ _X_DTYPE_PENDING = (
 
 
 def dot_precision() -> str:
-    """Resolved ``STARK_FUSED_PRECISION``; only ``highest`` runs here."""
+    """Resolved ``STARK_FUSED_PRECISION``: ``highest`` (the default),
+    ``high`` or ``default``; read at every call."""
     name = os.environ.get("STARK_FUSED_PRECISION", "highest").lower()
-    if name == "highest":
-        return name
-    if name in _PRECISION_PENDING:
-        raise NotImplementedError(
-            f"STARK_FUSED_PRECISION={name!r} is not ported yet: the CUDA "
-            "kernels run full float32 FMAs (highest). TF32/3xTF32/BF16 "
-            "tensor-core modes are ROADMAP item B6."
-        )
-    raise ValueError(f"STARK_FUSED_PRECISION={name!r}: use highest|high|default")
+    if name not in PRECISIONS:
+        raise ValueError(f"STARK_FUSED_PRECISION={name!r}: use highest|high|default")
+    return name
+
+
+def bf16_round(a: torch.Tensor) -> torch.Tensor:
+    """``a`` rounded to bf16 (to nearest even), in ``a``'s dtype."""
+    return a.to(torch.bfloat16).to(a.dtype)
+
+
+def bf16_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(a_hi, a_lo): a_hi = bf16(a), a_lo = bf16(a - a_hi); a_lo is 0
+    where ``a`` is exact in bf16."""
+    hi = bf16_round(a)
+    return hi, bf16_round(a - hi)
+
+
+def dot_operand(a: torch.Tensor, prec: str) -> torch.Tensor:
+    """What a dot at ``prec`` takes of ``a`` against an exact 0/1
+    operand: ``a`` (highest), bf16(a) (default), a_hi + a_lo (high, one
+    float32 add: the two passes against the 0/1 operand summed per
+    element)."""
+    if prec == "highest":
+        return a
+    if prec == "default":
+        return bf16_round(a)
+    hi, lo = bf16_split(a)
+    return hi + lo
+
+
+def dot(a: torch.Tensor, b: torch.Tensor, prec: str) -> torch.Tensor:
+    """``a @ b`` at the dot precision ``prec`` (module docstring): the
+    float32 product; one bf16 pass; or three, a_hi b_hi + a_hi b_lo +
+    a_lo b_hi in that order.  Batched as ``@`` is."""
+    if prec == "highest":
+        return a @ b
+    if prec == "default":
+        return bf16_round(a) @ bf16_round(b)
+    if prec != "high":
+        raise ValueError(f"unknown dot precision {prec!r}; use one of {sorted(PRECISIONS)}")
+    a_hi, a_lo = bf16_split(a)
+    b_hi, b_lo = bf16_split(b)
+    return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
 
 
 def x_stream_dtype() -> torch.dtype:
@@ -67,10 +119,11 @@ def x_stream_dtype() -> torch.dtype:
     )
 
 
-def check_knobs() -> None:
-    """Raise unless both knobs resolve to what the port runs."""
-    dot_precision()
+def check_knobs() -> str:
+    """Raise unless both knobs resolve to what the port runs; returns
+    the resolved dot precision."""
     x_stream_dtype()
+    return dot_precision()
 
 
 def fused_knob(name: str, default: bool = False) -> bool:
@@ -125,8 +178,9 @@ def fused_value_and_grad(vg: Callable, ndiff: int) -> Tuple[Callable, Callable]:
       never reads the data arguments again (their gradients are None);
     * ``op_value_and_grad(*args) -> (value, grads)``: the direct entry.
 
-    Both call `check_knobs` first, so a precision or X-stream knob the
-    port does not run is refused, not ignored.
+    Both call `check_knobs` first, so an X-stream knob the port does not
+    run is refused, not ignored.  ``vg`` reads the dot precision itself
+    (`dot_precision`) where it takes a dot.
     """
     nargs = len(inspect.signature(vg).parameters)
     if not 0 < ndiff <= nargs:

@@ -10,7 +10,8 @@ the same for every row and are evaluated once per chain.  The value is
 ``jax.scipy.stats.t.logpdf`` summed over rows, in the same
 lgamma/log1p decomposition.  The reference leaves the two products to
 XLA, outside any Pallas kernel, so here they are ``torch.matmul`` calls
-and no hand-written kernel.
+at STARK_FUSED_PRECISION (`ops.precision.dot`) and no hand-written
+kernel.
 
 Model side: `models.robust.FusedStudentTRegression` routes through
 `studentt_loglik` behind the default-off ``STARK_FUSED_ROBUST`` knob.
@@ -22,7 +23,7 @@ import math
 
 import torch
 
-from .precision import fused_knob, fused_value_and_grad
+from .precision import dot, dot_precision, fused_knob, fused_value_and_grad
 
 _LOG_PI = math.log(math.pi)
 
@@ -41,7 +42,8 @@ def _studentt_vg(beta, sigma, nu, xT, y):
     xT (D, N) is X transposed, y (N,).
     ``ll = sum_i StudentT(y_i | nu, x_i beta, sigma)``.
     """
-    mu = beta @ xT
+    prec = dot_precision()
+    mu = dot(beta, xT, prec)
     if mu.ndim == 3:
         y = y.unsqueeze(-2)
     n = y.shape[-1]
@@ -57,7 +59,7 @@ def _studentt_vg(beta, sigma, nu, xT, y):
     # tail weight: d ll / d mu_i = w_i z_i / sigma
     w = (v + 1.0) / (v + z2)
     wz2 = (w * z2).sum(-1)
-    g_beta = ((w * z) @ xT.transpose(-1, -2)) / s
+    g_beta = dot(w * z, xT.transpose(-1, -2), prec) / s
     g_sigma = (wz2 - n) / sigma
     dg = torch.special.digamma
     g_nu = 0.5 * (n * (dg(half_nup1) - dg(half_nu) - 1.0 / nu) - log1pq.sum(-1) + wz2 / nu)

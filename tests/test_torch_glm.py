@@ -27,6 +27,7 @@ from stark_tpu.model import prepare_model_data as ref_prepare
 from stark_tpu.models import glm as rglm
 from stark_tpu.ops import glm_fused as rgf
 from stark_tpu.ops import precision as rprec
+from chip_smoke import PARITY_BANDS, parity_error
 from stark_tpu_torch import sample
 from stark_tpu_torch.model import flatten_model, prepare_model_data
 from stark_tpu_torch.models import glm as pglm
@@ -198,6 +199,18 @@ def test_unported_knobs_refused(knob, value, item, monkeypatch):
     raw, _ = _raw("PoissonRegression")
     xT = torch.as_tensor(np.ascontiguousarray(raw["x"].T))
     y = torch.as_tensor(raw["y"])
+    if knob == "STARK_FUSED_PRECISION":
+        # ported (ROADMAP B6): both entries honour the knob, inside the
+        # reference's band against highest, and differ from it
+        beta = torch.as_tensor(_points(D, seed=3))
+        v0, g0 = pgf.poisson_loglik_value_and_grad(beta, xT, y)
+        monkeypatch.setenv(knob, value)
+        v1, g1 = pgf.poisson_loglik_value_and_grad(beta, xT, y)
+        assert torch.equal(pgf.poisson_loglik(beta, xT, y), v1)
+        val_rel, grad_rel = parity_error(v0, g0, v1, g1)
+        tol_v, tol_g = PARITY_BANDS[value]
+        assert val_rel <= tol_v and 0 < grad_rel <= tol_g, (val_rel, grad_rel)
+        return
     monkeypatch.setenv(knob, value)
     with pytest.raises(NotImplementedError, match=item):
         pgf.poisson_loglik(torch.zeros(C, D), xT, y)

@@ -19,6 +19,7 @@ from stark_tpu.model import flatten_model as ref_flatten
 from stark_tpu.model import prepare_model_data as ref_prepare
 from stark_tpu.models import logistic as rml
 from stark_tpu.tree import make_unflatten as ref_unflatten
+from chip_smoke import PARITY_BANDS, parity_error
 import stark_tpu_torch.bijectors as pb
 from stark_tpu_torch import prepare_model_data
 from stark_tpu_torch.interop import data_from_reference
@@ -157,8 +158,22 @@ def test_synth_logistic_data_is_seeded():
      ("STARK_FUSED_X_DTYPE", "bf16"), ("STARK_FUSED_X_DTYPE", "int8")],
 )
 def test_unported_knobs_raise_naming_roadmap(var, value, monkeypatch):
-    monkeypatch.setenv(var, value)
     model = pml.FusedHierLogisticGrouped(4, 12)
+    if var == "STARK_FUSED_PRECISION":
+        # ported (ROADMAP B6): the same call is honoured at the knob, inside
+        # the reference's band against highest, and differs from it
+        data = prepare_model_data(model, _data(), device="cpu")
+        fm = flatten_model(model)
+        z = torch.as_tensor(
+            (0.3 * np.random.RandomState(5).standard_normal((2, fm.ndim))).astype(np.float32))
+        v0, g0 = fm.potential_and_grad(z, data)
+        monkeypatch.setenv(var, value)
+        v1, g1 = fm.potential_and_grad(z, data)
+        val_rel, grad_rel = parity_error(v0, g0, v1, g1)
+        tol_v, tol_g = PARITY_BANDS[value]
+        assert val_rel <= tol_v and 0 < grad_rel <= tol_g, (val_rel, grad_rel)
+        return
+    monkeypatch.setenv(var, value)
     with pytest.raises(NotImplementedError, match="ROADMAP item B"):
         data = prepare_model_data(model, _data(), device="cpu")
         fm = flatten_model(model)

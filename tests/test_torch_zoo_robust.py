@@ -28,6 +28,7 @@ from stark_tpu.model import flatten_model as ref_flatten
 from stark_tpu.model import prepare_model_data as ref_prepare
 from stark_tpu.models import robust as rrob
 from stark_tpu.ops import robust_fused as rrf
+from chip_smoke import PARITY_BANDS, parity_error
 from stark_tpu_torch import sample
 from stark_tpu_torch.interop import data_from_reference
 from stark_tpu_torch.model import flatten_model, prepare_model_data
@@ -261,6 +262,20 @@ def test_knob_off_after_fused_prepare(monkeypatch):
 def test_unported_knobs_refused(knob, value, item, monkeypatch):
     params, data = _op_inputs()
     t = [torch.as_tensor(a) for a in params + data]
+    if knob == "STARK_FUSED_PRECISION":
+        # ported (ROADMAP B6): both entries honour the knob, inside the
+        # reference's band against highest, and differ from it
+        def flat(grads):
+            return torch.cat([grads[0], grads[1][:, None], grads[2][:, None]], -1)
+
+        v0, g0 = prf.studentt_loglik_value_and_grad(*t)
+        monkeypatch.setenv(knob, value)
+        v1, g1 = prf.studentt_loglik_value_and_grad(*t)
+        assert torch.equal(prf.studentt_loglik(*t), v1)
+        val_rel, grad_rel = parity_error(v0, flat(g0), v1, flat(g1))
+        tol_v, tol_g = PARITY_BANDS[value]
+        assert val_rel <= tol_v and 0 < grad_rel <= tol_g, (val_rel, grad_rel)
+        return
     monkeypatch.setenv(knob, value)
     with pytest.raises(NotImplementedError, match=item):
         prf.studentt_loglik(*t)
