@@ -56,8 +56,9 @@ Phases, in order; any failure exits non-zero (none is caught):
                 chains, B1 on every gradient), three legs, each with its
                 launch counts (B1's launches = the kept evaluations + those
                 of a speculative block the pipelined loop threw away):
-                (a) gated: the bench's MAP 500, warmup 400, blocks of 100
-                up to 5, under the R-hat < 1.01 / ESS > 400 stop gate, in
+                (a) gated: MAP 200, warmup 200, blocks of 100 up to 3 (the
+                bench: MAP 500, warmup 400, up to 5 blocks), under the
+                R-hat < 1.01 / ESS > 400 stop gate, in
                 the pipelined loop, exporting its adaptation; prints
                 whether and where the gate stopped, wall time split into
                 set-up, MAP, warmup and sampling, the validation pass's
@@ -70,8 +71,8 @@ Phases, in order; any failure exits non-zero (none is caught):
                 store reads back equal to the posterior, the checkpoint's
                 block count equals the history's, and the artifact was
                 written; (b) adapt_import: sample_until_converged
-                importing that artifact (no MAP, warmup 400 so an
-                80-transition touch-up, 2 blocks of 50, seed 1); asserts
+                importing that artifact (no MAP, warmup 100 so a
+                20-transition touch-up, 2 blocks of 15, seed 1); asserts
                 the import, the artifact unchanged and the touch-up's
                 evaluations below 0.6 of the gated warmup's; prints the
                 touch-up's seconds and evaluations beside the gated
@@ -86,12 +87,12 @@ Phases, in order; any failure exits non-zero (none is caught):
                 flagship's full width with 8 chains, four legs, each with
                 its launch counts: nuts_offset, the reference bench's NUTS
                 leg (bench.py:410-415, :485-487) through sample() on
-                FusedHierLogistic (B2 with offsets), tree depth 6, 10
-                warmup and 10 draws (the bench: 200 and 200);
+                FusedHierLogistic (B2 with offsets), tree depth 6, 6
+                warmup and 6 draws (the bench: 200 and 200);
                 nuts_grouped, the same on FusedHierLogisticGrouped (B1);
-                hmc_grouped, HMC with 32 leapfrog steps, 10 warmup and 10
+                hmc_grouped, HMC with 32 leapfrog steps, 6 warmup and 6
                 draws (B1); nuts_runner, NUTS through supervised_sample
-                (warmup 10, 3 blocks of 5), whole and then faulted after
+                (warmup 6, 3 blocks of 3), whole and then faulted after
                 block 1's checkpoint,
                 the resumed draws bitwise equal.  Each leg prints, beside
                 the card's name and power limit, its wall with set-up,
@@ -122,21 +123,22 @@ Phases, in order; any failure exits non-zero (none is caught):
  14. consensus — BASELINE config 2 at its pinned width (tools/
                 consensus_1m.py, stark_tpu/benchmarks.py:574-624):
                 consensus_sample(FusedLogistic(16)) on N=1,000,000 rows, 8
-                shards x 8 chains, ChEES, MAP 100, warmup 150, samples
-                150 (its pinned 200/300/300 halved), dispatch_steps 6, combine precision_full: wall,
+                shards x 8 chains, ChEES, MAP 50, warmup 100, samples
+                100 (its pinned 200/300/300 cut), dispatch_steps 6,
+                combine precision_full: wall,
                 ESS/s, split R-hat and combine_rel_err against a full-data
                 chees_sample (MAP 30, warmup 60, samples 60, outside
                 the wall); every ensemble evaluation one shard-batched B2
                 launch and no other kernel; then a NUTS leg (depth 6,
-                20 + 20) and a
+                10 + 10) and a
                 shard-death leg (8 shards of 4,096 rows, one shard's y
                 NaN: one restart, degraded, that shard lost, finite
                 combined draws)
  15. bnn      — BASELINE config 5 at its pinned settings
                 (stark_tpu/benchmarks.py:757-839): sghmc_sample of
                 BayesianMLP(64, hidden=64) on N=100,000 rows, batches of
-                1024, 4 chains, warmup 1000, samples 2000 (its pinned
-                2000 + 4000 halved), 8 cycles, step
+                1024, 4 chains, warmup 600, samples 1200 (its pinned
+                2000 + 4000 cut), 8 cycles, step
                 3e-3, friction 5.0; no hand-written kernel launches;
                 predictive accuracy on 256 probe rows (>= 0.75, the
                 reference's gate), predictive bulk and tail ESS, R-hat
@@ -146,7 +148,7 @@ Phases, in order; any failure exits non-zero (none is caught):
                 GaussianMixture(16) on N=50,000 rows (spread 4), init from
                 gmm_init_1d, 2 chains x 8 temperatures, NUTS replicas at
                 tree depth 7, a swap round every 5 transitions, the
-                adaptive ladder, warmup 15 and samples 10 (the bench: 600
+                adaptive ladder, warmup 10 and samples 6 (the bench: 600
                 and 500); then an HMC leg (16 leapfrog steps, 10 + 10).  No
                 hand-written kernel launches.  Each leg prints, beside the
                 card's name and power limit, its wall with set-up,
@@ -166,7 +168,7 @@ Phases, in order; any failure exits non-zero (none is caught):
                 reference's tolerances, repeated bitwise, timed beside
                 autograd; NUTS (depth 6) through sample() on
                 FusedLinearRegression (B2 gaussian, launches =
-                evaluations) and FusedPoissonRegression (20 + 20), and
+                evaluations) and FusedPoissonRegression (10 + 10), and
                 FusedLMM with STARK_FUSED_LMM=1 (10 + 10; no hand-written
                 kernel), each profiled over one transition; consensus_sample on
                 FusedLinearMixedModel (config 3's data, 8 shards x 8
@@ -188,7 +190,7 @@ Phases, in order; any failure exits non-zero (none is caught):
                 magnitude, rtol 1e-4 / atol 2e-5), repeated bitwise and
                 timed beside autograd; IRT's triples op the same on the
                 responses without every third; then seven NUTS legs
-                (depth 6, 20 + 20) through sample(): FusedIRT2PL,
+                (depth 6, 10 + 10) through sample(): FusedIRT2PL,
                 FusedOrderedLogistic and FusedStudentTRegression with
                 their knobs on, NegBinomialRegression,
                 HorseshoeRegression, CoxPH and StochasticVolatility, each
@@ -222,7 +224,30 @@ Phases, in order; any failure exits non-zero (none is caught):
                 band.  (The runner phase reruns its adapt_import leg at
                 high, warmup 100 and 2 blocks of 15: each parameter's
                 posterior mean shift in the gated leg's sds, below 0.3.)
- 20. profile  — one ensemble gradient evaluation of each sampled path at
+ 20. x dtype  — STARK_FUSED_X_DTYPE=bf16, int8, fp8e4m3 and fp8e5m2
+                (ROADMAP B5): every kernel case of the precision phase
+                (B1 at C=64, C=8 and N=40,003; B2 bernoulli with and
+                without offsets, gaussian at config 3's and the zoo's
+                widths, the shard axis at config 2's; B4 at config 3's)
+                and B3 on the flagship X, with X (and B4's z) stored
+                narrow on dyadic values whose logits are exact, against
+                the plain version in float64 on the widened values at
+                highest, a second launch bitwise equal, CUDA-event times
+                beside the bound at the storage width; the kernels'
+                full-width shapes also at high and default; one B1 call on
+                int8 X at the flagship allocating less than the float32
+                slab beyond its inputs and outputs.  Then the precision
+                phase's five chees_sample / consensus_sample legs under
+                each narrow dtype (launches = evaluations, all of that
+                dtype) and the single-chain op (B3) on X prepared under
+                each; then each fused model's potential and gradient with
+                X narrow against the same model with float32 X on the
+                rounded matrix, inside the reference's band (mid for bf16,
+                quant for int8 and fp8).  (The runner phase reruns its
+                adapt_import leg with X in each narrow dtype, warmup 100
+                and 2 blocks of 15: the posterior mean shift in the gated
+                leg's sds, below 0.3 for bf16 and int8, reported for fp8.)
+ 21. profile  — one ensemble gradient evaluation of each sampled path at
                 its final state (the GMM's at 16 points of its run):
                 host-clock time per evaluation, and under torch.profiler
                 the device time by kernel and the share of the window the
@@ -427,54 +452,61 @@ class Run:
             # every budget cut below keeps the script inside its time
             # limit; the one it had before the zoo_rest phase came is noted
             # (100/150/100 and 30/50/10)
-            self.main_budget = dict(map_init_steps=100, num_warmup=100, num_samples=50)
-            self.off_budget = dict(map_init_steps=20, num_warmup=20, num_samples=10)
+            # (60/60/30, cut from 100/100/50 for the X-dtype phases; 30/30/15
+            # and 10/10/5 from 60/60/30 and 20/20/10 to keep the script
+            # inside half its time limit on a slow host)
+            self.main_budget = dict(map_init_steps=30, num_warmup=30, num_samples=15)
+            self.off_budget = dict(map_init_steps=10, num_warmup=10, num_samples=5)
             # config 3's MAP 300, warmup 700, samples 500 (100/50/25 and
-            # 30/30/10)
-            self.lmm_budget = dict(map_init_steps=30, num_warmup=15, num_samples=10)
-            self.lmm_off_budget = dict(map_init_steps=20, num_warmup=15, num_samples=10)
-            # the bench's MAP, warmup, block and draw budget (bench.py:552-555,
-            # :641, :698-712), the stop gate on
-            self.runner_budget = dict(map_init_steps=500, num_warmup=400, block_size=100,
-                                      max_blocks=5)
+            # 30/30/10; then 30/15/10 and 20/15/10)
+            self.lmm_budget = dict(map_init_steps=15, num_warmup=10, num_samples=5)
+            self.lmm_off_budget = dict(map_init_steps=10, num_warmup=10, num_samples=5)
+            # the bench's block size and stop gate (bench.py:552-555, :641,
+            # :698-712); its MAP 500, warmup 400 and 5 blocks cut to 200, 200
+            # and 3: the gate may now spend the budget without stopping
+            self.runner_budget = dict(map_init_steps=200, num_warmup=200, block_size=100,
+                                      max_blocks=3)
             # the resume legs check bitwise resume, not convergence (MAP 50,
-            # warmup 30, 3 blocks of 10)
-            self.resume_budget = dict(map_init_steps=10, num_warmup=10, block_size=5, max_blocks=3)
-            # the adapt_import leg: the gated leg's warmup length, so an
-            # 80-transition touch-up (0.2 of 400), then 2 blocks of 50
-            self.import_budget = dict(num_warmup=400, block_size=50, max_blocks=2)
-            # its rerun at high: a 20-transition touch-up (0.2 of 100), 2
-            # blocks of 15
-            self.import_precision_budget = dict(num_warmup=100, block_size=15, max_blocks=2)
+            # warmup 30, 3 blocks of 10; then 10/10 and 3 blocks of 5)
+            self.resume_budget = dict(map_init_steps=5, num_warmup=5, block_size=3, max_blocks=3)
+            # the adapt_import legs, at float32 X and highest and at every
+            # other setting alike: a 20-transition touch-up (0.2 of 100),
+            # 2 blocks of 15 (float32's cut from 400 and 2 blocks of 50)
+            self.import_budget = dict(num_warmup=100, block_size=15, max_blocks=2)
+            self.import_precision_budget = self.import_budget
             # the reference bench's NUTS leg (bench.py:410-415): 8 chains,
-            # tree depth 6; its 200 warmup and 200 samples cut to 10 each
-            # (50 each), HMC's too (50 + 50); the runner's (warmup 30, 3
-            # blocks of 10)
-            self.nuts_budget = dict(max_tree_depth=6, num_warmup=10, num_samples=10)
-            self.hmc_budget = dict(num_leapfrog=32, num_warmup=10, num_samples=10)
-            self.nuts_runner_budget = dict(max_tree_depth=6, num_warmup=10, block_size=5,
+            # tree depth 6; its 200 warmup and 200 samples cut to 6 each
+            # (50 each, then 10 each), HMC's too (50 + 50, then 10 + 10);
+            # the runner's (warmup 30, 3 blocks of 10; then warmup 10, 3
+            # blocks of 5)
+            self.nuts_budget = dict(max_tree_depth=6, num_warmup=6, num_samples=6)
+            self.hmc_budget = dict(num_leapfrog=32, num_warmup=6, num_samples=6)
+            self.nuts_runner_budget = dict(max_tree_depth=6, num_warmup=6, block_size=3,
                                            max_blocks=3)
             self.cons_n = CONS_N
             # config 2's pinned budget, 200/300/300 (stark_tpu/benchmarks.py:
-            # 574-624), halved
-            self.cons_budget = dict(map_init_steps=100, num_warmup=150, num_samples=150)
+            # 574-624), cut to a quarter and a third (halved until the
+            # X-dtype phases)
+            self.cons_budget = dict(map_init_steps=50, num_warmup=100, num_samples=100)
             # the full-data run the combine is held against, and the NUTS
-            # leg (config 2's budget, and 50 + 50)
+            # leg (config 2's budget, and 50 + 50, then 20 + 20)
             self.cons_full_budget = dict(map_init_steps=30, num_warmup=60, num_samples=60)
-            self.cons_nuts_budget = dict(max_tree_depth=6, num_warmup=20, num_samples=20)
+            self.cons_nuts_budget = dict(max_tree_depth=6, num_warmup=10, num_samples=10)
             self.bnn_n = BNN_N
             # config 5's pinned budget, 2000 + 4000 (stark_tpu/benchmarks.py:
             # 757-776), halved
-            self.bnn_budget = dict(num_warmup=1000, num_samples=2000, cycles=8)
+            # (600 + 1200, cut from 1000 + 2000 for the X-dtype phases)
+            self.bnn_budget = dict(num_warmup=600, num_samples=1200, cycles=8)
             self.gmm_n = GMM_N
             # config 4's depth 7; its 600 warmup and 500 samples cut to
-            # 15 and 10 (100 and 75)
-            self.gmm_budget = dict(max_tree_depth=7, num_warmup=15, num_samples=10)
+            # 10 and 6 (100 and 75, then 15 and 10)
+            self.gmm_budget = dict(max_tree_depth=7, num_warmup=10, num_samples=6)
             # the reference's default kernel, HMC, 16 leapfrog steps (50 + 50)
             self.gmm_hmc_budget = dict(num_leapfrog=16, num_warmup=10, num_samples=10)
             self.zoo_n, self.zoo_g = ZOO_N, ZOO_G
             # the NUTS legs' budget (the reference bench's depth 6; 50 + 50)
-            self.zoo_budget = dict(max_tree_depth=6, num_warmup=20, num_samples=20)
+            # (15 + 15, cut from 20 + 20 for the X-dtype phases; then 10 + 10)
+            self.zoo_budget = dict(max_tree_depth=6, num_warmup=10, num_samples=10)
             # the LMM's (30 + 30; 50 + 50 took the whole script to 1,022.5
             # s on one H100 80GB HBM3 at 700 W)
             self.zoo_lmm_budget = dict(max_tree_depth=6, num_warmup=10, num_samples=10)
@@ -486,7 +518,8 @@ class Run:
             self.irt_p, self.irt_i, self.sv_t = IRT_P, IRT_I, SV_T
             # the rest of the zoo's seven NUTS legs: depth 6, 20 + 20 (30 +
             # 30 until PR 14's precision phases)
-            self.zoo_rest_budget = dict(max_tree_depth=6, num_warmup=20, num_samples=20)
+            # (15 + 15, cut from 20 + 20 for the X-dtype phases; then 10 + 10)
+            self.zoo_rest_budget = dict(max_tree_depth=6, num_warmup=10, num_samples=10)
             # the precision phase's legs check the paths at each precision,
             # not convergence: ChEES, MAP 3, warmup 3, samples 3 (MAP 10,
             # warmup 10, samples 5: 98 s for the ten legs on one H100 80GB
@@ -496,11 +529,21 @@ class Run:
         self.death_n = 8 * 4096
         self.death_budget = dict(map_init_steps=5, num_warmup=5, num_samples=5)
         self.t0 = time.perf_counter()
+        self.phase_s = {}
         self.kernels = {}
         self.last_z = {}
 
     def elapsed(self):
         return time.perf_counter() - self.t0
+
+    def phase(self, name, fn, *args):
+        """``fn(*args)``, its seconds kept under ``name`` and logged with
+        the script's time so far."""
+        t = time.perf_counter()
+        out = fn(*args)
+        self.phase_s[name] = time.perf_counter() - t
+        log(f"  ({name}: {self.phase_s[name]:.1f} s; script at {self.elapsed():.1f} s)")
+        return out
 
     def sync(self):
         if not self.rehearsal:
@@ -531,11 +574,23 @@ def precision_counters():
     return {"B1": hf.hier_grouped, "B2": lf.logistic_batched, "B4": hf.lmm_grouped}
 
 
+def x_dtype_counters():
+    """Kernel name -> the wrapper whose ``x_dtype_launches`` count its
+    launches by the storage dtype of X."""
+    from stark_tpu_torch.ops import hier_fused as hf
+    from stark_tpu_torch.ops import logistic_fused as lf
+
+    return {"B1": hf.hier_grouped, "B2": lf.logistic_batched, "B3": lf.logistic_single,
+            "B4": hf.lmm_grouped}
+
+
 def reset_counts():
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
     for fn in precision_counters().values():
         fn.precision_launches = dict.fromkeys(fn.precision_launches, 0)
+    for fn in x_dtype_counters().values():
+        fn.x_dtype_launches = dict.fromkeys(fn.x_dtype_launches, 0)
 
 
 def read_counts():
@@ -1807,6 +1862,10 @@ def phase_runner(run: Run, full):
     res["adapt_import"] = _adapt_import_leg(run, full, post, res, artifact, root, common)
     res["adapt_import_high"] = _adapt_import_leg(run, full, post, res, artifact, root, common,
                                                  prec="high")
+    for xdt in X_NARROW:
+        res[f"adapt_import_{xdt}"] = _adapt_import_leg(run, full, post, res, artifact, root,
+                                                      common, xdt=xdt,
+                                                      gate=xdt in X_IMPORT_DTYPES)
 
     small = dict(run.resume_budget, rhat_target=0.0)
     log(f"== runner (resume): the same model, {small}, uninterrupted and then faulted "
@@ -1852,37 +1911,45 @@ def phase_runner(run: Run, full):
     return res
 
 
-def _adapt_import_leg(run: Run, full, gated, gres, artifact, root, common, prec="highest"):
+def _adapt_import_leg(run: Run, full, gated, gres, artifact, root, common, prec="highest",
+                      xdt="f32", gate=True):
     """A run importing the gated leg's adaptation (ROADMAP A6): the
     touch-up instead of warmup, the artifact left as it was.  At another
-    dot precision ``prec`` (high; STARK_FUSED_PRECISION) its B1 launches
-    are all at ``prec``, and each parameter's posterior mean shift from
-    the gated leg's (at highest), in the gated leg's sds, is printed and
-    held to 0.3.  (Default is not run here: it rounds beta to bf16, whose
-    spacing at the flagship's N = 1M is about one posterior sd, and the
-    chains stall; PERF.md, PR 14.)"""
+    dot precision ``prec`` (high; STARK_FUSED_PRECISION), or with X stored
+    as ``xdt`` (bf16, int8; STARK_FUSED_X_DTYPE: the same caller's data,
+    so the same fingerprint, rounded or packed when prepared), its B1
+    launches are all at ``prec`` and of ``xdt``, and each parameter's
+    posterior mean shift from the gated leg's (at highest, float32 X), in
+    the gated leg's sds, is printed and, with ``gate``, held to 0.3 (fp8
+    changes the data by more: its shift is reported, not gated).  (Default
+    is not run here: it rounds beta to bf16, whose spacing at the
+    flagship's N = 1M is about one posterior sd, and the chains stall;
+    PERF.md.)"""
     from stark_tpu_torch import sample_until_converged
     from stark_tpu_torch.models import FusedHierLogisticGrouped
 
-    budget = run.import_budget if prec == "highest" else run.import_precision_budget
+    other = prec != "highest" or xdt != "f32"
+    budget = run.import_precision_budget if other else run.import_budget
     chains = common["chains"]
     kw = dict(common, seed=1, adapt_path=str(artifact), map_init_steps=0, min_blocks=2,
               adaptive_blocks=False, **budget)
-    log(f"== runner (adapt_import, STARK_FUSED_PRECISION={prec}): sample_until_converged("
-        f"FusedHierLogisticGrouped({D}, {G})), N={run.n_full}, {kw}")
+    log(f"== runner (adapt_import, STARK_FUSED_PRECISION={prec}, STARK_FUSED_X_DTYPE={xdt}): "
+        f"sample_until_converged(FusedHierLogisticGrouped({D}, {G})), N={run.n_full}, {kw}")
     before = artifact.read_bytes()
-    metrics = root / f"import_{prec}.jsonl"
-    with env(PREC_KNOB, prec):
+    metrics = root / f"import_{prec}_{xdt}.jsonl"
+    with env(PREC_KNOB, prec), env(X_KNOB, xdt):
         post, wall, launches = _runner_leg(run, "adapt_import leg", lambda: sample_until_converged(
             FusedHierLogisticGrouped(D, G), full, metrics_path=str(metrics), **kw))
     evals = int(post.sample_stats["num_ensemble_grad_evals"])
     by_prec = read_precision_counts()["B1"]
-    if prec == "highest":
+    by_x = read_x_dtype_counts()["B1"]
+    if not other:
         _check_b1_launches(run, launches, _launched_evals(post), "adapt_import leg")
-    elif not run.rehearsal:  # its launches go into the kernels line from the precision phase
-        assert launches["B1"] == _launched_evals(post) == by_prec[prec], (launches, by_prec)
+    elif not run.rehearsal:  # its launches go into the kernels line from the other phases
+        assert launches["B1"] == _launched_evals(post) == by_prec[prec] == by_x[xdt], (
+            launches, by_prec, by_x)
         others = {k: v for k, v in launches.items() if k != "B1" and v}
-        assert not others, f"{others} launched on the adapt_import leg at {prec}"
+        assert not others, f"{others} launched on the adapt_import leg at {prec}, {xdt}"
     recs = [json.loads(line) for line in open(metrics)]
     (warm,) = [r for r in recs if r["event"] == "warmup_done"]
     assert warm.get("adapt_imported") is True, warm
@@ -1890,7 +1957,7 @@ def _adapt_import_leg(run: Run, full, gated, gres, artifact, root, common, prec=
     assert artifact.read_bytes() == before, "the import changed the artifact"
     touch = warm["warmup_grad_evals"] // chains
     ratio = touch / gres["warmup_evals"]
-    if not run.rehearsal and prec == "highest":
+    if not run.rehearsal and not other:
         # the JAX package's bound (tests/test_adapt_reuse.py:52-55), here
         # against the gated leg's warmup without its MAP steps; at another
         # precision the touch-up adapts the step size to that precision's
@@ -1918,14 +1985,14 @@ def _adapt_import_leg(run: Run, full, gated, gres, artifact, root, common, prec=
     log(f"  after {len(post.history)} blocks: streaming R-hat {last['max_rhat']}, ESS "
         f"{last['min_ess']}; largest |posterior mean - the gated leg's| {dist:.4f} of the gated "
         f"leg's posterior sd; evaluations {evals} = B1 launches {launches['B1']} (by precision "
-        f"{by_prec}); artifact unchanged")
-    if prec != "highest":
+        f"{by_prec}, by X dtype {by_x}); artifact unchanged")
+    if other:
         shift = (draws.reshape(-1, draws.shape[2]).mean(0) - ref.mean(0)) / ref.std(0)
         res["mean_shift_sd"] = shift.tolist()
-        log(f"  each parameter's posterior mean shift at {prec} in the gated leg's sds: "
-            f"{np.round(shift, 4).tolist()}")
-        if not run.rehearsal:
-            assert dist < 0.3, f"the posterior at {prec} moved {dist:.4f} gated sds"
+        log(f"  each parameter's posterior mean shift at {prec}, X {xdt}, in the gated leg's "
+            f"sds: {np.round(shift, 4).tolist()}")
+        if not run.rehearsal and gate:
+            assert dist < 0.3, f"the posterior at {prec}, X {xdt} moved {dist:.4f} gated sds"
     return res
 
 
@@ -3086,6 +3153,467 @@ def phase_precision_potentials(run: Run, flag, lmm):
     return out
 
 
+X_KNOB = "STARK_FUSED_X_DTYPE"
+#: the narrow storage dtypes of X (ROADMAP B5), and those the flagship's
+#: adapt_import leg runs under
+X_NARROW = ("bf16", "int8", "fp8e4m3", "fp8e5m2")
+X_IMPORT_DTYPES = ("bf16", "int8")  # gated at 0.3 sd; fp8's shift is reported
+#: bytes of an element of each storage dtype
+X_ITEMSIZE = {"f32": 4, "bf16": 2, "int8": 1, "fp8e4m3": 1, "fp8e5m2": 1}
+#: the reference's bands of a narrow X against float32 X on the same
+#: rounded matrix (tools/precision_parity.py:19-23, band_for at highest):
+#: mid for bf16, quant for int8 and fp8; (value, gradient) in the
+#: metrics of `parity_error`
+X_BANDS = {"bf16": (5e-3, 2e-2), "int8": (2e-2, 5e-2), "fp8e4m3": (2e-2, 5e-2),
+           "fp8e5m2": (2e-2, 5e-2)}
+#: the entries of the kernels line, and the kernels line's name of each
+X_ENTRIES = {"B1": "hier_grouped (B1", "B2": "logistic_batched (B2, offsets",
+             "B2g": "logistic_batched (B2, gaussian link, offsets",
+             "B2s": "logistic_batched (B2, shard axis", "B3": "logistic_single (B3",
+             "B4": "lmm_grouped (B4"}
+
+
+def read_x_dtype_counts():
+    """Launches by the storage dtype of X of B1, B2, B3 and B4."""
+    return {k: dict(fn.x_dtype_launches) for k, fn in x_dtype_counters().items()}
+
+
+def narrow_slab(t, xdt, scale):
+    """A dyadic slab ``t`` (`dyadic_inputs`: multiples of 2^-9 in [-1, 1];
+    z in halves) stored as ``xdt``, every value still a multiple of 2^-9
+    in [-1, 1], so the logits stay exact: bf16 and fp8 round each value
+    to their nearest (e4m3's subnormals are multiples of 2^-9; e5m2 keeps
+    3 significant bits, so its values below 2^-7 are the grid's own
+    1, 2, 3 x 2^-9); int8 stores round(t * ``scale``), integers of at most
+    7 bits, whose 1 / ``scale`` (a power of two) the caller folds into
+    the parameter operand, as a model folds a packed slab's scales."""
+    from stark_tpu_torch.ops.precision import X_DTYPE_OF
+
+    if xdt == "int8":
+        return torch.round(t * scale).clamp(-127, 127).to(torch.int8)
+    return t.to({name: dt for dt, name in X_DTYPE_OF.items()}[xdt])
+
+
+def x_narrow_args(kind, args, xdt):
+    """(kernel arguments, the same with each slab widened to float32, the
+    outputs' scaling) of B1, B2, B3 or B4 (``kind``) on dyadic ``args``
+    with X (and B4's z) stored as ``xdt`` (`narrow_slab`).  For int8 the
+    scales are folded into beta (and u), and the scaling takes the
+    gradients of the folded operands back to the model's units (times the
+    scale, a power of two: exact), where the tolerances are stated."""
+    s = 1.0 / 128.0 if xdt == "int8" else 1.0
+    sz = 0.5 if xdt == "int8" else 1.0
+
+    def scaled(by):  # outputs (or slacks, None where there is none) times `by`
+        return lambda out: [o * by.get(i, 1.0) if o is not None else None
+                            for i, o in enumerate(out)]
+
+    if kind == "B1":
+        beta, alpha, xT, *rest = args
+        q = narrow_slab(xT, xdt, 128.0)
+        return ((beta * s, alpha, q, *rest), (beta * s, alpha, q.float(), *rest),
+                scaled({1: s}))
+    if kind in ("B2", "B3"):
+        beta, xT, y, off = args
+        q = narrow_slab(xT, xdt, 128.0)
+        return (beta * s, q, y, off), (beta * s, q.float(), y, off), scaled({1: s})
+    beta, u, ic, xT, zT, *rest = args
+    q, qz = narrow_slab(xT, xdt, 128.0), narrow_slab(zT, xdt, 2.0)
+    return ((beta * s, u * sz, ic, q, qz, *rest),
+            (beta * s, u * sz, ic, q.float(), qz.float(), *rest), scaled({2: s, 3: sz}))
+
+
+def x_cases(run: Run, full, lfull, gen):
+    """The kernel cases of `precision_cases` (B1 at C=64, C=8 and N =
+    40,003; B2 bernoulli with and without offsets, gaussian at config
+    3's and the zoo's widths, the shard axis at config 2's; B4 at config
+    3's), each with its kind, and B3 on the flagship X."""
+    from stark_tpu_torch.ops import hier_fused as hf
+    from stark_tpu_torch.ops import logistic_fused as lf
+
+    kinds = {hf.hier_grouped: "B1", lf.logistic_batched: "B2", hf.lmm_grouped: "B4"}
+    cases = [dict(c, kind=kinds[c["wrapper"]]) for c in precision_cases(run, full, lfull, gen)]
+    beta, xT, y, _ = _single_inputs(run, full, gen, False)
+    fine = (dyadic(beta, 2.0 ** -11, 0.25, gen), dyadic(xT, 2.0 ** -9, 1.0, gen), y, None)
+    cases.append(dict(
+        key="B3 (flagship X)", kind="B3", wrapper=lf.logistic_single,
+        plain=lf.logistic_single_plain, args=fine, fine=fine, kw={},
+        slack=lambda a, p: [], bytes=4 * (xT.numel() + y.numel() + 2 * D + 1),
+        products=2 * D * xT.shape[1], tol=(GRAD_RTOL, GRAD_ATOL), entry="B3",
+        name="logistic_single (B3"))
+    return cases
+
+
+def x_bytes(case, kargs, xdt):
+    """A case's bytes with its slabs at the storage width of ``xdt``."""
+    slabs = [a for a in kargs if torch.is_tensor(a) and a.dtype not in
+             (torch.float32, torch.int32, torch.int64)]
+    n = sum(a.numel() for a in slabs)
+    return case["bytes"] - 4 * n + X_ITEMSIZE[xdt] * n
+
+
+def phase_x_dtype_kernels(run: Run, flag, lmm):
+    """Each kernel with X (and B4's z) stored as bf16, int8, fp8 e4m3 and
+    fp8 e5m2 (ROADMAP B5), at the main paths' full widths (`x_cases`): on
+    dyadic inputs whose logits are exact (`narrow_slab`), against its
+    plain version in float64 on the same values widened, at highest
+    within highest's tolerances; a second launch bitwise equal; CUDA-event
+    times beside the bound with the slab at its storage width.  Each
+    kernel at one full-width shape also at high and default, against its
+    plain version at that precision (plus, at the bernoulli link,
+    `link_slack`).  At the flagship, one B1 call on int8 X allocates less
+    than the float32 slab's bytes beyond its inputs and outputs: no
+    float32 copy of X is made."""
+    from stark_tpu_torch.ops import hier_fused as hf
+
+    full, _, _ = flag
+    smi = getattr(run, "smi", "cpu rehearsal")
+    log(f"== x dtype: STARK_FUSED_X_DTYPE={'|'.join(X_NARROW)}, kernels B1-B4 [{smi}] "
+        f"(script at {run.elapsed():.1f} s)")
+    gen = torch.Generator(device=run.dev).manual_seed(17)
+    out = {}
+    for case in x_cases(run, full, lmm[0], gen):
+        wrapper, plain, kind = case["wrapper"], case["plain"], case["kind"]
+        kw = case["kw"]
+        for xdt in X_NARROW:
+            kargs, wide, units = x_narrow_args(kind, case["fine"], xdt)
+            label = f"{case['key']} {xdt}"
+            got = wrapper(*kargs, **kw)
+            again = wrapper(*kargs, **kw)
+            run.sync()
+            want = yardstick(run, plain, *wide, **kw)
+            err, excess = compare_slack(f"{label} (dyadic, against {yardstick_name(run)})",
+                                        units(got), units(want), [], *case["tol"])
+            assert excess <= 0, f"{label}: error exceeds its bound by {excess:.4g}"
+            check_repeat(label, got, again)
+            ms = timed(run, lambda: wrapper(*kargs, **kw), 20)
+            plain_ms = timed(run, lambda: plain(*kargs, **kw), 5)
+            e = bound(x_bytes(case, kargs, xdt), 2 * case["products"])
+            e.update(max_abs_err=err, excess=excess, ms=ms, plain_ms=plain_ms)
+            log(f"  {label} [{smi}]: {ms:.4f} ms, plain {plain_ms:.4f} ms, {fmt_bound(e)}")
+            if case["entry"]:
+                run.kernels[f"{case['entry']} {xdt}"] = dict(
+                    name=f"{X_ENTRIES[case['entry']]}, X {xdt})", route="cuda",
+                    source=run.kernels[case["entry"]]["source"],
+                    replaces=run.kernels[case["entry"]]["replaces"], max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=e["bound_ms"], bound_by=e["bound_by"],
+                    library_ms=None)
+                for prec in () if kind == "B3" else PRECISION_MODES:
+                    with env(PREC_KNOB, prec):
+                        pgot = wrapper(*kargs, **kw)
+                        run.sync()
+                        pwant = yardstick(run, plain, *wide, **kw, prec=prec)
+                        perr, pexcess = compare_slack(
+                            f"{label} {prec} (dyadic, against {yardstick_name(run)})",
+                            units(pgot), units(pwant), units(case["slack"](wide, prec)),
+                            *case["tol"])
+                        assert pexcess <= 0, f"{label} {prec}: exceeds its bound by {pexcess:.4g}"
+                        pms = timed(run, lambda: wrapper(*kargs, **kw), 20)
+                    pe = bound(x_bytes(case, kargs, xdt), 2 * case["products"] * PASSES[prec],
+                               BF16_FLOP_PER_S)
+                    log(f"  {label} {prec} [{smi}]: {pms:.4f} ms, {fmt_bound(pe)} on bf16 tensor "
+                        f"cores")
+                    out[f"{label} {prec}"] = dict(pe, max_abs_err=perr, excess=pexcess, ms=pms)
+            out[label] = e
+    out["edges_max_abs_err"] = phase_x_dtype_edges(run, gen)
+    # no float32 copy of X: one B1 call on int8 X at the flagship
+    args, _ = _grouped_inputs(run, full, 64, gen)
+    kargs, _, _ = x_narrow_args("B1", dyadic_inputs("B1", args, gen), "int8")
+    if not run.rehearsal:
+        hf.hier_grouped(*kargs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        res = hf.hier_grouped(*kargs)
+        torch.cuda.synchronize()
+        extra = (torch.cuda.max_memory_allocated() - before
+                 - sum(r.numel() * r.element_size() for r in res))
+        f32_slab = 4 * kargs[2].numel()
+        log(f"  B1 C=64 int8 at the flagship: {extra / 2**20:.3f} MiB allocated beyond its "
+            f"inputs and outputs (its scratch), against the float32 slab's "
+            f"{f32_slab / 2**20:.1f} MiB")
+        assert extra < f32_slab, (extra, f32_slab)
+        out["b1_int8_extra_bytes"] = extra
+    return out
+
+
+#: edge cases of the narrow staging: rows that start off the alignment of
+#: a 4-element load (N = 1, 2, 3 mod 4), N below one sub-tile, chain and
+#: feature counts off the chunks, each kernel's general instantiation
+#: (B1 (N, D, C, G); B2 (N, D, C); the shard axis (S, n, D, C); B3 (N,
+#: D); B4 (ids, N, D, Q, C, G), as B4_EDGE_CASES)
+X_EDGE_B1 = ((3001, 7, 9, 20), (1027, 33, 70, 12))
+X_EDGE_B2 = ((3001, 7, 9), (50, 5, 9), (40_003, 32, 20), (1001, 33, 33))
+X_EDGE_SHARDS = ((3, 127, 16, 8), (2, 3001, 33, 33), (8, 1001, 16, 8))
+X_EDGE_B3 = ((1001, 5), (3, 40), (40_003, 32))
+X_EDGE_B4 = (("uniform", 3001, 8, 2, 16, 20), ("uniform", 50, 5, 2, 9, 3),
+             ("uniform", 40_002, 3, 3, 33, 300), ("gaps", 0, 8, 2, 16, 300))
+
+
+def x_edge_cases(run: Run, gen):
+    """(label, kind, wrapper, plain, dyadic arguments, link keywords,
+    tolerances) of every X_EDGE_* case, x on `dyadic_inputs`' 2^-9 grid."""
+    from stark_tpu_torch.ops import hier_fused as hf
+    from stark_tpu_torch.ops import logistic_fused as lf
+
+    dev, rs = run.dev, np.random.RandomState(23)
+    fine = lambda shape: dyadic(torch.empty(shape, device=dev), 2.0 ** -11, 0.25, gen)
+    out = []
+    for n, d, c, groups in X_EDGE_B1:
+        raw = {"x": (rs.randint(-512, 513, size=(n, d)) * 2.0 ** -9).astype(np.float32),
+               "y": (rs.rand(n) < 0.4).astype(np.float32),
+               "g": rs.randint(0, groups, size=n).astype(np.int32)}
+        prep = hf.prepare_grouped(raw, d)
+        t = [torch.as_tensor(prep[k], device=dev) for k in ("xT", "y", "gl", "first_gid")]
+        out.append((f"B1 N={n} D={d} C={c}", "B1", hf.hier_grouped, hf.hier_grouped_plain,
+                    (fine((c, d)), fine((c, groups)), *t, prep["lane_tile"]), {},
+                    (GRAD_RTOL, GRAD_ATOL)))
+    for link in ("bernoulli_logit", "gaussian"):
+        for n, d, c in X_EDGE_B2:
+            xT, y, beta, off = b2_edge_inputs(n, d, c, link, gen, dev, fine=True)
+            for o in (None, off):
+                out.append((f"B2 {link} N={n} D={d} C={c} offsets={o is not None}", "B2",
+                            lf.logistic_batched, lf.logistic_batched_plain, (beta, xT, y, o),
+                            dict(link=link), (GRAD_RTOL, GRAD_ATOL)))
+        for s, n, d, c in X_EDGE_SHARDS:
+            parts = [b2_edge_inputs(n, d, c, link, gen, dev, fine=True) for _ in range(s)]
+            xT, y, beta, off = (torch.stack(t) for t in zip(*parts))
+            out.append((f"B2 {link} shards S={s} n={n} D={d} C={c}", "B2", lf.logistic_batched,
+                        lf.logistic_batched_plain, (beta, xT, y, off), dict(link=link),
+                        (GRAD_RTOL, GRAD_ATOL)))
+        for n, d in X_EDGE_B3:
+            xT, y, beta, off = b2_edge_inputs(n, d, 1, link, gen, dev, fine=True)
+            out.append((f"B3 {link} N={n} D={d}", "B3", lf.logistic_single,
+                        lf.logistic_single_plain, (beta[0], xT, y, off[0]), dict(link=link),
+                        (GRAD_RTOL, GRAD_ATOL)))
+    for ids, n, d, q, c, groups in X_EDGE_B4:
+        raw, (beta, u, ic) = b4_edge_inputs(ids, n, d, q, c, groups, rs, fine=True)
+        prep = hf.prepare_grouped(raw, d + q, transpose_keys=("x", "z"))
+        t = [torch.as_tensor(prep[k], device=dev) for k in ("xT", "zT", "y", "gl", "first_gid")]
+        p = [torch.as_tensor(a, device=dev) for a in (beta, u, ic)]
+        out.append((f"B4 {ids} N={prep['y'].shape[0]} D={d} Q={q} C={c}", "B4",
+                    hf.lmm_grouped, hf.lmm_grouped_plain, (*p, *t, prep["lane_tile"]), {},
+                    (LMM_RTOL, LMM_ATOL)))
+    return out
+
+
+def phase_x_dtype_edges(run: Run, gen):
+    """Every X_EDGE_* case under every narrow dtype at highest: the kernel
+    against its plain version in float64 on the widened values, a second
+    launch bitwise equal."""
+    log(f"== x dtype edge cases (X_EDGE_*), every narrow dtype, against "
+        f"{yardstick_name(run)} (script at {run.elapsed():.1f} s)")
+    worst = 0.0
+    for label, kind, wrapper, plain, args, kw, tol in x_edge_cases(run, gen):
+        for xdt in X_NARROW:
+            kargs, wide, units = x_narrow_args(kind, args, xdt)
+            got = wrapper(*kargs, **kw)
+            again = wrapper(*kargs, **kw)
+            run.sync()
+            want = yardstick(run, plain, *wide, **kw)
+            err, excess = compare_slack(f"{label} {xdt}", units(got), units(want), [], *tol,
+                                        quiet=True)
+            assert excess <= 0, f"{label} {xdt}: error exceeds its bound by {excess:.4g}"
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{label} {xdt} repeat"
+            worst = max(worst, err)
+    log(f"  every case passes, a second launch bitwise equal; largest error {worst:.4g}")
+    return worst
+
+
+def _x_leg(run: Run, xdt, label, fn, counted, evals_of):
+    """One sampled leg with X stored as ``xdt``: counts to 0 just before,
+    read just after; the counted kernel launched once per ensemble
+    evaluation, every launch of its wrapper on ``xdt`` and no other kernel
+    launched; finite draws."""
+    with env(X_KNOB, xdt):
+        post, wall, launches, _ = _counted_leg(run, fn)
+    by_x = read_x_dtype_counts()
+    evals = evals_of(post)
+    assert np.all(np.isfinite(post.draws_flat)), f"non-finite draws on the {label} leg"
+    log(f"  {label} [{getattr(run, 'smi', 'cpu rehearsal')}]: wall {wall:.2f} s, {evals} "
+        f"ensemble evaluations, launches {launches}, by X dtype {by_x}; max split R-hat "
+        f"{post.max_rhat():.4f}")
+    if not run.rehearsal:
+        wrapper = {"B1": "B1", "B2": "B2", "B2g": "B2", "B2s": "B2", "B4": "B4"}[counted]
+        assert launches[counted] > 0 and launches[counted] == evals, (label, launches, evals)
+        assert by_x[wrapper][xdt] == launches[counted], (label, by_x)
+        allowed = {counted, "B2"} if counted == "B2s" else {counted}
+        others = {k: v for k, v in launches.items() if k not in allowed and v}
+        assert not others, f"{others} launched on the {label} leg"
+        e = run.kernels[f"{counted} {xdt}"]
+        e["launches"] = e.get("launches", 0) + launches[counted]
+    return dict(wall_s=wall, evals=evals, launches=launches, max_rhat=post.max_rhat())
+
+
+def phase_x_dtype_paths(run: Run, flag, lmm):
+    """The port's normal entry points with X stored narrow, at full
+    width: under each of bf16, int8, fp8 e4m3 and fp8 e5m2, the flagship
+    chees_sample (B1), its offset path (B2), config 3 (B4) and its offset
+    path (B2 gaussian), and config 2's consensus (the shard axis), each
+    leg with launches = evaluations, all on that dtype, and finite draws;
+    and the single-chain op (B3) on the flagship's X prepared under each,
+    its scales folded into beta, one launch per call."""
+    from stark_tpu_torch import chees_sample, consensus_sample
+    from stark_tpu_torch.model import prepare_model_data
+    from stark_tpu_torch.models import (
+        FusedHierLogistic,
+        FusedHierLogisticGrouped,
+        FusedLinearMixedModel,
+        FusedLinearMixedModelGrouped,
+        FusedLogistic,
+        synth_logistic_data,
+    )
+    from stark_tpu_torch.ops import logistic_fused as lf
+
+    full, _, _ = flag
+    lfull, _, _ = lmm
+    dev = {"device": "cpu"} if run.rehearsal else {}
+    budget = run.precision_budget
+    ensemble = lambda post: int(post.sample_stats["num_ensemble_grad_evals"])
+    cons, _ = synth_logistic_data(0, run.cons_n, CONS_D)
+    legs = (
+        ("flagship", "B1", lambda: chees_sample(
+            FusedHierLogisticGrouped(D, G), full, chains=64, init_step_size=0.1, seed=0,
+            **budget, **dev)),
+        ("offset path", "B2", lambda: chees_sample(
+            FusedHierLogistic(D, G), full, chains=32, init_step_size=0.1, seed=0, **budget,
+            **dev)),
+        ("config 3", "B4", lambda: chees_sample(
+            FusedLinearMixedModelGrouped(LMM_D, run.lmm_g, LMM_Q), lfull, chains=LMM_CHAINS,
+            init_step_size=0.1, seed=0, **budget, **dev)),
+        ("config 3 offset path", "B2g", lambda: chees_sample(
+            FusedLinearMixedModel(LMM_D, run.lmm_g, LMM_Q), lfull, chains=LMM_CHAINS,
+            init_step_size=0.1, seed=0, **budget, **dev)),
+        ("config 2 consensus", "B2s", lambda: consensus_sample(
+            FusedLogistic(CONS_D), cons, num_shards=CONS_SHARDS, chains=CONS_CHAINS,
+            kernel="chees", init_step_size=0.1, seed=0, **budget, **dev)),
+    )
+    out = {}
+    for xdt in X_NARROW:
+        log(f"== x dtype paths, X {xdt}: chees_sample / consensus_sample, {budget} "
+            f"(script at {run.elapsed():.1f} s)")
+        for label, counted, fn in legs:
+            out[f"{label} {xdt}"] = _x_leg(run, xdt, f"{label}, X {xdt}", fn, counted, ensemble)
+        with env(X_KNOB, xdt):
+            data = prepare_model_data(FusedLogistic(D), full, device=run.dev)
+        scale = data.get("xT_scale")
+        beta = torch.zeros(D, device=run.dev)
+        calls = 10
+        run.sync()
+        reset_counts()
+        for _ in range(calls):
+            val, grad = lf.logistic_loglik_value_and_grad(
+                beta if scale is None else beta * scale, data["xT"], data["y"])
+            beta = beta + 1e-6 * (grad if scale is None else grad * scale)
+        run.sync()
+        launches, by_x = read_counts(), read_x_dtype_counts()
+        assert np.isfinite(float(val))
+        log(f"  single-chain op, X {xdt}: {calls} calls, launches {launches}, by X dtype "
+            f"{by_x['B3']}; log-lik {float(val):.6g}")
+        if not run.rehearsal:
+            assert launches["B3"] == calls == by_x["B3"][xdt] == sum(launches.values()), launches
+            run.kernels[f"B3 {xdt}"]["launches"] = calls
+        out[f"single {xdt}"] = dict(calls=calls, launches=launches)
+    return out
+
+
+def rounded_rows(raw, xdt, keys=("x",)):
+    """Each matrix in ``keys`` of the caller's rows as a model prepared
+    under ``xdt`` sees it: rounded to bf16, or packed and dequantized
+    (`quantize.fake_quant`, the reference's rounded-X convention)."""
+    from stark_tpu_torch.ops.quantize import fake_quant
+
+    out = {}
+    for k in keys:
+        x = np.asarray(raw[k], np.float32)
+        if xdt == "bf16":
+            out[k] = torch.as_tensor(x).to(torch.bfloat16).float().numpy()
+        else:
+            out[k] = fake_quant(x, xdt)
+    return out
+
+
+def phase_x_dtype_potentials(run: Run, flag, lmm):
+    """The potential and gradient of each fused model that reaches a
+    kernel, and of the zoo's fused ops (each with its knob on), at full
+    width with X stored as each narrow dtype, against the same model with
+    float32 X on the matrix that dtype gives (`rounded_rows`), at 8 points
+    z = 0.4 (s / 3.5) N(0, 1), s = 0 .. 7, inside the reference's band
+    (`X_BANDS`: mid for bf16, quant for int8 and fp8)."""
+    from stark_tpu_torch.model import flatten_model, prepare_model_data
+    from stark_tpu_torch.models import (
+        FusedHierLogistic,
+        FusedHierLogisticGrouped,
+        FusedIRT2PL,
+        FusedLinearMixedModel,
+        FusedLinearMixedModelGrouped,
+        FusedLinearRegression,
+        FusedLMM,
+        FusedLogistic,
+        FusedOrderedLogistic,
+        FusedPoissonRegression,
+        FusedStudentTRegression,
+        synth_irt_data,
+        synth_linreg_data,
+        synth_lmm_data,
+        synth_ordinal_data,
+        synth_poisson_data,
+        synth_studentt_data,
+    )
+    full, _, _ = flag
+    lfull, _, _ = lmm
+    smi = getattr(run, "smi", "cpu rehearsal")
+    n, d, g = run.zoo_n, ZOO_D, run.zoo_g
+    log(f"== x dtype potentials: fused models with X stored narrow against float32 X on the "
+        f"same rounded matrix [{smi}] (script at {run.elapsed():.1f} s)")
+    cases = (
+        ("FusedHierLogisticGrouped", FusedHierLogisticGrouped(D, G), full, None, ("x",)),
+        ("FusedHierLogistic", FusedHierLogistic(D, G), full, None, ("x",)),
+        ("FusedLogistic", FusedLogistic(D), {"x": full["x"], "y": full["y"]}, None, ("x",)),
+        ("FusedLinearMixedModelGrouped", FusedLinearMixedModelGrouped(LMM_D, run.lmm_g, LMM_Q),
+         lfull, None, ("x", "z")),
+        ("FusedLinearMixedModel", FusedLinearMixedModel(LMM_D, run.lmm_g, LMM_Q), lfull, None,
+         ("x",)),
+        ("FusedLinearRegression", FusedLinearRegression(d), synth_linreg_data(0, n, d)[0], None,
+         ("x",)),
+        ("FusedPoissonRegression", FusedPoissonRegression(d), synth_poisson_data(0, n, d)[0],
+         None, ("x",)),
+        ("FusedLMM", FusedLMM(d, g, ZOO_Q), synth_lmm_data(0, n, d, g, num_random=ZOO_Q)[0],
+         "STARK_FUSED_LMM", ("x",)),
+        ("FusedStudentTRegression", FusedStudentTRegression(d), synth_studentt_data(0, n, d)[0],
+         "STARK_FUSED_ROBUST", ("x",)),
+        ("FusedOrderedLogistic", FusedOrderedLogistic(d, ORD_K),
+         synth_ordinal_data(0, n, d, num_categories=ORD_K)[0], "STARK_FUSED_ORDINAL", ("x",)),
+        ("FusedIRT2PL (grid)", FusedIRT2PL(run.irt_p, run.irt_i),
+         synth_irt_data(0, run.irt_p, run.irt_i)[0], "STARK_FUSED_IRT", ()),
+    )
+    gen = torch.Generator(device=run.dev).manual_seed(19)
+    out, rounded = {}, {}
+    for label, model, raw, knob, keys in cases:
+        fm = flatten_model(model)
+        scale = 0.4 * torch.arange(8, device=run.dev)[:, None] / 3.5
+        z = scale * torch.randn(8, fm.ndim, generator=gen, device=run.dev)
+        for xdt in X_NARROW:
+            with env(knob, "1"):
+                with env(X_KNOB, xdt):
+                    data = prepare_model_data(model, raw, device=run.dev)
+                v1, g1 = fm.bind(data).value_and_grad(z)
+                rkey = (id(raw["x"]) if "x" in raw else None, xdt, keys)
+                if rkey not in rounded:  # the flagship's rows serve three models
+                    rounded[rkey] = rounded_rows(raw, xdt, keys)
+                base = prepare_model_data(model, {**raw, **rounded[rkey]}, device=run.dev)
+                v0, g0 = fm.bind(base).value_and_grad(z)
+            del data, base
+            assert torch.isfinite(v1).all() and torch.isfinite(g1).all(), (label, xdt)
+            val_rel, grad_rel = parity_error(v0, g0, v1, g1)
+            tol_v, tol_g = X_BANDS[xdt]
+            log(f"  {label}, X {xdt}: val_rel {val_rel:.3g} (band {tol_v:g}), grad_rel "
+                f"{grad_rel:.3g} (band {tol_g:g})")
+            assert val_rel <= tol_v and grad_rel <= tol_g, (label, xdt, val_rel, grad_rel)
+            out[f"{label} {xdt}"] = dict(val_rel=val_rel, grad_rel=grad_rel)
+    return out
+
+
 def device_rows(fn):
     """Run ``fn`` under torch.profiler -> (window ms on the host clock,
     [(device ms, launches, kernel name)] of every CUDA kernel, largest
@@ -3349,41 +3877,45 @@ def main(argv=None) -> int:
 
     run = Run(args.cpu_rehearsal)
     phase_card(run)
-    phase_build(run)
+    run.phase("build", phase_build, run)
     log("== data")
-    flag, lmm = make_data(run)
-    phase_parity_and_times(run, flag, lmm)
-    phase_small(run)
+    flag, lmm = run.phase("data", make_data, run)
+    run.phase("parity and times", phase_parity_and_times, run, flag, lmm)
+    run.phase("small", phase_small, run)
     full, _, true = flag
     lfull, _, ltrue = lmm
     paths = {
-        "main_path": phase_chees(run, full, true, FusedHierLogisticGrouped, 64,
-                                 run.main_budget, counted="B1"),
-        "offset_path": phase_chees(run, full, true, FusedHierLogistic, 32,
-                                   run.off_budget, counted="B2"),
-        "lmm_main_path": phase_lmm(run, lfull, ltrue, FusedLinearMixedModelGrouped,
-                                   run.lmm_budget, counted="B4"),
-        "lmm_offset_path": phase_lmm(run, lfull, ltrue, FusedLinearMixedModel,
-                                     run.lmm_off_budget, counted="B2g"),
-        "single_path": phase_single(run, full),
-        "runner_path": phase_runner(run, full),
-        "nuts_path": phase_nuts(run, full),
+        "main_path": run.phase("main_path", phase_chees, run, full, true,
+                               FusedHierLogisticGrouped, 64, run.main_budget, "B1"),
+        "offset_path": run.phase("offset_path", phase_chees, run, full, true,
+                                 FusedHierLogistic, 32, run.off_budget, "B2"),
+        "lmm_main_path": run.phase("lmm_main_path", phase_lmm, run, lfull, ltrue,
+                                   FusedLinearMixedModelGrouped, run.lmm_budget, "B4"),
+        "lmm_offset_path": run.phase("lmm_offset_path", phase_lmm, run, lfull, ltrue,
+                                     FusedLinearMixedModel, run.lmm_off_budget, "B2g"),
+        "single_path": run.phase("single_path", phase_single, run, full),
+        "runner_path": run.phase("runner_path", phase_runner, run, full),
+        "nuts_path": run.phase("nuts_path", phase_nuts, run, full),
     }
-    paths["pipeline_equiv"] = phase_pipeline_equiv(run, full, paths["runner_path"],
-                                                   paths["nuts_path"])
-    paths |= {
-        "b2_shards": phase_b2_shards(run),
-        "consensus_path": phase_consensus(run),
-        "bnn_path": phase_bnn(run),
-        "tempering_path": phase_tempering(run),
-        "zoo_glm": phase_zoo_glm(run, lmm),
-        "zoo_rest": phase_zoo_rest(run),
-        "precision_kernels": phase_precision_kernels(run, flag, lmm),
-        "precision_paths": phase_precision_paths(run, flag, lmm),
-        "precision_potentials": phase_precision_potentials(run, flag, lmm),
-    }
+    paths["pipeline_equiv"] = run.phase("pipeline_equiv", phase_pipeline_equiv, run, full,
+                                        paths["runner_path"], paths["nuts_path"])
+    for name, fn, *args in (
+        ("b2_shards", phase_b2_shards),
+        ("consensus_path", phase_consensus),
+        ("bnn_path", phase_bnn),
+        ("tempering_path", phase_tempering),
+        ("zoo_glm", phase_zoo_glm, lmm),
+        ("zoo_rest", phase_zoo_rest),
+        ("precision_kernels", phase_precision_kernels, flag, lmm),
+        ("precision_paths", phase_precision_paths, flag, lmm),
+        ("precision_potentials", phase_precision_potentials, flag, lmm),
+        ("x_dtype_kernels", phase_x_dtype_kernels, flag, lmm),
+        ("x_dtype_paths", phase_x_dtype_paths, flag, lmm),
+        ("x_dtype_potentials", phase_x_dtype_potentials, flag, lmm),
+    ):
+        paths[name] = run.phase(name, fn, run, *args)
     prof = {
-        label: phase_profile(run, model, raw, label)
+        label: run.phase(f"profile {label}", phase_profile, run, model, raw, label)
         for label, model, raw in (
             ("FusedHierLogisticGrouped", FusedHierLogisticGrouped(D, G), full),
             ("FusedHierLogistic", FusedHierLogistic(D, G), full),
@@ -3402,8 +3934,9 @@ def main(argv=None) -> int:
         rp["idle_share_derived"] = 1 - busy / rp["wall_s"]
         log(f"== runner path: {rp['evals']} evaluations x {per_eval:.4f} ms of kernels each = "
             f"{busy:.1f} s busy of {rp['wall_s']:.1f} s wall: idle share {rp['idle_share_derived']:.4f}")
-    log(f"== done in {run.elapsed():.1f} s")
-    log(json.dumps({**paths, "profile": prof, "times_c8": run.c8}))
+    log(f"== done in {run.elapsed():.1f} s; by phase (s): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in run.phase_s.items()))
+    log(json.dumps({**paths, "profile": prof, "times_c8": run.c8, "phase_s": run.phase_s}))
     if run.rehearsal:
         log(json.dumps({"rehearsal": True, "ok": True}))
         return 0

@@ -7,10 +7,13 @@
 // (B1), logistic_batched.cu (B2), logistic_single.cu (B3), lmm_grouped.cu
 // (B4, which has its own arguments, partials and second kernel).  Also
 // the dot precisions (STARK_FUSED_PRECISION) of B1, B2 and B4 and what
-// each takes of an operand (below).
+// each takes of an operand, and the storage types of X
+// (STARK_FUSED_X_DTYPE) and how a kernel reads and widens them (below).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -114,8 +117,110 @@ __device__ __forceinline__ float staged_value(float w) {
   return kPrec == kHigh ? hi_of(w) + lo_of(w) : w;
 }
 
+// Storage types of X (and of B4's z), the codes of the C entry points
+// (stark_tpu_torch/ops/precision.py:X_CODES): float32, bf16, int8, fp8
+// e4m3 (e4m3fn: no infinity) and fp8 e5m2.  A kernel reads a narrow slab
+// from device memory at its storage width (2 bytes, or 1) and widens each
+// element to float32 where it stages it (`stage_x4`); the widening is
+// exact (every bf16, int8 and fp8 value is a float32), so everything
+// after the staging, the dots and every sum, is the float32 kernel's.
+// Every such value is also exact in bf16 (int8 and fp8 have at most 8
+// significant bits and bf16's exponent range), so at high and default
+// the staged rounding of a narrow x is the identity: bf16(x) = x, and x's
+// a_hi, a_lo word is x's own bits (a_lo = 0); only beta, alpha, u and
+// resid are rounded.  The scales of a packed slab never reach a kernel:
+// the models fold them into the parameter operand.
+constexpr int kXF32 = 0;
+constexpr int kXBf16 = 1;
+constexpr int kXInt8 = 2;
+constexpr int kXE4M3 = 3;
+constexpr int kXE5M2 = 4;
+
+__host__ __device__ inline bool x_code_ok(int xdt) { return xdt >= kXF32 && xdt <= kXE5M2; }
+
+// Bytes of one element stored as xdt.
+__host__ __device__ inline int x_size(int xdt) {
+  return xdt == kXF32 ? 4 : xdt == kXBf16 ? 2 : 1;
+}
+
+// One element's bits (the low 16 or 8 of `bits`) stored as kX, as float32.
+template <int kX>
+__device__ __forceinline__ float widen(unsigned bits) {
+  if (kX == kXBf16) return __uint_as_float(bits << 16);
+  if (kX == kXInt8) return (float)(int)(signed char)(unsigned char)bits;
+  const __nv_fp8_interpretation_t kind = kX == kXE4M3 ? __NV_E4M3 : __NV_E5M2;
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)bits, kind)));
+}
+
+// Element i of a slab stored as kX, widened to float32 (read-only path).
+template <int kX>
+__device__ __forceinline__ float load_x(const void* base, size_t i) {
+  if (kX == kXF32) return __ldg(static_cast<const float*>(base) + i);
+  if (kX == kXBf16) return widen<kX>(__ldg(static_cast<const unsigned short*>(base) + i));
+  return widen<kX>(__ldg(static_cast<const unsigned char*>(base) + i));
+}
+
+// Elements off .. off + 3 of a slab stored as kX, widened, of which the
+// first `left` exist (the rest are zeros and are not read): one load of
+// all four (16 bytes of float32, 8 of bf16, 4 of int8 or fp8) where they
+// lie whole at an address aligned to their size, else one load per
+// element, so a read never reaches past the row's last element.
+template <int kX>
+__device__ __forceinline__ float4 load_x4(const void* base, size_t off, int left) {
+  constexpr int kSize = kX == kXF32 ? 4 : kX == kXBf16 ? 2 : 1;
+  const unsigned char* p = static_cast<const unsigned char*>(base) + off * kSize;
+  float v[4];
+  if (left >= 4 && (reinterpret_cast<uintptr_t>(p) & (4 * kSize - 1)) == 0) {
+    if (kSize == 4) {
+      return __ldg(reinterpret_cast<const float4*>(p));
+    } else if (kSize == 2) {
+      const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+      v[0] = widen<kX>(w.x & 0xffffu);
+      v[1] = widen<kX>(w.x >> 16);
+      v[2] = widen<kX>(w.y & 0xffffu);
+      v[3] = widen<kX>(w.y >> 16);
+    } else {
+      const unsigned w = __ldg(reinterpret_cast<const unsigned*>(p));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = widen<kX>((w >> (8 * e)) & 0xffu);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = e < left ? load_x<kX>(base, off + e) : 0.f;
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Stage elements off .. off + 3 of a slab of storage type xdt into dst
+// (16-byte aligned) as float32, with plain loads: the kernels' narrow
+// instantiations stage x this way, where the float32 ones copy it with
+// cp.async (which has no copy of 1 or 2 bytes).  The type is a uniform
+// runtime switch: the staging runs outside the FMA loops, and one narrow
+// instantiation serves every type (float32 too: B4's z may be float32
+// beside a narrow x).
+__device__ __forceinline__ void stage_x4(float* dst, const void* base, int xdt, size_t off,
+                                         int left) {
+  float4 v;
+  switch (xdt) {
+    case kXF32: v = load_x4<kXF32>(base, off, left); break;
+    case kXBf16: v = load_x4<kXBf16>(base, off, left); break;
+    case kXInt8: v = load_x4<kXInt8>(base, off, left); break;
+    case kXE4M3: v = load_x4<kXE4M3>(base, off, left); break;
+    default: v = load_x4<kXE5M2>(base, off, left); break;
+  }
+  *reinterpret_cast<float4*>(dst) = v;
+}
+
+// A slab's base pointer advanced by n elements stored as xdt.
+template <typename T>
+__host__ __device__ inline const T* x_advance(const T* base, size_t n, int xdt) {
+  return reinterpret_cast<const T*>(reinterpret_cast<const char*>(base) + n * x_size(xdt));
+}
+
 struct Params {
-  const float* xT;    // (D, N) row-major
+  const float* xT;    // (D, N) row-major, stored as xdt (a float pointer
+                      // to the base of a narrow slab too)
+  int xdt;            // storage type of xT (kXF32 ...)
   const float* y;     // (N,)
   const float* beta;  // (C, D)
   int C, D, N, rows_per_block;

@@ -82,6 +82,18 @@
 // high's bound is 3 x 122 us; bf16 tensor cores would make both bound by
 // bytes (40.6 us).
 //
+// X's storage type (STARK_FUSED_X_DTYPE; p.xdt, csrc/fused_pass.cuh).
+// A bf16, int8 or fp8 xT is read at its width, 2 or 1 bytes an element
+// (at the flagship 64 MB or 32 MB in place of 128), with plain loads of 4
+// elements (8 or 4 bytes) where they lie whole and aligned and one load
+// an element elsewhere (a row of xT starts at d * N elements, so at an
+// odd N most rows start off alignment), widened to float32 as the thread
+// writes them into the sub-tile, instead of cp.async, which has no copy
+// of 1 or 2 bytes.  Those loads are not in flight while the block
+// computes: the staging thread waits for them (a simple kernel first).
+// Past the staging the pass is the float32 pass, at every precision; the
+// staged rounding of x is skipped, being the identity on narrow values.
+//
 // Every sum runs in a fixed order: per thread in row and feature order;
 // the row groups of a warp by a fixed shuffle tree; the row slices of the
 // gradient and the two warps of a row-group pair one after the other in
@@ -98,6 +110,13 @@ namespace b1 {
 constexpr int kThreads = 256;     // 8 warps
 constexpr int kBlocksPerSm = 2;
 constexpr int kBlocks = 132 * kBlocksPerSm;  // H100 SXM: 132 SMs
+// blocks per SM that an instantiation is compiled for: two (128 registers
+// a thread), but one (255) for the general kernel's narrow-X
+// instantiations, whose staging spilled at 128 (the grid stays kBlocks,
+// two waves of them; the flagship's one-tile kernels keep two)
+constexpr int blocks_per_sm(bool one_tile, bool narrow) {
+  return !one_tile && narrow ? 1 : kBlocksPerSm;
+}
 constexpr int kTwoPerSm = 113 * 1024;  // most shared memory of a block, in
                                        // bytes, with two blocks on an SM
 constexpr int kOnePerSm = 227 * 1024;  // most shared memory of one block
@@ -205,11 +224,21 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // Start the copies of the sub-tile at row0 (nvalid rows) into one buffer.
 // A row of xT starts 16-byte aligned only where d * N is a multiple of 4;
-// elsewhere, and at the ragged end, the copies are 4 bytes each.
+// elsewhere, and at the ragged end, the copies are 4 bytes each.  kNarrow:
+// a narrow xT is loaded and widened here instead (stage_x4), done when the
+// thread leaves.
+template <bool kNarrow>
 __device__ __forceinline__ void stage(const Params& p, float* xs, float* ys, int* gls,
                                       int row0, int nvalid, bool x16) {
   const int t = threadIdx.x, D = p.D;
-  for (int i = t; i < D * (kRows / 4); i += kThreads) {
+  if constexpr (kNarrow) {
+#pragma unroll 1
+    for (int i = t; i < D * (kRows / 4); i += kThreads) {
+      const int d = i / (kRows / 4), r = (i % (kRows / 4)) * 4;
+      stage_x4(xs + d * kLd + r, p.xT, p.xdt, (size_t)d * p.N + row0 + r, nvalid - r);
+    }
+  }
+  for (int i = t; !kNarrow && i < D * (kRows / 4); i += kThreads) {
     const int d = i / (kRows / 4), r = (i % (kRows / 4)) * 4;
     const size_t off = (size_t)d * p.N + row0 + r;
     float* dst = xs + d * kLd + r;
@@ -236,9 +265,11 @@ __device__ __forceinline__ void stage(const Params& p, float* xs, float* ys, int
 // kOneTile: one_tile(C, D), the flagship's case (two x buffers, one
 // chunk, the gradient tile in registers throughout), compiled apart so
 // that none of the other cases' state takes its registers.  kPrec: the
-// dot precision.
-template <bool kOneTile, int kPrec>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm) hier_pass(Params p, int nblk) {
+// dot precision.  kNarrow: xT stored as bf16, int8 or fp8 (p.xdt), its own
+// instantiations, so that the float32 ones keep their code and registers.
+template <bool kOneTile, int kPrec, bool kNarrow>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
+    hier_pass(Params p, int nblk) {
   extern __shared__ __align__(16) float smem[];
   const int C = p.C, D = p.D, N = p.N, G = p.G;
   const Layout L = layout(C, D);
@@ -267,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hier_pass(Params p, in
   const bool x16 = (reinterpret_cast<uintptr_t>(p.xT) & 15) == 0;
 
   // first sub-tile in flight while the block sets up
-  stage(p, xs, ys, gls, row_begin, min(kRows, N - row_begin), x16);
+  stage<kNarrow>(p, xs, ys, gls, row_begin, min(kRows, N - row_begin), x16);
   cp_async_commit();
 
   for (int i = t; i < D * cb + cp - cb; i += kThreads) {  // beta [d][c]
@@ -345,11 +376,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hier_pass(Params p, in
     const int row0 = sub * kRows;
     const int nvalid = min(kRows, N - row0);
     cp_async_wait_all();
-    stage_rows<kPrec, kRows, kLd, kThreads>(xs + buf * xbuf, D);
+    if (!kNarrow) stage_rows<kPrec, kRows, kLd, kThreads>(xs + buf * xbuf, D);
     __syncthreads();  // this sub-tile has landed; the other buffer is free
     if (two && sub + 1 < sub1) {
       const int nrow0 = row0 + kRows;
-      stage(p, xs + (buf ^ 1) * xbuf, ys + (buf ^ 1) * kRows, gls + (buf ^ 1) * kRows,
+      stage<kNarrow>(p, xs + (buf ^ 1) * xbuf, ys + (buf ^ 1) * kRows, gls + (buf ^ 1) * kRows,
             nrow0, min(kRows, N - nrow0), x16);
     }
     cp_async_commit();
@@ -501,7 +532,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hier_pass(Params p, in
     if (!two && sub + 1 < sub1) {  // one buffer: the next sub-tile once this one is done
       __syncthreads();
       const int nrow0 = row0 + kRows;
-      stage(p, xs, ys, gls, nrow0, min(kRows, N - nrow0), x16);
+      stage<kNarrow>(p, xs, ys, gls, nrow0, min(kRows, N - nrow0), x16);
       cp_async_commit();
     }
   }
@@ -533,11 +564,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hier_pass(Params p, in
 
 using Kernel = void (*)(Params, int);
 
-template <bool kOneTile>
+template <bool kOneTile, bool kNarrow>
 inline Kernel pick(int prec) {
-  return prec == kHigh      ? hier_pass<kOneTile, kHigh>
-         : prec == kDefault ? hier_pass<kOneTile, kDefault>
-                            : hier_pass<kOneTile, kHighest>;
+  return prec == kHigh      ? hier_pass<kOneTile, kHigh, kNarrow>
+         : prec == kDefault ? hier_pass<kOneTile, kDefault, kNarrow>
+                            : hier_pass<kOneTile, kHighest, kNarrow>;
 }
 
 }  // namespace b1
@@ -547,9 +578,10 @@ extern "C" int stark_hier_grouped(
     const float* xT, const float* y, const int* gl, const int* first_gid,
     const float* beta, const float* alpha, float* val, float* gbeta,
     float* galpha, float* scratch, int C, int D, int N, int G, int lane_tile,
-    int nblk, int prec, void* stream) {
+    int nblk, int prec, int xdt, void* stream) {
   stark::Params p{};
   p.xT = xT;
+  p.xdt = xdt;
   p.y = y;
   p.beta = beta;
   p.C = C;
@@ -569,11 +601,16 @@ extern "C" int stark_hier_grouped(
   if (prec != stark::kHighest && prec != stark::kHigh && prec != stark::kDefault) {
     return (int)cudaErrorInvalidValue;
   }
+  if (!stark::x_code_ok(xdt)) return (int)cudaErrorInvalidValue;
   stark::carve_scratch(p, scratch, nblk);
   auto s = static_cast<cudaStream_t>(stream);
   const size_t bytes = (size_t)stark::b1::layout(C, D).words * sizeof(float);
   const stark::b1::Kernel kern =
-      stark::b1::one_tile(C, D) ? stark::b1::pick<true>(prec) : stark::b1::pick<false>(prec);
+      xdt != stark::kXF32
+          ? (stark::b1::one_tile(C, D) ? stark::b1::pick<true, true>(prec)
+                                       : stark::b1::pick<false, true>(prec))
+          : (stark::b1::one_tile(C, D) ? stark::b1::pick<true, false>(prec)
+                                       : stark::b1::pick<false, false>(prec));
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)bytes);
   if (e != cudaSuccess) return (int)e;

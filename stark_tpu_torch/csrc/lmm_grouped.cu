@@ -43,7 +43,8 @@
 // meet once per block), and a general one in chunks of 32 chains and
 // kFeat features.  Every instantiation fits 80 registers a thread (three
 // blocks of 256 threads per SM) without spilling, but the one-tile 32-chain
-// ones at high and default, which fit 128 (two blocks; blocks_per_sm).
+// ones at high and default, which fit 128 (two blocks), and the 16- and
+// 32-chain ones with narrow x or z, which fit 255 (one; blocks_per_sm).
 // Per sub-tile:
 //   segments warp 0 finds the rows whose group differs from the previous
 //            row's, each row's segment, each segment's group, and whether
@@ -104,6 +105,14 @@
 // packed in one word (the layout and its widths are highest's) and each
 // product is three FMAs.
 //
+// X's and z's storage types (STARK_FUSED_X_DTYPE; p.xdt, p.zdt), as B1
+// takes X (csrc/hier_grouped.cu): a bf16, int8 or fp8 slab is read at its
+// width with plain loads and widened to float32 where it is staged;
+// past the staging the pass is the float32 one at every precision (x's
+// staged rounding skipped, the identity on narrow values; z is never
+// rounded).  The scales of packed slabs are folded into beta and u by the
+// model.
+//
 // Second kernel (b4_finish): a warp per entry of gbeta, ssr and sresid,
 // whose lanes take every 32nd block in order and meet in a fixed shuffle
 // tree (as B2's b2_finish); and one thread per (block, first or last
@@ -123,9 +132,13 @@ constexpr int kBlocksPerSm = 3;
 // blocks per SM that an instantiation is compiled for: three (80 registers
 // a thread), but two (128) for the one-tile 32-chain chunks at high and
 // default, whose rounding spills at 80 (the grid stays kBlocks, one and a
-// half waves of them)
-constexpr int blocks_per_sm(int kcc, bool one, int prec) {
-  return kcc == 32 && one && prec != kHighest ? 2 : kBlocksPerSm;
+// half waves of them), and one (255) for the one-tile 16- and 32-chain
+// chunks with narrow x or z, whose staging spilled at 80 and at 128
+// (three waves)
+constexpr int blocks_per_sm(int kcc, bool one, int prec, bool narrow) {
+  return one && narrow && kcc >= 16                ? 1
+         : one && kcc == 32 && prec != kHighest ? 2
+                                                 : kBlocksPerSm;
 }
 constexpr int kBlocks = 132 * kBlocksPerSm;  // H100 SXM: 132 SMs
 constexpr int kThreePerSm = 75 * 1024;  // most shared memory of a block, in
@@ -138,8 +151,9 @@ constexpr int kWide = 32;         // chains per chunk of the general kernel
 static_assert(kThreads == 2 * kRows, "logits mapping: two threads per row");
 
 struct Args {
-  const float* xT;         // (D, N)
-  const float* zT;         // (Q, N)
+  const float* xT;         // (D, N), stored as xdt
+  const float* zT;         // (Q, N), stored as zdt
+  int xdt, zdt;            // storage types (kXF32 ...; csrc/fused_pass.cuh)
   const float* y;          // (N,)
   const int* gl;           // (N,) local group id within the reference tile
   const int* first_gid;    // (N / lane_tile,) first group of each tile
@@ -289,14 +303,27 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, size_t off, 
 }
 
 // Start the copies of the sub-tile at row0 (nvalid rows) into one buffer.
+// kNarrow: x and z are stored narrow (both, as a model prepares them)
+// and are loaded and widened here instead (stage_x4), done when the
+// thread leaves.
+template <bool kNarrow>
 __device__ __forceinline__ void stage(const Args& p, float* xs, float* zs, float* ys, int* gls,
                                       int row0, int nvalid, bool x16, bool z16) {
   const int t = threadIdx.x;
-  for (int i = t; i < p.D * (kRows / 4); i += kThreads) {
+  if constexpr (kNarrow) {
+#pragma unroll 1
+    for (int i = t; i < (p.D + p.Q) * (kRows / 4); i += kThreads) {
+      const int d = i / (kRows / 4), r = (i % (kRows / 4)) * 4;
+      const bool x = d < p.D;  // x's rows, then z's
+      stage_x4((x ? xs + d * kLd : zs + (d - p.D) * kLd) + r, x ? p.xT : p.zT,
+               x ? p.xdt : p.zdt, (size_t)(x ? d : d - p.D) * p.N + row0 + r, nvalid - r);
+    }
+  }
+  for (int i = t; !kNarrow && i < p.D * (kRows / 4); i += kThreads) {
     const int d = i / (kRows / 4), r = (i % (kRows / 4)) * 4;
     copy4(xs + d * kLd + r, p.xT, (size_t)d * p.N + row0 + r, nvalid - r, x16);
   }
-  for (int i = t; i < p.Q * (kRows / 4); i += kThreads) {
+  for (int i = t; !kNarrow && i < p.Q * (kRows / 4); i += kThreads) {
     const int e = i / (kRows / 4), r = (i % (kRows / 4)) * 4;
     copy4(zs + e * kLd + r, p.zT, (size_t)e * p.N + row0 + r, nvalid - r, z16);
   }
@@ -336,9 +363,12 @@ __device__ __forceinline__ float lane_sum(float s) {
 
 // kCC: chains per chunk.  kOneTile: one_tile(C, D), one chunk of chains
 // (C <= kCC) and of features: the chains' lanes meet once per block.
-// kPrec: the dot precision.
-template <int kCC, bool kOneTile, int kPrec>
-__global__ void __launch_bounds__(kThreads, blocks_per_sm(kCC, kOneTile, kPrec)) b4_pass(Args p, int nblk) {
+// kPrec: the dot precision.  kNarrow: x or z stored as bf16, int8 or fp8
+// (p.xdt, p.zdt), its own instantiations, so that the float32 ones keep
+// their code and registers.
+template <int kCC, bool kOneTile, int kPrec, bool kNarrow>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(kCC, kOneTile, kPrec, kNarrow))
+    b4_pass(Args p, int nblk) {
   constexpr int kHalf = kCC / 2;             // chains per thread in the logits
   constexpr int kLanes = kThreads / kCC;     // threads per chain in the sums
   static_assert(kLanes >= kFeat && kLanes <= 32, "a lane per feature, within one warp");
@@ -379,7 +409,7 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kCC, kOneTile, kPrec))
   const bool z16 = (reinterpret_cast<uintptr_t>(p.zT) & 15) == 0;
 
   // first sub-tile in flight while the block sets up
-  stage(p, xs, zs, ys, gls, row_begin, min(kRows, N - row_begin), x16, z16);
+  stage<kNarrow>(p, xs, zs, ys, gls, row_begin, min(kRows, N - row_begin), x16, z16);
   cp_async_commit();
 
   for (int i = t; i < xrows * cp; i += kThreads) {
@@ -421,7 +451,7 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kCC, kOneTile, kPrec))
     const int row0 = sub * kRows;
     const int nvalid = min(kRows, N - row0);
     cp_async_wait_all();
-    stage_rows<kPrec, kRows, kLd, kThreads>(xs + buf * xbuf, D);
+    if (p.xdt == kXF32) stage_rows<kPrec, kRows, kLd, kThreads>(xs + buf * xbuf, D);
     __syncthreads();  // this sub-tile has landed; the last one's readers are done
     const float* xcur = xs + buf * xbuf;
     const float* zcur = zs + buf * zbuf;
@@ -473,7 +503,7 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kCC, kOneTile, kPrec))
       if (k == 0) {
         if (two && sub + 1 < sub1) {  // the next sub-tile, into the other buffer
           const int nrow0 = row0 + kRows;
-          stage(p, xs + (buf ^ 1) * xbuf, zs + (buf ^ 1) * zbuf, ys + (buf ^ 1) * kRows,
+          stage<kNarrow>(p, xs + (buf ^ 1) * xbuf, zs + (buf ^ 1) * zbuf, ys + (buf ^ 1) * kRows,
                 gls + (buf ^ 1) * kRows, nrow0, min(kRows, N - nrow0), x16, z16);
         }
         cp_async_commit();
@@ -668,7 +698,7 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kCC, kOneTile, kPrec))
     if (!two && sub + 1 < sub1) {  // one buffer: the next sub-tile once this one is done
       __syncthreads();
       const int nrow0 = row0 + kRows;
-      stage(p, xs, zs, ys, gls, nrow0, min(kRows, N - nrow0), x16, z16);
+      stage<kNarrow>(p, xs, zs, ys, gls, nrow0, min(kRows, N - nrow0), x16, z16);
       cp_async_commit();
     }
   }
@@ -776,17 +806,23 @@ __global__ void b4_finish(Args p, int nblk, float* ssr, float* sresid, float* gb
 
 using Kernel = void (*)(Args, int);
 
-template <int kPrec>
+template <int kPrec, bool kNarrow>
 inline Kernel pick_width(int C, int D) {
-  if (!one_tile(C, D)) return b4_pass<kWide, false, kPrec>;
-  return C <= 8 ? b4_pass<8, true, kPrec> : C <= 16 ? b4_pass<16, true, kPrec>
-                                                    : b4_pass<32, true, kPrec>;
+  if (!one_tile(C, D)) return b4_pass<kWide, false, kPrec, kNarrow>;
+  return C <= 8    ? b4_pass<8, true, kPrec, kNarrow>
+         : C <= 16 ? b4_pass<16, true, kPrec, kNarrow>
+                   : b4_pass<32, true, kPrec, kNarrow>;
 }
 
-inline Kernel pick(int C, int D, int prec) {
-  return prec == kHigh      ? pick_width<kHigh>(C, D)
-         : prec == kDefault ? pick_width<kDefault>(C, D)
-                            : pick_width<kHighest>(C, D);
+template <bool kNarrow>
+inline Kernel pick_prec(int C, int D, int prec) {
+  return prec == kHigh      ? pick_width<kHigh, kNarrow>(C, D)
+         : prec == kDefault ? pick_width<kDefault, kNarrow>(C, D)
+                            : pick_width<kHighest, kNarrow>(C, D);
+}
+
+inline Kernel pick(int C, int D, int prec, bool narrow) {
+  return narrow ? pick_prec<true>(C, D, prec) : pick_prec<false>(C, D, prec);
 }
 
 }  // namespace b4
@@ -797,7 +833,7 @@ extern "C" int stark_lmm_grouped(
     const int* first_gid, const float* beta, const float* u,
     const float* intercept, float* ssr, float* sresid, float* gbeta,
     float* gu, float* scratch, int C, int D, int Q, int N, int G,
-    int lane_tile, int nblk, int prec, void* stream) {
+    int lane_tile, int nblk, int prec, int xdt, int zdt, void* stream) {
   namespace b4 = stark::b4;
   // the block split of stark_tpu_torch/ops/hier_fused.py:b4_blocks, no other
   const int nsub = (N + b4::kRows - 1) / b4::kRows;
@@ -807,9 +843,12 @@ extern "C" int stark_lmm_grouped(
   if (prec != stark::kHighest && prec != stark::kHigh && prec != stark::kDefault) {
     return (int)cudaErrorInvalidValue;
   }
+  if (!stark::x_code_ok(xdt) || !stark::x_code_ok(zdt)) return (int)cudaErrorInvalidValue;
   b4::Args p{};
   p.xT = xT;
   p.zT = zT;
+  p.xdt = xdt;
+  p.zdt = zdt;
   p.y = y;
   p.gl = gl;
   p.first_gid = first_gid;
@@ -833,7 +872,7 @@ extern "C" int stark_lmm_grouped(
   p.bhi = reinterpret_cast<int*>(scratch + k.bhi);
   auto s = static_cast<cudaStream_t>(stream);
   const size_t bytes = (size_t)b4::layout(C, D, Q).words * sizeof(float);
-  const b4::Kernel kern = b4::pick(C, D, prec);
+  const b4::Kernel kern = b4::pick(C, D, prec, xdt != stark::kXF32 || zdt != stark::kXF32);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)bytes);
   if (e != cudaSuccess) return (int)e;

@@ -105,6 +105,16 @@
 // three FMAs.  The offsets and the value sums are not rounded: the
 // reference adds the offsets after its dot.
 //
+// X's storage type (STARK_FUSED_X_DTYPE; p.xdt), as B1 takes it
+// (csrc/hier_grouped.cu): a bf16, int8 or fp8 xT is read at its width
+// with plain loads (4 elements at once where whole and aligned, else one
+// at a time; a shard's rows start at s * D * n elements, so at config 2's
+// n = 125,000 every row of a 1-byte slab starts off 4-byte alignment:
+// 125,000 = 8 mod 16) and widened to float32 where it is staged; the
+// offsets, y and resid stay float32 and cp.async.  Past the staging the
+// pass is the float32 pass at every precision, the staged rounding of x
+// skipped (the identity on narrow values).
+//
 // Every sum runs in a fixed order: per thread in row and feature order;
 // the row groups of a warp by a fixed shuffle tree; the row slices of the
 // gradient and the two warps of a row-group pair one after the other in
@@ -248,11 +258,21 @@ __device__ __forceinline__ void stage_offsets(const Params& p, float* rs, int k,
 }
 
 // Start the copies of the sub-tile at row0 (nvalid rows) into one buffer:
-// x, y and, with offsets, the first chunk's offsets.
+// x, y and, with offsets, the first chunk's offsets.  kNarrow: a narrow x
+// is loaded and widened here instead (stage_x4), done when the thread
+// leaves.
+template <bool kNarrow>
 __device__ __forceinline__ void stage(const Params& p, float* xs, float* ys, float* rs,
                                       int row0, int nvalid, bool x16, bool o16) {
   const int t = threadIdx.x;
-  for (int i = t; i < p.D * (kRows / 4); i += kThreads) {
+  if constexpr (kNarrow) {
+#pragma unroll 1
+    for (int i = t; i < p.D * (kRows / 4); i += kThreads) {
+      const int d = i / (kRows / 4), r = (i % (kRows / 4)) * 4;
+      stage_x4(xs + d * kLd + r, p.xT, p.xdt, (size_t)d * p.N + row0 + r, nvalid - r);
+    }
+  }
+  for (int i = t; !kNarrow && i < p.D * (kRows / 4); i += kThreads) {
     const int d = i / (kRows / 4), r = (i % (kRows / 4)) * 4;
     copy4(xs + d * kLd + r, p.xT, (size_t)d * p.N + row0 + r, nvalid - r, x16);
   }
@@ -267,7 +287,7 @@ __device__ __forceinline__ void stage(const Params& p, float* xs, float* ys, flo
 // shard's own slice, the partials to the shard's region of the scratch.
 __device__ __forceinline__ Params shard_view(Params p, int s, int nblk) {
   const size_t cd = (size_t)p.C * p.D, cn = (size_t)p.C * p.N;
-  p.xT += (size_t)s * p.D * p.N;
+  p.xT = x_advance(p.xT, (size_t)s * p.D * p.N, p.xdt);
   p.y += (size_t)s * p.N;
   p.beta += s * cd;
   if (p.offsets != nullptr) p.offsets += s * cn;
@@ -278,7 +298,9 @@ __device__ __forceinline__ Params shard_view(Params p, int s, int nblk) {
 }
 
 // kShards: S > 1, blockIdx.y the shard.  kPrec: the dot precision.
-template <bool kOneTile, int kLink, bool kShards, int kPrec>
+// kNarrow: xT stored as bf16, int8 or fp8 (p.xdt), its own instantiations,
+// so that the float32 ones keep their code and registers.
+template <bool kOneTile, int kLink, bool kShards, int kPrec, bool kNarrow>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int nblk) {
   extern __shared__ __align__(16) float smem[];
   if (kShards) p = shard_view(p, blockIdx.y, nblk);
@@ -306,7 +328,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
   const bool r16 = offs && (reinterpret_cast<uintptr_t>(p.resid) & 15) == 0;
 
   // first sub-tile in flight while the block sets up
-  stage(p, xs, ys, rs, sub0 * kRows, min(kRows, N - sub0 * kRows), x16, o16);
+  stage<kNarrow>(p, xs, ys, rs, sub0 * kRows, min(kRows, N - sub0 * kRows), x16, o16);
   cp_async_commit();
 
   for (int i = t; i < D * cb + cp - cb; i += kThreads) {  // beta [d][c]
@@ -380,11 +402,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
     const int row0 = sub * kRows;
     const int nvalid = min(kRows, N - row0);
     cp_async_wait_all();
-    stage_rows<kPrec, kRows, kLd, kThreads>(xs + buf * xbuf, D);
+    if (!kNarrow) stage_rows<kPrec, kRows, kLd, kThreads>(xs + buf * xbuf, D);
     __syncthreads();  // this sub-tile has landed; the other buffer is free
     if (two && sub + 1 < sub1) {
       const int nrow0 = row0 + kRows;
-      stage(p, xs + (buf ^ 1) * xbuf, ys + (buf ^ 1) * kRows, rs + (buf ^ 1) * rbuf, nrow0,
+      stage<kNarrow>(p, xs + (buf ^ 1) * xbuf, ys + (buf ^ 1) * kRows, rs + (buf ^ 1) * rbuf, nrow0,
             min(kRows, N - nrow0), x16, o16);
     }
     cp_async_commit();
@@ -520,7 +542,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
     if (!two && sub + 1 < sub1) {  // one buffer: the next sub-tile once this one is done
       __syncthreads();
       const int nrow0 = row0 + kRows;
-      stage(p, xs, ys, rs, nrow0, min(kRows, N - nrow0), x16, o16);
+      stage<kNarrow>(p, xs, ys, rs, nrow0, min(kRows, N - nrow0), x16, o16);
       cp_async_commit();
     }
   }
@@ -571,17 +593,23 @@ __global__ void b2_finish(Params p, int nblk, int S, float* val, float* gbeta) {
 
 using Kernel = void (*)(Params, int);
 
-template <bool kOneTile, bool kShards, int kPrec>
+template <bool kOneTile, bool kShards, int kPrec, bool kNarrow>
 inline Kernel pick_link(int link) {
-  return link == kGaussian ? b2_pass<kOneTile, kGaussian, kShards, kPrec>
-                           : b2_pass<kOneTile, kBernoulli, kShards, kPrec>;
+  return link == kGaussian ? b2_pass<kOneTile, kGaussian, kShards, kPrec, kNarrow>
+                           : b2_pass<kOneTile, kBernoulli, kShards, kPrec, kNarrow>;
+}
+
+template <bool kOneTile, bool kShards, bool kNarrow>
+inline Kernel pick_prec(int link, int prec) {
+  return prec == kHigh      ? pick_link<kOneTile, kShards, kHigh, kNarrow>(link)
+         : prec == kDefault ? pick_link<kOneTile, kShards, kDefault, kNarrow>(link)
+                            : pick_link<kOneTile, kShards, kHighest, kNarrow>(link);
 }
 
 template <bool kOneTile, bool kShards>
-inline Kernel pick(int link, int prec) {
-  return prec == kHigh      ? pick_link<kOneTile, kShards, kHigh>(link)
-         : prec == kDefault ? pick_link<kOneTile, kShards, kDefault>(link)
-                            : pick_link<kOneTile, kShards, kHighest>(link);
+inline Kernel pick(int link, int prec, bool narrow) {
+  return narrow ? pick_prec<kOneTile, kShards, true>(link, prec)
+                : pick_prec<kOneTile, kShards, false>(link, prec);
 }
 
 }  // namespace b2
@@ -590,10 +618,11 @@ inline Kernel pick(int link, int prec) {
 extern "C" int stark_logistic_batched(
     const float* xT, const float* y, const float* offsets, const float* beta,
     float* val, float* gbeta, float* resid, float* scratch, int C, int D, int N,
-    int S, int nblk, int link, int prec, void* stream) {
+    int S, int nblk, int link, int prec, int xdt, void* stream) {
   namespace b2 = stark::b2;
   stark::Params p{};
   p.xT = xT;
+  p.xdt = xdt;
   p.y = y;
   p.beta = beta;
   p.C = C;
@@ -610,14 +639,18 @@ extern "C" int stark_logistic_batched(
   if (prec != stark::kHighest && prec != stark::kHigh && prec != stark::kDefault) {
     return (int)cudaErrorInvalidValue;
   }
+  if (!stark::x_code_ok(xdt)) return (int)cudaErrorInvalidValue;
   stark::carve_scratch(p, scratch, nblk * S);  // shard s: blocks s * nblk ..
 
   auto s = static_cast<cudaStream_t>(stream);
   const size_t bytes = (size_t)b2::layout(C, D).words * sizeof(float);
   const bool one = b2::one_tile(C, D);
+  const bool narrow = xdt != stark::kXF32;
   const b2::Kernel kern =
-      S > 1 ? (one ? b2::pick<true, true>(link, prec) : b2::pick<false, true>(link, prec))
-            : (one ? b2::pick<true, false>(link, prec) : b2::pick<false, false>(link, prec));
+      S > 1 ? (one ? b2::pick<true, true>(link, prec, narrow)
+                   : b2::pick<false, true>(link, prec, narrow))
+            : (one ? b2::pick<true, false>(link, prec, narrow)
+                   : b2::pick<false, false>(link, prec, narrow));
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)bytes);
   if (e != cudaSuccess) return (int)e;

@@ -26,6 +26,12 @@
 // fused_pass.cuh's finish adds those in block order: a second launch is
 // bitwise equal.  For D > 32 the gradient re-reads x by chunks of 32
 // (from L1/L2, just read for the logit).
+//
+// X's storage type (STARK_FUSED_X_DTYPE): an instantiation per type
+// (kX), each reading its element (4, 2 or 1 bytes, coalesced along N) and
+// widening it to float32 in the register it lands in (load_x,
+// csrc/fused_pass.cuh); the rest of the pass is the float32 one.  At the
+// flagship's xT a bf16 slab moves 64 MB and an int8 or fp8 one 32 MB.
 #include "fused_pass.cuh"
 
 namespace stark {
@@ -54,7 +60,7 @@ __device__ __forceinline__ void warp_transpose_sum(float (&v)[kDChunk], int lane
   if constexpr (W > 1) warp_transpose_sum<W / 2>(v, lane);
 }
 
-template <int kLink>
+template <int kLink, int kX>
 __global__ void __launch_bounds__(kSingleThreads) single_pass(Params p) {
   extern __shared__ __align__(16) float smem[];
   const int D = p.D, N = p.N;
@@ -81,7 +87,7 @@ __global__ void __launch_bounds__(kSingleThreads) single_pass(Params p) {
 #pragma unroll
       for (int j = 0; j < kDChunk; ++j) {
         const int d = d0 + j;
-        xr[j] = (ok && d < D) ? __ldg(p.xT + (size_t)d * N + n) : 0.f;
+        xr[j] = (ok && d < D) ? load_x<kX>(p.xT, (size_t)d * N + n) : 0.f;
       }
 #pragma unroll
       for (int j = 0; j < kDChunk; ++j) l = fmaf(bs[d0 + j], xr[j], l);
@@ -105,7 +111,7 @@ __global__ void __launch_bounds__(kSingleThreads) single_pass(Params p) {
 #pragma unroll
         for (int j = 0; j < kDChunk; ++j) {
           const int d = d0 + j;
-          xr[j] = (ok && d < D) ? __ldg(p.xT + (size_t)d * N + n) : 0.f;
+          xr[j] = (ok && d < D) ? load_x<kX>(p.xT, (size_t)d * N + n) : 0.f;
         }
       }
       float v32[kDChunk];
@@ -133,14 +139,28 @@ __global__ void __launch_bounds__(kSingleThreads) single_pass(Params p) {
   }
 }
 
+template <int kLink>
+inline void (*pick_x(int xdt))(Params) {
+  return xdt == kXBf16   ? single_pass<kLink, kXBf16>
+         : xdt == kXInt8 ? single_pass<kLink, kXInt8>
+         : xdt == kXE4M3 ? single_pass<kLink, kXE4M3>
+         : xdt == kXE5M2 ? single_pass<kLink, kXE5M2>
+                         : single_pass<kLink, kXF32>;
+}
+
+inline void (*pick_single(int link, int xdt))(Params) {
+  return link == kGaussian ? pick_x<kGaussian>(xdt) : pick_x<kBernoulli>(xdt);
+}
+
 }  // namespace stark
 
 extern "C" int stark_logistic_single(
     const float* xT, const float* y, const float* offsets, const float* beta,
     float* val, float* gbeta, float* resid, float* scratch, int D, int N,
-    int rows_per_block, int nblk, int link, void* stream) {
+    int rows_per_block, int nblk, int link, int xdt, void* stream) {
   stark::Params p{};
   p.xT = xT;
+  p.xdt = xdt;
   p.y = y;
   p.beta = beta;
   p.C = 1;
@@ -153,10 +173,9 @@ extern "C" int stark_logistic_single(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int dp = stark::single_features_padded(D);
   const size_t bytes = sizeof(float) * (dp + (stark::kSingleThreads / 32) * (dp + 1));
-  void (*kern)(stark::Params);
-  if (link == stark::kGaussian) kern = stark::single_pass<stark::kGaussian>;
-  else if (link == stark::kBernoulli) kern = stark::single_pass<stark::kBernoulli>;
-  else return (int)cudaErrorInvalidValue;
+  if (link != stark::kGaussian && link != stark::kBernoulli) return (int)cudaErrorInvalidValue;
+  if (!stark::x_code_ok(xdt)) return (int)cudaErrorInvalidValue;
+  void (*kern)(stark::Params) = stark::pick_single(link, xdt);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;

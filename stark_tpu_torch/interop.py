@@ -11,6 +11,11 @@ dummy; the grouped models' fallback layout carries a (0,)-shaped
 ``offsets_path`` marker.  Here they become plain ints and a flag.  The
 arrays the ported models read (`DATA_KEYS`) become tensors; any other
 key raises, so nothing the reference prepared is silently dropped.
+
+Slabs prepared under a narrow ``STARK_FUSED_X_DTYPE`` reach numpy as the
+``ml_dtypes`` types bfloat16, float8_e4m3fn and float8_e5m2, which the
+port does not import: they are carried across by their bits (an int16
+or uint8 view) into the torch dtype of the same name.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from ._device import DeviceLike, resolve_device
 from .chees import CheesRunCarry
 from .kernels.chees import init_ensemble
+from .ops.quantize import from_numpy_bits
 
 
 #: array keys of the ported models' prepared data: the rows (x, or its
@@ -30,8 +36,16 @@ from .kernels.chees import init_ensemble
 #: response, the group ids and the grouped layout (gl, first_gid); the
 #: IRT triples (person, item) and grid (y_grid); survival times and
 #: event flags (t, event)
-DATA_KEYS = ("x", "xT", "z", "zT", "y", "g", "gl", "first_gid", "person", "item", "y_grid",
-             "t", "event")
+DATA_KEYS = ("x", "xT", "xT_scale", "z", "zT", "zT_scale", "y", "g", "gl", "first_gid",
+             "person", "item", "y_grid", "t", "event")
+
+#: numpy dtype names of the reference's narrow slabs (ml_dtypes) -> the
+#: integer view that carries their bits and the port's dtype
+_BY_BITS = {
+    "bfloat16": (np.int16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+}
 
 
 def data_from_reference(ref_data: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
@@ -47,14 +61,13 @@ def data_from_reference(ref_data: Dict[str, Any], device: DeviceLike = None) -> 
             out["lane_tile"] = 128 * int(v.shape[0])
         elif k == "offsets_path":
             out["offsets_path"] = True
-        elif k.endswith("_scale"):
-            raise NotImplementedError(
-                f"{k}: packed X streams are not ported yet (ROADMAP item B5)"
-            )
         elif k not in DATA_KEYS:
             raise ValueError(
                 f"data key {k!r} is not one the ported models read: {DATA_KEYS}"
             )
+        elif v.dtype.name in _BY_BITS:
+            bits, dtype = _BY_BITS[v.dtype.name]
+            out[k] = from_numpy_bits(np.array(v).view(bits), dtype).to(dev)
         else:
             if v.dtype == np.float64:
                 v = v.astype(np.float32)

@@ -26,6 +26,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..ops.quantize import index_rows
 from .base import sample_momentum
 
 # grad_fn(noise, z (C, d)) -> (C, d) stochastic estimate of grad U(z)
@@ -81,9 +82,9 @@ def sghmc_step(noise, state: SGHMCState, grad_fn: StochasticGradFn, step_size, f
 def gather_rows(x: torch.Tensor, ax: int, idx: torch.Tensor) -> torch.Tensor:
     """Rows ``idx`` (C, B) of ``x`` along its row axis ``ax``, one
     ``index_select`` for all chains, the chain axis moved to the front:
-    (..., N, ...) -> (C, ..., B, ...)."""
+    (..., N, ...) -> (C, ..., B, ...).  Any stored dtype (`index_rows`)."""
     c, b = idx.shape
-    out = x.index_select(ax, idx.reshape(-1))
+    out = index_rows(x, ax, idx.reshape(-1))
     out = out.reshape(x.shape[:ax] + (c, b) + x.shape[ax + 1:])
     return out.movedim(ax, 0)
 
@@ -127,7 +128,7 @@ def make_minibatch_grad(potential_with_data, data, batch_size: int,
             return grad_of(z, {k: gather_rows(v, row_axes[k], idx) if has_rows(k, v) else v
                                for k, v in data.items()})
         return torch.cat([
-            grad_of(z[c:c + 1], {k: v.index_select(row_axes[k], idx[c])
+            grad_of(z[c:c + 1], {k: index_rows(v, row_axes[k], idx[c])
                                  if has_rows(k, v) else v for k, v in data.items()})
             for c in range(z.shape[0])
         ])

@@ -30,6 +30,7 @@ import torch
 
 from ._device import DeviceLike, resolve_device
 from .bijectors import Bijector, Identity
+from .ops.quantize import host_leaf
 from .tree import make_unflatten
 
 
@@ -89,24 +90,20 @@ class Model:
         return {k: 0 for k in data}
 
 
-def _host(v):
-    if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
-    return v
-
-
 def prepare_model_data(model: Model, data, device: DeviceLike = None):
     """The single data choke point: apply the model's host-side layout
     hook once, then move every array to ``device`` (``cuda`` unless the
-    caller asks for the CPU).  Non-array entries (layout ints, markers)
-    pass through."""
+    caller asks for the CPU).  A slab prepared as bf16 or fp8, which numpy
+    cannot hold, is a CPU tensor on the host and moves as one.  Non-array
+    entries (layout ints, markers) pass through."""
     if data is None:
         return None
     dev = resolve_device(device)
-    prepared = model.prepare_data({k: _host(v) for k, v in data.items()})
+    prepared = model.prepare_data({k: host_leaf(v) for k, v in data.items()})
     return {
         k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
         if isinstance(v, np.ndarray)
+        else v.to(dev) if isinstance(v, torch.Tensor)
         else v
         for k, v in prepared.items()
     }

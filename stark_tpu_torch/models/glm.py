@@ -28,7 +28,8 @@ import torch
 
 from ..bijectors import Exp, batch_sum
 from ..model import Model, ParamSpec, normal_logpdf
-from .logistic import TransposedXMixin
+from ..ops.quantize import dequant_rows, stream_slab
+from .logistic import TransposedXMixin, _fold_scale
 
 _LOG2 = math.log(2.0)
 #: clip bound of the log-link rate (ops.glm_fused.LOG_RATE_CLIP)
@@ -41,8 +42,12 @@ def _rows_y(eta, y):
 
 
 def _rows_xT(data):
-    """X transposed, (D, N) or (S, D, n), from either layout."""
-    return data["xT"] if "xT" in data else data["x"].transpose(-1, -2)
+    """X transposed, (D, N) or (S, D, n), float32, from either layout: the
+    cold path of the autograd likelihoods, which widens a bf16 slab and
+    dequantizes a packed one (`quantize.dequant_rows`)."""
+    if "xT" not in data:
+        return data["x"].transpose(-1, -2)
+    return dequant_rows(data).transpose(-1, -2)
 
 
 class LinearRegression(Model):
@@ -80,7 +85,7 @@ class FusedLinearRegression(TransposedXMixin, LinearRegression):
     def log_lik(self, p, data):
         from ..ops.logistic_fused import gaussian_loglik
 
-        return gaussian_loglik(p["beta"], data["xT"], data["y"], p["sigma"])
+        return gaussian_loglik(_fold_scale(p["beta"], data), data["xT"], data["y"], p["sigma"])
 
 
 def _poisson_rows_loglik(eta, y):
@@ -127,7 +132,7 @@ class FusedPoissonRegression(TransposedXMixin, PoissonRegression):
 
         if not fused_glm_enabled():
             return super().log_lik(p, data)
-        return poisson_loglik(p["beta"], data["xT"], data["y"])
+        return poisson_loglik(p["beta"], stream_slab(data), data["y"])
 
 
 def synth_linreg_data(seed: int, n: int, d: int, *, noise: float = 0.5):

@@ -91,6 +91,7 @@ class FusedIRT2PL(IRT2PL):
 
     def log_lik(self, p, data):
         from ..ops.irt_fused import fused_irt_enabled, irt_grid_loglik, irt_loglik
+        from ..ops.quantize import widen
 
         theta, a, b = p["theta"], p["a"], p["b"]
         if "y_grid" in data:
@@ -98,7 +99,8 @@ class FusedIRT2PL(IRT2PL):
                 return irt_grid_loglik(theta, a, b, data["y_grid"])
             # the knob flipped off after a grid prepare: autograd on the grid
             logits = a[..., None, :] * (theta[..., :, None] - b[..., None, :])
-            return _bernoulli_logit_loglik(logits.flatten(-2), data["y_grid"].flatten())
+            # (a packed grid widened: 0 and 1 are exact)
+            return _bernoulli_logit_loglik(logits.flatten(-2), widen(data["y_grid"]).flatten())
         if not fused_irt_enabled():
             return super().log_lik(p, data)
         return irt_loglik(theta, a, b, data["person"], data["item"], data["y"])

@@ -31,9 +31,11 @@ import torch
 
 from ..bijectors import Exp, batch_sum
 from ..model import Model, ParamSpec, normal_logpdf
+from ..ops.quantize import stream_slab
 from .logistic import (
     KnobGatedFusedMixin,
     TransposedXMixin,
+    _fold_scale,
     _row_axes_xt,
     _transpose_x,
     check_group_ids,
@@ -110,7 +112,7 @@ class FusedLMM(KnobGatedFusedMixin, LinearMixedModel):
 
         return lmm_loglik(
             p["beta"], self._u(p), p["intercept"], p["sigma"],
-            data["xT"], data["z"], data["g"], data["y"],
+            stream_slab(data), data["z"], data["g"], data["y"],
         )
 
 
@@ -127,7 +129,8 @@ class FusedLinearMixedModel(TransposedXMixin, LinearMixedModel):
         from ..ops.logistic_fused import gaussian_offset_loglik
 
         return gaussian_offset_loglik(
-            p["beta"], self._offsets(p, data), data["xT"], data["y"], p["sigma"]
+            _fold_scale(p["beta"], data), self._offsets(p, data), data["xT"], data["y"],
+            p["sigma"]
         )
 
 
@@ -165,16 +168,20 @@ class FusedLinearMixedModelGrouped(LinearMixedModel):
         )
 
     def log_lik(self, p, data):
+        beta = _fold_scale(p["beta"], data)
         if "gl" not in data:  # fallback layout
             from ..ops.logistic_fused import gaussian_offset_loglik
 
             return gaussian_offset_loglik(
-                p["beta"], self._offsets(p, data), data["xT"], data["y"], p["sigma"]
+                beta, self._offsets(p, data), data["xT"], data["y"], p["sigma"]
             )
         from ..ops.hier_fused import lmm_grouped_loglik
 
+        # zT's scales fold into u as xT's into beta: mu's term z_q u[g, q]
+        # is (s_q u[g, q]) against the packed z_q
+        u = _fold_scale(self._u(p), data, key="zT_scale")
         return lmm_grouped_loglik(
-            p["beta"], self._u(p), p["intercept"], p["sigma"], data["xT"],
+            beta, u, p["intercept"], p["sigma"], data["xT"],
             data["zT"], data["y"], data["gl"], data["first_gid"],
             data["lane_tile"],
         )

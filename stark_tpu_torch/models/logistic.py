@@ -32,7 +32,7 @@ import torch
 
 from ..bijectors import Exp, batch_sum
 from ..model import Model, ParamSpec, normal_logpdf
-from ..ops.precision import x_stream_dtype
+from ..ops.quantize import dequant_rows, store_slab
 
 _LOG2 = math.log(2.0)
 
@@ -113,24 +113,39 @@ def check_group_ids(g, num_groups: int) -> None:
 
 
 def _transpose_x(data):
-    """Replace the (N, D) rows with their (D, N) transpose, once."""
+    """Replace the (N, D) rows with their (D, N) transpose, once, stored at
+    the STARK_FUSED_X_DTYPE storage dtype (`store_slab`)."""
     if "xT" in data:
         return data
-    x_stream_dtype()  # only float32 X streams are ported
     out = {k: v for k, v in data.items() if k != "x"}
-    out["xT"] = np.ascontiguousarray(np.asarray(data["x"]).T, dtype=np.float32)
+    store_slab(out, "xT", np.asarray(data["x"], dtype=np.float32).T)
     return out
 
 
 def _row_axes_xt(data):
     """Rows on axis 1 of the transposed ``xT``, axis 0 elsewhere; an entry
-    without rows (a 0-d or empty marker) is -1."""
+    without rows (a 0-d or empty marker) and a slab's per-column scales
+    (``*_scale``, replicated: every row shard dequantizes against the
+    same calibration) are -1."""
     def ax(k, v):
-        if np.ndim(v) == 0 or np.shape(v)[0] == 0:
+        if np.ndim(v) == 0 or np.shape(v)[0] == 0 or k.endswith("_scale"):
             return -1
         return 1 if k == "xT" else 0
 
     return {k: ax(k, v) for k, v in data.items()}
+
+
+def _fold_scale(beta, data, key="xT_scale"):
+    """A packed slab's scales folded into the parameter operand: ``(s *
+    q) . beta == q . (s * beta)``, so a kernel streams the packed bytes
+    as they are and autograd carries the scales back to beta's gradient;
+    ``beta`` itself when the slab is not packed.  beta (..., D) [or u
+    (..., G, Q) against zT's (Q,) scales]; per shard, beta (S, C, D)
+    against the shards' scales (S, D)."""
+    s = data.get(key)
+    if s is None:
+        return beta
+    return beta * (s.unsqueeze(-2) if s.ndim > 1 else s)
 
 
 class TransposedXMixin:
@@ -182,8 +197,9 @@ class KnobGatedFusedMixin:
         if "xT" not in data:
             return super().log_lik(p, data)
         if not self._fused_enabled():
-            rows = {k: v for k, v in data.items() if k != "xT"}
-            return super().log_lik(p, {**rows, "x": data["xT"].transpose(-1, -2)})
+            # autograd on the rows, dequantized where the slab was packed
+            rows = {k: v for k, v in data.items() if k not in ("xT", "xT_scale")}
+            return super().log_lik(p, {**rows, "x": dequant_rows(data)})
         return self._fused_log_lik(p, data)
 
     def _fused_log_lik(self, p, data):
@@ -197,7 +213,7 @@ class FusedLogistic(TransposedXMixin, Logistic):
     def log_lik(self, p, data):
         from ..ops.logistic_fused import logistic_loglik
 
-        return logistic_loglik(p["beta"], data["xT"], data["y"])
+        return logistic_loglik(_fold_scale(p["beta"], data), data["xT"], data["y"])
 
 
 class FusedHierLogistic(TransposedXMixin, HierLogistic):
@@ -213,7 +229,7 @@ class FusedHierLogistic(TransposedXMixin, HierLogistic):
         from ..ops.logistic_fused import logistic_offset_loglik
 
         return logistic_offset_loglik(
-            p["beta"], self._alpha(p)[:, data["g"]], data["xT"], data["y"]
+            _fold_scale(p["beta"], data), self._alpha(p)[:, data["g"]], data["xT"], data["y"]
         )
 
 
@@ -250,16 +266,17 @@ class FusedHierLogisticGrouped(HierLogistic):
 
     def log_lik(self, p, data):
         alpha = self._alpha(p)
+        beta = _fold_scale(p["beta"], data)
         if "gl" not in data:  # fallback layout
             from ..ops.logistic_fused import logistic_offset_loglik
 
             return logistic_offset_loglik(
-                p["beta"], alpha[:, data["g"]], data["xT"], data["y"]
+                beta, alpha[:, data["g"]], data["xT"], data["y"]
             )
         from ..ops.hier_fused import hier_logistic_loglik
 
         return hier_logistic_loglik(
-            p["beta"], alpha, data["xT"], data["y"], data["gl"],
+            beta, alpha, data["xT"], data["y"], data["gl"],
             data["first_gid"], data["lane_tile"],
         )
 

@@ -85,7 +85,9 @@ class FusedOrderedLogistic(KnobGatedFusedMixin, OrderedLogistic):
     def _fused_log_lik(self, p, data):
         from ..ops.ordinal_fused import ordinal_loglik
 
-        return ordinal_loglik(p["beta"], p["cutpoints"], data["xT"], data["y"])
+        from ..ops.quantize import stream_slab
+
+        return ordinal_loglik(p["beta"], p["cutpoints"], stream_slab(data), data["y"])
 
 
 def synth_ordinal_data(seed: int, n: int, d: int, *, num_categories: int = 5):

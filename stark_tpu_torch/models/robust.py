@@ -101,7 +101,9 @@ class FusedStudentTRegression(KnobGatedFusedMixin, StudentTRegression):
     def _fused_log_lik(self, p, data):
         from ..ops.robust_fused import studentt_loglik
 
-        return studentt_loglik(p["beta"], p["sigma"], p["nu"], data["xT"], data["y"])
+        from ..ops.quantize import stream_slab
+
+        return studentt_loglik(p["beta"], p["sigma"], p["nu"], stream_slab(data), data["y"])
 
 
 class NegBinomialRegression(Model):

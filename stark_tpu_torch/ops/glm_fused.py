@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from .precision import clip_band, dot, dot_precision, fused_knob, fused_value_and_grad
+from .precision import clip_band, dot_precision, fused_knob, fused_value_and_grad
+from .quantize import dequant_dot, dequant_dot_t
 
 #: clip bound of the log-link rate, as models.glm.PoissonRegression's
 #: (a warmup excursion must not overflow float32 through exp)
@@ -34,20 +35,21 @@ def fused_glm_enabled() -> bool:
 def _poisson_vg(beta, xT, y):
     """(ll, (dll/dbeta,)) of y ~ Poisson(exp(clip(X beta))) in one X pass.
 
-    beta (C, D) or (D,); xT (D, N), X transposed; y (N,) counts (float)
+    beta (C, D) or (D,); xT (D, N), X transposed, or its packed
+    ``(q, scale)`` pair (`quantize.stream_slab`); y (N,) counts (float)
     -> ll (C,) or (), dll/dbeta shaped like beta.  Per shard: beta (S,
     C, D), xT (S, D, n), y (S, n) -> ll (S, C).  Rows whose predictor
     lies outside the clip band contribute no gradient, as autograd
     through ``torch.clamp`` gives.
     """
     prec = dot_precision()
-    eta, inside = clip_band(dot(beta, xT, prec), LOG_RATE_CLIP)
+    eta, inside = clip_band(dequant_dot(beta, xT, prec), LOG_RATE_CLIP)
     if eta.ndim == 3:
         y = y.unsqueeze(-2)
     mu = torch.exp(eta)
     ll = (y * eta - mu - torch.lgamma(y + 1.0)).sum(-1)
     resid = (y - mu) * inside
-    return ll, (dot(resid, xT.transpose(-1, -2), prec),)
+    return ll, (dequant_dot_t(xT, resid, prec),)
 
 
 _op, _op_vg = fused_value_and_grad(_poisson_vg, ndiff=1)

@@ -27,7 +27,12 @@ fit the card's shared memory (`b1_shared_memory`, `b4_shared_memory`).
 Both take their dots at STARK_FUSED_PRECISION, read at each call
 (`ops.precision`: one instantiation of each kernel per precision, the
 plain versions through `dot` and `dot_operand`); the widths each
-admits are the same at every precision.
+admits are the same at every precision.  ``xT`` (and B4's ``zT``) may
+be stored as float32, bf16, int8 or fp8 (STARK_FUSED_X_DTYPE,
+`ops.quantize`): the kernels read the slab at that width and widen each
+element to float32, the plain versions widen the slab; the slab's own
+dtype picks what is streamed, and a packed slab's scales are folded into
+beta (and u) by the model.
 """
 
 from __future__ import annotations
@@ -47,15 +52,17 @@ from .logistic_fused import (
     scratch_words,
     sigma_grad,
     subtile_split,
+    x_code,
 )
 from .precision import (
     PRECISIONS,
+    X_DTYPE_NAMES,
     check_knobs,
     dot,
     dot_operand,
     per_chain,
-    x_stream_dtype,
 )
+from .quantize import store_slab, widen
 
 # The reference's layout constants, kept so the port builds bit-identical
 # layouts: the lane-tile cap, the per-slab element budget it was sized by,
@@ -108,23 +115,22 @@ def grouped_layout(g_sorted: np.ndarray, d: int):
 
 def prepare_grouped(data, d_eff, transpose_keys=("x",)):
     """Sort every leaf by data['g'] (stable), transpose the matrices in
-    ``transpose_keys`` to ``<k>T`` (D, N), and add the layout (gl,
-    first_gid, lane_tile, k_loc).  Numpy in, numpy out.  None when
-    `grouped_layout` finds no workable tile."""
+    ``transpose_keys`` to ``<k>T`` (D, N) at the STARK_FUSED_X_DTYPE
+    storage dtype (packed ones with their ``<k>T_scale``,
+    `quantize.store_slab`), and add the layout (gl, first_gid,
+    lane_tile, k_loc).  Numpy in, numpy out (a bf16 or fp8 slab, a CPU
+    tensor).  None when `grouped_layout` finds no workable tile."""
     g = np.asarray(data["g"])
     order = np.argsort(g, kind="stable")
     layout = grouped_layout(g[order], d_eff)
     if layout is None:
         return None
     lane_tile, k_loc, first_gid, gl = layout
-    x_stream_dtype()  # only float32 X streams are ported
     out = {
         k: np.asarray(v)[order] for k, v in data.items() if k not in transpose_keys
     }
     for k in transpose_keys:
-        out[k + "T"] = np.ascontiguousarray(
-            np.asarray(data[k])[order].T, dtype=np.float32
-        )
+        store_slab(out, k + "T", np.asarray(data[k], dtype=np.float32)[order].T)
     out["gl"] = gl
     out["first_gid"] = first_gid
     out["k_loc"] = int(k_loc)
@@ -144,7 +150,8 @@ def hier_grouped_plain(beta, alpha, xT, y, gl, first_gid, lane_tile, prec="highe
     -> (val (C,), gbeta (C, D), galpha (C, G)).  Its four dots are the
     reference's: beta x and resid x^T (`dot`); alpha and resid against
     the rows' one-hot groups, a gather and a segment sum of
-    `dot_operand`."""
+    `dot_operand`.  A stored slab is widened to float32."""
+    xT = widen(xT)
     g = absolute_groups(gl, first_gid, lane_tile)
     logits = dot(beta, xT, prec) + dot_operand(alpha, prec)[:, g]
     val_terms, resid = _link_parts(y, logits)
@@ -164,7 +171,7 @@ def b1_blocks(n: int):
     return subtile_split(n, B1_ROW_TILE, B1_BLOCKS)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -183,11 +190,13 @@ def b1_shared_memory(c: int, d: int, device: int):
 def hier_grouped(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
     """Kernel B1: -> (val (C,), gbeta (C, D), galpha (C, G)).
 
-    beta (C, D), alpha (C, G), xT (D, N), y (N,) float32; gl (N,),
-    first_gid (ceil(N / lane_tile),) int32; rows sorted by group.  The
-    dots run at STARK_FUSED_PRECISION, read at the call; launches count
-    in ``hier_grouped.launches`` and, by precision, in
-    ``hier_grouped.precision_launches``.
+    beta (C, D), alpha (C, G), xT (D, N), y (N,) float32, xT stored as
+    float32, bf16, int8 or fp8; gl (N,), first_gid (ceil(N /
+    lane_tile),) int32; rows sorted by group.  The dots run at
+    STARK_FUSED_PRECISION, read at the call; launches count in
+    ``hier_grouped.launches`` and, by precision and by xT's storage
+    dtype, in ``hier_grouped.precision_launches`` and
+    ``hier_grouped.x_dtype_launches``.
     """
     prec = check_knobs()
     if beta.device.type == "cpu":
@@ -197,12 +206,13 @@ def hier_grouped(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
     c, d = beta.shape
     g_total = alpha.shape[1]
     n = xT.shape[1]
+    xcode, xname = x_code("xT", xT)
     check_kernel_args(
         {"beta": beta, "alpha": alpha, "xT": xT, "y": y, "gl": gl,
          "first_gid": first_gid},
         device=beta.device,
         dtypes={"beta": torch.float32, "alpha": torch.float32,
-                "xT": torch.float32, "y": torch.float32, "gl": torch.int32,
+                "xT": xT.dtype, "y": torch.float32, "gl": torch.int32,
                 "first_gid": torch.int32},
         shapes={"beta": (c, d), "alpha": (c, g_total), "xT": (d, n),
                 "y": (n,), "gl": (n,), "first_gid": (-(-n // lane_tile),)},
@@ -227,19 +237,21 @@ def hier_grouped(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
         xT.data_ptr(), y.data_ptr(), gl.data_ptr(), first_gid.data_ptr(),
         beta.data_ptr(), alpha.data_ptr(), val.data_ptr(), gbeta.data_ptr(),
         galpha.data_ptr(), scratch.data_ptr(),
-        c, d, n, g_total, lane_tile, nblk, PRECISIONS[prec],
+        c, d, n, g_total, lane_tile, nblk, PRECISIONS[prec], xcode,
         torch.cuda.current_stream(beta.device).cuda_stream,
     )
     _build.check("hier_grouped", err)
     hier_grouped.launches += 1
     hier_grouped.precision_launches[prec] += 1
+    hier_grouped.x_dtype_launches[xname] += 1
     return val, gbeta, galpha
 
 
 #: launches of the CUDA kernel in this process (CPU calls do not count),
-#: in all and by dot precision
+#: in all, by dot precision and by xT's storage dtype
 hier_grouped.launches = 0
 hier_grouped.precision_launches = dict.fromkeys(PRECISIONS, 0)
+hier_grouped.x_dtype_launches = dict.fromkeys(X_DTYPE_NAMES, 0)
 
 
 class _HierLogisticLoglik(torch.autograd.Function):
@@ -275,7 +287,8 @@ def lmm_grouped_plain(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile,
     are the reference's: beta x and resid x^T (`dot`); u and resid z_q
     against the rows' one-hot groups, a gather and a segment sum of
     `dot_operand` (z_q multiplies the gathered u in float32, outside the
-    dot, as there)."""
+    dot, as there).  Stored slabs are widened to float32."""
+    xT, zT = widen(xT), widen(zT)
     g = absolute_groups(gl, first_gid, lane_tile)
     mu = (intercept[:, None] + dot(beta, xT, prec)
           + torch.einsum("qn,cnq->cn", zT, dot_operand(u, prec)[:, g, :]))
@@ -329,16 +342,17 @@ def b4_shared_memory(c: int, d: int, q: int, device: int):
     return need.value, limit.value
 
 
-_LMM_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_LMM_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def lmm_grouped(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile: int):
     """Kernel B4: -> (ssr (C,), sum_resid (C,), gbeta (C, D), gu (C, G, Q)).
 
     beta (C, D), u (C, G, Q), intercept (C,), xT (D, N), zT (Q, N), y
-    (N,) float32; gl (N,), first_gid (ceil(N / lane_tile),) int32; rows
-    sorted by group.  The dots run at STARK_FUSED_PRECISION, read at the
-    call; launches count as `hier_grouped`'s do.
+    (N,) float32, xT and zT each stored as float32, bf16, int8 or fp8;
+    gl (N,), first_gid (ceil(N / lane_tile),) int32; rows sorted by
+    group.  The dots run at STARK_FUSED_PRECISION, read at the call;
+    launches count as `hier_grouped`'s do (by xT's dtype).
     """
     prec = check_knobs()
     if beta.device.type == "cpu":
@@ -350,12 +364,14 @@ def lmm_grouped(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile: int):
     g_total, q = u.shape[1], u.shape[2]
     n = xT.shape[1]
     f32 = torch.float32
+    xcode, xname = x_code("xT", xT)
+    zcode, _ = x_code("zT", zT)
     check_kernel_args(
         {"beta": beta, "u": u, "intercept": intercept, "xT": xT, "zT": zT,
          "y": y, "gl": gl, "first_gid": first_gid},
         device=beta.device,
-        dtypes={"beta": f32, "u": f32, "intercept": f32, "xT": f32,
-                "zT": f32, "y": f32, "gl": torch.int32,
+        dtypes={"beta": f32, "u": f32, "intercept": f32, "xT": xT.dtype,
+                "zT": zT.dtype, "y": f32, "gl": torch.int32,
                 "first_gid": torch.int32},
         shapes={"beta": (c, d), "u": (c, g_total, q), "intercept": (c,),
                 "xT": (d, n), "zT": (q, n), "y": (n,), "gl": (n,),
@@ -382,19 +398,21 @@ def lmm_grouped(beta, u, intercept, xT, zT, y, gl, first_gid, lane_tile: int):
         first_gid.data_ptr(), beta.data_ptr(), u.data_ptr(),
         intercept.data_ptr(), ssr.data_ptr(), sresid.data_ptr(),
         gbeta.data_ptr(), gu.data_ptr(), scratch.data_ptr(),
-        c, d, q, n, g_total, lane_tile, nblk, PRECISIONS[prec],
+        c, d, q, n, g_total, lane_tile, nblk, PRECISIONS[prec], xcode, zcode,
         torch.cuda.current_stream(beta.device).cuda_stream,
     )
     _build.check("lmm_grouped", err)
     lmm_grouped.launches += 1
     lmm_grouped.precision_launches[prec] += 1
+    lmm_grouped.x_dtype_launches[xname] += 1
     return ssr, sresid, gbeta, gu
 
 
 #: launches of the CUDA kernel in this process (CPU calls do not count),
-#: in all and by dot precision
+#: in all, by dot precision and by xT's storage dtype
 lmm_grouped.launches = 0
 lmm_grouped.precision_launches = dict.fromkeys(PRECISIONS, 0)
+lmm_grouped.x_dtype_launches = dict.fromkeys(X_DTYPE_NAMES, 0)
 
 
 class _LmmGroupedLoglik(torch.autograd.Function):

@@ -39,6 +39,7 @@ from .precision import (
     segment_sum,
     x_stream_dtype,
 )
+from .quantize import is_packed_dtype, storage_slab, widen
 
 
 def fused_irt_enabled() -> bool:
@@ -80,10 +81,12 @@ def _irt_grid_vg(theta, a, b, y):
     """(ll, (d/dtheta, d/da, d/db)) on the dense (P, I) response grid.
 
     Per chain: theta (C, P), a and b (C, I); or one chain without the C
-    axis.  y (P, I) in {0, 1}.  No gathers, no scatters: the residual
-    matrix feeds two matrix-vector products and a column sum.
+    axis.  y (P, I) in {0, 1}, float32 or packed (int8, fp8: exact),
+    widened here.  No gathers, no scatters: the residual matrix feeds two
+    matrix-vector products and a column sum.
     """
     prec = dot_precision()
+    y = widen(y)
     gap = theta[..., :, None] - b[..., None, :]
     logits = a[..., None, :] * gap
     ll = _bernoulli_terms(logits, y).sum((-2, -1))
@@ -108,7 +111,9 @@ def prepare_grid(data, num_persons: int, num_items: int):
     person-major order (what `models.irt.synth_irt_data` and any
     complete administration give), replace them with ``y_grid`` (P, I);
     otherwise return the data unchanged, and the op takes the triples.
-    Data already prepared keep their layout.
+    Under a packed STARK_FUSED_X_DTYPE (int8, fp8) the grid is stored
+    packed, exactly and without a scale; bf16 leaves it float32, as the
+    JAX package does.  Data already prepared keep their layout.
     """
     if "y_grid" in data:
         return data
@@ -121,7 +126,12 @@ def prepare_grid(data, num_persons: int, num_items: int):
         return data
     if not np.array_equal(item, np.tile(np.arange(num_items), num_persons)):
         return data
-    x_stream_dtype()  # only float32 streams are ported
+    y = np.asarray(data["y"]).reshape(num_persons, num_items)
+    xdt = x_stream_dtype()
+    if is_packed_dtype(xdt):
+        # the grid is this family's streamed slab: binary responses pack
+        # exactly into int8 and fp8, without a scale
+        y = storage_slab(y, xdt)
     out = {k: v for k, v in data.items() if k not in ("person", "item", "y")}
-    out["y_grid"] = np.asarray(data["y"]).reshape(num_persons, num_items)
+    out["y_grid"] = y
     return out

@@ -27,7 +27,8 @@ import math
 
 import torch
 
-from .precision import dot, dot_precision, fused_knob, fused_value_and_grad, segment_sum
+from .precision import dot_precision, fused_knob, fused_value_and_grad, segment_sum
+from .quantize import dequant_dot, dequant_dot_t
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -42,17 +43,18 @@ def _lmm_vg(beta, u, intercept, sigma, xT, z, g, y):
 
     Per chain: beta (C, D), u (C, G, Q) constrained random effects,
     intercept (C,), sigma (C,); or one chain without the C axis.  Data:
-    xT (D, N), X transposed; z (N, Q); g (N,) group ids; y (N,).
+    xT (D, N), X transposed, or its packed ``(q, scale)`` pair
+    (`quantize.stream_slab`); z (N, Q); g (N,) group ids; y (N,).
     ``ll = sum_i Normal(y_i | intercept + x_i beta + z_i . u[g_i], sigma)``.
     """
     prec = dot_precision()
-    eta = dot(beta, xT, prec) + intercept[..., None] + (z * u[..., g, :]).sum(-1)
+    eta = dequant_dot(beta, xT, prec) + intercept[..., None] + (z * u[..., g, :]).sum(-1)
     resid = y - eta
     ssr = (resid * resid).sum(-1)
     n = y.shape[-1]
     val = -0.5 * ssr / sigma**2 - n * torch.log(sigma) - 0.5 * n * _LOG_2PI
     inv2 = 1.0 / (sigma * sigma)
-    g_beta = inv2[..., None] * dot(resid, xT.transpose(-1, -2), prec)
+    g_beta = inv2[..., None] * dequant_dot_t(xT, resid, prec)
     g_u = inv2[..., None, None] * segment_sum(resid[..., None] * z, g, u.shape[-2], dim=-2)
     g_intercept = inv2 * resid.sum(-1)
     g_sigma = ssr * inv2 / sigma - n / sigma

@@ -28,6 +28,12 @@ B2 takes its two dots at STARK_FUSED_PRECISION, read at each call
 (`ops.precision`); B3 takes none, as the reference's single-chain
 kernel multiplies on its vector unit, so the knob leaves it as it is.
 
+``xT`` may be stored as float32, bf16, int8 or fp8 (STARK_FUSED_X_DTYPE,
+`ops.quantize`); each kernel reads it at that width and widens each
+element to float32 (the plain versions widen the slab).  The slab's own
+dtype picks what the kernel streams, never the knob; a packed slab's
+scales are folded into beta by the model before the call.
+
 `logistic_offset_loglik`, `logistic_loglik`, `gaussian_offset_loglik`
 and `gaussian_loglik` wrap them in ``torch.autograd.Function``s whose
 backward only rescales the gradients the forward pass already computed,
@@ -46,7 +52,16 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .precision import PRECISIONS, check_knobs, dot, per_chain
+from .precision import (
+    PRECISIONS,
+    X_CODES,
+    X_DTYPE_NAMES,
+    X_DTYPE_OF,
+    check_knobs,
+    dot,
+    per_chain,
+)
+from .quantize import widen
 
 #: B3's row blocks are multiples of this many rows
 KERNEL_ROW_TILE = 128
@@ -119,6 +134,16 @@ def scratch_words(nblk: int, c: int, d: int) -> int:
     return nblk * (c * d + 3 * c + 2)
 
 
+def x_code(name: str, slab: torch.Tensor):
+    """(code in the C entry points, canonical name) of a slab's storage
+    dtype (`precision.X_CODES`); ValueError for any other dtype."""
+    if slab.dtype not in X_DTYPE_OF:
+        raise ValueError(f"{name} has dtype {slab.dtype}; a slab is stored as one of "
+                         f"{'|'.join(X_DTYPE_NAMES)}")
+    xname = X_DTYPE_OF[slab.dtype]
+    return X_CODES[xname], xname
+
+
 def check_kernel_args(named, *, device, dtypes, shapes):
     """Device, dtype, shape and contiguity checks shared by the kernel
     wrappers; raises ValueError naming the offending argument."""
@@ -137,7 +162,8 @@ def logistic_batched_plain(beta, xT, y, offsets=None, link="bernoulli_logit",
                            prec="highest"):
     """Plain PyTorch version of kernel B2 (same outputs), with or
     without the shard axis, its two dots (beta x, resid x^T) at the dot
-    precision ``prec`` (`dot`)."""
+    precision ``prec`` (`dot`), a stored slab widened to float32."""
+    xT = widen(xT)
     logits = dot(beta, xT, prec)
     if offsets is not None:
         logits = logits + offsets
@@ -151,7 +177,7 @@ def logistic_batched_plain(beta, xT, y, offsets=None, link="bernoulli_logit",
     return val, gbeta
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -178,16 +204,18 @@ def logistic_batched(
 ):
     """Kernel B2: -> (val (C,), gbeta (C, D)[, resid (C, N)]).
 
-    beta (C, D), xT (D, N), y (N,), offsets (C, N) or None; float32.
-    With a leading shard axis — beta (S, C, D), xT (S, D, n), y (S, n),
-    offsets (S, C, n) — every shard in one launch: -> (val (S, C), gbeta
+    beta (C, D), xT (D, N), y (N,), offsets (C, N) or None; float32, xT
+    stored as float32, bf16, int8 or fp8.  With a leading shard axis —
+    beta (S, C, D), xT (S, D, n), y (S, n), offsets (S, C, n) — every
+    shard in one launch: -> (val (S, C), gbeta
     (S, C, D)[, resid (S, C, n)]).  Launches count in
     ``logistic_batched.launches`` (bernoulli_logit) and
     ``logistic_batched.gaussian_launches`` (gaussian), one per launch
     whatever the number of shards; a launch with a shard axis also counts
     in ``logistic_batched.shard_launches``, and every launch in
     ``logistic_batched.precision_launches`` by its dot precision
-    (STARK_FUSED_PRECISION, read at the call).
+    (STARK_FUSED_PRECISION, read at the call) and in
+    ``logistic_batched.x_dtype_launches`` by xT's storage dtype.
     """
     prec = check_knobs()
     code = _link_code(link)
@@ -207,9 +235,10 @@ def logistic_batched(
               "offsets": lead + (c, n)}
     if offsets is not None:
         named["offsets"] = offsets
+    xcode, xname = x_code("xT", xT)
     check_kernel_args(
         named, device=beta.device,
-        dtypes={k: torch.float32 for k in shapes}, shapes=shapes,
+        dtypes={**{k: torch.float32 for k in shapes}, "xT": xT.dtype}, shapes=shapes,
     )
     need, limit = b2_shared_memory(c, d, beta.device.index)
     if need > limit:
@@ -229,11 +258,12 @@ def logistic_batched(
         offsets.data_ptr() if offsets is not None else None,
         beta.data_ptr(), val.data_ptr(), gbeta.data_ptr(),
         resid.data_ptr() if resid is not None else None,
-        scratch.data_ptr(), c, d, n, s, nblk, code, PRECISIONS[prec],
+        scratch.data_ptr(), c, d, n, s, nblk, code, PRECISIONS[prec], xcode,
         torch.cuda.current_stream(beta.device).cuda_stream,
     )
     _build.check("logistic_batched", err)
     logistic_batched.precision_launches[prec] += 1
+    logistic_batched.x_dtype_launches[xname] += 1
     if link == "gaussian":
         logistic_batched.gaussian_launches += 1
     else:
@@ -246,17 +276,20 @@ def logistic_batched(
 
 
 #: launches of the CUDA kernel in this process, per link (CPU calls do
-#: not count); shard_launches also counts those with a shard axis, and
-#: precision_launches every launch by its dot precision
+#: not count); shard_launches also counts those with a shard axis,
+#: precision_launches every launch by its dot precision and
+#: x_dtype_launches by xT's storage dtype
 logistic_batched.launches = 0
 logistic_batched.gaussian_launches = 0
 logistic_batched.shard_launches = 0
 logistic_batched.precision_launches = dict.fromkeys(PRECISIONS, 0)
+logistic_batched.x_dtype_launches = dict.fromkeys(X_DTYPE_NAMES, 0)
 
 
 def logistic_single_plain(beta, xT, y, offsets=None, link="bernoulli_logit"):
     """Plain PyTorch version of kernel B3: -> (val (), gbeta (D,)[,
-    resid (N,)])."""
+    resid (N,)]), a stored slab widened to float32."""
+    xT = widen(xT)
     logits = beta @ xT
     if offsets is not None:
         logits = logits + offsets
@@ -267,7 +300,7 @@ def logistic_single_plain(beta, xT, y, offsets=None, link="bernoulli_logit"):
     return val_terms.sum(), gbeta
 
 
-_SINGLE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SINGLE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def logistic_single(
@@ -279,9 +312,11 @@ def logistic_single(
 ):
     """Kernel B3: -> (val (), gbeta (D,)[, resid (N,)]).
 
-    beta (D,), xT (D, N), y (N,), offsets (N,) or None; float32.  It
-    takes no dot (the reference's kernel multiplies and sums on its
-    vector unit), so STARK_FUSED_PRECISION does not change it.
+    beta (D,), xT (D, N), y (N,), offsets (N,) or None; float32, xT
+    stored as float32, bf16, int8 or fp8 (launches by its dtype in
+    ``logistic_single.x_dtype_launches``).  It takes no dot (the
+    reference's kernel multiplies and sums on its vector unit), so
+    STARK_FUSED_PRECISION does not change it.
     """
     check_knobs()
     code = _link_code(link)
@@ -297,9 +332,10 @@ def logistic_single(
     shapes = {"beta": (d,), "xT": (d, n), "y": (n,), "offsets": (n,)}
     if offsets is not None:
         named["offsets"] = offsets
+    xcode, xname = x_code("xT", xT)
     check_kernel_args(
         named, device=beta.device,
-        dtypes={k: torch.float32 for k in shapes}, shapes=shapes,
+        dtypes={**{k: torch.float32 for k in shapes}, "xT": xT.dtype}, shapes=shapes,
     )
     rows, nblk = row_blocks(n)
     val = torch.empty((), device=beta.device, dtype=torch.float32)
@@ -317,18 +353,21 @@ def logistic_single(
         offsets.data_ptr() if offsets is not None else None,
         beta.data_ptr(), val.data_ptr(), gbeta.data_ptr(),
         resid.data_ptr() if resid is not None else None,
-        scratch.data_ptr(), d, n, rows, nblk, code,
+        scratch.data_ptr(), d, n, rows, nblk, code, xcode,
         torch.cuda.current_stream(beta.device).cuda_stream,
     )
     _build.check("logistic_single", err)
     logistic_single.launches += 1
+    logistic_single.x_dtype_launches[xname] += 1
     if offsets is not None:
         return val, gbeta, resid
     return val, gbeta
 
 
-#: launches of the CUDA kernel in this process (CPU calls do not count)
+#: launches of the CUDA kernel in this process (CPU calls do not count),
+#: in all and by xT's storage dtype
 logistic_single.launches = 0
+logistic_single.x_dtype_launches = dict.fromkeys(X_DTYPE_NAMES, 0)
 
 
 def logistic_loglik_value_and_grad(beta, xT, y):

@@ -34,7 +34,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .precision import dot, dot_precision, fused_knob, fused_value_and_grad
+from .precision import dot_precision, fused_knob, fused_value_and_grad
+from .quantize import dequant_dot, dequant_dot_t
 
 #: the stable form's clamp on log(1 - e^{l-u}); models.ordinal's exactly
 GAP_EPS = -1e-6
@@ -81,7 +82,7 @@ def _ordinal_vg(beta, cutpoints, xT, y):
     X transposed; y (N,) categories in {0 .. K-1}.
     """
     prec = dot_precision()
-    eta = dot(beta, xT, prec)
+    eta = dequant_dot(beta, xT, prec)
     cpad = pad_cutpoints(cutpoints)
     oh_lo, oh_up = category_onehots(y, cpad.shape[-1], eta.dtype)
     upper = take_bins(cpad, oh_up) - eta
@@ -98,7 +99,7 @@ def _ordinal_vg(beta, cutpoints, xT, y):
     d_lower = -torch.sigmoid(lower) - r
     # d eta / d(upper, lower) = -1 each; the r terms cancel in the sum
     d_eta = -(d_upper + d_lower)
-    g_beta = dot(d_eta, xT.transpose(-1, -2), prec)
+    g_beta = dequant_dot_t(xT, d_eta, prec)
     # both cutpoint scatters in one sum over the padded bins
     g_cpad = torch.cat([d_upper, d_lower], -1) @ torch.cat([oh_up, oh_lo], -2)
     return val, (g_beta, g_cpad[..., 1:-1])

@@ -2,13 +2,18 @@
 ``stark_tpu/ops/precision.py`` — and the arithmetic of each dot
 precision.
 
-The JAX package honours two process-wide knobs:
+The JAX package honours two process-wide knobs, and so does the port:
 ``STARK_FUSED_PRECISION`` (highest | high | default) for the kernels'
 dot passes and ``STARK_FUSED_X_DTYPE`` (f32 | bf16 | int8 | fp8e4m3 |
-fp8e5m2) for the storage type of the streamed design matrix.  The port
-runs every precision; it streams X as float32 only, and any other
-X dtype raises and names the ROADMAP item that brings it, so a knob is
-never silently ignored.
+fp8e5m2, `X_DTYPE_NAMES`) for the storage type of the streamed design
+matrix, with ``STARK_QUANT_PCT`` calibrating the packed ones
+(`quant_percentile`, `ops.quantize`).  X is rounded (bf16) or packed
+with per-column scales (int8, fp8) once, when the data are prepared; the
+posterior is the model's on that matrix, the kernels widen each element
+to float32 where they read it and every sum stays float32
+(`stream_arg`).  The prepared data, not the knob, decide what a kernel
+streams: data packed under int8 keep streaming int8 after the knob
+flips back to f32.
 
 What a precision computes is the reference's own definition
 (`dot_precision`): ``highest`` is the float32 product; ``default`` one
@@ -47,11 +52,30 @@ import torch
 #: entry points of the kernels (csrc/fused_pass.cuh: kHighest, kHigh,
 #: kDefault)
 PRECISIONS = {"highest": 0, "high": 1, "default": 2}
-_X_DTYPE_F32 = ("f32", "float32")
-_X_DTYPE_PENDING = (
-    "bf16", "bfloat16", "int8", "fp8e4m3", "float8_e4m3fn", "fp8e5m2",
-    "float8_e5m2",
-)
+
+#: canonical STARK_FUSED_X_DTYPE values, ordered by bytes per element:
+#: the one source of the accepted set and of the resolver's message
+X_DTYPE_NAMES = ("f32", "bf16", "int8", "fp8e4m3", "fp8e5m2")
+
+_X_DTYPES = {
+    "f32": torch.float32,
+    "float32": torch.float32,
+    "bf16": torch.bfloat16,
+    "bfloat16": torch.bfloat16,
+    "int8": torch.int8,
+    "fp8e4m3": torch.float8_e4m3fn,
+    "float8_e4m3fn": torch.float8_e4m3fn,
+    "fp8e5m2": torch.float8_e5m2,
+    "float8_e5m2": torch.float8_e5m2,
+}
+
+#: storage dtype -> canonical name; also the dtypes a kernel streams as
+#: stored, with the code each has in the C entry points
+#: (csrc/fused_pass.cuh: kXF32, kXBf16, kXInt8, kXE4M3, kXE5M2)
+X_DTYPE_OF = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8",
+              torch.float8_e4m3fn: "fp8e4m3", torch.float8_e5m2: "fp8e5m2"}
+X_CODES = {name: i for i, name in enumerate(X_DTYPE_NAMES)}
+_PACKED_NAMES = ("int8", "fp8e4m3", "fp8e5m2")
 
 
 def dot_precision() -> str:
@@ -104,24 +128,69 @@ def dot(a: torch.Tensor, b: torch.Tensor, prec: str) -> torch.Tensor:
 
 
 def x_stream_dtype() -> torch.dtype:
-    """Resolved ``STARK_FUSED_X_DTYPE``; only ``f32`` runs here."""
+    """Resolved ``STARK_FUSED_X_DTYPE`` (f32, the default | bf16 | int8 |
+    fp8e4m3 | fp8e5m2, and the aliases float32, bfloat16,
+    float8_e4m3fn, float8_e5m2): the storage dtype in which the data are
+    prepared.  An unknown value raises, naming exactly `X_DTYPE_NAMES`."""
     name = os.environ.get("STARK_FUSED_X_DTYPE", "f32").lower()
-    if name in _X_DTYPE_F32:
-        return torch.float32
-    if name in _X_DTYPE_PENDING:
-        raise NotImplementedError(
-            f"STARK_FUSED_X_DTYPE={name!r} is not ported yet: the CUDA "
-            "kernels stream X as float32. Narrow X streams (bf16, int8, "
-            "fp8) are ROADMAP item B5."
+    try:
+        return _X_DTYPES[name]
+    except KeyError:
+        raise ValueError(
+            f"STARK_FUSED_X_DTYPE={name!r}: use {'|'.join(X_DTYPE_NAMES)}"
+        ) from None
+
+
+def quant_percentile():
+    """``STARK_QUANT_PCT``: None (unset or 100) -> absmax calibration; a
+    float in (0, 100) -> each column's scale maps its p-th absolute
+    percentile onto the packed range, clipping the tail beyond it.  Read
+    only when the X dtype is a packed one."""
+    val = os.environ.get("STARK_QUANT_PCT")
+    if val is None:
+        return None
+    try:
+        pct = float(val)
+    except ValueError:
+        raise ValueError(
+            f"STARK_QUANT_PCT={val!r}: need a percentile in (0, 100]"
+        ) from None
+    if not 0.0 < pct <= 100.0:
+        raise ValueError(
+            f"STARK_QUANT_PCT={val!r}: need a percentile in (0, 100]"
         )
-    raise ValueError(
-        f"STARK_FUSED_X_DTYPE={name!r}: use f32|bf16|int8|fp8e4m3|fp8e5m2"
-    )
+    return None if pct == 100.0 else pct
+
+
+def x_stream_config() -> str:
+    """The resolved X-stream configuration as one token: the canonical
+    dtype name, and for a packed dtype the calibration percentile
+    (``"int8@p99.9"``)."""
+    name = X_DTYPE_OF[x_stream_dtype()]
+    if name in _PACKED_NAMES:
+        pct = quant_percentile()
+        if pct is not None:
+            name += f"@p{pct:g}"
+    return name
+
+
+def stream_arg(xt):
+    """A design-matrix slab as a kernel takes it: bf16, int8 and fp8 as
+    stored (the kernel widens each element to float32 where it reads
+    it), anything else as float32.  A packed ``(q, scale)`` pair gives
+    its ``q``: the scale never reaches a kernel (the models fold it into
+    the parameter operand)."""
+    if isinstance(xt, (tuple, list)):
+        xt = xt[0]
+    if xt.dtype in X_DTYPE_OF:
+        return xt
+    return xt.float()
 
 
 def check_knobs() -> str:
-    """Raise unless both knobs resolve to what the port runs; returns
-    the resolved dot precision."""
+    """Raise unless both knobs resolve; returns the resolved dot
+    precision.  The X dtype a kernel streams is its slab's, not the
+    knob's."""
     x_stream_dtype()
     return dot_precision()
 
@@ -178,8 +247,8 @@ def fused_value_and_grad(vg: Callable, ndiff: int) -> Tuple[Callable, Callable]:
       never reads the data arguments again (their gradients are None);
     * ``op_value_and_grad(*args) -> (value, grads)``: the direct entry.
 
-    Both call `check_knobs` first, so an X-stream knob the port does not
-    run is refused, not ignored.  ``vg`` reads the dot precision itself
+    Both call `check_knobs` first, so a knob set to an unknown value is
+    refused, not ignored.  ``vg`` reads the dot precision itself
     (`dot_precision`) where it takes a dot.
     """
     nargs = len(inspect.signature(vg).parameters)

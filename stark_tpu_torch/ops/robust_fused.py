@@ -23,7 +23,8 @@ import math
 
 import torch
 
-from .precision import dot, dot_precision, fused_knob, fused_value_and_grad
+from .precision import dot_precision, fused_knob, fused_value_and_grad
+from .quantize import dequant_dot, dequant_dot_t
 
 _LOG_PI = math.log(math.pi)
 
@@ -39,11 +40,12 @@ def _studentt_vg(beta, sigma, nu, xT, y):
     Per chain: beta (C, D), sigma and nu (C,) positive (constrained
     space); or one chain without the C axis; or per shard and chain,
     beta (S, C, D), sigma and nu (S, C) against xT (S, D, n), y (S, n).
-    xT (D, N) is X transposed, y (N,).
+    xT (D, N) is X transposed (or its packed ``(q, scale)`` pair,
+    `quantize.stream_slab`), y (N,).
     ``ll = sum_i StudentT(y_i | nu, x_i beta, sigma)``.
     """
     prec = dot_precision()
-    mu = dot(beta, xT, prec)
+    mu = dequant_dot(beta, xT, prec)
     if mu.ndim == 3:
         y = y.unsqueeze(-2)
     n = y.shape[-1]
@@ -59,7 +61,7 @@ def _studentt_vg(beta, sigma, nu, xT, y):
     # tail weight: d ll / d mu_i = w_i z_i / sigma
     w = (v + 1.0) / (v + z2)
     wz2 = (w * z2).sum(-1)
-    g_beta = dot(w * z, xT.transpose(-1, -2), prec) / s
+    g_beta = dequant_dot_t(xT, w * z, prec) / s
     g_sigma = (wz2 - n) / sigma
     dg = torch.special.digamma
     g_nu = 0.5 * (n * (dg(half_nup1) - dg(half_nu) - 1.0 / nu) - log1pq.sum(-1) + wz2 / nu)

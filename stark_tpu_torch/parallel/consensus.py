@@ -58,6 +58,7 @@ from .._unported import refuse
 from ..chees import chees_init_positions, chees_schedule_arrays, make_chees_parts
 from ..kernels.chees import TorchNoise
 from ..model import FlatModel, Model, flatten_model
+from ..ops.quantize import from_numpy_bits, host_leaf, index_rows, to_numpy_bits
 from ..sampler import (
     Posterior,
     SamplerConfig,
@@ -121,11 +122,14 @@ def combine_draws(draws: torch.Tensor, how: str) -> torch.Tensor:
 # ----------------------------------------------------------- shard split
 
 
-def to_shards(x: np.ndarray, ax: int, shards: int) -> np.ndarray:
+def to_shards(x, ax: int, shards: int):
     """Split a leaf's row axis ``ax`` into ``shards`` contiguous blocks and
     move the new shard axis to the front: (..., N, ...) -> (S, ..., N/S,
     ...), shard k the k-th block, contiguous.  A row-less leaf (ax < 0)
-    is repeated for every shard."""
+    is repeated for every shard.  A bf16 or fp8 slab (a CPU tensor)
+    moves by its bits."""
+    if isinstance(x, torch.Tensor):
+        return from_numpy_bits(to_shards(to_numpy_bits(x), ax, shards), x.dtype)
     x = np.asarray(x)
     if ax < 0:
         return np.ascontiguousarray(np.broadcast_to(x, (shards,) + x.shape))
@@ -139,13 +143,11 @@ def to_shards(x: np.ndarray, ax: int, shards: int) -> np.ndarray:
 def shard_data(model: Model, data, shards: int, device) -> Dict[str, Any]:
     """The model's prepared data, every leaf with rows split into shards
     (`to_shards` along `Model.data_row_axes`), on ``device``."""
-    host = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
-            for k, v in data.items()}
-    prepared = model.prepare_data(host)
+    prepared = model.prepare_data({k: host_leaf(v) for k, v in data.items()})
     axes = model.data_row_axes(prepared)
     out = {}
     for k, v in prepared.items():
-        if isinstance(v, np.ndarray):
+        if isinstance(v, (np.ndarray, torch.Tensor)):
             out[k] = torch.as_tensor(to_shards(v, axes[k], shards), device=device)
         else:
             out[k] = v
@@ -154,7 +156,7 @@ def shard_data(model: Model, data, shards: int, device) -> Dict[str, Any]:
 
 def _take_shards(sharded, idx) -> Dict[str, Any]:
     index = torch.as_tensor(np.asarray(idx), dtype=torch.long)
-    return {k: v.index_select(0, index.to(v.device)).contiguous()
+    return {k: index_rows(v, 0, index.to(v.device)).contiguous()
             if isinstance(v, torch.Tensor) else v for k, v in sharded.items()}
 
 

@@ -211,14 +211,21 @@ def test_unported_knobs_refused(knob, value, item, monkeypatch):
         tol_v, tol_g = PARITY_BANDS[value]
         assert val_rel <= tol_v and 0 < grad_rel <= tol_g, (val_rel, grad_rel)
         return
+    # ported (ROADMAP B5): the layout stores X as bf16, as the reference's
+    # does, and both entries stream it: each equals the float32 entry on
+    # the rounded X bit for bit (the op widens each element exactly)
     monkeypatch.setenv(knob, value)
-    with pytest.raises(NotImplementedError, match=item):
-        pgf.poisson_loglik(torch.zeros(C, D), xT, y)
-    with pytest.raises(NotImplementedError, match=item):
-        pgf.poisson_loglik_value_and_grad(torch.zeros(C, D), xT, y)
-    if knob == "STARK_FUSED_X_DTYPE":  # the layout refuses a narrow X too
-        with pytest.raises(NotImplementedError, match=item):
-            prepare_model_data(pglm.FusedPoissonRegression(D), raw, device="cpu")
+    data = prepare_model_data(pglm.FusedPoissonRegression(D), raw, device="cpu")
+    want = ref_prepare(rglm.FusedPoissonRegression(D), raw)["xT"]
+    assert data["xT"].dtype == torch.bfloat16 and "xT_scale" not in data
+    assert np.array_equal(data["xT"].view(torch.int16).numpy(), np.asarray(want).view(np.int16))
+    beta = torch.as_tensor(_points(D, seed=3))
+    rounded = data["xT"].float()
+    v, g = pgf.poisson_loglik_value_and_grad(beta, data["xT"], y)
+    v32, g32 = pgf.poisson_loglik_value_and_grad(beta, rounded, y)
+    assert torch.equal(v, v32) and torch.equal(g, g32)
+    assert torch.equal(pgf.poisson_loglik(beta, data["xT"], y), v32)
+    assert not torch.equal(rounded, xT)  # the data did change
 
 
 @pytest.mark.parametrize("name", ["LinearRegression", "FusedLinearRegression",

@@ -701,3 +701,125 @@ def test_b2_shard_axis_matches_separate_launches_and_autograd():
         logistic_fused.logistic_batched(beta, xT[:, :, :-1].contiguous(), y)
     with pytest.raises(ValueError, match=r"\(S, C, D\)"):
         logistic_fused.logistic_batched(beta[None], xT, y)
+
+
+# --- X stored narrow (STARK_FUSED_X_DTYPE, ROADMAP B5) ---------------------
+
+_NARROW = {"bf16": torch.bfloat16, "int8": torch.int8, "fp8e4m3": torch.float8_e4m3fn,
+           "fp8e5m2": torch.float8_e5m2}
+
+
+def _narrow(t, name, scale=4.0):
+    """A dyadic slab (halves of [-1, 1]) stored as ``name``, every value
+    exact: int8 as round(t * scale), whose 1 / scale the caller folds
+    into beta (and u), as a model folds a packed slab's scales."""
+    if name == "int8":
+        return torch.round(t * scale).to(torch.int8)
+    return t.to(_NARROW[name])
+
+
+def _in_float64_wide(plain, args):
+    """`_in_float64` with every narrow slab widened first."""
+    return _in_float64(plain, [a.float() if torch.is_tensor(a) and a.dtype in
+                               _NARROW.values() else a for a in args])
+
+
+def _counts(fn, name):
+    return fn.x_dtype_launches[name]
+
+
+@pytest.mark.parametrize("name", list(_NARROW))
+@pytest.mark.parametrize("n,d,groups,chains", [(40_003, 32, 300, 64), (3001, 7, 20, 9),
+                                               (1027, 33, 12, 70), (50, 5, 3, 9)])
+def test_b1_narrow_x_matches_float64_and_repeats_bitwise(n, d, groups, chains, name):
+    """B1 on a narrow xT (rows off the 4-element alignment at N = 1, 2, 3
+    mod 4, N below a sub-tile, the general kernel past 64 chains or 32
+    features) against its plain version in float64 on the widened
+    values; launches counted by dtype."""
+    beta, alpha, xT, y, gl, fg, lane_tile = _grouped_case(n, d, groups, chains, dyadic=True)
+    q = _narrow(xT, name)
+    beta = beta / 4.0 if name == "int8" else beta
+    args = (beta, alpha, q, y, gl, fg, lane_tile)
+    before = _counts(hier_fused.hier_grouped, name)
+    got = hier_fused.hier_grouped(*args)
+    again = hier_fused.hier_grouped(*args)
+    torch.cuda.synchronize()
+    assert _counts(hier_fused.hier_grouped, name) == before + 2
+    _assert_parity(got, _in_float64_wide(hier_fused.hier_grouped_plain, args))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("name", list(_NARROW))
+@pytest.mark.parametrize("link", ["bernoulli_logit", "gaussian"])
+@pytest.mark.parametrize("shards,n,d,chains", [(1, 3001, 7, 9), (1, 40_003, 32, 20),
+                                               (1, 50, 33, 33), (3, 127, 16, 8),
+                                               (2, 3001, 5, 40)])
+def test_b2_narrow_x_matches_float64_and_repeats_bitwise(shards, n, d, chains, link, name):
+    """B2 (with offsets; with the shard axis at S > 1) on a narrow xT,
+    rows off alignment, against float64 on the widened values."""
+    dev = _cuda()
+    rs = np.random.RandomState(n + d)
+    lead = (shards,) if shards > 1 else ()
+    t = lambda a: torch.as_tensor(a, device=dev)
+    xT = t(_dyadic(rs, lead + (d, n), 2, 0.5))
+    y = t(_dyadic(rs, lead + (n,), 8, 0.25) if link == "gaussian"
+          else (rs.rand(*lead, n) < 0.4).astype(np.float32))
+    beta = t(_dyadic(rs, lead + (chains, d), 4, 0.125))
+    off = t(_dyadic(rs, lead + (chains, n), 4, 0.25))
+    q = _narrow(xT, name)
+    beta = beta / 4.0 if name == "int8" else beta
+    before = _counts(logistic_fused.logistic_batched, name)
+    got = logistic_fused.logistic_batched(beta, q, y, off, link=link)
+    again = logistic_fused.logistic_batched(beta, q, y, off, link=link)
+    torch.cuda.synchronize()
+    assert _counts(logistic_fused.logistic_batched, name) == before + 2
+    want = _in_float64_wide(lambda *a: logistic_fused.logistic_batched_plain(*a, link=link),
+                            (beta, q, y, off))
+    _assert_parity(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("name", list(_NARROW))
+@pytest.mark.parametrize("n,d", [(1001, 5), (3, 40), (40_003, 32)])
+def test_b3_narrow_x_matches_float64(n, d, name):
+    dev = _cuda()
+    rs = np.random.RandomState(n)
+    xT = torch.as_tensor(_dyadic(rs, (d, n), 2, 0.5), device=dev)
+    y = torch.as_tensor((rs.rand(n) < 0.4).astype(np.float32), device=dev)
+    beta = torch.as_tensor(_dyadic(rs, (d,), 4, 0.125), device=dev)
+    q = _narrow(xT, name)
+    beta = beta / 4.0 if name == "int8" else beta
+    before = _counts(logistic_fused.logistic_single, name)
+    got = logistic_fused.logistic_single(beta, q, y)
+    torch.cuda.synchronize()
+    assert _counts(logistic_fused.logistic_single, name) == before + 1
+    _assert_parity(got, _in_float64_wide(logistic_fused.logistic_single_plain, (beta, q, y)))
+
+
+@pytest.mark.parametrize("name", list(_NARROW))
+@pytest.mark.parametrize("n,d,q,groups,chains", [(40_002, 3, 3, 300, 33),
+                                                 (3001, 8, 2, 20, 16), (50, 5, 2, 3, 9)])
+def test_b4_narrow_x_and_z_match_float64(n, d, q, groups, chains, name):
+    beta, u, ic, xT, zT, *rest = _lmm(n, d, q, groups, chains, dyadic=True)
+    qx, qz = _narrow(xT, name), _narrow(zT, name, scale=2.0)
+    if name == "int8":
+        beta, u = beta / 4.0, u / 2.0
+    args = (beta, u, ic, qx, qz, *rest)
+    before = _counts(hier_fused.lmm_grouped, name)
+    got = hier_fused.lmm_grouped(*args)
+    again = hier_fused.lmm_grouped(*args)
+    torch.cuda.synchronize()
+    assert _counts(hier_fused.lmm_grouped, name) == before + 2
+    want = _in_float64_wide(hier_fused.lmm_grouped_plain, args)
+    torch.testing.assert_close(got[0], want[0], rtol=VAL_RTOL, atol=0)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-4)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_wrappers_refuse_an_unknown_slab_dtype():
+    dev = _cuda()
+    xT = torch.zeros(3, 100, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="xT has dtype"):
+        logistic_fused.logistic_batched(torch.zeros(2, 3, device=dev), xT,
+                                        torch.zeros(100, device=dev))

@@ -190,6 +190,40 @@ def test_zoo_modules_leave_jax_and_reference_out_of_sys_modules():
     assert out.stdout.strip() == ""
 
 
+@pytest.mark.parametrize("xdt", ["bf16", "int8", "fp8e4m3", "fp8e5m2"])
+def test_narrow_x_leaves_jax_reference_and_ml_dtypes_out_of_sys_modules(xdt):
+    """Packing X, preparing a model's data under a narrow
+    STARK_FUSED_X_DTYPE and a fused call on it, in a fresh interpreter,
+    import neither JAX, nor the JAX package, nor ml_dtypes (which the
+    card's machine does not have)."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from stark_tpu_torch.ops import quantize\n"
+        "from stark_tpu_torch.model import flatten_model, prepare_model_data\n"
+        "from stark_tpu_torch.models import FusedHierLogisticGrouped, FusedPoissonRegression, "
+        "synth_logistic_data, synth_poisson_data\n"
+        "x = np.random.default_rng(0).standard_normal((200, 4)).astype(np.float32)\n"
+        "quantize.pack_slab(x.T, torch.int8, pct=99.0)\n"
+        "quantize.fake_quant(x, 'fp8e4m3')\n"
+        "for m, raw in ((FusedHierLogisticGrouped(4, 6), synth_logistic_data(0, 500, 4, "
+        "num_groups=6)[0]), (FusedPoissonRegression(4), synth_poisson_data(0, 500, 4)[0])):\n"
+        "    d = prepare_model_data(m, raw, device='cpu')\n"
+        "    fm = flatten_model(m)\n"
+        "    fm.potential_and_grad(torch.zeros(2, fm.ndim), d)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'stark_tpu', 'ml_dtypes'))\n"
+        "print(','.join(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["STARK_FUSED_X_DTYPE"] = xdt
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
 def _zoo_entry(family):
     from stark_tpu_torch import models as m
 

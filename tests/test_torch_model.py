@@ -173,8 +173,17 @@ def test_unported_knobs_raise_naming_roadmap(var, value, monkeypatch):
         tol_v, tol_g = PARITY_BANDS[value]
         assert val_rel <= tol_v and 0 < grad_rel <= tol_g, (val_rel, grad_rel)
         return
+    # ported (ROADMAP B5): X is stored rounded (bf16) or packed (int8),
+    # and the model's potential is the reference's on the same data
     monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP item B"):
-        data = prepare_model_data(model, _data(), device="cpu")
-        fm = flatten_model(model)
-        fm.potential_and_grad(torch.zeros(1, fm.ndim), data)
+    raw = _data()
+    data = prepare_model_data(model, raw, device="cpu")
+    rdata = ref_prepare(rml.FusedHierLogisticGrouped(4, 12), raw)
+    assert data["xT"].dtype == {"bf16": torch.bfloat16, "int8": torch.int8}[value]
+    assert ("xT_scale" in data) == (value == "int8") == ("xT_scale" in rdata)
+    fm, rfm = flatten_model(model), ref_flatten(rml.FusedHierLogisticGrouped(4, 12))
+    z = (0.3 * np.random.RandomState(5).standard_normal((2, fm.ndim))).astype(np.float32)
+    v, g = fm.potential_and_grad(torch.as_tensor(z), data)
+    rv, rg = jax.vmap(jax.value_and_grad(lambda q: rfm.potential(q, rdata)))(jnp.asarray(z))
+    np.testing.assert_allclose(v.numpy(), np.asarray(rv), rtol=2e-5)
+    np.testing.assert_allclose(g.numpy(), np.asarray(rg), rtol=2e-4, atol=1e-4)

@@ -276,11 +276,16 @@ def test_unported_knobs_refused(knob, value, item, monkeypatch):
         tol_v, tol_g = PARITY_BANDS[value]
         assert val_rel <= tol_v and 0 < grad_rel <= tol_g, (val_rel, grad_rel)
         return
+    # ported (ROADMAP B5): both entries stream a bf16 slab, and equal the
+    # float32 entries on the rounded X bit for bit
     monkeypatch.setenv(knob, value)
-    with pytest.raises(NotImplementedError, match=item):
-        prf.studentt_loglik(*t)
-    with pytest.raises(NotImplementedError, match=item):
-        prf.studentt_loglik_value_and_grad(*t)
+    narrow = t[:3] + [t[3].to(torch.bfloat16)] + t[4:]
+    rounded = t[:3] + [narrow[3].float()] + t[4:]
+    v, g = prf.studentt_loglik_value_and_grad(*narrow)
+    v32, g32 = prf.studentt_loglik_value_and_grad(*rounded)
+    assert torch.equal(v, v32) and all(torch.equal(a, b) for a, b in zip(g, g32))
+    assert torch.equal(prf.studentt_loglik(*narrow), v32)
+    assert not torch.equal(rounded[3], t[3])
 
 
 def ref_shards(rmodel, raw, shards):
