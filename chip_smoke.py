@@ -6,7 +6,9 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero (none is caught):
-  1. card     — name and power limit (nvidia-smi), torch and CUDA versions
+  1. card     — name and power limit (nvidia-smi), torch and CUDA versions,
+                the SM count and maximum SM clock (the special-function
+                rate of every bound)
   2. build    — nvcc for sm_90a of every kernel in stark_tpu_torch/csrc,
                 all started together; prints each -Xptxas -v report and
                 fails if a kernel of B1, B2 or B4 spills registers
@@ -34,7 +36,9 @@ Phases, in order; any failure exits non-zero (none is caught):
                 largest distance from float64 on normal inputs beside the
                 float32 plain version's
   4. times    — CUDA-event times of each kernel and its plain version,
-                beside the least time the card could take (bound); B2 at
+                beside the least time the card could take (bound: bytes,
+                products, and for B1 and B2's bernoulli link its three
+                special-function instructions per chain and row); B2 at
                 C=1 beside B3 on the same inputs
   5. small    — the port's potential and gradient on the card (kernels)
                 against plain autograd on the CPU, on small inputs, for
@@ -212,9 +216,12 @@ Phases, in order; any failure exits non-zero (none is caught):
                 to fail default's check; B1 also at N=40,003, C=70; on
                 normal inputs a second launch bitwise equal, and against
                 the kernel at highest inside the reference's band (tools/
-                precision_parity.py:19-21); B2's and B4's edge cases at
-                high and default; CUDA-event times beside the bound (bf16
-                tensor cores, and the FP32 CUDA cores the kernels run on); then
+                precision_parity.py:19-21); B1's (B1_EDGE_CASES, on dyadic
+                inputs against float64 with the link's slack, each launched
+                twice and bitwise equal), B2's and B4's edge cases at high
+                and default; CUDA-event times beside the bound (bf16
+                tensor cores, on which B1 runs, and the FP32 CUDA cores
+                the others run on); then
                 chees_sample on the flagship (B1), its offset path (B2),
                 config 3 (B4) and its offset path (B2 gaussian), and
                 consensus_sample on config 2 (the shard axis) under each
@@ -269,13 +276,14 @@ serial, serial, pipelined), draws bitwise equal, and prints each run's
 wall and where its sampling time went.
 
 ``--compare-with TREE`` instead times the kernels that TREE (another
-checkout, e.g. the parent commit's) shares with this one: B1, B2 (both
-links, with and without offsets) and B3 at the flagship's full width, B2's
-gaussian link and B4 at config 3's, each tree's own build in its own
-process, in the order TREE, this, this, TREE on the same card, and says
-for each kernel whether its outputs are bitwise equal across the trees
-(every kernel but B4, whose sums run in another order since its
-redesign, is expected to be).
+checkout, e.g. the parent commit's) shares with this one: B1 (at highest,
+and at high and default also at C=8), B2 (both links, with and without
+offsets) and B3 at the flagship's full width, B2's gaussian link and B4
+at config 3's, each tree's own build in its own process, in the order
+TREE, this, this, TREE on the same card, and says for each kernel
+whether its outputs are bitwise equal across the trees (against a parent
+before B1's tensor-core pass every kernel but B1 at high and default is
+expected to be).
 """
 
 from __future__ import annotations
@@ -300,6 +308,16 @@ REPO = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+#: special-function (MUFU) instructions an SM completes per clock on
+#: Hopper (4 per SM sub-partition); the card's SM count and maximum SM
+#: clock are read in phase_card (H100 SXM: 132 and 1,980 MHz, the rate
+#: of a rehearsal)
+SFU_PER_SM_CLOCK = 16
+H100_SFU_PER_S = 132 * SFU_PER_SM_CLOCK * 1.98e9
+#: special-function instructions per chain and row of the bernoulli link
+#: in kernels B1 and B2 (__expf, __logf, __fdividef: ex2, lg2 and rcp);
+#: B3's accurate link is not counted
+LINK_SFU = 3
 
 # the reference's tolerances: value rtol 2e-5; gradients rtol 2e-4 /
 # atol 1e-4 (B1-B3), rtol 3e-4 / atol 3e-4 for the LMM (B4 and models)
@@ -402,6 +420,32 @@ B4_EDGE_CASES = (
     ("uniform", 3001, 200, 2, 64, 20), ("uniform", 1001, 216, 2, 64, 20),
 )
 B4_REFUSED = (64, 2, 217)  # (C, Q, D)
+
+# B1's edge cases (label, N, D, G, C, seed of ids with gaps or None, beta's
+# scale), tests/test_torch_gpu_kernels.py's _B1_EDGE_CASES: chain counts
+# off the tensor-core pass's n-tiles of 8 and the 64-chain chunk, feature
+# counts off its k-steps of 16 and the 32-feature chunk; N below one
+# sub-tile and N = 1, 2, 3 (mod 4); groups straddling sub-tiles and
+# blocks, one-row groups and ids without rows (N from the group sizes);
+# logits beyond +-30; every shared-memory tier, up to the widest D at C =
+# 64 (D = 256 is refused, tests/test_torch_gpu_kernels.py).
+B1_EDGE_CASES = (
+    *[(f"C={c} D={d}", 3001, d, 20, c, None, 0.3) for c in (1, 7, 33, 100) for d in (1, 3, 33)],
+    ("N<sub-tile", 50, 5, 3, 9, None, 0.3),
+    ("N=1 mod 4", 40_001, 32, 300, 64, None, 0.3),
+    ("N=2 mod 4", 40_002, 7, 300, 64, None, 0.3),
+    ("N=3 mod 4", 40_003, 32, 300, 70, None, 0.3),
+    ("gaps", 0, 32, 300, 64, 1, 0.3),
+    ("gaps C=33 D=3", 0, 3, 300, 33, 2, 0.3),
+    ("wide logits", 20_011, 32, 50, 64, None, 8.0),
+    ("wide logits C=5", 5003, 6, 10, 5, None, 20.0),
+    ("D=128 C=64", 20_011, 128, 50, 64, None, 0.3),
+    ("D=160 C=64", 20_011, 160, 50, 64, None, 0.3),
+    ("D=130 C=100", 5003, 130, 30, 100, None, 0.3),
+    ("D=200 C=64", 5003, 200, 30, 64, None, 0.3),
+    ("D=126 C=128", 5003, 126, 30, 128, None, 0.3),
+    ("D=249 C=64", 3001, 249, 20, 64, None, 0.3),
+)
 #: kernel libraries whose every kernel must build without spilling
 NO_SPILL = ("hier_grouped", "logistic_batched", "lmm_grouped")
 
@@ -518,8 +562,9 @@ class Run:
             self.irt_p, self.irt_i, self.sv_t = IRT_P, IRT_I, SV_T
             # the rest of the zoo's seven NUTS legs: depth 6, 20 + 20 (30 +
             # 30 until PR 14's precision phases)
-            # (15 + 15, cut from 20 + 20 for the X-dtype phases; then 10 + 10)
-            self.zoo_rest_budget = dict(max_tree_depth=6, num_warmup=10, num_samples=10)
+            # (15 + 15, cut from 20 + 20 for the X-dtype phases; then 10 +
+            # 10; then 9 + 9 for B1's edge sweeps at high and default)
+            self.zoo_rest_budget = dict(max_tree_depth=6, num_warmup=9, num_samples=9)
             # the precision phase's legs check the paths at each precision,
             # not convergence: ChEES, MAP 3, warmup 3, samples 3 (MAP 10,
             # warmup 10, samples 5: 98 s for the ten legs on one H100 80GB
@@ -528,6 +573,7 @@ class Run:
         # the shard-death leg: 8 shards of 4096 rows, one poisoned
         self.death_n = 8 * 4096
         self.death_budget = dict(map_init_steps=5, num_warmup=5, num_samples=5)
+        self.sfu_per_s = H100_SFU_PER_S
         self.t0 = time.perf_counter()
         self.phase_s = {}
         self.kernels = {}
@@ -656,6 +702,14 @@ def phase_card(run: Run):
     ).stdout.strip().splitlines()
     run.smi = smi[0] if smi else "unknown"
     log(f"  nvidia-smi: {run.smi}")
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    run.sfu_per_s = sms * SFU_PER_SM_CLOCK * float(clock[0]) * 1e6
+    log(f"  {sms} SMs, max SM clock {clock[0]} MHz: {run.sfu_per_s / 1e12:.3f}e12 "
+        f"special-function instructions a second")
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
@@ -780,19 +834,33 @@ def _lmm_offset_inputs(run: Run, raw, chains, gen):
     return beta, xT, y, off
 
 
-def bound(nbytes, flops, flop_rate=FP32_FLOP_PER_S):
+def bound(nbytes, flops, flop_rate=FP32_FLOP_PER_S, sfu=0, sfu_per_s=H100_SFU_PER_S):
+    """The least time the card could take for a call, in ms: the larger of
+    its bytes over the memory rate, its products (``flops``) over
+    ``flop_rate`` and its special-function instructions (``sfu``) over
+    ``sfu_per_s``.  ``bound_by`` is "bytes" or "operations", ``term``
+    which term binds: "bytes", "products" or "special functions"."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * flops / flop_rate
+    t_sfu = 1e3 * sfu / sfu_per_s
+    t = max(t_bytes, t_ops, t_sfu)
+    term = "bytes" if t_bytes == t else "products" if t_ops == t else "special functions"
     return dict(
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        bytes=nbytes, flops=flops,
+        bound_ms=t, bound_by="bytes" if term == "bytes" else "operations", term=term,
+        bytes=nbytes, flops=flops, sfu=sfu, sfu_ms=t_sfu,
     )
 
 
+def link_sfu(run: Run, chains, rows):
+    """`bound`'s special-function keywords for a bernoulli-link call of
+    kernel B1 or B2 over ``chains`` x ``rows`` elements."""
+    return dict(sfu=LINK_SFU * chains * rows, sfu_per_s=run.sfu_per_s)
+
+
 def fmt_bound(e):
-    return (f"bound {e['bound_ms']:.4f} ms by {e['bound_by']} "
-            f"({e['bytes'] / 1e6:.2f} MB, {e['flops'] / 1e9:.3f} GFLOP)")
+    sfu = f", {e['sfu'] / 1e6:.1f}M special-function instructions" if e.get("sfu") else ""
+    return (f"bound {e['bound_ms']:.4f} ms by {e['term']} "
+            f"({e['bytes'] / 1e6:.2f} MB, {e['flops'] / 1e9:.3f} GFLOP{sfu})")
 
 
 def phase_parity_and_times(run: Run, flag, lmm):
@@ -882,7 +950,7 @@ def phase_parity_and_times(run: Run, flag, lmm):
         source="stark_tpu_torch/csrc/hier_grouped.cu",
         replaces="stark_tpu/ops/hier_fused.py:192",
         max_abs_err=b1_err, ms=b1_ms, plain_ms=b1_plain,
-        **bound(b1_bytes, b1_flops), library_ms=None,
+        **bound(b1_bytes, b1_flops, **link_sfu(run, c, n)), library_ms=None,
     )
     log(f"  B1 C={c}: {b1_ms:.4f} ms, plain {b1_plain:.4f} ms, {fmt_bound(run.kernels['B1'])}")
 
@@ -894,12 +962,13 @@ def phase_parity_and_times(run: Run, flag, lmm):
         nbytes = 4 * (xT.numel() + y.numel() + 2 * beta.numel() + c
                       + (2 * off.numel() if off is not None else 0))
         flops = 4 * c * d * n
+        sfu = link_sfu(run, c, n) if link == "bernoulli_logit" else {}
         ms = timed(run, lambda: lf.logistic_batched(*bargs, link=link), 20)
         plain = timed(run, lambda: lf.logistic_batched_plain(*bargs, link=link), 5)
         entry = dict(
             name=name, route="cuda", source="stark_tpu_torch/csrc/logistic_batched.cu",
             replaces="stark_tpu/ops/logistic_fused.py:130",
-            max_abs_err=err, ms=ms, plain_ms=plain, **bound(nbytes, flops),
+            max_abs_err=err, ms=ms, plain_ms=plain, **bound(nbytes, flops, **sfu),
             library_ms=None,
         )
         log(f"  B2 {link} C={c} D={d} N={n} offsets={off is not None} ({path}): "
@@ -975,7 +1044,7 @@ def times_at_nuts_chains(run: Run, full, gen):
     beta, alpha, xT, y, gl, fg, _ = args
     err = compare(f"B1 C={c} N={n}", hf.hier_grouped(*args), hf.hier_grouped_plain(*args))
     e = bound(4 * (xT.numel() + y.numel() + gl.numel() + fg.numel() + 2 * alpha.numel()
-                   + 2 * beta.numel() + c), 4 * c * D * n)
+                   + 2 * beta.numel() + c), 4 * c * D * n, **link_sfu(run, c, n))
     e.update(max_abs_err=err, ms=timed(run, lambda: hf.hier_grouped(*args), 50),
              plain_ms=timed(run, lambda: hf.hier_grouped_plain(*args), 10))
     out["B1"] = e
@@ -984,7 +1053,7 @@ def times_at_nuts_chains(run: Run, full, gen):
     err = compare(f"B2 bernoulli_logit C={c} offsets=True N={n}",
                   lf.logistic_batched(*bargs), lf.logistic_batched_plain(*bargs))
     e = bound(4 * (xT.numel() + y.numel() + 2 * beta.numel() + c + 2 * off.numel()),
-              4 * c * D * n)
+              4 * c * D * n, **link_sfu(run, c, n))
     e.update(max_abs_err=err, ms=timed(run, lambda: lf.logistic_batched(*bargs), 50),
              plain_ms=timed(run, lambda: lf.logistic_batched_plain(*bargs), 10))
     out["B2 offsets"] = e
@@ -1203,7 +1272,8 @@ def phase_b2_shards(run: Run):
         name="logistic_batched (B2, shard axis)", route="cuda",
         source="stark_tpu_torch/csrc/logistic_batched.cu",
         replaces="stark_tpu/ops/logistic_fused.py:130",
-        max_abs_err=e, ms=ms, plain_ms=plain, loop_ms=loop, **bound(nbytes, flops),
+        max_abs_err=e, ms=ms, plain_ms=plain, loop_ms=loop,
+        **bound(nbytes, flops, **link_sfu(run, S * C, n)),
         library_ms=None,
     )
     log(f"  B2 shards S={S} C={C} D={d} n={n}: {ms:.4f} ms, plain {plain:.4f} ms, "
@@ -1557,6 +1627,70 @@ def phase_b4_edges(run: Run, b4_args, prec="highest"):
     else:
         raise AssertionError(f"B4 C={c} D={d} Q={q} was not refused")
     assert hf.lmm_grouped.launches == before
+
+
+def sizes_with_gaps(groups, seed):
+    """Sorted group ids in which every 7th id has no rows, every 5th has
+    one row, and the rest 40-400 rows each."""
+    rs = np.random.RandomState(seed)
+    sizes = rs.randint(40, 400, size=groups)
+    sizes[::5] = 1
+    sizes[3::7] = 0
+    return np.repeat(np.arange(groups, dtype=np.int32), sizes)
+
+
+def b1_edge_inputs(case, rs):
+    """B1's raw rows (x, y, g) and (beta, alpha), numpy, for an edge case
+    (B1_EDGE_CASES), on dyadic grids whose logits are exact in float32 in
+    any order of their sums: x in steps of 2^-9 in [-1, 1] (up to 10
+    significant bits, so that x_lo is not 0 at high); beta on a grid of
+    steps 2^e, e set by the case's scale, up to 10 significant bits where
+    D <= 32 and 4 past it, so that D products and alpha stay within 2^24
+    steps of the logits' grid; alpha in steps of 2^-11 in [-1/4, 1/4]."""
+    _, n, d, groups, c, gaps, scale = case
+    g = (rs.randint(0, groups, size=n).astype(np.int32) if gaps is None
+         else sizes_with_gaps(groups, gaps))
+    n = g.shape[0]
+    k = 512 if d <= 32 else 8
+    step = 2.0 ** round(np.log2(scale / k))
+    grid = lambda shape, kk, st: (rs.randint(-kk, kk + 1, size=shape) * st).astype(np.float32)
+    raw = {"x": grid((n, d), 512, 2.0 ** -9), "y": (rs.rand(n) < 0.4).astype(np.float32), "g": g}
+    return raw, (grid((c, d), k, step), grid((c, groups), 512, 2.0 ** -11))
+
+
+def phase_b1_edges(run: Run, gen, prec):
+    """B1 on its edge cases (B1_EDGE_CASES) at the dot precision ``prec``:
+    the kernel against the plain version at ``prec`` in float64 on
+    `b1_edge_inputs`' dyadic grids, within highest's tolerances plus the
+    bernoulli link's `link_slack`, each case launched twice and bitwise
+    equal; the wide-logit cases' logits beyond +-30 both ways."""
+    from stark_tpu_torch.ops import hier_fused as hf
+
+    rs = np.random.RandomState(8)
+    worst = 0.0
+    for case in B1_EDGE_CASES:
+        raw, params = b1_edge_inputs(case, rs)
+        prep = hf.prepare_grouped(raw, case[2])
+        t = [torch.as_tensor(prep[k], device=run.dev) for k in ("xT", "y", "gl", "first_gid")]
+        args = (*(torch.as_tensor(a, device=run.dev) for a in params), *t, prep["lane_tile"])
+        name = f"B1 {case[0]} N={prep['y'].shape[0]} D={case[2]} C={case[4]} at {prec}"
+        if case[6] > 1.0:
+            g = hf.absolute_groups(args[4], args[5], args[6])
+            logits = args[0].double() @ args[2].double() + args[1].double()[:, g]
+            assert float(logits.max()) > 30 and float(logits.min()) < -30, name
+        with env(PREC_KNOB, prec):
+            got = hf.hier_grouped(*args)
+            again = hf.hier_grouped(*args)
+        run.sync()
+        want = yardstick(run, hf.hier_grouped_plain, *args, prec=prec)
+        err, excess = compare_slack(name, got, want, b1_link_slack(args, prec), GRAD_RTOL,
+                                    GRAD_ATOL, quiet=True)
+        assert excess <= 0, f"{name}: error exceeds its bound by {excess:.4g}"
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+        worst = max(worst, err)
+    log(f"  B1 edge cases at {prec}: {len(B1_EDGE_CASES)} shapes match the plain version in "
+        f"{yardstick_name(run)} (max abs err {worst:.6g}), second launches bitwise equal")
+    return worst
 
 
 def b1_float64_distance(run: Run, gen):
@@ -2862,7 +2996,7 @@ def precision_cases(run: Run, full, lfull, gen):
         cases.append(dict(key=key, wrapper=hf.hier_grouped, plain=hf.hier_grouped_plain,
                           args=args, fine=dyadic_inputs("B1", args, gen), kw={},
                           slack=b1_link_slack, resid_unrounded=b1_resid_unrounded,
-                          bytes=nbytes,
+                          bytes=nbytes, sfu=LINK_SFU * c * xT.shape[1],
                           products=2 * c * xT.shape[0] * xT.shape[1], tol=(GRAD_RTOL, GRAD_ATOL),
                           entry=entry, name="hier_grouped (B1"))
 
@@ -2875,6 +3009,7 @@ def precision_cases(run: Run, full, lfull, gen):
         cases.append(dict(key=key, wrapper=lf.logistic_batched, plain=lf.logistic_batched_plain,
                           args=args, fine=dyadic_inputs(link, args, gen), kw=dict(link=link),
                           slack=lambda a, p: b2_link_slack(a, p, link), bytes=nbytes,
+                          sfu=LINK_SFU * lead * c * xT.shape[-1] if link == "bernoulli_logit" else 0,
                           products=2 * lead * c * d * xT.shape[-1], tol=(GRAD_RTOL, GRAD_ATOL),
                           entry=entry, name=name))
 
@@ -2961,8 +3096,9 @@ def phase_precision_kernels(run: Run, flag, lmm):
                 ms = timed(run, lambda: wrapper(*args, **kw), 20)
                 plain_ms = timed(run, lambda: plain(*args, **kw, prec=prec), 5)
             flops = 2 * case["products"] * PASSES[prec]
-            e = bound(case["bytes"], flops, BF16_FLOP_PER_S)
-            cuda_core = bound(case["bytes"], flops)
+            sfu = dict(sfu=case.get("sfu", 0), sfu_per_s=run.sfu_per_s)
+            e = bound(case["bytes"], flops, BF16_FLOP_PER_S, **sfu)
+            cuda_core = bound(case["bytes"], flops, **sfu)
             e.update(max_abs_err=err, excess=excess, unrounded_excess=teeth,
                      resid_unrounded_excess=mutant, ms=ms,
                      plain_ms=plain_ms, val_rel=val_rel, grad_rel=grad_rel,
@@ -2971,7 +3107,7 @@ def phase_precision_kernels(run: Run, flag, lmm):
             out[label] = e
             log(f"  {label} [{smi}]: {ms:.4f} ms, plain {plain_ms:.4f} ms, {fmt_bound(e)} "
                 f"on bf16 tensor cores; {cuda_core['bound_ms']:.4f} ms by "
-                f"{cuda_core['bound_by']} on the FP32 CUDA cores")
+                f"{cuda_core['term']} on the FP32 CUDA cores")
             if case["entry"]:
                 run.kernels[f"{case['entry']} {prec}"] = dict(
                     name=f"{case['name']}, {prec})", route="cuda",
@@ -2980,6 +3116,7 @@ def phase_precision_kernels(run: Run, flag, lmm):
                     plain_ms=plain_ms, bound_ms=e["bound_ms"], bound_by=e["bound_by"],
                     library_ms=None)
     for prec in PRECISION_MODES:
+        phase_b1_edges(run, gen, prec)
         phase_b2_edges(run, gen, prec)
         phase_b4_edges(run, None, prec)
     return out
@@ -3288,7 +3425,8 @@ def phase_x_dtype_kernels(run: Run, flag, lmm):
             check_repeat(label, got, again)
             ms = timed(run, lambda: wrapper(*kargs, **kw), 20)
             plain_ms = timed(run, lambda: plain(*kargs, **kw), 5)
-            e = bound(x_bytes(case, kargs, xdt), 2 * case["products"])
+            sfu = dict(sfu=case.get("sfu", 0), sfu_per_s=run.sfu_per_s)
+            e = bound(x_bytes(case, kargs, xdt), 2 * case["products"], **sfu)
             e.update(max_abs_err=err, excess=excess, ms=ms, plain_ms=plain_ms)
             log(f"  {label} [{smi}]: {ms:.4f} ms, plain {plain_ms:.4f} ms, {fmt_bound(e)}")
             if case["entry"]:
@@ -3310,7 +3448,7 @@ def phase_x_dtype_kernels(run: Run, flag, lmm):
                         assert pexcess <= 0, f"{label} {prec}: exceeds its bound by {pexcess:.4g}"
                         pms = timed(run, lambda: wrapper(*kargs, **kw), 20)
                     pe = bound(x_bytes(case, kargs, xdt), 2 * case["products"] * PASSES[prec],
-                               BF16_FLOP_PER_S)
+                               BF16_FLOP_PER_S, **sfu)
                     log(f"  {label} {prec} [{smi}]: {pms:.4f} ms, {fmt_bound(pe)} on bf16 tensor "
                         f"cores")
                     out[f"{label} {prec}"] = dict(pe, max_abs_err=perr, excess=pexcess, ms=pms)
@@ -3723,10 +3861,27 @@ def phase_profile(run: Run, model, raw, label):
                 top=[(r[2][:60], r[0] / reps) for r in rows[:5]])
 
 
-#: kernels both trees time in --compare-with, and the calls each makes
-SHARED_KERNELS = ("B1", "B2 offsets=False", "B2 offsets=True", "B2 gaussian offsets=False",
+#: kernels both trees time in --compare-with, and the calls each makes:
+#: B1 at each dot precision, at the flagship's C=64 and the NUTS legs' C=8
+SHARED_KERNELS = ("B1", "B1 high", "B1 high C=8", "B1 default", "B1 default C=8",
+                  "B2 offsets=False", "B2 offsets=True", "B2 gaussian offsets=False",
                   "B2 gaussian offsets=True", "B2 gaussian (LMM)", "B3 offsets=False",
                   "B3 offsets=True", "B4")
+
+
+def expected_against_parent(key: str) -> str:
+    """Whether a kernel of SHARED_KERNELS is expected bitwise equal to the
+    parent commit's: B1 at high and default sums in another order since
+    its tensor-core pass, every other kernel as its parent does."""
+    if key.startswith(("B1 high", "B1 default")):
+        return "no, the tensor-core pass sums in another order"
+    return "yes"
+
+
+def at_precision(prec, fn, *args):
+    """``fn(*args)`` with STARK_FUSED_PRECISION set to ``prec``."""
+    with env(PREC_KNOB, prec):
+        return fn(*args)
 
 
 def shared_kernel_times(tree: str) -> dict:
@@ -3763,6 +3918,11 @@ def shared_kernel_times(tree: str) -> dict:
     calls["B2 gaussian (LMM)"] = lambda: lf.logistic_batched(*gargs, link="gaussian")
     b4_args, _ = _lmm_inputs(run, lfull, LMM_CHAINS, gen)
     calls["B4"] = lambda: hf.lmm_grouped(*b4_args)
+    b1_c8, _ = _grouped_inputs(run, full, NUTS_CHAINS, gen)
+    for prec in PRECISION_MODES:
+        calls[f"B1 {prec}"] = lambda prec=prec: at_precision(prec, hf.hier_grouped, *b1_args)
+        calls[f"B1 {prec} C={NUTS_CHAINS}"] = (
+            lambda prec=prec: at_precision(prec, hf.hier_grouped, *b1_c8))
     out = {"tree": tree, "digests": {}}
     for key in SHARED_KERNELS:
         out[key] = timed(run, calls[key], 50 if key in ("B4", "B2 gaussian (LMM)") else 20)
@@ -3839,9 +3999,9 @@ def compare_with(other: str) -> int:
         "50 at config 3): other, this, this, other; outputs bitwise equal across the trees")
     for key in SHARED_KERNELS:
         same = len({r["digests"][key] for r in rows}) == 1
-        expect = "no, B4 sums in another order" if key == "B4" else "yes"
         log(f"  {key}: " + ", ".join(f"{r[key]:.4f}" for r in rows)
-            + f"; bitwise equal: {'yes' if same else 'no'} (expected against the parent: {expect})")
+            + f"; bitwise equal: {'yes' if same else 'no'} (expected against the parent: "
+            f"{expected_against_parent(key)})")
     return 0
 
 

@@ -259,6 +259,26 @@ __device__ __forceinline__ int group_of(const Params& p, int n) {
   return p.first_gid[n / p.lane_tile] + p.gl[n];
 }
 
+// galpha[j] (j = c G + g) of a grouped pass from its blocks' head and
+// tail partials, in block order; left to the block that owns g whole.
+__device__ __forceinline__ void finish_group(const Params& p, int nblk, long long j) {
+  const int C = p.C;
+  const int c = (int)(j / p.G), g = (int)(j % p.G);
+  int lo = 0, hi = nblk;  // first block whose last group is >= g
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (p.bhi[mid] < g) lo = mid + 1; else hi = mid;
+  }
+  float s = 0.f;
+  bool interior = false;
+  for (int b = lo; b < nblk && p.blo[b] <= g; ++b) {
+    if (p.blo[b] == g) s += p.head[(size_t)b * C + c];
+    else if (p.bhi[b] == g) s += p.tail[(size_t)b * C + c];
+    else interior = true;  // written by the block that owns it
+  }
+  if (!interior) p.galpha[(size_t)c * p.G + g] = s;  // zero when empty
+}
+
 // Second pass: add the per-block partials in block order.  One thread per
 // beta-gradient entry, per chain value and (grouped) per (chain, group).
 template <bool kGrouped>
@@ -280,22 +300,7 @@ __global__ void finish(Params p, int nblk, float* val, float* gbeta) {
     return;
   }
   j -= C;
-  if (kGrouped && j < (long long)C * p.G) {
-    const int c = (int)(j / p.G), g = (int)(j % p.G);
-    int lo = 0, hi = nblk;  // first block whose last group is >= g
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (p.bhi[mid] < g) lo = mid + 1; else hi = mid;
-    }
-    float s = 0.f;
-    bool interior = false;
-    for (int b = lo; b < nblk && p.blo[b] <= g; ++b) {
-      if (p.blo[b] == g) s += p.head[(size_t)b * C + c];
-      else if (p.bhi[b] == g) s += p.tail[(size_t)b * C + c];
-      else interior = true;  // written by the block that owns it
-    }
-    if (!interior) p.galpha[(size_t)c * p.G + g] = s;  // zero when empty
-  }
+  if (kGrouped && j < (long long)C * p.G) finish_group(p, nblk, j);
 }
 
 // Carve the caller's scratch buffer: gpart (nblk*C*D), vpart, head, tail

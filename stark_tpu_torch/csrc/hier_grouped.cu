@@ -11,10 +11,15 @@
 //
 // Bound on an H100 SXM at the flagship shape (C=64, D=32, N=1M, G=1000):
 // it must read xT (128 MB), y and gl (4 MB each): 136 MB, 40.6 us at
-// 3.35 TB/s; and it must do 2*C*D*N FMAs (logits and gradient) = 8.2
-// GFLOP, 122 us at the 67 TFLOP/s of the FP32 CUDA cores.  So it is
-// bound by arithmetic: the design keeps the CUDA cores fed from
-// registers rather than from shared memory.
+// 3.35 TB/s; it must do 2*C*D*N products (logits and gradient) = 8.2
+// GFLOP, 122 us at the 67 TFLOP/s of the FP32 CUDA cores, 8.3 us at the
+// 989 of the bf16 tensor cores; and its link runs three special-function
+// instructions per chain and row (below), 192e6, 46 us at 16 per SM and
+// clock on 132 SMs at 1.98 GHz.  At highest (hier_pass) the products run
+// on the CUDA cores, so it is bound by arithmetic and the design keeps
+// them fed from registers rather than from shared memory.  At high and
+// default (hier_mma) they run on the tensor cores, and at C = 64 the
+// link, not the bytes, sets the floor (at C = 8 the bytes).
 //
 // Work split.  Block b owns the sub-tiles [b*S/B, (b+1)*S/B) of kRows
 // rows (S sub-tiles in all, B = min(kBlocks, S) blocks, two resident per
@@ -30,7 +35,7 @@
 // up to D = 249).  Rows past N are staged as zeros.  X is read from device memory once per evaluation
 // and serves every chain.
 //
-// Per sub-tile and chunk of kChains chains:
+// Per sub-tile and chunk of kChains chains, at highest (hier_pass):
 //   logits   thread (chain group cg, row group rg) computes a 4 x 8 tile
 //            of logits, chains 4 cg + {0..3} and rows 4 rg + {0..3} and
 //            64 + 4 rg + {0..3}: per feature one float4 of beta (held
@@ -67,20 +72,78 @@
 // Dot precision (STARK_FUSED_PRECISION; kPrec, csrc/fused_pass.cuh).  The
 // reference passes it to the kernel's four dots: beta x, alpha against
 // the one-hot groups, resid x^T and resid against the one-hot groups.
-// Each operand is rounded once, where it is staged, never in the FMA
-// loops: x in shared memory when its sub-tile has landed (each thread
+// At high and default (hier_mma) each operand is rounded once, where it
+// is staged: x in shared memory when its sub-tile has landed (each thread
 // its own copies, after its wait and before the barrier: no barrier
 // more), beta when the block stages it, alpha when it is loaded, resid
 // when it is written to shared memory (after the value sums took it
-// whole).  At default a staged operand is its bf16 value and the loops
-// are highest's; at high it is a_hi and a_lo packed in one word (the
-// layout and its widths are highest's), and each product is three FMAs
-// in the passes' order.  Against the one-hot groups alpha enters as
+// whole).  A staged operand is one 32-bit word an element, in highest's
+// layout: a_hi = bf16(a) in its high 16 bits and a_lo = bf16(a - a_hi) in
+// its low 16 at high, bf16(a) with a low half of 0 at default (a float32
+// whose low 16 bits are 0).  Against the one-hot groups alpha enters as
 // bf16(alpha) or alpha_hi + alpha_lo, and the segment sums add resid's
-// staged values.  Rows past N are zeros before any rounding.  On CUDA
-// cores the operations are 1 (default) or 3 (high) times highest's, so
-// high's bound is 3 x 122 us; bf16 tensor cores would make both bound by
-// bytes (40.6 us).
+// staged values.  Rows past N are zeros before any rounding.
+//
+// hier_mma computes both products on the tensor cores (mma.sync
+// m16n8k16, bf16 operands, float32 accumulators), with the chains on the
+// MMA's narrow side (n = 8) and x the A operand of both:
+//   logits^T (rows x chains) = x^T beta^T,
+//   gbeta^T (features x chains) = x resid^T.
+// The link, the staging and the block split are hier_pass's.  What its
+// design does, and why:
+//   - Operands stay in highest's layout, one staged word an element, so
+//     shared memory, its tiers and the widths they take are highest's
+//     (layout_mma adds 9 KB at one tile): every (C, D) highest takes runs
+//     at high and default, and the same widths are refused.  (A third x
+//     buffer was 1.5 % slower on an H100 at C = 64 and C = 8.)  A thread builds the MMA's
+//     bf16 pairs from two words with one byte permute each (hi_pair,
+//     lo_pair): the a_hi plane, and at high the a_lo plane.  Default is
+//     one MMA, x_hi b_hi; high three, x_hi b_hi, x_lo b_hi and x_hi b_lo,
+//     the reference's passes in its order, each product exact in float32
+//     and summed in float32, so the kernel and the plain version differ in
+//     the order of their sums only.  A narrow x has x_lo = 0 and skips its
+//     pass.  At the flagship that is 6.0M MMAs at high, 2.0M at default,
+//     some 25 and 8 us at the dense rate: under the link's 46 us.
+//   - Chains are padded to 8, 16, 32 or 64 per chunk (chunk_ntiles), not
+//     to 64: C = 8, the NUTS legs', does 8 chains' work.  Per chunk of nt
+//     n-tiles of 8 chains (MmaShape), a warp computes the logits of mt
+//     m-tiles of 16 rows by ng n-tiles (mt ng = nt; 8 warps, 128 rows),
+//     and the gradient of one m-tile of 16 features by ngg n-tiles over
+//     the sub-tile's rows or, when the chunk has under 8 output tiles, a
+//     slice of them (added in slice order).  The one-tile float32 kernels
+//     for nt = 1 (C <= 8) and, at default, nt = 8 (the flagship) have nt
+//     compiled in (kNt), so their loops are unrolled to the shape (25 us
+//     less each on an H100 than with nt read at run time); at high the
+//     flagship's spilled so, and reads nt at run time.
+//   - Logits: a k-step takes 16 features; a thread loads 8 words of x
+//     per m-tile (lds.32), rows permuted within 32-row groups (mma_row) so
+//     that a warp's 32 loads meet 32 banks (kLd = 4 mod 32).  beta's pairs
+//     are built once per block into shared memory in fragment order and
+//     loaded per sub-tile, one 16-byte load a thread per k-step and n-tile
+//     (one tile), or built per k-step (in registers for the block, the
+//     flagship's kernels spilled).
+//     Features past D are loaded as 0 in both operands (selects).  An
+//     n-tile's column n is chain n / 2 + 4 (n % 2), so a thread holds
+//     chains t and t + 4, and its resid stores meet 32 banks.
+//   - Link: each thread takes its accumulator elements (2 mt rows by 2 ng
+//     chains) through the link above; alpha is reloaded when its rows'
+//     group changes, carried from sub-tile to sub-tile with one chunk.
+//     The value sums fold over the thread's rows by a fixed shuffle tree
+//     into one slot per (chain, row group), added in slot order.
+//   - Segment sums: with one tile, the link also sums resid's staged
+//     values per chain over the sub-tile's first run of one group and over
+//     the rest, folded like the values: these are the segment sums when
+//     the sub-tile holds one or two runs (at the flagship nearly every
+//     sub-tile); otherwise, and past one tile, threads of 32 / nt lanes per
+//     chain sum each run from shared memory in four partial sums.
+//   - Gradient: x and resid by ldmatrix (a matrix row is 4 words = 4 rows
+//     of the sub-tile; row strides of 33 x 16 bytes meet every bank once),
+//     pairs of rows r and r + 4 in one register.  Feature rows past D are
+//     computed and never stored.
+//   - The second kernel (mma_finish) adds gbeta's and val's per-block
+//     partials a warp per output (a lane's blocks in order, then a fixed
+//     shuffle tree), not a thread per output adding the 264 blocks'
+//     partials one after another.
 //
 // X's storage type (STARK_FUSED_X_DTYPE; p.xdt, csrc/fused_pass.cuh).
 // A bf16, int8 or fp8 xT is read at its width, 2 or 1 bytes an element
@@ -94,11 +157,12 @@
 // Past the staging the pass is the float32 pass, at every precision; the
 // staged rounding of x is skipped, being the identity on narrow values.
 //
-// Every sum runs in a fixed order: per thread in row and feature order;
-// the row groups of a warp by a fixed shuffle tree; the row slices of the
-// gradient and the two warps of a row-group pair one after the other in
-// index order; across blocks in finish (csrc/fused_pass.cuh), which adds
-// the per-block partials in block order.  No float atomics: repeated
+// Every sum runs in a fixed order: per thread in row and feature order
+// (in an MMA, the tensor core's own fixed order); the row groups of a
+// warp by a fixed shuffle tree; the row slices of the gradient and the
+// warps of a row-group set one after the other in index order; across
+// blocks in finish (csrc/fused_pass.cuh), which adds the per-block
+// partials in block order, or mma_finish's lanes and shuffle tree.  No float atomics: repeated
 // launches are bitwise equal.  Masking is by selects, never by
 // multiplying with a mask (0 * NaN = NaN).  No (C, N) array is ever
 // written.
@@ -147,7 +211,7 @@ struct Layout {
   int nbuf;   // x buffers
   int xrows;  // feature rows of one x buffer
   bool gsl_global;  // gradient sums in the block's slice of gpart
-  int xs, ys, gls, rs, bsh, vsl, run, rung, ishead, segs, misc, gsl, words;
+  int xs, ys, gls, rs, bsh, vsl, run, rung, ishead, segs, misc, gsl, bfr, segp, words;
 };
 
 // With two buffers, each holds D rounded up to whole gradient chunks, the
@@ -177,6 +241,7 @@ __host__ __device__ inline Layout layout_with(int C, int D, int nbuf, bool gsl_g
   L.ishead = o; o += cp;                     // open group is the block's first
   L.segs = o;   o += round4(kRows + 1);      // segment starts in the sub-tile
   L.misc = o;   o += 4;                      // [0] segment count
+  L.bfr = L.segp = -1;
   if (one_tile(C, D)) {
     L.gsl = L.xs;  // gradient sums [c][d], written after the last
                    // sub-tile, when the x buffers are free
@@ -200,6 +265,24 @@ __host__ __device__ inline Layout layout(int C, int D) {
   return layout_with(C, D, 1, true);
 }
 
+// Words of hier_mma's beta pairs in fragment order, one tile: [k-step of
+// 16 features][n-tile][lane] of 4 (hi b0, b1, lo b0, b1).
+constexpr int kBetaFragWords = 2 * (kChains / 8) * 32 * 4;
+
+// hier_mma's: highest's, with in the one-tile case beta's pairs in
+// fragment order and the segment partials [2][c][row group] after it (89
+// KB at C = 64, D = 32).
+__host__ __device__ inline Layout layout_mma(int C, int D) {
+  Layout L = layout(C, D);
+  if (one_tile(C, D)) {
+    L.bfr = L.words;
+    L.words += kBetaFragWords;
+    L.segp = L.words;
+    L.words += 2 * 2 * kChains;
+  }
+  return L;
+}
+
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -221,6 +304,7 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+
 
 // Start the copies of the sub-tile at row0 (nvalid rows) into one buffer.
 // A row of xT starts 16-byte aligned only where d * N is a multiple of 4;
@@ -262,6 +346,127 @@ __device__ __forceinline__ void stage(const Params& p, float* xs, float* ys, int
   }
 }
 
+// The block's arrays (Layout); gsl in device memory, the block's slice of
+// gpart, when the layout puts it there.
+struct Tiles {
+  float *xs, *ys, *rs, *bsh, *vsl, *run, *gsl;
+  int *gls, *rung, *ishead, *segs, *misc;
+};
+
+__device__ __forceinline__ Tiles carve(float* smem, const Layout& L, const Params& p,
+                                       bool one) {
+  Tiles s;
+  s.xs = smem + L.xs;
+  s.ys = smem + L.ys;
+  s.gls = reinterpret_cast<int*>(smem + L.gls);
+  s.rs = smem + L.rs;
+  s.bsh = smem + L.bsh;
+  s.vsl = smem + L.vsl;
+  s.run = smem + L.run;
+  s.rung = reinterpret_cast<int*>(smem + L.rung);
+  s.ishead = reinterpret_cast<int*>(smem + L.ishead);
+  s.segs = reinterpret_cast<int*>(smem + L.segs);
+  s.misc = reinterpret_cast<int*>(smem + L.misc);
+  s.gsl = !one && L.gsl_global ? p.gpart + (size_t)blockIdx.x * p.C * p.D : smem + L.gsl;
+  return s;
+}
+
+// The block's set-up while its first sub-tile is in flight: beta staged
+// [d][c] as the dots at kPrec take it, zeros in the padded feature rows of
+// both x buffers (two), the value partials and the open group sums.
+template <int kPrec>
+__device__ __forceinline__ void begin_block(const Params& p, const Tiles& s, const Layout& L,
+                                            int cp, int xbuf, int row_begin) {
+  const int t = threadIdx.x, C = p.C, D = p.D, cb = round4(C);
+  for (int i = t; i < D * cb + cp - cb; i += kThreads) {  // beta [d][c]
+    const int d = i / cb, c = i - d * cb;
+    s.bsh[i] = d < D && c < C ? stage_operand<kPrec>(p.beta[(size_t)c * D + d]) : 0.f;
+  }
+  if (L.nbuf == 2) {  // padded feature rows of both buffers
+    for (int i = t; i < (L.xrows - D) * kLd; i += kThreads) {
+      s.xs[D * kLd + i] = 0.f;
+      s.xs[xbuf + D * kLd + i] = 0.f;
+    }
+  }
+  for (int i = t; i < 2 * cp; i += kThreads) s.vsl[i] = 0.f;
+  for (int c = t; c < cp; c += kThreads) {
+    s.run[c] = 0.f;
+    s.rung[c] = group_of(p, row_begin);
+    s.ishead[c] = 1;
+  }
+}
+
+// Warp 0: the segment starts of the sub-tile (rows whose group differs
+// from the previous row's) to segs, their count to misc[0].
+__device__ __forceinline__ void find_segments(const Tiles& s, const int* glcur, int nvalid) {
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= 32) return;
+  int nseg = 0;
+  for (int r0 = 0; r0 < kRows; r0 += 32) {
+    const int r = r0 + lane;
+    const bool flag = r < nvalid && (r == 0 || glcur[r] != glcur[r - 1]);
+    const unsigned ball = __ballot_sync(0xffffffffu, flag);
+    if (flag) s.segs[nseg + __popc(ball & ((1u << lane) - 1u))] = r;
+    nseg += __popc(ball);
+  }
+  if (lane == 0) {
+    s.segs[nseg] = nvalid;
+    s.misc[0] = nseg;
+  }
+}
+
+// Chain c's sum sg of resid over a run of group gid in the sub-tile: added
+// to the open group's sum, or the open group closed (a group inside the
+// block straight to galpha, the block's first group to head) and gid
+// opened.
+__device__ __forceinline__ void add_segment(const Params& p, const Tiles& s, int c, int gid,
+                                            float sg) {
+  const int C = p.C, G = p.G;
+  if (gid == s.rung[c]) {
+    s.run[c] += sg;
+  } else {
+    if (s.ishead[c]) p.head[(size_t)blockIdx.x * C + c] = s.run[c];
+    else p.galpha[(size_t)c * G + s.rung[c]] = s.run[c];
+    // ids between two groups of the block have no rows, and
+    // finish leaves them to the block
+    for (int e = s.rung[c] + 1; e < gid; ++e) p.galpha[(size_t)c * G + e] = 0.f;
+    s.run[c] = sg;
+    s.ishead[c] = 0;
+    s.rung[c] = gid;
+  }
+}
+
+// The block's partials for finish: gradient sums (unless already in
+// gpart), chain c's value (value_of(c)), the open groups' sums as head or
+// tail, and the block's first and last groups.
+template <class ValueOf>
+__device__ __forceinline__ void end_block(const Params& p, const Tiles& s, const Layout& L,
+                                          int row_begin, int row_end, ValueOf value_of) {
+  const int t = threadIdx.x, C = p.C, D = p.D, b = blockIdx.x;
+  if (!L.gsl_global) {
+    for (int i = t; i < C * D; i += kThreads) p.gpart[(size_t)b * C * D + i] = s.gsl[i];
+  }
+  for (int c = t; c < C; c += kThreads) {
+    p.vpart[(size_t)b * C + c] = value_of(c);
+    const size_t i = (size_t)b * C + c;
+    if (s.ishead[c]) {
+      p.head[i] = s.run[c];
+      p.tail[i] = 0.f;
+    } else {
+      p.tail[i] = s.run[c];
+    }
+  }
+  if (t == 0) {
+    p.blo[b] = group_of(p, row_begin);
+    p.bhi[b] = group_of(p, row_end - 1);
+  }
+}
+
+// The pass at highest, float32 products on the CUDA cores (pick routes
+// high and default to hier_mma): its text is kept as it was written for
+// every precision, so that its instantiations at highest compile to the
+// code they had (at 128 registers a thread it has no room: a refactor of
+// it spilled).
 // kOneTile: one_tile(C, D), the flagship's case (two x buffers, one
 // chunk, the gradient tile in registers throughout), compiled apart so
 // that none of the other cases' state takes its registers.  kPrec: the
@@ -562,13 +767,557 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
   }
 }
 
+// ---- high and default: the tensor-core pass (hier_mma) --------------------
+
+// c += a b on the tensor cores: mma.sync m16n8k16, bf16 operands, float32
+// accumulators.  Fragments (PTX ISA, mma.m16n8k16 with .bf16), g = lane /
+// 4, t = lane % 4: a[0] (row g, k 2t and 2t+1), a[1] (row g + 8, the
+// same k), a[2] (row g, k 2t+8 and 2t+9), a[3] (row g + 8, those k); b0
+// (k 2t and 2t+1, column g), b1 (k 2t+8 and 2t+9, column g); c[0], c[1]
+// (row g, columns 2t, 2t+1), c[2], c[3] (row g + 8, the same columns).  A
+// register's lower k lies in its low 16 bits.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four (two) 8 x 8 matrices of 16-bit elements from shared memory, each
+// row 16 bytes at the address that lane 8 j + i gives (matrix j, row i;
+// lanes 0-15 for two); register j of lane l holds 32-bit word l % 4 of
+// row l / 4 of matrix j.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// A bf16 pair of two staged words: their a_hi halves (hi_pair) or their
+// a_lo halves (lo_pair), the first word's in the low half (the lower k).
+__device__ __forceinline__ unsigned hi_pair(unsigned a, unsigned b) {
+  return __byte_perm(a, b, 0x7632);
+}
+
+__device__ __forceinline__ unsigned lo_pair(unsigned a, unsigned b) {
+  return __byte_perm(a, b, 0x5410);
+}
+
+// x's pairs (4 A registers) and b's (2 B registers) from staged words:
+// the a_hi plane, and at high the a_lo plane (none for a narrow x, whose
+// a_lo is 0).
+struct XPairs {
+  unsigned hi[4], lo[4];
+};
+
+template <int kPrec, bool kNarrow>
+__device__ __forceinline__ XPairs x_pairs(unsigned w0, unsigned w1, unsigned w2, unsigned w3,
+                                          unsigned w4, unsigned w5, unsigned w6, unsigned w7) {
+  XPairs x;
+  x.hi[0] = hi_pair(w0, w1);
+  x.hi[1] = hi_pair(w2, w3);
+  x.hi[2] = hi_pair(w4, w5);
+  x.hi[3] = hi_pair(w6, w7);
+  if (kPrec == kHigh && !kNarrow) {
+    x.lo[0] = lo_pair(w0, w1);
+    x.lo[1] = lo_pair(w2, w3);
+    x.lo[2] = lo_pair(w4, w5);
+    x.lo[3] = lo_pair(w6, w7);
+  }
+  return x;
+}
+
+// c += x . b at kPrec: x_hi b_hi, then at high x_lo b_hi (not for a
+// narrow x) and x_hi b_lo: the reference's passes in its order (its a
+// the other operand), each product exact, summed in float32.
+template <int kPrec, bool kNarrow>
+__device__ __forceinline__ void mma_prec(float (&c)[4], const XPairs& x, unsigned bh0,
+                                         unsigned bh1, unsigned bl0, unsigned bl1) {
+  mma_bf16(c, x.hi, bh0, bh1);
+  if (kPrec == kHigh) {
+    if (!kNarrow) mma_bf16(c, x.lo, bh0, bh1);
+    mma_bf16(c, x.hi, bl0, bl1);
+  }
+}
+
+// The sub-tile row of the logits' MMA row g + 8 u of m-tile M: bits 0-1
+// from g % 4, bit 2 from u, bit 3 from M % 2, bit 4 from g / 4, the rest
+// from M / 2.  So a warp's loads of x[d][row] (d = d0 + t, t < 4, g < 8;
+// kLd = 4 mod 32) meet 32 banks, and so do its resid stores
+// (rs[chain][row], the chains t and t + 4 of an n-tile).
+__device__ __forceinline__ int mma_row(int M, int g, int u) {
+  return 32 * (M >> 1) + 8 * (M & 1) + 4 * u + (g & 3) + 16 * (g >> 2);
+}
+
+// The chains of the chunk at k as n-tiles of 8: 1, 2, 4 or 8.
+__host__ __device__ inline int chunk_ntiles(int C, int k) {
+  const int n8 = ((C - k < kChains ? C - k : kChains) + 7) / 8;
+  return n8 <= 1 ? 1 : n8 <= 2 ? 2 : n8 <= 4 ? 4 : 8;
+}
+
+// A warp's share of a chunk of nt n-tiles (a constant where the kernel is
+// compiled for one).  Logits: mt m-tiles of rows
+// (rgi's) by ng n-tiles (cgi's), mt ng = nt, nslot row groups (value
+// slots per chain).  Gradient: m-tile mm of the 32-feature chunk by ngg
+// n-tiles from gn0, over row slice `slice` of nsl.  Segment sums: lanes
+// lanes per chain.
+struct MmaShape {
+  int ng, mt, cgi, rgi, nslot;
+  int ngg, mm, gn0, slice, nsl;
+  int lanes;
+  __device__ __forceinline__ MmaShape(int nt, int warp) {
+    ng = min(nt, 2);
+    mt = nt / ng;
+    cgi = warp % (nt / ng);
+    rgi = warp / (nt / ng);
+    nslot = 8 / mt;
+    ngg = nt == 8 ? 2 : 1;
+    const int ngroups = nt / ngg;
+    mm = warp & 1;
+    gn0 = ((warp >> 1) % ngroups) * ngg;
+    slice = (warp >> 1) / ngroups;
+    nsl = 4 / ngroups;
+    lanes = 32 / nt;
+  }
+};
+
+// Segment sums of chunk k's resid (staged values) for hier_mma: thread
+// (chain cl, lane q of sh.lanes) sums every lanes-th row of each run of
+// one group in the sub-tile, in four partial sums, then the lanes by a
+// fixed shuffle tree.
+template <int kPrec>
+__device__ __forceinline__ void mma_segment_sums(const Params& p, const Tiles& s,
+                                                 const MmaShape& sh, int k, int gbase,
+                                                 const int* glcur) {
+  const int t = threadIdx.x, nl = sh.lanes;
+  const int cl = t / nl, q = t % nl, c = k + cl;
+  const float* rp = s.rs + cl * kLd;
+  const int nseg = s.misc[0];
+  for (int si = 0; si < nseg; ++si) {
+    const int r0 = s.segs[si], r1 = s.segs[si + 1];
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+    int r = r0 + q;
+    for (; r + 3 * nl < r1; r += 4 * nl) {
+      s0 += staged_value<kPrec>(rp[r]);
+      s1 += staged_value<kPrec>(rp[r + nl]);
+      s2 += staged_value<kPrec>(rp[r + 2 * nl]);
+      s3 += staged_value<kPrec>(rp[r + 3 * nl]);
+    }
+    for (; r < r1; r += nl) s0 += staged_value<kPrec>(rp[r]);
+    float sg = (s0 + s1) + (s2 + s3);
+    for (int o = nl / 2; o > 0; o >>= 1) sg += __shfl_xor_sync(0xffffffffu, sg, o);
+    if (q == 0 && c < p.C) add_segment(p, s, c, gbase + glcur[r0], sg);
+  }
+}
+
+// kNt: the n-tiles of the one chunk, compiled in (1: C <= 8, the NUTS
+// legs'; 8: 56 < C <= 64, the flagship's, at default), or 0: read from C.
+template <bool kOneTile, int kPrec, bool kNarrow, int kNt>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
+    hier_mma(Params p, int nblk) {
+  extern __shared__ __align__(16) float smem[];
+  const int C = p.C, D = p.D, N = p.N, G = p.G;
+  const Layout L = layout_mma(C, D);
+  const Tiles s = carve(smem, L, p, kOneTile);
+
+  const int cp = kOneTile ? kChains : chains_padded(C);
+  const int cb = round4(C);  // row stride of bsh
+  const int xbuf = (kOneTile ? kFeat : L.xrows) * kLd;
+  const bool two = kOneTile || L.nbuf == 2;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, tq = lane & 3;  // the fragments' row and k index
+  const int b = blockIdx.x;
+  const long long nsub = (N + kRows - 1) / kRows;
+  const int sub0 = (int)(b * nsub / nblk), sub1 = (int)((b + 1) * nsub / nblk);
+  const int row_begin = sub0 * kRows, row_end = min(N, sub1 * kRows);
+  const bool x16 = (reinterpret_cast<uintptr_t>(p.xT) & 15) == 0;
+  const int nkd = (D + 15) / 16;  // the logits' k-steps of 16 features
+
+  // the sub-tile at row0 into buffer j
+  auto stage_into = [&](int j, int row0) {
+    stage<kNarrow>(p, s.xs + j * xbuf, s.ys + j * kRows, s.gls + j * kRows, row0,
+                   min(kRows, N - row0), x16);
+  };
+  // first sub-tile in flight while the block sets up
+  stage_into(0, row_begin);
+  cp_async_commit();
+  begin_block<kPrec>(p, s, L, cp, xbuf, row_begin);
+
+  // beta's pairs of lane ln for the logits' k-step kd (16 features) and
+  // n-tile nt of chunk k: column n = ln / 4 is chain n / 2 + 4 (n % 2); k
+  // 2t and 2t+1 (t = ln % 4) are features 16 kd + t and + 4, k 2t+8 and
+  // 2t+9 features + 8 and + 12; 0 past D.  bh (and at high bl): b0, b1.
+  auto beta_pairs = [&](int k, int nt, int kd, int ln, unsigned (&bh)[2], unsigned (&bl)[2]) {
+    const int n = ln >> 2;
+    const int c = k + 8 * nt + (n >> 1) + 4 * (n & 1);
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = 16 * kd + (ln & 3) + 4 * i;
+      w[i] = d < D ? __float_as_uint(s.bsh[d * cb + c]) : 0u;
+    }
+    bh[0] = hi_pair(w[0], w[1]);
+    bh[1] = hi_pair(w[2], w[3]);
+    bl[0] = lo_pair(w[0], w[1]);
+    bl[1] = lo_pair(w[2], w[3]);
+  };
+  const MmaShape sh0(kNt ? kNt : chunk_ntiles(C, 0), warp);  // one chunk: the block's only shape
+  // one tile: beta's pairs for the block in fragment order (L.bfr), one
+  // 16-byte load per k-step and n-tile (in registers they spilled)
+  const uint4* bfr = reinterpret_cast<const uint4*>(smem + L.bfr);
+  if constexpr (kOneTile) {
+    __syncthreads();  // beta is staged
+    for (int i = t; i < kBetaFragWords / 4; i += kThreads) {
+      const int ln = i % 32, nt = (i / 32) % (kChains / 8), kd = i / (32 * (kChains / 8));
+      unsigned bh[2], bl[2];
+      beta_pairs(0, nt, kd, ln, bh, bl);
+      reinterpret_cast<uint4*>(smem + L.bfr)[i] = make_uint4(bh[0], bh[1], bl[0], bl[1]);
+    }
+  }
+
+  float vacc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // chains tq + 4 e of n-tile j
+  float* segp = kOneTile ? smem + L.segp : nullptr;  // one tile: [run][c][row group]
+  // alpha of the thread's chains at group gprev: with one chunk carried
+  // from sub-tile to sub-tile (groups are sorted, so a change of group is
+  // rare), else reloaded per chunk
+  float av[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  int gprev = -1;
+  // the first group of the sub-tile's lane tile, loaded a sub-tile ahead
+  int gbase_next = __ldg(p.first_gid + row_begin / p.lane_tile);
+  float gacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+
+  // Logits' k-step kd: the warp's mt x ng tiles of 16 rows by 8 chains
+  // take features 16 kd .. 16 kd + 15 (x's words: rows mma_row, features
+  // as beta_pairs', 0 past D).
+  auto logits_step = [&](const MmaShape& sh, const float* xcur, int kd,
+                         const unsigned (&bh)[2][2], const unsigned (&bl)[2][2],
+                         float (&acc)[4][2][4]) {
+    const int d0 = 16 * kd + tq;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < sh.mt) {
+        const int r = mma_row(sh.rgi * sh.mt + i, g, 0);
+        unsigned w[8];
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const bool ok = d0 + 4 * f < D;
+          const float* xd = xcur + (d0 + 4 * f) * kLd;
+          w[2 * f] = ok ? __float_as_uint(xd[r]) : 0u;
+          w[2 * f + 1] = ok ? __float_as_uint(xd[r + 4]) : 0u;
+        }
+        // a[0] (row g): features d0, d0 + 4; a[1] (row g + 8); a[2], a[3]:
+        // features d0 + 8, d0 + 12
+        const XPairs x = x_pairs<kPrec, kNarrow>(w[0], w[2], w[1], w[3], w[4], w[6], w[5], w[7]);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          if (j < sh.ng)
+            mma_prec<kPrec, kNarrow>(acc[i][j], x, bh[j][0], bh[j][1], bl[j][0], bl[j][1]);
+      }
+    }
+  };
+  // Value partials of chunk k to vsl: the thread's rows by a fixed shuffle
+  // tree over g, then one add per (chain, row group), [k][c][slot].
+  auto fold_values = [&](const MmaShape& sh, int k) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = vacc[j][e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        const int cl = 8 * (sh.cgi * sh.ng + j) + tq + 4 * e;
+        if (j < sh.ng && lane < 4) s.vsl[2 * k + cl * sh.nslot + sh.rgi] += v;
+        vacc[j][e] = 0.f;
+      }
+    }
+  };
+  // The gradient tiles (features f0 + 16 mm + g (+ 8), chains k + 8 (gn0 +
+  // j) + 2 tq (+ 1)) to gsl [c][d], one row slice after the other in index
+  // order; slice 0 starts the sums when `first`.  Every thread reaches the
+  // barriers.
+  auto fold_gradient = [&](const MmaShape& sh, int k, int f0, bool first) {
+    for (int q = 0; q < sh.nsl; ++q) {
+      if (sh.slice == q) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int f = f0 + 16 * sh.mm + g + 8 * (e >> 1);
+            const int c = k + 8 * (sh.gn0 + j) + 2 * tq + (e & 1);
+            if (j < sh.ngg && c < C && f < D) {
+              float* gp = s.gsl + c * D + f;
+              *gp = first && q == 0 ? gacc[j][e] : *gp + gacc[j][e];
+            }
+            gacc[j][e] = 0.f;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  };
+
+  for (int sub = sub0; sub < sub1; ++sub) {
+    const int buf = two ? (sub - sub0) & 1 : 0;
+    const int row0 = sub * kRows;
+    const int nvalid = min(kRows, N - row0);
+    cp_async_wait_all();
+    if (!kNarrow) stage_rows<kPrec, kRows, kLd, kThreads>(s.xs + buf * xbuf, D);
+    __syncthreads();  // this sub-tile has landed; the other buffer is free
+    if (two && sub + 1 < sub1) stage_into(buf ^ 1, row0 + kRows);
+    cp_async_commit();
+
+    const float* xcur = s.xs + buf * xbuf;
+    const float* ycur = s.ys + buf * kRows;
+    const int* glcur = s.gls + buf * kRows;
+    const int gbase = gbase_next;
+    if (sub + 1 < sub1) gbase_next = __ldg(p.first_gid + (row0 + kRows) / p.lane_tile);
+    find_segments(s, glcur, nvalid);
+
+    for (int k = 0; k < cp; k += kChains) {
+      const MmaShape sh = kOneTile ? sh0 : MmaShape(chunk_ntiles(C, k), warp);
+      if (!kOneTile) gprev = -1;
+      if (k > 0) __syncthreads();  // the previous chunk is done with rs
+
+      // ---- logits on the tensor cores
+      float acc[4][2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      if constexpr (kOneTile) {
+#pragma unroll
+        for (int kd = 0; kd < 2; ++kd) {
+          if (kd < nkd) {
+            unsigned bh[2][2], bl[2][2];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const uint4 w = bfr[(kd * (kChains / 8) + sh.cgi * sh.ng + j) * 32 + lane];
+              bh[j][0] = w.x;
+              bh[j][1] = w.y;
+              bl[j][0] = w.z;
+              bl[j][1] = w.w;
+            }
+            logits_step(sh, xcur, kd, bh, bl, acc);
+          }
+        }
+      } else {
+#pragma unroll 1
+        for (int kd = 0; kd < nkd; ++kd) {
+          unsigned bh[2][2], bl[2][2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) beta_pairs(k, sh.cgi * sh.ng + j, kd, lane, bh[j], bl[j]);
+          logits_step(sh, xcur, kd, bh, bl, acc);
+        }
+      }
+
+      // ---- link on the accumulators: rows mma_row(M, g, u), chains k +
+      // 8 (cgi ng + j) + tq + 4 e
+      {
+        // one tile: resid's staged values summed per chain over the
+        // thread's rows of the sub-tile's first run (group glcur[0]) and of
+        // the rest, the segment sums when it has at most two runs
+        float sr[2][2][2] = {{{0.f, 0.f}, {0.f, 0.f}}, {{0.f, 0.f}, {0.f, 0.f}}};
+        const int gl0 = glcur[0];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (i >= sh.mt) continue;
+          const int M = sh.rgi * sh.mt + i;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int r = mma_row(M, g, u);
+            const bool valid = r < nvalid;
+            const int grp = gbase + glcur[r];
+            const bool first = glcur[r] == gl0;
+            if (grp != gprev) {
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int c = k + 8 * (sh.cgi * sh.ng + j) + tq + 4 * e;
+                  av[j][e] = j < sh.ng && c < C
+                                 ? onehot_operand<kPrec>(__ldg(p.alpha + (size_t)c * G + grp))
+                                 : 0.f;
+                }
+              gprev = grp;
+            }
+            const float yv = ycur[r], ym1 = yv - 1.f;
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              if (j >= sh.ng) continue;
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int cl = 8 * (sh.cgi * sh.ng + j) + tq + 4 * e;
+                const bool ok = valid && k + cl < C;
+                const float l = acc[i][j][2 * u + e] + av[j][e];
+                const float ex = __expf(-fabsf(l));
+                const float un = 1.f + ex;
+                const float v = fmaf(ym1, l, fminf(l, 0.f)) - __logf(un);
+                const float sg = __fdividef(l >= 0.f ? 1.f : ex, un);
+                vacc[j][e] += ok ? v : 0.f;
+                const float w = stage_operand<kPrec>(ok ? yv - sg : 0.f);
+                s.rs[cl * kLd + r] = w;
+                if (kOneTile) {
+                  const float sv = staged_value<kPrec>(w);
+                  sr[0][j][e] += first ? sv : 0.f;
+                  sr[1][j][e] += first ? 0.f : sv;
+                }
+              }
+            }
+          }
+        }
+        if (cp > kChains) fold_values(sh, k);  // more chunks: values to shared memory
+        if constexpr (kOneTile) {  // the run sums over g by a fixed shuffle tree
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float v = sr[q][j][e];
+                v += __shfl_xor_sync(0xffffffffu, v, 4);
+                v += __shfl_xor_sync(0xffffffffu, v, 8);
+                v += __shfl_xor_sync(0xffffffffu, v, 16);
+                const int cl = 8 * (sh.cgi * sh.ng + j) + tq + 4 * e;
+                if (j < sh.ng && lane < 4) segp[q * 2 * kChains + cl * sh.nslot + sh.rgi] = v;
+              }
+        }
+      }
+      __syncthreads();  // resid, the run sums and the segment starts are in place
+      if (kOneTile && s.misc[0] <= 2) {  // one run or two: their sums in row-group order
+        if (t < C) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            if (q < s.misc[0]) {
+              float sum = 0.f;
+              for (int i = 0; i < sh.nslot; ++i) sum += segp[q * 2 * kChains + t * sh.nslot + i];
+              add_segment(p, s, t, gbase + glcur[s.segs[q]], sum);
+            }
+          }
+        }
+      } else {
+        mma_segment_sums<kPrec>(p, s, sh, k, gbase, glcur);
+      }
+
+      // ---- gradient on the tensor cores: features f0 + 16 mm + 0..15 by
+      // chains k + 8 (gn0 + j) + 0..7, over the warp's row slice, 16 rows
+      // a step: k 2t and 2t+1 are rows r + t and r + t + 4, k 2t+8 and 2t+9
+      // rows r + 8 + t and r + 12 + t
+      const int r0 = sh.slice * (kRows / sh.nsl), r1 = r0 + kRows / sh.nsl;
+      for (int f0 = 0; f0 < D; f0 += kFeat) {
+        // ldmatrix rows: x's matrices j = lane / 8 are features + 8 (j % 2),
+        // rows + 4 (j / 2); resid's are chains + 8 (j / 2), rows + 4 (j % 2)
+        const float* xa = xcur + (f0 + 16 * sh.mm + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd +
+                          4 * (lane >> 4);
+        const float* ra = s.rs + (8 * sh.gn0 + (lane & 7) + 8 * (lane >> 4)) * kLd +
+                          4 * ((lane >> 3) & 1);
+#pragma unroll 2
+        for (int r = r0; r < r1; r += 16) {
+          unsigned a0[4], a1[4];
+          ldsm_x4(a0, xa + r);
+          ldsm_x4(a1, xa + r + 8);
+          const XPairs x =
+              x_pairs<kPrec, kNarrow>(a0[0], a0[2], a0[1], a0[3], a1[0], a1[2], a1[1], a1[3]);
+          if (sh.ngg == 2) {
+            unsigned q0[4], q1[4];
+            ldsm_x4(q0, ra + r);
+            ldsm_x4(q1, ra + r + 8);
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              mma_prec<kPrec, kNarrow>(gacc[j], x, hi_pair(q0[2 * j], q0[2 * j + 1]),
+                                       hi_pair(q1[2 * j], q1[2 * j + 1]),
+                                       lo_pair(q0[2 * j], q0[2 * j + 1]),
+                                       lo_pair(q1[2 * j], q1[2 * j + 1]));
+          } else {
+            unsigned q0[2], q1[2];
+            ldsm_x2(q0, ra + r);
+            ldsm_x2(q1, ra + r + 8);
+            mma_prec<kPrec, kNarrow>(gacc[0], x, hi_pair(q0[0], q0[1]), hi_pair(q1[0], q1[1]),
+                                     lo_pair(q0[0], q0[1]), lo_pair(q1[0], q1[1]));
+          }
+        }
+        if (!kOneTile) fold_gradient(sh, k, f0, sub == sub0);  // more tiles than one
+      }
+    }
+    if (!two && sub + 1 < sub1) {  // one buffer: the next sub-tile once this one is done
+      __syncthreads();
+      stage_into(0, row0 + kRows);
+      cp_async_commit();
+    }
+  }
+  cp_async_wait_all();  // (an empty group; nothing left in flight)
+  __syncthreads();      // every thread is done with the x buffers
+
+  if (kOneTile) fold_gradient(sh0, 0, 0, true);  // the one tile: gsl overlays the x buffers
+  if (cp == kChains) fold_values(sh0, 0);
+  __syncthreads();
+  end_block(p, s, L, row_begin, row_end, [&](int c) {
+    const int k = c / kChains * kChains;
+    const int nslot = MmaShape(chunk_ntiles(C, k), 0).nslot;
+    const float* v = s.vsl + 2 * k + (c - k) * nslot;
+    float sum = 0.f;
+    for (int q = 0; q < nslot; ++q) sum += v[q];
+    return sum;
+  });
+}
+
+// hier_mma's second kernel: gbeta and val a warp per output (lane l adds
+// the partials of blocks l, l + 32, ... in order, then a fixed shuffle
+// tree), galpha as finish's.
+__global__ void mma_finish(Params p, int nblk, float* val, float* gbeta) {
+  const int C = p.C;
+  const long long ncd = (long long)C * p.D, nw = ncd + C;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < 32 * nw) {  // whole warps: 32 nw is a multiple of the warp
+    const long long w = i >> 5;
+    const int lane = threadIdx.x & 31;
+    const float* src = w < ncd ? p.gpart + w : p.vpart + (w - ncd);
+    const long long stride = w < ncd ? ncd : C;
+    float sum = 0.f;
+    for (int b = lane; b < nblk; b += 32) sum += src[b * stride];
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) {
+      if (w < ncd) gbeta[w] = sum;
+      else val[w - ncd] = sum;
+    }
+    return;
+  }
+  const long long j = i - 32 * nw;
+  if (j < (long long)C * p.G) finish_group(p, nblk, j);
+}
+
 using Kernel = void (*)(Params, int);
 
-template <bool kOneTile, bool kNarrow>
+// Shared memory of the pass at (C, D) and dot precision prec, in words.
+inline int layout_words(int C, int D, int prec) {
+  return (prec == kHighest ? layout(C, D) : layout_mma(C, D)).words;
+}
+
+template <bool kOneTile, bool kNarrow, int kNt>
 inline Kernel pick(int prec) {
-  return prec == kHigh      ? hier_pass<kOneTile, kHigh, kNarrow>
-         : prec == kDefault ? hier_pass<kOneTile, kDefault, kNarrow>
+  return prec == kHigh      ? hier_mma<kOneTile, kHigh, kNarrow, kNt>
+         : prec == kDefault ? hier_mma<kOneTile, kDefault, kNarrow, kNt>
                             : hier_pass<kOneTile, kHighest, kNarrow>;
+}
+
+// The pass for (C, D) at prec with X stored as xdt: the one-tile float32
+// cases of 8 chains, and of 64 at default, with their n-tiles compiled in
+// (at high the 64-chain case spilled so).
+inline Kernel pick(int C, int D, int prec, int xdt) {
+  if (xdt != kXF32) return one_tile(C, D) ? pick<true, true, 0>(prec) : pick<false, true, 0>(prec);
+  if (!one_tile(C, D)) return pick<false, false, 0>(prec);
+  const int nt = chunk_ntiles(C, 0);
+  if (nt == 8 && prec == kDefault) return hier_mma<true, kDefault, false, 8>;
+  return nt == 1 ? pick<true, false, 1>(prec) : pick<true, false, 0>(prec);
 }
 
 }  // namespace b1
@@ -604,28 +1353,29 @@ extern "C" int stark_hier_grouped(
   if (!stark::x_code_ok(xdt)) return (int)cudaErrorInvalidValue;
   stark::carve_scratch(p, scratch, nblk);
   auto s = static_cast<cudaStream_t>(stream);
-  const size_t bytes = (size_t)stark::b1::layout(C, D).words * sizeof(float);
-  const stark::b1::Kernel kern =
-      xdt != stark::kXF32
-          ? (stark::b1::one_tile(C, D) ? stark::b1::pick<true, true>(prec)
-                                       : stark::b1::pick<false, true>(prec))
-          : (stark::b1::one_tile(C, D) ? stark::b1::pick<true, false>(prec)
-                                       : stark::b1::pick<false, false>(prec));
+  const size_t bytes = (size_t)stark::b1::layout_words(C, D, prec) * sizeof(float);
+  const stark::b1::Kernel kern = stark::b1::pick(C, D, prec, xdt);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)bytes);
   if (e != cudaSuccess) return (int)e;
   kern<<<nblk, stark::b1::kThreads, bytes, s>>>(p, nblk);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long total = (long long)C * D + C + (long long)C * G;
+  const long long nw = (long long)C * D + C;  // outputs summed across blocks
+  const long long total = (prec == stark::kHighest ? nw : 32 * nw) + (long long)C * G;
   const int blocks = (int)((total + stark::b1::kThreads - 1) / stark::b1::kThreads);
-  stark::finish<true><<<blocks, stark::b1::kThreads, 0, s>>>(p, nblk, val, gbeta);
+  if (prec == stark::kHighest) {
+    stark::finish<true><<<blocks, stark::b1::kThreads, 0, s>>>(p, nblk, val, gbeta);
+  } else {
+    stark::b1::mma_finish<<<blocks, stark::b1::kThreads, 0, s>>>(p, nblk, val, gbeta);
+  }
   return (int)cudaGetLastError();
 }
 
-// Shared memory the pass needs per block at (C, D), and the most the
-// card `device` gives one block, both in bytes.
-extern "C" int stark_hier_grouped_smem(int C, int D, int device, int* need, int* limit) {
-  *need = stark::b1::layout(C, D).words * (int)sizeof(float);
+// Shared memory the pass needs per block at (C, D) and dot precision prec,
+// and the most the card `device` gives one block, both in bytes.
+extern "C" int stark_hier_grouped_smem(int C, int D, int prec, int device, int* need,
+                                       int* limit) {
+  *need = stark::b1::layout_words(C, D, prec) * (int)sizeof(float);
   return (int)cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
 }

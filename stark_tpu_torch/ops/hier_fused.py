@@ -175,15 +175,17 @@ _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
-def b1_shared_memory(c: int, d: int, device: int):
-    """(bytes of shared memory one B1 block needs at C=c, D=d, most bytes
-    the card ``device`` gives one block), from csrc/hier_grouped.cu."""
+def b1_shared_memory(c: int, d: int, prec: str, device: int):
+    """(bytes of shared memory one B1 block needs at C=c, D=d and the dot
+    precision ``prec``, most bytes the card ``device`` gives one block),
+    from csrc/hier_grouped.cu."""
     fn = _build.function(
         "hier_grouped", "stark_hier_grouped_smem",
-        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2,
+        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2,
     )
     need, limit = ctypes.c_int(), ctypes.c_int()
-    _build.check("hier_grouped", fn(c, d, device, ctypes.byref(need), ctypes.byref(limit)))
+    err = fn(c, d, PRECISIONS[prec], device, ctypes.byref(need), ctypes.byref(limit))
+    _build.check("hier_grouped", err)
     return need.value, limit.value
 
 
@@ -219,7 +221,7 @@ def hier_grouped(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
     )
     if lane_tile % B1_ROW_TILE:
         raise ValueError(f"lane_tile={lane_tile} is not a multiple of {B1_ROW_TILE}")
-    need, limit = b1_shared_memory(c, d, beta.device.index)
+    need, limit = b1_shared_memory(c, d, prec, beta.device.index)
     if need > limit:
         raise ValueError(
             f"hier_grouped: C={c} chains of D={d} features need {need} bytes of "

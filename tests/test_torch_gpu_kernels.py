@@ -8,19 +8,29 @@ Tolerances are the JAX package's for these kernels (value rtol 2e-5;
 gradients rtol 2e-4 / atol 1e-4; for the LMM kernel B4 gradients rtol
 3e-4 / atol 3e-4, tests/test_hier_fused.py): the kernel and the plain
 version sum in different orders in float32.  Repeated launches must be bitwise equal
-(the kernels reduce in a fixed order, without atomics).
+(the kernels reduce in a fixed order, without atomics).  B1 runs at each
+dot precision (STARK_FUSED_PRECISION): at high and default it is held to
+the plain version at that precision in float64 on dyadic inputs, whose
+logits are exact, with the bernoulli link's slack (chip_smoke.link_slack):
+rows whose resid lies within the link's error of a bf16 rounding boundary
+may round apart.
 """
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import b1_edge_inputs, b1_link_slack, compare_slack
+from chip_smoke import sizes_with_gaps as _sizes_with_gaps
 from stark_tpu_torch.ops import hier_fused, logistic_fused
 
 pytestmark = pytest.mark.gpu
 
 VAL_RTOL = 2e-5
 GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-4
+PRECISIONS = ["highest", "high", "default"]
 
 
 def _cuda():
@@ -63,6 +73,32 @@ def _grouped_case(n, d, groups, chains, seed=0, g=None, beta_scale=0.3, dyadic=F
     return (beta, alpha, t["xT"], t["y"], t["gl"], t["first_gid"], prep["lane_tile"])
 
 
+def _fine_case(n, d, groups, chains, seed=0, g=None, beta_scale=0.3):
+    """B1's arguments on chip_smoke.b1_edge_inputs' dyadic grids (x in
+    steps of 2^-9, so that bf16 rounds it and x_lo is not 0; beta's scale
+    as ``beta_scale``), whose logits are exact in float32; ``g`` replaces
+    the uniform draw of group ids."""
+    rs = np.random.RandomState(seed)
+    n = n if g is None else g.shape[0]
+    raw, (beta, alpha) = b1_edge_inputs(("", n, d, groups, chains, None, beta_scale), rs)
+    if g is not None:
+        raw["g"] = g
+    prep = hier_fused.prepare_grouped(raw, d)
+    dev = _cuda()
+    t = {k: torch.as_tensor(prep[k], device=dev) for k in ("xT", "y", "gl", "first_gid")}
+    return (torch.as_tensor(beta, device=dev), torch.as_tensor(alpha, device=dev), t["xT"],
+            t["y"], t["gl"], t["first_gid"], prep["lane_tile"])
+
+
+def _assert_within_slack(got, args, prec):
+    """The kernel at ``prec`` against the plain version at ``prec`` in
+    float64: highest's tolerances plus the link's slack."""
+    want = _in_float64(functools.partial(hier_fused.hier_grouped_plain, prec=prec), args)
+    _, excess = compare_slack("", got, want, b1_link_slack(args, prec), GRAD_RTOL, GRAD_ATOL,
+                              quiet=True)
+    assert excess <= 0, f"error exceeds its bound by {excess:.4g}"
+
+
 def _in_float64(plain, args):
     """``plain`` evaluated in float64 on the same inputs (index arrays and
     ints as they are), rounded to float32: the edge cases' yardstick.  The
@@ -84,32 +120,40 @@ def _assert_parity(got, want):
         torch.testing.assert_close(g, w, rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
+def _launch_b1_twice(args, prec):
+    """Two launches of B1 at ``prec``, both counted at that precision."""
+    hg = hier_fused.hier_grouped
+    before = (hg.launches, hg.precision_launches[prec])
+    got, again = hg(*args), hg(*args)
+    torch.cuda.synchronize()
+    assert (hg.launches, hg.precision_launches[prec]) == (before[0] + 2, before[1] + 2)
+    return got, again
+
+
+@pytest.mark.parametrize("prec", PRECISIONS)
 @pytest.mark.parametrize(
     "n,d,groups,chains",
     [(3000, 5, 20, 1), (3000, 5, 20, 5), (100_037, 32, 1000, 64),
      (40_000, 8, 4000, 33), (129, 3, 2, 7)],
 )
-def test_b1_matches_plain_and_repeats_bitwise(n, d, groups, chains):
-    beta, alpha, t, lane_tile = _grouped(n, d, groups, chains)
-    args = (beta, alpha, t["xT"], t["y"], t["gl"], t["first_gid"], lane_tile)
-    before = hier_fused.hier_grouped.launches
-    got = hier_fused.hier_grouped(*args)
-    again = hier_fused.hier_grouped(*args)
-    torch.cuda.synchronize()
-    assert hier_fused.hier_grouped.launches == before + 2
-    _assert_parity(got, hier_fused.hier_grouped_plain(*args))
+def test_b1_matches_plain_and_repeats_bitwise(n, d, groups, chains, prec, monkeypatch):
+    """Highest on normal inputs against the float32 plain version; high
+    and default on dyadic ones (`_fine_case`) within the link's slack:
+    on normal inputs a resid within the float32 logits' error of a bf16
+    rounding boundary rounds apart, which no slack can know."""
+    monkeypatch.setenv("STARK_FUSED_PRECISION", prec)
+    if prec == "highest":
+        beta, alpha, t, lane_tile = _grouped(n, d, groups, chains)
+        args = (beta, alpha, t["xT"], t["y"], t["gl"], t["first_gid"], lane_tile)
+    else:
+        args = _fine_case(n, d, groups, chains)
+    got, again = _launch_b1_twice(args, prec)
+    if prec == "highest":
+        _assert_parity(got, hier_fused.hier_grouped_plain(*args))
+    else:
+        _assert_within_slack(got, args, prec)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
-
-
-def _sizes_with_gaps(groups, seed):
-    """Sorted group ids in which every 7th id has no rows, every 5th has
-    one row, and the rest 40-400 rows each."""
-    rs = np.random.RandomState(seed)
-    sizes = rs.randint(40, 400, size=groups)
-    sizes[::5] = 1
-    sizes[3::7] = 0
-    return np.repeat(np.arange(groups, dtype=np.int32), sizes)
 
 
 _B1_EDGE_CASES = {
@@ -140,36 +184,44 @@ _B1_EDGE_CASES = {
 }
 
 
+@pytest.mark.parametrize("prec", PRECISIONS)
 @pytest.mark.parametrize("case", list(_B1_EDGE_CASES))
-def test_b1_edge_cases_match_plain_and_repeat_bitwise(case):
+def test_b1_edge_cases_match_plain_and_repeat_bitwise(case, prec, monkeypatch):
+    """Highest on normal inputs against the float32 plain version; high
+    and default on `_fine_case`'s dyadic inputs within the link's slack
+    (`test_b1_matches_plain_and_repeats_bitwise`)."""
+    monkeypatch.setenv("STARK_FUSED_PRECISION", prec)
     kw = _B1_EDGE_CASES[case]
-    args = _grouped_case(**kw)
+    args = _grouped_case(**kw) if prec == "highest" else _fine_case(**kw)
     if "beta_scale" in kw:
         logits = args[0] @ args[2]
         assert float(logits.max()) > 30 and float(logits.min()) < -30
-    before = hier_fused.hier_grouped.launches
-    got = hier_fused.hier_grouped(*args)
-    again = hier_fused.hier_grouped(*args)
-    torch.cuda.synchronize()
-    assert hier_fused.hier_grouped.launches == before + 2
-    _assert_parity(got, hier_fused.hier_grouped_plain(*args))
+    got, again = _launch_b1_twice(args, prec)
+    if prec == "highest":
+        _assert_parity(got, hier_fused.hier_grouped_plain(*args))
+    else:
+        _assert_within_slack(got, args, prec)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("prec", PRECISIONS)
 @pytest.mark.parametrize("case", list(_B1_EDGE_CASES))
-def test_b1_edge_cases_match_float64_on_dyadic_inputs(case):
+def test_b1_edge_cases_match_float64_on_dyadic_inputs(case, prec, monkeypatch):
     """The same cases on dyadic inputs, whose logits are exact in float32,
-    held against the plain version in float64."""
+    held against the plain version at the same precision in float64 (at
+    high and default with the link's slack)."""
+    monkeypatch.setenv("STARK_FUSED_PRECISION", prec)
     kw = _B1_EDGE_CASES[case]
     args = _grouped_case(**kw, dyadic=True)
     if "beta_scale" in kw:
         logits = args[0] @ args[2]
         assert float(logits.max()) > 30 and float(logits.min()) < -30
-    got = hier_fused.hier_grouped(*args)
-    again = hier_fused.hier_grouped(*args)
-    torch.cuda.synchronize()
-    _assert_parity(got, _in_float64(hier_fused.hier_grouped_plain, args))
+    got, again = _launch_b1_twice(args, prec)
+    if prec == "highest":
+        _assert_parity(got, _in_float64(hier_fused.hier_grouped_plain, args))
+    else:
+        _assert_within_slack(got, args, prec)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
 
