@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Time kernel B2 at the shapes of its narrow chunks (csrc/logistic_batched.cu:
+b2_chunk) from several trees of stark_tpu_torch, in turns on one card, and
+make the variant trees that say what binds it.
+
+    python3 b2_chunk_probe.py --variants       # build/b2_variants/<name>/stark_tpu_torch
+    python3 b2_chunk_probe.py TREE [TREE ...]  # each tree's B2 from its own build
+
+A TREE is a directory holding stark_tpu_torch/ (``.`` for this checkout).
+Each is timed in a process of its own (CUDA events, 100 warm launches
+queued behind a sleep, chip_smoke.timed) at chip_smoke.B2_NARROW_KEYS,
+the calls --compare-with makes there: config 2's shard axis at each dot
+precision, C=8 with offsets on the flagship's X (the NUTS legs), the
+zoo's gaussian C=8, D=32 and config 3's gaussian C=16, D=8; and the
+last and the first of these on each narrow X dtype (chip_smoke.X_NARROW).
+The variants (VARIANTS) are b2_chunk with one part taken out (the
+gradient's products, the logits' products, both with the link, the whole
+pass, b2_finish) or with four blocks an SM (528 blocks a launch), each
+an edit of this checkout's source.  On a machine with one card:
+
+    python3 b2_chunk_probe.py --variants &&
+        python3 b2_chunk_probe.py . build/b2_variants/nograd ... .
+"""
+
+import json
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+OUT = REPO / "build" / "b2_variants"
+
+_GRADIENT = """#pragma unroll
+    for (int q = 0; q < K::kQuads; ++q) {"""
+_LOGITS = """      for (int d = 0; d < D; ++d) {
+        const float4 xv = *reinterpret_cast<const float4*>(xp + d * kLd);"""
+_LINK = """          vacc[i] += ok ? v : 0.f;
+          rr[j] = ok ? res : 0.f;"""
+_PASS = """  p = shard_view(p, blockIdx.y, nblk);
+  const int C = p.C, D = p.D, N = p.N;"""
+_LAUNCH = """    if (e != 0) return e;
+  } else {"""
+_NO_GRADIENT = (_GRADIENT, _GRADIENT.replace("q < K::kQuads", "q < 0"))
+_NO_LOGITS = (_LOGITS, _LOGITS.replace("d < D", "d < 0"))
+
+#: name -> (edits of csrc/logistic_batched.cu, edits of ops/logistic_fused.py)
+VARIANTS = {
+    "nograd": ([_NO_GRADIENT], []),
+    "nologits": ([_NO_LOGITS], []),
+    "staging": ([_NO_GRADIENT, _NO_LOGITS, (_LINK, "          rr[j] = 0.f;")], []),
+    "empty": ([(_PASS, _PASS + "\n  if (N > 0) return;")], []),
+    "nofinish": ([(_LAUNCH, _LAUNCH.replace("e;", "e;\n    return 0;"))], []),
+    "blocks4": ([
+        ("constexpr int kBlocks = 132 * kBlocksPerSm;", "constexpr int kBlocks = 132 * 4;"),
+        ("__launch_bounds__(kThreads, kBlocksPerSm) b2_chunk(",
+         "__launch_bounds__(kThreads, 4) b2_chunk("),
+    ], [("B2_BLOCKS = 396", "B2_BLOCKS = 528")]),
+}
+
+
+def _edit(text, edits, name):
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"variant {name}: {old[:60]!r} is not once in the source")
+        text = text.replace(old, new)
+    return text
+
+
+def variant_sources(name):
+    """(kernel source, wrapper source) of variant ``name``."""
+    cu_edits, py_edits = VARIANTS[name]
+    pkg = REPO / "stark_tpu_torch"
+    return (_edit((pkg / "csrc" / "logistic_batched.cu").read_text(), cu_edits, name),
+            _edit((pkg / "ops" / "logistic_fused.py").read_text(), py_edits, name))
+
+
+def make_variants():
+    for name in VARIANTS:
+        cu, py = variant_sources(name)
+        dst = OUT / name / "stark_tpu_torch"
+        shutil.rmtree(dst.parent, ignore_errors=True)
+        shutil.copytree(REPO / "stark_tpu_torch", dst,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        (dst / "csrc" / "logistic_batched.cu").write_text(cu)
+        (dst / "ops" / "logistic_fused.py").write_text(py)
+        print(dst)
+
+
+def time_tree(tree: str) -> dict:
+    sys.path.insert(0, tree)
+    sys.path.insert(1, str(REPO))
+    import torch
+
+    import chip_smoke as c
+    import stark_tpu_torch
+    from stark_tpu_torch import _build
+    from stark_tpu_torch.ops import logistic_fused as lf
+
+    assert stark_tpu_torch.__file__.startswith(tree), stark_tpu_torch.__file__
+    t = time.perf_counter()
+    logs = _build.build(["logistic_batched"])
+    out = {"tree": tree, "build_s": time.perf_counter() - t,
+           "spilled": [k for k in c.spills(logs["logistic_batched"]) if k[1] or k[2]]}
+    run = c.Run(False)
+    (full, _, _), (lfull, _, _) = c.make_data(run)
+    gen = torch.Generator(device=run.dev).manual_seed(3)
+    calls = c.b2_narrow_calls(run, full, lfull, gen)
+    # config 3's gaussian shape and the shard axis on each narrow X
+    shards = c.b2_shard_inputs(c.CONS_SHARDS, run.cons_n // c.CONS_SHARDS, c.CONS_D,
+                               c.CONS_CHAINS, gen, run.dev)[:3]
+    for xdt in c.X_NARROW:
+        largs = c.x_narrow_args("B2", c._lmm_offset_inputs(run, lfull, c.LMM_CHAINS, gen),
+                                xdt)[0]
+        sargs = c.x_narrow_args("B2", (*shards, None), xdt)[0][:3]
+        calls[f"B2 gaussian (LMM) X {xdt}"] = (
+            lambda largs=largs: lf.logistic_batched(*largs, link="gaussian"))
+        calls[f"B2 shards X {xdt}"] = lambda sargs=sargs: lf.logistic_batched(*sargs)
+    for key, call in calls.items():
+        out[key] = c.timed(run, call, 100)
+    return out
+
+
+def main(argv):
+    if argv == ["--variants"]:
+        make_variants()
+        return 0
+    if argv[:1] == ["--one"]:
+        print(json.dumps(time_tree(str(Path(argv[1]).resolve()))), flush=True)
+        return 0
+    smi = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
+    print(subprocess.run(smi, capture_output=True, text=True).stdout.strip())
+    rows = []
+    for tree in argv:
+        p = subprocess.run([sys.executable, __file__, "--one", tree], capture_output=True,
+                           text=True)
+        if p.returncode:
+            print(p.stdout[-2000:], p.stderr[-4000:])
+            return 1
+        rows.append(json.loads(p.stdout.strip().splitlines()[-1]))
+        print(json.dumps(rows[-1]), flush=True)
+    print("ms a launch, each tree in turn:")
+    for key in rows[0]:
+        if key.startswith("B2"):
+            print(f"  {key:22s}" + "".join(f"{r[key]:9.4f}" for r in rows))
+    print("  trees: " + ", ".join(Path(r["tree"]).name or r["tree"] for r in rows))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

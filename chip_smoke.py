@@ -371,32 +371,43 @@ ZOO_SGHMC_BATCH, ZOO_SGHMC_CHAINS = 1024, 4
 # width the reference runs it at (tests/test_model_zoo.py:99-116)
 IRT_P, IRT_I, ORD_K, SV_T = 2000, 200, 5, 512
 
-# B2's shard-axis edge cases (S, N, D, C): one, two, three and eight
-# shards; shards below one 128-row sub-tile (N = 50, 127) and of N = 1,
-# 2, 3 (mod 4) rows, so a shard's rows start off 16-byte alignment;
+# B2's shard-axis edge cases (S, N, D, C): one, two, three, four and
+# eight shards; shards below one 128-row sub-tile (N = 50, 127) and of N
+# = 1, 2, 3 (mod 4) rows, so a shard's rows start off 16-byte alignment;
 # shards of more sub-tiles than their share of the 396 blocks (N =
 # 40,003 at S = 2 and 3); chain and feature counts off the 32-chain and
-# 32-feature chunks; config 2's own width with a ragged shard
+# 32-feature chunks and at the edges of the narrow ones (C, D = 1, 7-9,
+# 15-17); shards whose blocks take 8 to 20 sub-tiles at the narrow chunks
+# (N = 100,002 at S = 4, 200,003 at S = 2, 125,003 at S = 8); config 2's
+# own width with a ragged shard
 B2_SHARD_EDGE_CASES = (
     (1, 3001, 7, 9), (2, 3001, 33, 33), (3, 50, 5, 9), (3, 127, 16, 8),
     (2, 40_003, 32, 20), (3, 40_002, 3, 40), (8, 1001, 16, 8), (8, 5, 16, 8),
+    (3, 1001, 1, 1), (2, 3001, 17, 16), (2, 3001, 8, 17), (3, 40_001, 9, 8),
+    (8, 20_001, 15, 9), (4, 100_002, 32, 7), (2, 200_003, 8, 16),
     (8, 125_003, 16, 8),
 )
 
 # B2's edge cases (N, D, C): chain and feature counts off the 32-chain and
-# 32-feature chunks; N below one 128-row sub-tile and N = 1, 2, 3 (mod 4),
-# so rows of xT, offsets and resid start off 16-byte alignment; more
-# sub-tiles than B2's 396 blocks, so that blocks take two and stage the
-# next while they compute (several chunks of chains, features past one
-# chunk, each shared-memory tier); the widest D of each tier
+# 32-feature chunks and at the edges of b2_chunk's 8- and 16-chain and 8-,
+# 16- and 32-feature chunks (C, D = 1, 7-9, 15-17); N below one 128-row
+# sub-tile and N = 1, 2, 3 (mod 4), so rows of xT, offsets and resid
+# start off 16-byte alignment; more sub-tiles than B2's 396 blocks, so
+# that blocks take two and stage the next while they compute (several
+# chunks of chains, features past one chunk, each shared-memory tier);
+# b2_chunk with a block of one sub-tile (N = 40,003) and with blocks of 6
+# to 20 sub-tiles (N = 300,002, 500,001 and 1,000,003); the widest D of
+# each tier
 # (csrc/logistic_batched.cu:layout) at C=32 (one tile, two buffers, one
 # buffer, gradient sums in device memory) and C=64.  One width further
 # is refused.
 B2_EDGE_CASES = (
-    *[(3001, d, c) for c in (1, 7, 33, 100) for d in (1, 3, 33)],
-    (50, 5, 9), (40_001, 32, 32), (40_002, 7, 32), (40_003, 32, 20),
+    *[(3001, d, c) for c in (1, 7, 8, 9, 15, 16, 17, 33, 100)
+      for d in (1, 3, 7, 8, 9, 15, 16, 17, 33)],
+    (50, 5, 9), (40_001, 32, 32), (40_002, 7, 32), (40_003, 32, 20), (40_003, 16, 8),
     (60_001, 33, 33), (60_002, 3, 100), (60_003, 51, 32), (60_001, 100, 32),
-    (60_002, 300, 32),
+    (60_002, 300, 32), (60_001, 9, 15), (300_002, 32, 8), (500_001, 8, 16),
+    (1_000_003, 5, 3),
     *[(1001, d, 32) for d in (32, 51, 273, 327)],
     *[(1001, d, 64) for d in (32, 206, 273)],
 )
@@ -796,6 +807,16 @@ def _batched_inputs(run: Run, raw, chains, gen, with_offsets):
         alpha = torch.randn(chains, G, generator=gen, device=run.dev)
         off = alpha[:, torch.as_tensor(raw["g"], device=run.dev).long()].contiguous()
     return beta, xT, y, off
+
+
+def zoo_glm_inputs(run: Run, gen):
+    """B2-gaussian's arguments as zoo_glm's FusedLinearRegression makes
+    them (ZOO_CHAINS chains, D=ZOO_D, N=run.zoo_n, no offsets), normal
+    rows."""
+    xT = torch.randn(ZOO_D, run.zoo_n, generator=gen, device=run.dev)
+    y = torch.randn(run.zoo_n, generator=gen, device=run.dev)
+    beta = 0.3 * torch.randn(ZOO_CHAINS, ZOO_D, generator=gen, device=run.dev)
+    return beta, xT, y
 
 
 def _single_inputs(run: Run, raw, gen, with_offsets):
@@ -3862,19 +3883,32 @@ def phase_profile(run: Run, model, raw, label):
 
 
 #: kernels both trees time in --compare-with, and the calls each makes:
-#: B1 at each dot precision, at the flagship's C=64 and the NUTS legs' C=8
+#: B1 at each dot precision, at the flagship's C=64 and the NUTS legs' C=8;
+#: B2 at C=32 (both links, with and without offsets) and at the chain and
+#: feature counts of its narrow chunks (B2_NARROW_KEYS)
 SHARED_KERNELS = ("B1", "B1 high", "B1 high C=8", "B1 default", "B1 default C=8",
                   "B2 offsets=False", "B2 offsets=True", "B2 gaussian offsets=False",
-                  "B2 gaussian offsets=True", "B2 gaussian (LMM)", "B3 offsets=False",
-                  "B3 offsets=True", "B4")
+                  "B2 gaussian offsets=True", "B2 gaussian (LMM)", "B2 offsets=True C=8",
+                  "B2 gaussian C=8 (zoo)", "B2 shards", "B2 shards high", "B2 shards default",
+                  "B3 offsets=False", "B3 offsets=True", "B4")
+#: B2 at C <= 16, D <= 32 (b2_chunk): config 3's offset path (C=16, D=8),
+#: the NUTS legs (C=8 with offsets, the flagship's X), zoo_glm's
+#: FusedLinearRegression (gaussian, C=8, D=32, N=200,000, no offsets) and
+#: config 2's shard axis (S=8, C=8, D=16, n=125,000, bernoulli, no
+#: offsets, as the consensus path calls it) at each dot precision
+B2_NARROW_KEYS = ("B2 gaussian (LMM)", "B2 offsets=True C=8", "B2 gaussian C=8 (zoo)",
+                  "B2 shards", "B2 shards high", "B2 shards default")
 
 
 def expected_against_parent(key: str) -> str:
     """Whether a kernel of SHARED_KERNELS is expected bitwise equal to the
     parent commit's: B1 at high and default sums in another order since
-    its tensor-core pass, every other kernel as its parent does."""
+    its tensor-core pass, B2 at C <= 16 since its narrow chunks
+    (b2_chunk), every other kernel as its parent does."""
     if key.startswith(("B1 high", "B1 default")):
         return "no, the tensor-core pass sums in another order"
+    if key in B2_NARROW_KEYS:
+        return "no, the narrow-chunk pass (C <= 16, D <= 32) sums in another order"
     return "yes"
 
 
@@ -3882,6 +3916,28 @@ def at_precision(prec, fn, *args):
     """``fn(*args)`` with STARK_FUSED_PRECISION set to ``prec``."""
     with env(PREC_KNOB, prec):
         return fn(*args)
+
+
+def b2_narrow_calls(run: Run, full, lfull, gen) -> dict:
+    """The calls of B2_NARROW_KEYS on the flagship's and config 3's data
+    (`make_data`) and normal draws from ``gen``."""
+    from stark_tpu_torch.ops import logistic_fused as lf
+
+    gargs = _lmm_offset_inputs(run, lfull, LMM_CHAINS, gen)
+    c8args = _batched_inputs(run, full, NUTS_CHAINS, gen, True)
+    zargs = zoo_glm_inputs(run, gen)
+    sargs = b2_shard_inputs(CONS_SHARDS, run.cons_n // CONS_SHARDS, CONS_D, CONS_CHAINS, gen,
+                            run.dev)[:3]
+    calls = {
+        "B2 gaussian (LMM)": lambda: lf.logistic_batched(*gargs, link="gaussian"),
+        "B2 offsets=True C=8": lambda: lf.logistic_batched(*c8args),
+        "B2 gaussian C=8 (zoo)": lambda: lf.logistic_batched(*zargs, link="gaussian"),
+        "B2 shards": lambda: lf.logistic_batched(*sargs),
+    }
+    for prec in PRECISION_MODES:
+        calls[f"B2 shards {prec}"] = (
+            lambda prec=prec: at_precision(prec, lf.logistic_batched, *sargs))
+    return calls
 
 
 def shared_kernel_times(tree: str) -> dict:
@@ -3914,8 +3970,7 @@ def shared_kernel_times(tree: str) -> dict:
             lambda bargs=bargs: lf.logistic_batched(*bargs, link="gaussian"))
         sargs = _single_inputs(run, full, gen, with_off)
         calls[f"B3 offsets={with_off}"] = lambda sargs=sargs: lf.logistic_single(*sargs)
-    gargs = _lmm_offset_inputs(run, lfull, LMM_CHAINS, gen)
-    calls["B2 gaussian (LMM)"] = lambda: lf.logistic_batched(*gargs, link="gaussian")
+    calls.update(b2_narrow_calls(run, full, lfull, gen))
     b4_args, _ = _lmm_inputs(run, lfull, LMM_CHAINS, gen)
     calls["B4"] = lambda: hf.lmm_grouped(*b4_args)
     b1_c8, _ = _grouped_inputs(run, full, NUTS_CHAINS, gen)
@@ -3925,7 +3980,7 @@ def shared_kernel_times(tree: str) -> dict:
             lambda prec=prec: at_precision(prec, hf.hier_grouped, *b1_c8))
     out = {"tree": tree, "digests": {}}
     for key in SHARED_KERNELS:
-        out[key] = timed(run, calls[key], 50 if key in ("B4", "B2 gaussian (LMM)") else 20)
+        out[key] = timed(run, calls[key], 50 if key == "B4" or key in B2_NARROW_KEYS else 20)
         out["digests"][key] = hashlib.sha1(
             b"".join(t.cpu().numpy().tobytes() for t in calls[key]())
         ).hexdigest()
@@ -3996,7 +4051,8 @@ def compare_with(other: str) -> int:
         rows.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         log(json.dumps(rows[-1]))
     log("== shared kernels, ms (CUDA events, 20 warm launches queued behind a sleep; "
-        "50 at config 3): other, this, this, other; outputs bitwise equal across the trees")
+        "50 for B4 and B2's narrow chunks): other, this, this, other; outputs bitwise equal "
+        "across the trees")
     for key in SHARED_KERNELS:
         same = len({r["digests"][key] for r in rows}) == 1
         log(f"  {key}: " + ", ".join(f"{r[key]:.4f}" for r in rows)

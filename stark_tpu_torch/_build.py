@@ -7,7 +7,13 @@ compiled at first use with::
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/stark_tpu_torch/lib<name>-<hash>.so
 
-and loaded with ``ctypes``.  Each ``native/<name>.cpp`` (host code, such
+and loaded with ``ctypes``.  A source listed in ``PARTS`` is compiled in
+parts instead, one ``nvcc -c -DSTARK_PART=<k>`` each, all started with
+the other libraries' builds, and the objects are linked into the one
+library (``nvcc -shared``): the source keeps each part's kernels under
+``#if`` on ``STARK_PART``, so its kernels compile side by side rather
+than in turn (a source compiled whole, without ``STARK_PART``, holds
+every part).  Each ``native/<name>.cpp`` (host code, such
 as the draw store) is built the same way with ``g++`` alone, so it needs
 no CUDA toolkit and builds on a host without a card.  The file name
 carries a hash of the sources and flags, so an edited source is rebuilt
@@ -41,6 +47,13 @@ _FLAGS = (
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: sources compiled in parts: name -> number of parts (csrc/<name>.cu's
+#: STARK_PART values 0 .. n - 1)
+PARTS = {"logistic_batched": 5}
+
+# the flags of one part's object (PARTS): _FLAGS without -shared
+_OBJ_FLAGS = tuple(f for f in _FLAGS if f != "-shared")
+
 #: every host library of the package, one per source file in native/
 HOST_SOURCES = ("drawstore",)
 
@@ -66,6 +79,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha1(" ".join(_FLAGS).encode())
+    h.update(str(PARTS.get(name, 0)).encode())
     for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -82,7 +96,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         if n not in SOURCES:
             raise ValueError(f"unknown kernel library {n!r}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
+    procs = []  # (name, [(command's label, process)], output, temporary, objects)
     logs: Dict[str, str] = {}
     for n in names:
         out = _target(n)
@@ -90,18 +104,38 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
             logs[n] = "(already built)"
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd: List[str] = [_nvcc(), *_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs.append((n, out, tmp, subprocess.Popen(
+        src = str(CSRC / f"{n}.cu")
+        if n in PARTS:
+            objs = [out.with_suffix(f".{os.getpid()}.part{k}.o") for k in range(PARTS[n])]
+            cmds = [(f"part {k}", [_nvcc(), *_OBJ_FLAGS, f"-DSTARK_PART={k}", "-c", "-o",
+                                   str(o), src]) for k, o in enumerate(objs)]
+        else:
+            objs = []
+            cmds = [("", [_nvcc(), *_FLAGS, "-o", str(tmp), src])]
+        procs.append((n, [(label, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )))
+        )) for label, cmd in cmds], out, tmp, objs))
     failed = []
-    for n, out, tmp, p in procs:
-        text, _ = p.communicate()
-        logs[n] = text
-        if p.returncode != 0:
-            failed.append(f"nvcc failed for csrc/{n}.cu (exit {p.returncode}):\n{text}")
-            continue
-        os.replace(tmp, out)
+    for n, parts, out, tmp, objs in procs:
+        texts, ok = [], True
+        for label, p in parts:
+            text, _ = p.communicate()
+            texts.append(f"--- {label}\n{text}" if label else text)
+            if p.returncode != 0:
+                ok = False
+                failed.append(f"nvcc failed for csrc/{n}.cu {label} (exit {p.returncode}):\n{text}")
+        if ok and objs:
+            link = subprocess.run([_nvcc(), *_FLAGS[:2], "-shared", "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True, text=True)
+            texts.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                ok = False
+                failed.append(f"linking csrc/{n}.cu's parts failed:\n{link.stdout}{link.stderr}")
+        for o in objs:
+            o.unlink(missing_ok=True)
+        logs[n] = "\n".join(texts)
+        if ok:
+            os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs

@@ -318,6 +318,10 @@ inline void carve_scratch(Params& p, float* scratch, int nblk) {
 
 }  // namespace stark
 
+// (once a library: in part 0 of a source compiled in parts,
+// stark_tpu_torch/_build.py:PARTS)
+#if !defined(STARK_PART) || STARK_PART == 0
 extern "C" const char* stark_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif

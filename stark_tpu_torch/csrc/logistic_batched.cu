@@ -18,47 +18,70 @@
 // resid is written only with offsets: the offset path's own output, which
 // the model chains through the gather that made the offsets.
 //
+// Two passes, picked by the launcher from C and D:
+//   b2_chunk  C <= 16 and D <= 32: one chunk of kCh = 8 or 16 chains (the
+//             smallest that holds C) and kF = 8, 16 or 32 features (the
+//             smallest that holds D), each pair compiled apart.  The main
+//             paths' narrow shapes run it: config 2's shard axis (S=8, C=8,
+//             D=16), the NUTS legs (C=8, D=32, offsets), config 3's offset
+//             path (gaussian, C=16, D=8) and zoo_glm's linear regression
+//             (gaussian, C=8, D=32).
+//   b2_pass   every other (C, D): chunks of kChains = 32 chains and kFeat =
+//             32 features, taken in turn past them; the offset-path
+//             flagship (C=32, D=32) and everything past 16 chains or 32
+//             features.
+// Both split the rows alike and end in b2_finish.
+//
+// Bounds on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32, 4.18e12
+// special-function instructions a second at 1,980 MHz):
+//   offset-path flagship (C=32, D=32, N=1M, offsets): xT (128 MB), y (4
+//     MB) and offsets (128 MB) read, resid (128 MB) written: 388 MB, 116
+//     us, against 2 C D N FMAs = 4.1 GFLOP, 61 us: bound by bytes; without
+//     offsets (132 MB, 39 us) by the FMAs.
+//   config 2's shard axis (S=8 shards of n=125,000 rows, C=8, D=16, no
+//     offsets): xT (64 MB) and y (4 MB), 68 MB: 20.3 us, against C D N =
+//     128M FMAs twice (256M, 7.6 us) and 3 C N = 24M special-function
+//     instructions (5.7 us): bound by bytes.
+//   the NUTS legs (C=8, D=32, N=1M, offsets): 196 MB, 58.5 us; config 3's
+//     offset path (C=16, D=8, N=100k, gaussian): 16.4 MB, 4.9 us.
+// Both passes keep the CUDA cores fed from registers and the next
+// sub-tile's bytes in flight while one is computed; b2_chunk leaves no
+// lane on a chain or feature past its chunk, where b2_pass at C=8, D=16
+// spends 3/4 of its logits, 3/4 of its link and 7/8 of its gradient on
+// padding.
+//
 // Shard axis.  With S shards every array gains a leading S axis (beta
 // (S, C, D), xT (S, D, N), y (S, N), offsets and resid (S, C, N), val (S,
 // C), gbeta (S, C, D)), and one launch serves them all: the grid is (row
 // blocks, S), blockIdx.y picks the shard, and each shard's partials sit in
 // a region of the scratch buffer of their own, summed by b2_finish within
 // the shard only.  The row split of a shard is b2_blocks' at most kBlocks
-// / S blocks, so the launch stays about one wave.  The shard offsets are
-// compiled into instantiations of their own (kShards), launched for S >
-// 1; S = 1 runs the unsharded pass: the same code, blocks and sums, so
-// the same bits and time.
-//
-// Bound on an H100 SXM at the offset-path flagship shape (C=32, D=32,
-// N=1M, with offsets): it must read xT (128 MB), y (4 MB) and offsets
-// (128 MB) and write resid (128 MB): 388 MB, 116 us at 3.35 TB/s, against
-// 2*C*D*N FMAs = 4.1 GFLOP, 61 us at 67 TFLOP/s.  So with offsets it is
-// bound by bytes, and without them (132 MB, 39 us) by the FMAs.  At the
-// LMM offset path (C=16, D=8, N=100k, gaussian) it moves 16.4 MB: 4.9 us.
-// The design keeps the CUDA cores fed from registers and keeps the next
-// sub-tile's bytes in flight while the current one is computed.
+// / S blocks, so the launch stays about one wave.  b2_pass compiles the
+// shard offsets into instantiations of its own (kShards), launched for S
+// > 1; b2_chunk takes its shard from blockIdx.y in every launch (0
+// without a shard axis).  Either way S = 1 runs the unsharded pass: the
+// same code, blocks and sums, so the same bits and time.
 //
 // Work split.  Block b owns the sub-tiles [b*S/B, (b+1)*S/B) of kRows
 // rows (S sub-tiles in all, B = min(kBlocks, S) blocks of 128 threads,
 // three resident per SM while a block takes at most 75 KB of shared
-// memory and 168 registers a thread, as at C <= 32, D <= 32): one wave,
-// and every block within one sub-tile of the others
-// (stark_tpu_torch/ops/logistic_fused.py:b2_blocks computes the same
-// split; the launcher refuses any other block count).  Sub-tiles of x, y
-// and the first chunk's offsets are copied to shared memory with
-// cp.async.  While two blocks of two buffers fit on an SM (D <= 32 at
-// C <= 32: 73 KB a block) the next sub-tile is copied while the current
+// memory and 168 registers a thread: b2_pass at C <= 32, D <= 32 and
+// b2_chunk always): one wave, and every block within one sub-tile of the
+// others (stark_tpu_torch/ops/logistic_fused.py:b2_blocks computes the
+// same split; the launcher refuses any other block count).  Sub-tiles of
+// x, y and offsets are copied to shared memory with cp.async.  A row of
+// xT or offsets that starts off 16-byte alignment (row c starts at c * N)
+// is copied 4 bytes at a time; rows past N are staged as zeros.  X is
+// read from device memory once per evaluation and serves every chain.
+//
+// b2_pass.  While two blocks of two buffers fit on an SM (D <= 32 at C
+// <= 32: 73 KB a block) the next sub-tile is copied while the current
 // one is computed, one barrier per sub-tile; past that one buffer is
 // staged after the sub-tile is done, and past that again the gradient
 // sums live in device memory, so widths run as far as one block of the
 // rest fits the SM's shared memory (layout below; at C = 32 up to D =
-// 327, at C = 64 up to D = 273).  A row of xT or offsets that starts off
-// 16-byte alignment (row c starts at c * N) is copied 4 bytes at a time;
-// rows past N are staged as zeros.  X is read from device memory once per
-// evaluation and serves every chain.
-//
-// Per sub-tile and chunk of kChains = 32 chains (a chain count past 32
-// takes chunks in turn; at C <= 32 no lane computes a chain past 32):
+// 327, at C = 64 up to D = 273).  Per sub-tile and chunk of kChains = 32
+// chains (at C <= 32 no lane computes a chain past 32):
 //   offsets  the chunk's (kChains, kRows) offsets land in the resid tile
 //            rs [chain][row]: the first chunk's with the sub-tile, a later
 //            chunk's when it starts.
@@ -93,17 +116,46 @@
 //            only when C > kChains or D > kFeat).
 // The strides put the float4 operands of a warp in distinct banks.
 //
+// b2_chunk (Chunk<kCh, kF> holds its compile-time shape).  Two buffers,
+// each x [kF][kLd] (rows past D zero), offsets then resid [kCh][kLd] and
+// y (27 KB a block at kCh = 8, kF = 16; 53 KB at most), three blocks an
+// SM: the next sub-tile is copied while the current one is computed, two
+// barriers a sub-tile (rings of three and of up to six stages, which
+// kept more of X in flight, were slower on the card, PERF.md).  Per
+// sub-tile:
+//   logits   thread t computes rows 4 (t / 4) + {0..3} of chains kCh / 4
+//            (t % 4) + {0 .. kCh / 4 - 1}: per feature one float4 of x
+//            and one float2 (kCh = 8) or float4 (16) of beta for 8 or 16
+//            FMAs.
+//   link     b2_pass's, on the thread's own rows and chains: at C <= 8
+//            eight special-function triples a row, not 32.  With offsets
+//            resid goes to device memory straight from the registers (16
+//            bytes a thread where the row is aligned and whole, else 4),
+//            streaming past L2; rs takes it as the gradient's operand.
+//   gradient thread t owns every chain of the chunk and kGF features kGF
+//            fg + {0..kGF - 1} (fg = t % kFG, kFG = kF / kGF groups) over
+//            the 4-row groups sl + kSl q (sl = t / kFG): per 4 rows kGF
+//            float4 of x and kCh of resid for 4 kCh kGF FMAs, kCh kGF = 32
+//            sums (16 at kCh = kF = 8) in registers for the whole block.
+//            A warp's slices are neighbouring row groups, so its float4
+//            loads of a feature row meet 32 banks.
+// After the last sub-tile the tiles go to shared memory [slice][c][f]
+// over the buffers and each entry is summed over the slices in index order;
+// the values over the warp's row groups by a fixed shuffle tree and the
+// four warps in order.
+//
 // Dot precision (STARK_FUSED_PRECISION; kPrec, csrc/fused_pass.cuh), as
 // B1 (csrc/hier_grouped.cu) takes it: the reference passes it to the two
 // dots beta x and resid x^T.  x is rounded when its sub-tile has landed
 // (each thread its own copies, before the barrier), beta when the block
 // stages it, resid when it goes to rs for the gradient: as the link
 // stores it, without offsets; with offsets, resid goes to device memory
-// whole, so the store rounds what it read and one barrier more lets the
-// gradient read it.  At high a staged operand is a_hi and a_lo packed in one
-// word (the layout and its widths are highest's) and each product is
-// three FMAs.  The offsets and the value sums are not rounded: the
-// reference adds the offsets after its dot.
+// whole (b2_pass: the store rounds what it read and one barrier more lets
+// the gradient read it; b2_chunk: the link writes it out unrounded and
+// rounds its copy in rs).  At high a staged operand is a_hi and a_lo
+// packed in one word (the layout and its widths are highest's) and each
+// product is three FMAs.  The offsets and the value sums are not
+// rounded: the reference adds the offsets after its dot.
 //
 // X's storage type (STARK_FUSED_X_DTYPE; p.xdt), as B1 takes it
 // (csrc/hier_grouped.cu): a bf16, int8 or fp8 xT is read at its width
@@ -113,19 +165,31 @@
 // 125,000 = 8 mod 16) and widened to float32 where it is staged; the
 // offsets, y and resid stay float32 and cp.async.  Past the staging the
 // pass is the float32 pass at every precision, the staged rounding of x
-// skipped (the identity on narrow values).
+// skipped (the identity on narrow values).  Both passes compile the
+// narrow X apart (kNarrow), so the float32 ones keep their code.
 //
 // Every sum runs in a fixed order: per thread in row and feature order;
 // the row groups of a warp by a fixed shuffle tree; the row slices of the
-// gradient and the two warps of a row-group pair one after the other in
-// index order; across blocks in b2_finish, a warp per output whose lanes
-// take every 32nd block in order and meet in a fixed shuffle tree.  (A
-// sequential sum across the blocks, csrc/fused_pass.cuh's finish, put
-// gbeta 3-5x further from the float64 sum than the plain float32 version
-// at N = 40,003, D = 32, C = 20.)  No float atomics: repeated launches
-// are bitwise equal.  Masking is by selects, never by multiplying with a
-// mask (0 * NaN = NaN).
+// gradient and the warps one after the other in index order; across
+// blocks in b2_finish, a warp per output whose lanes take every 32nd
+// block in order and meet in a fixed shuffle tree.  (A sequential sum
+// across the blocks, csrc/fused_pass.cuh's finish, put gbeta 3-5x further
+// from the float64 sum than the plain float32 version at N = 40,003, D =
+// 32, C = 20.)  No float atomics: repeated launches are bitwise equal.
+// Masking is by selects, never by multiplying with a mask (0 * NaN =
+// NaN).
 #include "fused_pass.cuh"
+
+// Parts (stark_tpu_torch/_build.py:PARTS): compiled with -DSTARK_PART=k
+// this source holds part k alone, so that nvcc compiles the parts side
+// by side: 0 b2_pass, b2_finish and the C entry points; 1 and 2 b2_chunk
+// at 8 chains (float32 X, narrow X), 3 and 4 at 16 chains.  Compiled
+// whole it holds every part.
+#ifdef STARK_PART
+#define STARK_HOLDS(k) (STARK_PART == (k))
+#else
+#define STARK_HOLDS(k) 1
+#endif
 
 namespace stark {
 namespace b2 {
@@ -246,11 +310,12 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, size_t off, 
   }
 }
 
-// Start the copies of the offsets of chains k .. k + kChains - 1 (those
-// below C) for the sub-tile at row0 into rs.
+// Start the copies of the offsets of chains k .. k + kC - 1 (those below
+// C) for the sub-tile at row0 into rs (kC rows of kLd).
+template <int kC = kChains>
 __device__ __forceinline__ void stage_offsets(const Params& p, float* rs, int k, int row0,
                                               int nvalid, bool o16) {
-  for (int i = threadIdx.x; i < kChains * (kRows / 4); i += kThreads) {
+  for (int i = threadIdx.x; i < kC * (kRows / 4); i += kThreads) {
     const int cl = i / (kRows / 4), r = (i % (kRows / 4)) * 4;
     if (k + cl < p.C && r < nvalid)
       copy4(rs + cl * kLd + r, p.offsets, (size_t)(k + cl) * p.N + row0 + r, nvalid - r, o16);
@@ -260,8 +325,8 @@ __device__ __forceinline__ void stage_offsets(const Params& p, float* rs, int k,
 // Start the copies of the sub-tile at row0 (nvalid rows) into one buffer:
 // x, y and, with offsets, the first chunk's offsets.  kNarrow: a narrow x
 // is loaded and widened here instead (stage_x4), done when the thread
-// leaves.
-template <bool kNarrow>
+// leaves.  kC: the chains of rs (a chunk's).
+template <bool kNarrow, int kC = kChains>
 __device__ __forceinline__ void stage(const Params& p, float* xs, float* ys, float* rs,
                                       int row0, int nvalid, bool x16, bool o16) {
   const int t = threadIdx.x;
@@ -277,7 +342,7 @@ __device__ __forceinline__ void stage(const Params& p, float* xs, float* ys, flo
     copy4(xs + d * kLd + r, p.xT, (size_t)d * p.N + row0 + r, nvalid - r, x16);
   }
   cp_async4(ys + t, p.y + row0 + (t < nvalid ? t : 0), t < nvalid);
-  if (p.offsets != nullptr) stage_offsets(p, rs, 0, row0, nvalid, o16);
+  if (p.offsets != nullptr) stage_offsets<kC>(p, rs, 0, row0, nvalid, o16);
 }
 
 // kOneTile: one_tile(C, D), the flagship's case (two buffers, one chunk,
@@ -591,6 +656,254 @@ __global__ void b2_finish(Params p, int nblk, int S, float* val, float* gbeta) {
   }
 }
 
+// ---- Narrow chunks: C <= 16 chains and D <= 32 features (b2_chunk) ----
+
+// Chains of a chunk, features of the gradient chunk: the smallest of 8,
+// 16 (32) that holds C (D).  C <= 16 and D <= 32 take b2_chunk; any other
+// (C, D) takes b2_pass's 32-chain chunks.
+__host__ __device__ inline int chunk_chains(int C) { return C <= 8 ? 8 : C <= 16 ? 16 : kChains; }
+__host__ __device__ inline int chunk_features(int D) { return D <= 8 ? 8 : D <= 16 ? 16 : kFeat; }
+__host__ __device__ inline bool chunked(int C, int D) { return C <= 16 && D <= kFeat; }
+
+// The compile-time shape of b2_chunk<kCh, kF>: the thread mappings and
+// the two buffers of staged sub-tiles.
+template <int kCh, int kF>
+struct Chunk {
+  // logits: thread t owns rows 4 (t / 4) + {0..3}, chains kLC (t % 4) + i
+  static constexpr int kLC = kCh / 4;
+  // gradient: thread t owns chains 0 .. kCh - 1 and features kGF fg + j
+  // (fg = t % kFG) over the 4-row groups sl + kSl q (sl = t / kFG) of
+  // every sub-tile: kCh x kGF sums (32, or 16 at kCh = kF = 8)
+  static constexpr int kGF = 32 / kCh < kF / 4 ? 32 / kCh : kF / 4;
+  static constexpr int kFG = kF / kGF;
+  static constexpr int kSl = kThreads / kFG;
+  static constexpr int kQuads = kRows / 4 / kSl;
+  // one buffer: x [kF][kLd] (rows past D zero), offsets then resid
+  // [kCh][kLd], y [kRows]
+  static constexpr int kBuf = (kF + kCh) * kLd + kRows;
+  static constexpr int kFixed = kF * kCh + 4 * kCh;  // beta [d][c], values [warp][c]
+  static constexpr int kWords = 2 * kBuf + kFixed;
+  static_assert(kLC * 4 == kCh && kFG * kGF == kF && kSl * kFG == kThreads, "mappings");
+  static_assert(kFG >= 4 && kQuads * kSl * 4 == kRows, "row groups");
+  static_assert(4 * kWords <= 75 * 1024, "three blocks an SM");
+  static_assert(kThreads * kCh * kGF <= 2 * kBuf, "gradient tiles fit over the buffers");
+};
+
+__host__ __device__ inline int chunk_words(int C, int D) {
+  const int ch = chunk_chains(C), f = chunk_features(D);
+  return ch == 8 ? (f == 8 ? Chunk<8, 8>::kWords : f == 16 ? Chunk<8, 16>::kWords
+                                                            : Chunk<8, 32>::kWords)
+                 : (f == 8 ? Chunk<16, 8>::kWords : f == 16 ? Chunk<16, 16>::kWords
+                                                             : Chunk<16, 32>::kWords);
+}
+
+// The pass for a chunk of kCh chains (C <= kCh) and kF features (D <= kF):
+// one chunk, one gradient tile a thread in registers for the whole block,
+// no lane on a chain past the chunk, two buffers: the next sub-tile in
+// flight while one is computed.  The shard is blockIdx.y (0 without a
+// shard axis: the same code and sums at S = 1).
+template <int kCh, int kF, int kLink, int kPrec, bool kNarrow>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_chunk(Params p, int nblk) {
+  using K = Chunk<kCh, kF>;
+  extern __shared__ __align__(16) float smem[];
+  p = shard_view(p, blockIdx.y, nblk);
+  const int C = p.C, D = p.D, N = p.N;
+  float* bsh = smem + 2 * K::kBuf;  // beta [d][c], kCh apart
+  float* vsl = bsh + kF * kCh;      // value partials [warp][c]
+  const bool offs = p.offsets != nullptr;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int b = blockIdx.x;
+  const long long nsub = (N + kRows - 1) / kRows;
+  const int sub0 = (int)(b * nsub / nblk), sub1 = (int)((b + 1) * nsub / nblk);
+  const bool x16 = (reinterpret_cast<uintptr_t>(p.xT) & 15) == 0;
+  const bool o16 = offs && (reinterpret_cast<uintptr_t>(p.offsets) & 15) == 0;
+  const bool r16 = offs && (reinterpret_cast<uintptr_t>(p.resid) & 15) == 0;
+  auto xs_of = [&](int buf) { return smem + buf * K::kBuf; };
+  auto rs_of = [&](int buf) { return smem + buf * K::kBuf + kF * kLd; };
+  auto ys_of = [&](int buf) { return smem + buf * K::kBuf + (kF + kCh) * kLd; };
+  auto stage_sub = [&](int sub, int buf) {
+    const int row0 = sub * kRows;
+    stage<kNarrow, kCh>(p, xs_of(buf), ys_of(buf), rs_of(buf), row0, min(kRows, N - row0), x16,
+                        o16);
+  };
+
+  // the first sub-tile in flight while the block sets up
+  stage_sub(sub0, 0);
+  cp_async_commit();
+  for (int i = t; i < kF * kCh; i += kThreads) {
+    const int d = i / kCh, c = i % kCh;
+    bsh[i] = d < D && c < C ? stage_operand<kPrec>(p.beta[(size_t)c * D + d]) : 0.f;
+  }
+  for (int i = t; i < (kF - D) * kLd; i += kThreads) {  // x rows past D, both buffers
+    xs_of(0)[D * kLd + i] = 0.f;
+    xs_of(1)[D * kLd + i] = 0.f;
+  }
+
+  const int cg = t & 3, rg = t >> 2;           // logits and link
+  const int fg = t % K::kFG, sl = t / K::kFG;  // gradient
+  float vacc[K::kLC];
+  float gacc[kCh][K::kGF];
+#pragma unroll
+  for (int i = 0; i < K::kLC; ++i) vacc[i] = 0.f;
+#pragma unroll
+  for (int c = 0; c < kCh; ++c)
+#pragma unroll
+    for (int j = 0; j < K::kGF; ++j) gacc[c][j] = 0.f;
+
+  for (int sub = sub0; sub < sub1; ++sub) {
+    const int buf = (sub - sub0) & 1;
+    const int row0 = sub * kRows;
+    const int nvalid = min(kRows, N - row0);
+    cp_async_wait_all();  // this thread's copies of sub have landed
+    float* xcur = xs_of(buf);
+    float* rcur = rs_of(buf);
+    const float* ycur = ys_of(buf);
+    if (!kNarrow) stage_rows<kPrec, kRows, kLd, kThreads>(xcur, D);
+    __syncthreads();  // sub is in place; every thread is done with sub - 1
+    if (sub + 1 < sub1) stage_sub(sub + 1, buf ^ 1);  // into the buffer sub - 1 freed
+    cp_async_commit();
+
+    // ---- logits: chains kLC cg + i, rows 4 rg + j
+    float acc[K::kLC][4];
+#pragma unroll
+    for (int i = 0; i < K::kLC; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    {
+      const float* bp = bsh + K::kLC * cg;
+      const float* xp = xcur + 4 * rg;
+      // (16 chains on a narrow X by two: by four they spilled at 168
+      // registers)
+#pragma unroll(kCh == 16 && kNarrow ? 2 : 4)
+      for (int d = 0; d < D; ++d) {
+        const float4 xv = *reinterpret_cast<const float4*>(xp + d * kLd);
+        float bb[K::kLC];
+        if constexpr (K::kLC == 2) {
+          const float2 bv = *reinterpret_cast<const float2*>(bp + d * kCh);
+          bb[0] = bv.x;
+          bb[1] = bv.y;
+        } else {
+          const float4 bv = *reinterpret_cast<const float4*>(bp + d * kCh);
+          bb[0] = bv.x;
+          bb[1] = bv.y;
+          bb[2] = bv.z;
+          bb[3] = bv.w;
+        }
+        const float xx[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+        for (int i = 0; i < K::kLC; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fma_staged<kPrec>(bb[i], xx[j], acc[i][j]);
+      }
+    }
+
+    // ---- link; resid to device memory (offsets) straight from the
+    // registers, and staged for the gradient over the offsets in rcur
+    {
+      const float4 yv = *reinterpret_cast<const float4*>(ycur + 4 * rg);
+      const float yy[4] = {yv.x, yv.y, yv.z, yv.w};
+#pragma unroll
+      for (int i = 0; i < K::kLC; ++i) {
+        const int c = K::kLC * cg + i;
+        float* rp = rcur + c * kLd + 4 * rg;
+        float oo[4] = {0.f, 0.f, 0.f, 0.f};
+        if (offs) {
+          const float4 ov = *reinterpret_cast<const float4*>(rp);
+          oo[0] = ov.x;
+          oo[1] = ov.y;
+          oo[2] = ov.z;
+          oo[3] = ov.w;
+        }
+        float rr[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = 4 * rg + j < nvalid && c < C;
+          const float l = offs ? acc[i][j] + oo[j] : acc[i][j];
+          float v, res;
+          if (kLink == kGaussian) {
+            res = yy[j] - l;
+            v = res * res;
+          } else {
+            const float ex = __expf(-fabsf(l));
+            const float u = 1.f + ex;
+            v = fmaf(yy[j] - 1.f, l, fminf(l, 0.f)) - __logf(u);
+            res = yy[j] - __fdividef(l >= 0.f ? 1.f : ex, u);
+          }
+          vacc[i] += ok ? v : 0.f;
+          rr[j] = ok ? res : 0.f;
+        }
+        const float4 w = make_float4(rr[0], rr[1], rr[2], rr[3]);
+        if (offs && c < C) {
+          const int r = 4 * rg;
+          const size_t off = (size_t)c * N + row0 + r;
+          if (r16 && (off & 3) == 0 && r + 4 <= nvalid) {
+            __stcs(reinterpret_cast<float4*>(p.resid + off), w);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (r + j < nvalid) __stcs(p.resid + off + j, rr[j]);
+          }
+        }
+        *reinterpret_cast<float4*>(rp) = stage_operand4<kPrec>(w);
+      }
+    }
+    __syncthreads();  // resid is in place
+
+    // ---- gradient: chains 0 .. kCh - 1, features kGF fg + j, 4-row
+    // groups sl + kSl q
+#pragma unroll
+    for (int q = 0; q < K::kQuads; ++q) {
+      const int r = 4 * (sl + K::kSl * q);
+      float4 xv[K::kGF];
+#pragma unroll
+      for (int j = 0; j < K::kGF; ++j)
+        xv[j] = *reinterpret_cast<const float4*>(xcur + (K::kGF * fg + j) * kLd + r);
+#pragma unroll
+      for (int c = 0; c < kCh; ++c) {
+        const float4 rv = *reinterpret_cast<const float4*>(rcur + c * kLd + r);
+#pragma unroll
+        for (int j = 0; j < K::kGF; ++j) {
+          float s = gacc[c][j];
+          s = fma_staged<kPrec>(rv.x, xv[j].x, s);
+          s = fma_staged<kPrec>(rv.y, xv[j].y, s);
+          s = fma_staged<kPrec>(rv.z, xv[j].z, s);
+          gacc[c][j] = fma_staged<kPrec>(rv.w, xv[j].w, s);
+        }
+      }
+    }
+  }
+  cp_async_wait_all();  // (an empty group; nothing left in flight)
+  __syncthreads();      // every thread is done with the buffers
+
+  // the gradient tiles over the buffers [sl][c][f], then each entry summed
+  // over the row slices in index order; the values: the warp's row groups
+  // by a fixed shuffle tree, then the four warps in order
+  float* part = smem;
+#pragma unroll
+  for (int c = 0; c < kCh; ++c)
+#pragma unroll
+    for (int j = 0; j < K::kGF; ++j) part[(sl * kCh + c) * kF + K::kGF * fg + j] = gacc[c][j];
+#pragma unroll
+  for (int i = 0; i < K::kLC; ++i) {
+    float v = vacc[i];
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    if (lane < 4) vsl[warp * kCh + K::kLC * cg + i] = v;
+  }
+  __syncthreads();
+  for (int e = t; e < C * D; e += kThreads) {
+    const int c = e / D, f = e - c * D;
+    float s = 0.f;
+#pragma unroll 8
+    for (int q = 0; q < K::kSl; ++q) s += part[(q * kCh + c) * kF + f];
+    p.gpart[(size_t)b * C * D + e] = s;
+  }
+  for (int c = t; c < C; c += kThreads) {
+    p.vpart[(size_t)b * C + c] = ((vsl[c] + vsl[kCh + c]) + vsl[2 * kCh + c]) + vsl[3 * kCh + c];
+  }
+}
+
 using Kernel = void (*)(Params, int);
 
 template <bool kOneTile, bool kShards, int kPrec, bool kNarrow>
@@ -612,9 +925,65 @@ inline Kernel pick(int link, int prec, bool narrow) {
                 : pick_prec<kOneTile, kShards, false>(link, prec);
 }
 
+template <int kCh, int kF, int kPrec, bool kNarrow>
+inline Kernel chunk_link(int link) {
+  return link == kGaussian ? b2_chunk<kCh, kF, kGaussian, kPrec, kNarrow>
+                           : b2_chunk<kCh, kF, kBernoulli, kPrec, kNarrow>;
+}
+
+template <int kCh, int kF, bool kNarrow>
+inline Kernel chunk_prec(int link, int prec) {
+  return prec == kHigh      ? chunk_link<kCh, kF, kHigh, kNarrow>(link)
+         : prec == kDefault ? chunk_link<kCh, kF, kDefault, kNarrow>(link)
+                            : chunk_link<kCh, kF, kHighest, kNarrow>(link);
+}
+
+// b2_chunk<kCh, chunk_features(D), link, prec, kNarrow> over the grid
+// (nblk, S): its shared memory allowed, launched; the launch's error.
+template <int kCh, bool kNarrow>
+int launch_chunk_of(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s) {
+  const int f = chunk_features(p.D);
+  const Kernel kern = f == 8    ? chunk_prec<kCh, 8, kNarrow>(link, prec)
+                      : f == 16 ? chunk_prec<kCh, 16, kNarrow>(link, prec)
+                                : chunk_prec<kCh, kFeat, kNarrow>(link, prec);
+  const int bytes = chunk_words(p.C, p.D) * (int)sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             bytes);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(nblk, S), kThreads, bytes, s>>>(p, nblk);
+  return (int)cudaGetLastError();
+}
+
+// One entry a part (1-4), defined where its kernels compile.
+int launch_chunk8(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s);
+int launch_chunk8_narrow(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s);
+int launch_chunk16(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s);
+int launch_chunk16_narrow(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s);
+#if STARK_HOLDS(1)
+int launch_chunk8(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s) {
+  return launch_chunk_of<8, false>(p, nblk, S, link, prec, s);
+}
+#endif
+#if STARK_HOLDS(2)
+int launch_chunk8_narrow(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s) {
+  return launch_chunk_of<8, true>(p, nblk, S, link, prec, s);
+}
+#endif
+#if STARK_HOLDS(3)
+int launch_chunk16(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s) {
+  return launch_chunk_of<16, false>(p, nblk, S, link, prec, s);
+}
+#endif
+#if STARK_HOLDS(4)
+int launch_chunk16_narrow(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s) {
+  return launch_chunk_of<16, true>(p, nblk, S, link, prec, s);
+}
+#endif
+
 }  // namespace b2
 }  // namespace stark
 
+#if STARK_HOLDS(0)
 extern "C" int stark_logistic_batched(
     const float* xT, const float* y, const float* offsets, const float* beta,
     float* val, float* gbeta, float* resid, float* scratch, int C, int D, int N,
@@ -643,20 +1012,29 @@ extern "C" int stark_logistic_batched(
   stark::carve_scratch(p, scratch, nblk * S);  // shard s: blocks s * nblk ..
 
   auto s = static_cast<cudaStream_t>(stream);
-  const size_t bytes = (size_t)b2::layout(C, D).words * sizeof(float);
-  const bool one = b2::one_tile(C, D);
   const bool narrow = xdt != stark::kXF32;
-  const b2::Kernel kern =
-      S > 1 ? (one ? b2::pick<true, true>(link, prec, narrow)
-                   : b2::pick<false, true>(link, prec, narrow))
-            : (one ? b2::pick<true, false>(link, prec, narrow)
-                   : b2::pick<false, false>(link, prec, narrow));
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(nblk, S), b2::kThreads, bytes, s>>>(p, nblk);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (b2::chunked(C, D)) {  // C <= 16, D <= 32: b2_chunk
+    const int e = b2::chunk_chains(C) == 8
+                      ? (narrow ? b2::launch_chunk8_narrow : b2::launch_chunk8)(p, nblk, S, link,
+                                                                                prec, s)
+                      : (narrow ? b2::launch_chunk16_narrow : b2::launch_chunk16)(p, nblk, S, link,
+                                                                                  prec, s);
+    if (e != 0) return e;
+  } else {
+    const size_t bytes = (size_t)b2::layout(C, D).words * sizeof(float);
+    const bool one = b2::one_tile(C, D);
+    const b2::Kernel kern =
+        S > 1 ? (one ? b2::pick<true, true>(link, prec, narrow)
+                     : b2::pick<false, true>(link, prec, narrow))
+              : (one ? b2::pick<true, false>(link, prec, narrow)
+                     : b2::pick<false, false>(link, prec, narrow));
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<dim3(nblk, S), b2::kThreads, bytes, s>>>(p, nblk);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
   const long long warps = ((long long)C * D + C) * S;
   const int blocks = (int)((32 * warps + b2::kThreads - 1) / b2::kThreads);
   if (S > 1) b2::b2_finish<true><<<blocks, b2::kThreads, 0, s>>>(p, nblk, S, val, gbeta);
@@ -667,6 +1045,20 @@ extern "C" int stark_logistic_batched(
 // Shared memory the pass needs per block at (C, D), and the most the
 // card `device` gives one block, both in bytes.
 extern "C" int stark_logistic_batched_smem(int C, int D, int device, int* need, int* limit) {
-  *need = stark::b2::layout(C, D).words * (int)sizeof(float);
+  namespace b2 = stark::b2;
+  *need = (b2::chunked(C, D) ? b2::chunk_words(C, D) : b2::layout(C, D).words) *
+          (int)sizeof(float);
   return (int)cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
 }
+
+// The chunk the launcher runs at (C, D): b2_chunk's chains and features,
+// or b2_pass's 32 and 32 (stark_tpu_torch/ops/logistic_fused.py:b2_chunks
+// mirrors it).
+extern "C" int stark_logistic_batched_chunks(int C, int D, int* chains, int* features) {
+  namespace b2 = stark::b2;
+  const bool chunk = b2::chunked(C, D);
+  *chains = chunk ? b2::chunk_chains(C) : b2::kChains;
+  *features = chunk ? b2::chunk_features(D) : b2::kFeat;
+  return 0;
+}
+#endif

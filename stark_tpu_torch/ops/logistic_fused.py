@@ -100,11 +100,45 @@ def subtile_split(n: int, tile: int, most: int):
     return nblk, edges
 
 
+#: most shards of one B2 launch (the grid's y extent)
+B2_MAX_SHARDS = 65_535
+
+
 def b2_blocks(n: int, shards: int = 1):
     """Row split of each shard of a B2 launch over ``shards`` shards of
     n rows (`subtile_split` into at most B2_BLOCKS // shards blocks, so
-    the launch stays about one wave; csrc/logistic_batched.cu)."""
+    the launch stays about one wave; csrc/logistic_batched.cu, whose
+    launcher refuses any other split and, as this does, a shard count
+    outside 1 .. B2_MAX_SHARDS)."""
+    if not 1 <= shards <= B2_MAX_SHARDS:
+        raise ValueError(f"B2 takes 1 to {B2_MAX_SHARDS} shards in one launch, not {shards}")
     return subtile_split(n, B2_ROW_TILE, max(1, B2_BLOCKS // shards))
+
+
+def b2_scratch_words(n: int, c: int, d: int, shards: int = 1) -> int:
+    """float32 words of the scratch buffer a B2 launch over ``shards``
+    shards of n rows takes: each shard's blocks' partials (`b2_blocks`)."""
+    return scratch_words(b2_blocks(n, shards)[0] * shards, c, d)
+
+
+#: chains of B2's chunks: C <= 8 and C <= 16 run chunks of their own
+#: (csrc/logistic_batched.cu:b2_chunk, at D <= 32), any other C chunks of
+#: 32 (b2_pass)
+B2_CHAIN_CHUNKS = (8, 16, 32)
+#: features of B2's gradient chunks at C <= 16 (b2_chunk); b2_pass's are 32
+B2_FEATURE_CHUNKS = (8, 16, 32)
+
+
+def b2_chunks(c: int, d: int):
+    """(chains of a chunk, features of a gradient chunk) that B2 runs at
+    C=c, D=d: the smallest of B2_CHAIN_CHUNKS holding c and of
+    B2_FEATURE_CHUNKS holding d when c <= 16 and d <= 32 (b2_chunk),
+    else (32, 32) (b2_pass, which takes chunks in turn past them);
+    csrc/logistic_batched.cu:chunk_chains, chunk_features, chunked."""
+    if c <= B2_CHAIN_CHUNKS[1] and d <= B2_FEATURE_CHUNKS[-1]:
+        return (next(k for k in B2_CHAIN_CHUNKS if c <= k),
+                next(k for k in B2_FEATURE_CHUNKS if d <= k))
+    return B2_CHAIN_CHUNKS[-1], B2_FEATURE_CHUNKS[-1]
 
 
 #: the links both kernels take, and their code in the C entry points
@@ -251,7 +285,7 @@ def logistic_batched(
     val = torch.empty(lead + (c,), **f32)
     gbeta = torch.empty(lead + (c, d), **f32)
     resid = torch.empty(lead + (c, n), **f32) if offsets is not None else None
-    scratch = torch.empty(scratch_words(nblk * s, c, d), **f32)
+    scratch = torch.empty(b2_scratch_words(n, c, d, s), **f32)
     fn = _build.function("logistic_batched", "stark_logistic_batched", _ARGTYPES)
     err = fn(
         xT.data_ptr(), y.data_ptr(),

@@ -22,7 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import b1_edge_inputs, b1_link_slack, compare_slack
+from chip_smoke import (B2_EDGE_CASES, B2_SHARD_EDGE_CASES, b1_edge_inputs, b1_link_slack,
+                        compare_slack)
 from chip_smoke import sizes_with_gaps as _sizes_with_gaps
 from stark_tpu_torch.ops import hier_fused, logistic_fused
 
@@ -241,20 +242,14 @@ def test_b1_refuses_widths_beyond_shared_memory():
 _B2_TIER_WIDEST = {32: (32, 51, 273, 327), 64: (32, 206, 273)}
 _B2_REFUSED = {32: 328, 64: 274}
 
-_B2_EDGE_CASES = [
-    # chain counts off the 32-chain chunk, feature counts off the 32-feature chunk
-    *[(3001, d, c) for c in (1, 7, 33, 100) for d in (1, 3, 33)],
-    # less than one 128-row sub-tile; N = 1, 2, 3 (mod 4), so rows of xT,
-    # offsets and resid past the first start off 16-byte alignment
-    (50, 5, 9), (40_001, 32, 32), (40_002, 7, 32), (40_003, 32, 20),
-    # more sub-tiles than B2's 396 blocks: blocks take two and stage the
-    # next while they compute, with chunks of chains, features past one
-    # chunk, and each tier
-    (60_001, 33, 33), (60_002, 3, 100), (60_003, 51, 32), (60_001, 100, 32),
-    (60_002, 300, 32),
-    # the widest D of each tier
-    *[(1001, d, c) for c, ds in _B2_TIER_WIDEST.items() for d in ds],
-]
+# chip_smoke.B2_EDGE_CASES: chain and feature counts off the 32-wide
+# chunks and at the edges of the narrow ones (b2_chunk); less than one
+# 128-row sub-tile and N = 1, 2, 3 (mod 4), so rows of xT, offsets and
+# resid past the first start off 16-byte alignment; more sub-tiles than
+# B2's 396 blocks, with chunks of chains, features past one chunk, each
+# tier, and b2_chunk's ring taken round; the widest D of each tier
+_B2_EDGE_CASES = list(B2_EDGE_CASES)
+assert all((1001, d, c) in _B2_EDGE_CASES for c, ds in _B2_TIER_WIDEST.items() for d in ds)
 
 
 def _dyadic_b2_case(n, d, chains, link, seed):
@@ -592,6 +587,24 @@ def test_b2_runs_every_width_the_shared_pass_ran(chains):
     assert need <= limit, (chains, d, need, limit)
 
 
+@pytest.mark.parametrize("chains", [1, 7, 8, 9, 15, 16, 17, 32, 33, 64, 100])
+def test_b2_chunk_choice_is_the_python_mirror(chains):
+    """The chunk the launcher runs (b2_chunk's 8 or 16 chains and 8, 16 or
+    32 features at C <= 16, D <= 32; b2_pass's 32 and 32 past them) is
+    logistic_fused.b2_chunks', which the CPU tests check."""
+    import ctypes
+
+    from stark_tpu_torch import _build
+
+    _cuda()
+    fn = _build.function("logistic_batched", "stark_logistic_batched_chunks",
+                         [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2)
+    for d in (1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 100):
+        ch, f = ctypes.c_int(), ctypes.c_int()
+        assert fn(chains, d, ctypes.byref(ch), ctypes.byref(f)) == 0
+        assert (ch.value, f.value) == logistic_fused.b2_chunks(chains, d), (chains, d)
+
+
 @pytest.mark.parametrize("link", ["bernoulli_logit", "gaussian"])
 @pytest.mark.parametrize("chains", sorted(_B2_REFUSED))
 def test_b2_refuses_widths_beyond_shared_memory(chains, link):
@@ -674,15 +687,12 @@ def test_new_wrappers_refuse_bad_arguments():
         logistic_fused.logistic_batched(args[0], xT, y, link="poisson")
 
 
-# B2's shard axis (consensus Monte Carlo): (S, N, D, C) with one, two,
-# three and eight shards, shards below one sub-tile and of N = 1, 2, 3
-# (mod 4) rows, shards of more sub-tiles than their share of the blocks,
-# chain and feature counts off the 32-wide chunks, config 2's width
-_B2_SHARD_CASES = [
-    (1, 3001, 7, 9), (2, 3001, 33, 33), (3, 50, 5, 9), (3, 127, 16, 8),
-    (2, 40_003, 32, 20), (3, 40_002, 3, 40), (8, 1001, 16, 8), (8, 5, 16, 8),
-    (8, 125_003, 16, 8),
-]
+# B2's shard axis (consensus Monte Carlo), chip_smoke.B2_SHARD_EDGE_CASES:
+# (S, N, D, C) with one to eight shards, shards below one sub-tile and of
+# N = 1, 2, 3 (mod 4) rows, shards of more sub-tiles than their share of
+# the blocks or than b2_chunk's ring holds, chain and feature counts off
+# the 32-wide chunks and at the edges of the narrow ones, config 2's width
+_B2_SHARD_CASES = list(B2_SHARD_EDGE_CASES)
 
 
 def _dyadic_b2_shards(s, n, d, chains, link, seed):
