@@ -13,10 +13,16 @@ the calls --compare-with makes there: config 2's shard axis at each dot
 precision, C=8 with offsets on the flagship's X (the NUTS legs), the
 zoo's gaussian C=8, D=32 and config 3's gaussian C=16, D=8; and the
 last and the first of these on each narrow X dtype (chip_smoke.X_NARROW).
-The variants (VARIANTS) are b2_chunk with one part taken out (the
-gradient's products, the logits' products, both with the link, the whole
-pass, b2_finish) or with four blocks an SM (528 blocks a launch), each
-an edit of this checkout's source.  On a machine with one card:
+It also times b2_mma, B2's tensor-core pass at high and default, at
+the offset path's shape (C=32, D=32, N=1M, bernoulli, with and without
+offsets: chip_smoke.B2_MMA_KEYS).  The variants (VARIANTS) are b2_chunk
+with one part taken out (the gradient's products, the logits' products,
+both with the link, the whole pass, b2_finish) or with four blocks an SM
+(528 blocks a launch), and b2_mma with one part taken out (mma_: the
+gradient, the logits, the link's arithmetic, all three, the whole pass),
+with x rounded where it is staged (mma_staged_x) or with an L2 prefetch
+of the sub-tile after next (mma_prefetch), each an edit of this
+checkout's source.  On a machine with one card:
 
     python3 b2_chunk_probe.py --variants &&
         python3 b2_chunk_probe.py . build/b2_variants/nograd ... .
@@ -41,9 +47,75 @@ _LINK = """          vacc[i] += ok ? v : 0.f;
 _PASS = """  p = shard_view(p, blockIdx.y, nblk);
   const int C = p.C, D = p.D, N = p.N;"""
 _LAUNCH = """    if (e != 0) return e;
-  } else {"""
+  } else if (prec == stark::kHighest) {"""
 _NO_GRADIENT = (_GRADIENT, _GRADIENT.replace("q < K::kQuads", "q < 0"))
 _NO_LOGITS = (_LOGITS, _LOGITS.replace("d < D", "d < 0"))
+# b2_mma's parts (high and default past b2_chunk's shapes)
+_MMA_GRADIENT = """      for (int f0 = 0; f0 < D; f0 += kFeat) {
+        const float* xa = xcur"""
+_MMA_LOGITS_ONE = "            if (kd < nkd) logits_step(kd, bfr[kd]);"
+_MMA_LOGITS = """          for (int kd = 0; kd < nkd; ++kd) {
+            unsigned bp[4][4];"""
+_MMA_LINK = """              vacc[j][e] += ok ? v : 0.f;
+              *rp = ok ? res : 0.f;"""
+_MMA_PASS = '''  static_assert(kPrec != kHighest, "highest runs b2_pass");'''
+_MMA_NO_GRADIENT = (_MMA_GRADIENT, _MMA_GRADIENT.replace("f0 < D", "f0 < 0"))
+_MMA_NO_LOGITS = [(_MMA_LOGITS_ONE, _MMA_LOGITS_ONE.replace("kd < nkd", "kd < 0")),
+                  (_MMA_LOGITS, _MMA_LOGITS.replace("kd < nkd", "kd < 0"))]
+_MMA_NO_LINK = (_MMA_LINK, _MMA_LINK.replace("? v :", "? l :").replace("? res :", "? l :"))
+# x rounded where its sub-tile is staged (stage_rows, before the barrier)
+# and its pairs taken by byte permutes, in place of rounding each pair
+# where it is built
+_MMA_STAGED_X = [
+    ("""    float* xb = xs + buf * xbuf;
+    cp_async_wait_all();
+""", """    float* xb = xs + buf * xbuf;
+    cp_async_wait_all();
+    if (!kNarrow) stage_rows<kPrec, kRows, kLd, kThreads>(xb, D);
+"""),
+    ("x_round_pairs<kPrec, kNarrow>(w[0],", "x_pairs<kPrec, kNarrow>(w[0],"),
+    ("x[mm] = x_round_pairs<kPrec, kNarrow>(", "x[mm] = x_pairs<kPrec, kNarrow>("),
+]
+# an L2 prefetch of the sub-tile after next (prefetch.global.L2 of each
+# 128-byte line of its x rows, y and first chunk's offsets), issued after
+# the next sub-tile's copies start
+_MMA_PREFETCH_FN = """// Ask L2 for the sub-tile at row0 (nvalid rows) a sub-tile before its
+// copy starts: each 128-byte line of its x rows (at their storage width),
+// of y and, with offsets, of the first chunk's offsets.  A hint: nothing
+// waits for it, and no shared memory holds it.
+__device__ __forceinline__ void prefetch_l2(const Params& p, int row0, int nvalid) {
+  const int xsize = x_size(p.xdt);
+  const int xlines = (nvalid * xsize + 127) / 128, flines = (nvalid + 31) / 32;
+  const char* xT = reinterpret_cast<const char*>(p.xT);
+  for (int i = threadIdx.x; i < p.D * xlines; i += kThreads) {
+    const int d = i / xlines, q = i - d * xlines;
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(
+        xT + ((size_t)d * p.N + row0) * xsize + 128 * q));
+  }
+  if (threadIdx.x < flines) {
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p.y + row0 + 32 * threadIdx.x));
+  }
+  if (p.offsets != nullptr) {
+    const int nc = min(p.C, kChains);
+    for (int i = threadIdx.x; i < nc * flines; i += kThreads) {
+      const int c = i / flines, q = i - c * flines;
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(p.offsets + (size_t)c * p.N + row0 + 32 * q));
+    }
+  }
+}
+
+"""
+_MMA_PREFETCH = [
+    ("// kOneTile: one_tile(C, D), the flagship's case",
+     _MMA_PREFETCH_FN + "// kOneTile: one_tile(C, D), the flagship's case"),
+    ("""    cp_async_commit();
+
+    const float* xcur = xb;""",
+     """    cp_async_commit();
+    if (two && sub + 2 < sub1) prefetch_l2(p, row0 + 2 * kRows, min(kRows, N - row0 - 2 * kRows));
+
+    const float* xcur = xb;"""),
+]
 
 #: name -> (edits of csrc/logistic_batched.cu, edits of ops/logistic_fused.py)
 VARIANTS = {
@@ -57,6 +129,13 @@ VARIANTS = {
         ("__launch_bounds__(kThreads, kBlocksPerSm) b2_chunk(",
          "__launch_bounds__(kThreads, 4) b2_chunk("),
     ], [("B2_BLOCKS = 396", "B2_BLOCKS = 528")]),
+    "mma_nograd": ([_MMA_NO_GRADIENT], []),
+    "mma_nologits": (_MMA_NO_LOGITS, []),
+    "mma_nolink": ([_MMA_NO_LINK], []),
+    "mma_staging": ([_MMA_NO_GRADIENT, *_MMA_NO_LOGITS, _MMA_NO_LINK], []),
+    "mma_staged_x": (_MMA_STAGED_X, []),
+    "mma_prefetch": (_MMA_PREFETCH, []),
+    "mma_empty": ([(_MMA_PASS, _MMA_PASS + "\n  if (p.N > 0) return;")], []),
 }
 
 
@@ -117,6 +196,12 @@ def time_tree(tree: str) -> dict:
         calls[f"B2 gaussian (LMM) X {xdt}"] = (
             lambda largs=largs: lf.logistic_batched(*largs, link="gaussian"))
         calls[f"B2 shards X {xdt}"] = lambda sargs=sargs: lf.logistic_batched(*sargs)
+    # b2_mma: the offset path's shape (C=32, D=32) at high and default
+    for with_off in (False, True):
+        bargs = c._batched_inputs(run, full, 32, gen, with_off)
+        for prec in c.PRECISION_MODES:
+            calls[f"B2 {prec} offsets={with_off}"] = (
+                lambda bargs=bargs, prec=prec: c.at_precision(prec, lf.logistic_batched, *bargs))
     for key, call in calls.items():
         out[key] = c.timed(run, call, 100)
     return out

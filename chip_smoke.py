@@ -220,8 +220,8 @@ Phases, in order; any failure exits non-zero (none is caught):
                 inputs against float64 with the link's slack, each launched
                 twice and bitwise equal), B2's and B4's edge cases at high
                 and default; CUDA-event times beside the bound (bf16
-                tensor cores, on which B1 runs, and the FP32 CUDA cores
-                the others run on); then
+                tensor cores, on which B1 and B2 past its narrow chunks
+                run, and the FP32 CUDA cores the others run on); then
                 chees_sample on the flagship (B1), its offset path (B2),
                 config 3 (B4) and its offset path (B2 gaussian), and
                 consensus_sample on config 2 (the shard axis) under each
@@ -278,12 +278,13 @@ wall and where its sampling time went.
 ``--compare-with TREE`` instead times the kernels that TREE (another
 checkout, e.g. the parent commit's) shares with this one: B1 (at highest,
 and at high and default also at C=8), B2 (both links, with and without
-offsets) and B3 at the flagship's full width, B2's gaussian link and B4
-at config 3's, each tree's own build in its own process, in the order
+offsets; bernoulli also at high and default) and B3 at the flagship's
+full width, B2's narrow chunks (B2_NARROW_KEYS), B2's gaussian link and
+B4 at config 3's, each tree's own build in its own process, in the order
 TREE, this, this, TREE on the same card, and says for each kernel
 whether its outputs are bitwise equal across the trees (against a parent
-before B1's tensor-core pass every kernel but B1 at high and default is
-expected to be).
+before B2's tensor-core pass every kernel but B2 at high and default at
+C=32, B2_MMA_KEYS, is expected to be).
 """
 
 from __future__ import annotations
@@ -3882,15 +3883,20 @@ def phase_profile(run: Run, model, raw, label):
                 top=[(r[2][:60], r[0] / reps) for r in rows[:5]])
 
 
+#: B2 bernoulli at C=32, D=32 on the flagship's X (N=1M), with and
+#: without offsets, at high and default: b2_mma, the tensor-core pass
+B2_MMA_KEYS = tuple(f"B2 {prec} offsets={off}" for prec in ("high", "default")
+                    for off in (False, True))
 #: kernels both trees time in --compare-with, and the calls each makes:
 #: B1 at each dot precision, at the flagship's C=64 and the NUTS legs' C=8;
-#: B2 at C=32 (both links, with and without offsets) and at the chain and
-#: feature counts of its narrow chunks (B2_NARROW_KEYS)
+#: B2 at C=32 (both links, with and without offsets; bernoulli also at
+#: high and default, B2_MMA_KEYS) and at the chain and feature counts of
+#: its narrow chunks (B2_NARROW_KEYS)
 SHARED_KERNELS = ("B1", "B1 high", "B1 high C=8", "B1 default", "B1 default C=8",
                   "B2 offsets=False", "B2 offsets=True", "B2 gaussian offsets=False",
-                  "B2 gaussian offsets=True", "B2 gaussian (LMM)", "B2 offsets=True C=8",
-                  "B2 gaussian C=8 (zoo)", "B2 shards", "B2 shards high", "B2 shards default",
-                  "B3 offsets=False", "B3 offsets=True", "B4")
+                  "B2 gaussian offsets=True", *B2_MMA_KEYS, "B2 gaussian (LMM)",
+                  "B2 offsets=True C=8", "B2 gaussian C=8 (zoo)", "B2 shards", "B2 shards high",
+                  "B2 shards default", "B3 offsets=False", "B3 offsets=True", "B4")
 #: B2 at C <= 16, D <= 32 (b2_chunk): config 3's offset path (C=16, D=8),
 #: the NUTS legs (C=8 with offsets, the flagship's X), zoo_glm's
 #: FusedLinearRegression (gaussian, C=8, D=32, N=200,000, no offsets) and
@@ -3902,13 +3908,11 @@ B2_NARROW_KEYS = ("B2 gaussian (LMM)", "B2 offsets=True C=8", "B2 gaussian C=8 (
 
 def expected_against_parent(key: str) -> str:
     """Whether a kernel of SHARED_KERNELS is expected bitwise equal to the
-    parent commit's: B1 at high and default sums in another order since
-    its tensor-core pass, B2 at C <= 16 since its narrow chunks
-    (b2_chunk), every other kernel as its parent does."""
-    if key.startswith(("B1 high", "B1 default")):
-        return "no, the tensor-core pass sums in another order"
-    if key in B2_NARROW_KEYS:
-        return "no, the narrow-chunk pass (C <= 16, D <= 32) sums in another order"
+    parent commit's: B2 at high and default past its narrow chunks sums
+    in another order since its tensor-core pass (b2_mma); every other
+    kernel as its parent does."""
+    if key in B2_MMA_KEYS:
+        return "no, the tensor-core pass (b2_mma) sums in another order"
     return "yes"
 
 
@@ -3941,7 +3945,8 @@ def b2_narrow_calls(run: Run, full, lfull, gen) -> dict:
 
 
 def shared_kernel_times(tree: str) -> dict:
-    """B1 (C=64), B2 (C=32, both links, with and without offsets) and B3
+    """B1 (C=64), B2 (C=32, both links, with and without offsets; bernoulli
+    also at high and default) and B3
     (with and without offsets) at the flagship's full width, and B2's
     gaussian link (C=16, offsets) and B4 (C=16) at config 3's, from the
     stark_tpu_torch of ``tree``, built
@@ -3968,6 +3973,9 @@ def shared_kernel_times(tree: str) -> dict:
         calls[f"B2 offsets={with_off}"] = lambda bargs=bargs: lf.logistic_batched(*bargs)
         calls[f"B2 gaussian offsets={with_off}"] = (
             lambda bargs=bargs: lf.logistic_batched(*bargs, link="gaussian"))
+        for prec in PRECISION_MODES:
+            calls[f"B2 {prec} offsets={with_off}"] = (
+                lambda bargs=bargs, prec=prec: at_precision(prec, lf.logistic_batched, *bargs))
         sargs = _single_inputs(run, full, gen, with_off)
         calls[f"B3 offsets={with_off}"] = lambda sargs=sargs: lf.logistic_single(*sargs)
     calls.update(b2_narrow_calls(run, full, lfull, gen))

@@ -769,92 +769,8 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
 
 // ---- high and default: the tensor-core pass (hier_mma) --------------------
 
-// c += a b on the tensor cores: mma.sync m16n8k16, bf16 operands, float32
-// accumulators.  Fragments (PTX ISA, mma.m16n8k16 with .bf16), g = lane /
-// 4, t = lane % 4: a[0] (row g, k 2t and 2t+1), a[1] (row g + 8, the
-// same k), a[2] (row g, k 2t+8 and 2t+9), a[3] (row g + 8, those k); b0
-// (k 2t and 2t+1, column g), b1 (k 2t+8 and 2t+9, column g); c[0], c[1]
-// (row g, columns 2t, 2t+1), c[2], c[3] (row g + 8, the same columns).  A
-// register's lower k lies in its low 16 bits.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four (two) 8 x 8 matrices of 16-bit elements from shared memory, each
-// row 16 bytes at the address that lane 8 j + i gives (matrix j, row i;
-// lanes 0-15 for two); register j of lane l holds 32-bit word l % 4 of
-// row l / 4 of matrix j.
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const float* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const float* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-// A bf16 pair of two staged words: their a_hi halves (hi_pair) or their
-// a_lo halves (lo_pair), the first word's in the low half (the lower k).
-__device__ __forceinline__ unsigned hi_pair(unsigned a, unsigned b) {
-  return __byte_perm(a, b, 0x7632);
-}
-
-__device__ __forceinline__ unsigned lo_pair(unsigned a, unsigned b) {
-  return __byte_perm(a, b, 0x5410);
-}
-
-// x's pairs (4 A registers) and b's (2 B registers) from staged words:
-// the a_hi plane, and at high the a_lo plane (none for a narrow x, whose
-// a_lo is 0).
-struct XPairs {
-  unsigned hi[4], lo[4];
-};
-
-template <int kPrec, bool kNarrow>
-__device__ __forceinline__ XPairs x_pairs(unsigned w0, unsigned w1, unsigned w2, unsigned w3,
-                                          unsigned w4, unsigned w5, unsigned w6, unsigned w7) {
-  XPairs x;
-  x.hi[0] = hi_pair(w0, w1);
-  x.hi[1] = hi_pair(w2, w3);
-  x.hi[2] = hi_pair(w4, w5);
-  x.hi[3] = hi_pair(w6, w7);
-  if (kPrec == kHigh && !kNarrow) {
-    x.lo[0] = lo_pair(w0, w1);
-    x.lo[1] = lo_pair(w2, w3);
-    x.lo[2] = lo_pair(w4, w5);
-    x.lo[3] = lo_pair(w6, w7);
-  }
-  return x;
-}
-
-// c += x . b at kPrec: x_hi b_hi, then at high x_lo b_hi (not for a
-// narrow x) and x_hi b_lo: the reference's passes in its order (its a
-// the other operand), each product exact, summed in float32.
-template <int kPrec, bool kNarrow>
-__device__ __forceinline__ void mma_prec(float (&c)[4], const XPairs& x, unsigned bh0,
-                                         unsigned bh1, unsigned bl0, unsigned bl1) {
-  mma_bf16(c, x.hi, bh0, bh1);
-  if (kPrec == kHigh) {
-    if (!kNarrow) mma_bf16(c, x.lo, bh0, bh1);
-    mma_bf16(c, x.hi, bl0, bl1);
-  }
-}
-
-// The sub-tile row of the logits' MMA row g + 8 u of m-tile M: bits 0-1
-// from g % 4, bit 2 from u, bit 3 from M % 2, bit 4 from g / 4, the rest
-// from M / 2.  So a warp's loads of x[d][row] (d = d0 + t, t < 4, g < 8;
-// kLd = 4 mod 32) meet 32 banks, and so do its resid stores
-// (rs[chain][row], the chains t and t + 4 of an n-tile).
-__device__ __forceinline__ int mma_row(int M, int g, int u) {
-  return 32 * (M >> 1) + 8 * (M & 1) + 4 * u + (g & 3) + 16 * (g >> 2);
-}
+// (mma_bf16, ldsm_x4, ldsm_x2, hi_pair, lo_pair, x_pairs, mma_prec and
+// mma_row: csrc/fused_pass.cuh, shared with B2's b2_mma)
 
 // The chains of the chunk at k as n-tiles of 8: 1, 2, 4 or 8.
 __host__ __device__ inline int chunk_ntiles(int C, int k) {

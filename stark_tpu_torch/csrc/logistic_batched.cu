@@ -18,19 +18,22 @@
 // resid is written only with offsets: the offset path's own output, which
 // the model chains through the gather that made the offsets.
 //
-// Two passes, picked by the launcher from C and D:
-//   b2_chunk  C <= 16 and D <= 32: one chunk of kCh = 8 or 16 chains (the
-//             smallest that holds C) and kF = 8, 16 or 32 features (the
-//             smallest that holds D), each pair compiled apart.  The main
-//             paths' narrow shapes run it: config 2's shard axis (S=8, C=8,
-//             D=16), the NUTS legs (C=8, D=32, offsets), config 3's offset
-//             path (gaussian, C=16, D=8) and zoo_glm's linear regression
-//             (gaussian, C=8, D=32).
-//   b2_pass   every other (C, D): chunks of kChains = 32 chains and kFeat =
-//             32 features, taken in turn past them; the offset-path
-//             flagship (C=32, D=32) and everything past 16 chains or 32
-//             features.
-// Both split the rows alike and end in b2_finish.
+// Three passes, picked by the launcher from C, D and the dot precision:
+//   b2_chunk  C <= 16 and D <= 32, every precision: one chunk of kCh = 8
+//             or 16 chains (the smallest that holds C) and kF = 8, 16 or 32
+//             features (the smallest that holds D), each pair compiled
+//             apart.  The main paths' narrow shapes run it: config 2's
+//             shard axis (S=8, C=8, D=16), the NUTS legs (C=8, D=32,
+//             offsets), config 3's offset path (gaussian, C=16, D=8) and
+//             zoo_glm's linear regression (gaussian, C=8, D=32).
+//   b2_pass   every other (C, D) at highest: chunks of kChains = 32 chains
+//             and kFeat = 32 features, taken in turn past them, products
+//             on the FP32 CUDA cores; the offset-path flagship (C=32, D=32)
+//             and everything past 16 chains or 32 features.
+//   b2_mma    the same (C, D) at high and default: b2_pass's chunks,
+//             staging and shared memory, both products on the bf16 tensor
+//             cores (below).
+// All split the rows alike and end in b2_finish.
 //
 // Bounds on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32, 4.18e12
 // special-function instructions a second at 1,980 MHz):
@@ -44,11 +47,19 @@
 //     instructions (5.7 us): bound by bytes.
 //   the NUTS legs (C=8, D=32, N=1M, offsets): 196 MB, 58.5 us; config 3's
 //     offset path (C=16, D=8, N=100k, gaussian): 16.4 MB, 4.9 us.
-// Both passes keep the CUDA cores fed from registers and the next
-// sub-tile's bytes in flight while one is computed; b2_chunk leaves no
-// lane on a chain or feature past its chunk, where b2_pass at C=8, D=16
-// spends 3/4 of its logits, 3/4 of its link and 7/8 of its gradient on
-// padding.
+//   the offset-path flagship at high and default (b2_mma): the same 388
+//     MB (116 us; 132 MB, 39 us without offsets) against the two products
+//     on the bf16 tensor cores, 2 C D N = 2.1G multiply-adds a pass (4.1
+//     GFLOP, 4.1 us at 989 TFLOP/s; three passes at high, 12.4 us), and
+//     the bernoulli link's 3 C N = 96M special-function instructions
+//     (23.0 us): bound by bytes at both precisions, with and without
+//     offsets.  On the FP32 CUDA cores high's three FMAs a product took
+//     183 us by operations alone.
+// b2_pass and b2_chunk keep the CUDA cores fed from registers, and every
+// pass keeps the next sub-tile's bytes in flight while one is computed;
+// b2_chunk leaves no lane on a chain or feature past its chunk, where
+// b2_pass at C=8, D=16 spends 3/4 of its logits, 3/4 of its link and 7/8
+// of its gradient on padding.
 //
 // Shard axis.  With S shards every array gains a leading S axis (beta
 // (S, C, D), xT (S, D, N), y (S, N), offsets and resid (S, C, N), val (S,
@@ -147,16 +158,67 @@
 // Dot precision (STARK_FUSED_PRECISION; kPrec, csrc/fused_pass.cuh), as
 // B1 (csrc/hier_grouped.cu) takes it: the reference passes it to the two
 // dots beta x and resid x^T.  x is rounded when its sub-tile has landed
-// (each thread its own copies, before the barrier), beta when the block
-// stages it, resid when it goes to rs for the gradient: as the link
-// stores it, without offsets; with offsets, resid goes to device memory
-// whole (b2_pass: the store rounds what it read and one barrier more lets
-// the gradient read it; b2_chunk: the link writes it out unrounded and
-// rounds its copy in rs).  At high a staged operand is a_hi and a_lo
-// packed in one word (the layout and its widths are highest's) and each
-// product is three FMAs.  The offsets and the value sums are not
-// rounded: the reference adds the offsets after its dot.
+// (each thread its own copies, before the barrier; b2_mma: where it
+// builds x's pairs), beta when the block stages it, resid where the
+// gradient takes it: with offsets resid goes to device memory whole
+// (b2_chunk: the link writes it out unrounded and
+// rounds its copy in rs; b2_mma: rs holds it unrounded and the gradient
+// rounds each word as it builds its pairs).  At high a staged operand is
+// a_hi and a_lo packed in one word (the layout and its widths are
+// highest's).  b2_chunk takes each product as FMAs on the CUDA cores (one,
+// or three at high); b2_mma as bf16 MMAs (below).  The offsets and the
+// value sums are not rounded: the reference adds the offsets after its
+// dot.
 //
+// b2_mma (high and default past b2_chunk's shapes) computes both products
+// with mma.sync m16n8k16 (bf16 operands, float32 accumulators), chains on
+// the MMA's n = 8 side and x the A operand of both:
+//   logits^T (rows x chains) = x^T beta^T,
+//   gbeta^T (features x chains) = x resid^T.
+// Its pieces are B1's hier_mma's (csrc/fused_pass.cuh: mma_bf16, ldsm_x4,
+// hi_pair, lo_pair, mma_prec, mma_row).  What its design does, and why:
+//   - Shared memory is b2_pass's Layout, its tiers and widths (B2_REFUSED
+//     alike): 73 KB a block at C = 32, D = 32, three blocks an SM.  beta
+//     is staged rounded (a_hi | a_lo in one word) and its pairs built with
+//     one byte permute each; x and resid stay float32 in shared memory and
+//     are rounded where their pairs are built (round_pairs: one cvt for
+//     two a_hi, at high a second for two a_lo), so no thread rewrites the
+//     sub-tile before the barrier (rounding x there cost 0.014 ms at C =
+//     32 on an H100, PERF.md).  Default is one MMA, x_hi b_hi; high three,
+//     x_hi b_hi, x_lo b_hi and x_hi b_lo, the reference's passes in its
+//     order, each product exact in float32 and summed in float32, so the
+//     kernel and the plain version differ in the order of their sums only.
+//     A narrow x has x_lo = 0 and skips its pass.
+//   - Warp w owns rows 32 w .. 32 w + 31 of the sub-tile in every phase:
+//     the logits' m-tiles 2 w and 2 w + 1 (16 rows each, one after the
+//     other, so 16 accumulators are live, not 32) by every n-tile of 8
+//     chains (chains padded to 8 within a chunk of 32: C = 17..24 computes
+//     24), the link on those accumulators, the store of its rows of resid,
+//     and the gradient's two k-steps of 16 rows by every feature m-tile
+//     and n-tile (the four warps' tiles added in warp order after the
+//     block, or per sub-tile past one tile).  So a warp reads back only
+//     the resid it wrote: a __syncwarp, not a barrier, stands between link
+//     and gradient, one barrier a sub-tile in all (b2_pass: two).
+//   - Logits: a k-step takes 16 features; x's words by lds.32 at rows
+//     mma_row (a warp's loads meet 32 banks at kLd = 132); beta's pairs in
+//     registers for the block in the one-tile case, else built per k-step
+//     from bsh.  An n-tile's column n is chain n / 2 + 4 (n % 2), so a
+//     thread holds rows g and g + 8 (mma_row) of chains tq and tq + 4 of
+//     each n-tile: its offsets reads and resid writes in rs meet 32 banks.
+//   - Link: b2_pass's, with its approximate forms and bounds, on the
+//     accumulators in registers; the value sums stay in registers (one
+//     tile) and meet by a fixed shuffle tree, then warps 0 and 2, 1 and 3
+//     in order.
+//   - resid: rs keeps it unrounded; with offsets a warp writes its 32 rows
+//     of each chain to device memory, eight lanes a chain (128 bytes, 16 a
+//     lane), streaming past L2.
+//   - Gradient: x and resid by ldmatrix (row strides of 33 x 16 bytes meet
+//     every bank once), each word rounded where its pair is built; feature
+//     rows past D computed and never stored.
+//   - The one-tile float32 kernels of 25 to 32 chains have their 4
+//     n-tiles compiled in (kNt); the rest read nt at run time (a narrow
+//     one so compiled spilled).
+
 // X's storage type (STARK_FUSED_X_DTYPE; p.xdt), as B1 takes it
 // (csrc/hier_grouped.cu): a bf16, int8 or fp8 xT is read at its width
 // with plain loads (4 elements at once where whole and aligned, else one
@@ -165,11 +227,12 @@
 // 125,000 = 8 mod 16) and widened to float32 where it is staged; the
 // offsets, y and resid stay float32 and cp.async.  Past the staging the
 // pass is the float32 pass at every precision, the staged rounding of x
-// skipped (the identity on narrow values).  Both passes compile the
+// skipped (the identity on narrow values).  Every pass compiles the
 // narrow X apart (kNarrow), so the float32 ones keep their code.
 //
-// Every sum runs in a fixed order: per thread in row and feature order;
-// the row groups of a warp by a fixed shuffle tree; the row slices of the
+// Every sum runs in a fixed order: per thread in row and feature order
+// (in an MMA, the tensor core's own fixed order); the row groups of a
+// warp by a fixed shuffle tree; the row slices of the
 // gradient and the warps one after the other in index order; across
 // blocks in b2_finish, a warp per output whose lanes take every 32nd
 // block in order and meet in a fixed shuffle tree.  (A sequential sum
@@ -183,8 +246,8 @@
 // Parts (stark_tpu_torch/_build.py:PARTS): compiled with -DSTARK_PART=k
 // this source holds part k alone, so that nvcc compiles the parts side
 // by side: 0 b2_pass, b2_finish and the C entry points; 1 and 2 b2_chunk
-// at 8 chains (float32 X, narrow X), 3 and 4 at 16 chains.  Compiled
-// whole it holds every part.
+// at 8 chains (float32 X, narrow X), 3 and 4 at 16 chains; 5 and 6
+// b2_mma (float32 X, narrow X).  Compiled whole it holds every part.
 #ifdef STARK_PART
 #define STARK_HOLDS(k) (STARK_PART == (k))
 #else
@@ -362,10 +425,11 @@ __device__ __forceinline__ Params shard_view(Params p, int s, int nblk) {
   return p;
 }
 
-// kShards: S > 1, blockIdx.y the shard.  kPrec: the dot precision.
-// kNarrow: xT stored as bf16, int8 or fp8 (p.xdt), its own instantiations,
-// so that the float32 ones keep their code and registers.
-template <bool kOneTile, int kLink, bool kShards, int kPrec, bool kNarrow>
+// kShards: S > 1, blockIdx.y the shard.  At highest only (float32
+// products; high and default run b2_mma).  kNarrow: xT stored as bf16,
+// int8 or fp8 (p.xdt), its own instantiations, so that the float32 ones
+// keep their code and registers.
+template <bool kOneTile, int kLink, bool kShards, bool kNarrow>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int nblk) {
   extern __shared__ __align__(16) float smem[];
   if (kShards) p = shard_view(p, blockIdx.y, nblk);
@@ -398,7 +462,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
 
   for (int i = t; i < D * cb + cp - cb; i += kThreads) {  // beta [d][c]
     const int d = i / cb, c = i - d * cb;
-    bsh[i] = d < D && c < C ? stage_operand<kPrec>(p.beta[(size_t)c * D + d]) : 0.f;
+    bsh[i] = d < D && c < C ? p.beta[(size_t)c * D + d] : 0.f;
   }
   if (two) {  // padded feature rows of both buffers
     for (int i = t; i < (L.xrows - D) * kLd; i += kThreads) {
@@ -467,7 +531,6 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
     const int row0 = sub * kRows;
     const int nvalid = min(kRows, N - row0);
     cp_async_wait_all();
-    if (!kNarrow) stage_rows<kPrec, kRows, kLd, kThreads>(xs + buf * xbuf, D);
     __syncthreads();  // this sub-tile has landed; the other buffer is free
     if (two && sub + 1 < sub1) {
       const int nrow0 = row0 + kRows;
@@ -510,7 +573,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fma_staged<kPrec>(bb[i], xx[j], acc[i][j]);
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(bb[i], xx[j], acc[i][j]);
         }
       }
 
@@ -539,19 +602,13 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
           acc[i][j] = ok ? res : 0.f;
         }
       }
-      // resid, staged as the gradient's operand; with offsets rs keeps it
-      // whole until the store below has read it
+      // resid, the gradient's operand and, with offsets, the store's
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float* rp = rcur + (4 * cg + i) * kLd + 4 * rg;
-        float4 w0 = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        float4 w1 = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-        if (!offs) {
-          w0 = stage_operand4<kPrec>(w0);
-          w1 = stage_operand4<kPrec>(w1);
-        }
-        *reinterpret_cast<float4*>(rp) = w0;
-        *reinterpret_cast<float4*>(rp + kRows / 2) = w1;
+        *reinterpret_cast<float4*>(rp) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        *reinterpret_cast<float4*>(rp + kRows / 2) =
+            make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
       }
       if (cp > kChains) fold_values(k);  // more chunks: values to shared memory
       __syncthreads();  // resid is in place
@@ -562,8 +619,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
           const int cl = i / (kRows / 4), r = (i % (kRows / 4)) * 4;
           if (k + cl >= C || r >= nvalid) continue;
           const size_t off = (size_t)(k + cl) * N + row0 + r;
-          float4* rv = reinterpret_cast<float4*>(rcur + cl * kLd + r);
-          const float4 v = *rv;
+          const float4 v = *reinterpret_cast<const float4*>(rcur + cl * kLd + r);
           if (r16 && (off & 3) == 0 && r + 4 <= nvalid) {
             __stcs(reinterpret_cast<float4*>(p.resid + off), v);
           } else {
@@ -572,9 +628,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
             for (int e = 0; e < 4; ++e)
               if (r + e < nvalid) __stcs(p.resid + off + e, vv[e]);
           }
-          if (kPrec != kHighest) *rv = stage_operand4<kPrec>(v);  // the gradient's operand
         }
-        if (kPrec != kHighest) __syncthreads();  // the rounded resid is in place
       }
 
       // ---- gradient: chains k + gcg + 8 i, features f0 + fg + 4 j,
@@ -594,10 +648,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               float s = gacc[i][j];
-              s = fma_staged<kPrec>(rv[i].x, xv.x, s);
-              s = fma_staged<kPrec>(rv[i].y, xv.y, s);
-              s = fma_staged<kPrec>(rv[i].z, xv.z, s);
-              gacc[i][j] = fma_staged<kPrec>(rv[i].w, xv.w, s);
+              s = fmaf(rv[i].x, xv.x, s);
+              s = fmaf(rv[i].y, xv.y, s);
+              s = fmaf(rv[i].z, xv.z, s);
+              gacc[i][j] = fmaf(rv[i].w, xv.w, s);
             }
           }
         }
@@ -904,25 +958,390 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_chunk(Params p, int
   }
 }
 
-using Kernel = void (*)(Params, int);
+// ---- high and default: the tensor-core pass (b2_mma) ----------------------
 
-template <bool kOneTile, bool kShards, int kPrec, bool kNarrow>
-inline Kernel pick_link(int link) {
-  return link == kGaussian ? b2_pass<kOneTile, kGaussian, kShards, kPrec, kNarrow>
-                           : b2_pass<kOneTile, kBernoulli, kShards, kPrec, kNarrow>;
+// The chains of chunk k as n-tiles of 8 (1 to 4): the chunk's chains
+// padded to a multiple of 8, not to 32.
+__host__ __device__ inline int mma_ntiles(int C, int k) {
+  return ((C - k < kChains ? C - k : kChains) + 7) / 8;
 }
 
+// The chains b2_mma computes at C: 32 for each whole chunk, the last
+// padded to a multiple of 8 (csrc's mirror: ops/logistic_fused.py:b2_route).
+__host__ __device__ inline int mma_chains(int C) {
+  return C / kChains * kChains + (C % kChains + 7) / 8 * 8;
+}
+
+// b2_pass at high and default with both products on the tensor cores
+// (mma.sync m16n8k16, bf16 operands, float32 sums), the chains on the
+// MMA's n = 8 side and x the A operand of both:
+//   logits^T (rows x chains) = x^T beta^T,  gbeta^T (features x chains) = x resid^T.
+// Warp w owns rows 32 w .. 32 w + 31 of each sub-tile in both products
+// and the link: the logits' m-tiles 2 w and 2 w + 1 (rows mma_row), the
+// gradient's two k-steps of 16 rows.  So resid, which the link writes to
+// rs over the offsets, is read back by the warp that wrote it: a
+// __syncwarp, no barrier, lets the store and the gradient read it (one
+// barrier a sub-tile, where b2_pass has two).  rs holds resid unrounded:
+// the store writes it whole, with offsets, coalesced (a warp stores four
+// chains' 128 bytes at a time), streaming past L2; the gradient rounds
+// it as it builds its pairs (round_pairs), each word once, and x too
+// (x_round_pairs), where the logits and where the gradient load it.  kOneTile
+// (C <= 32, D <= 32): beta's pairs in registers for the block, the
+// gradient tile in registers for the block; kNt: its n-tiles compiled
+// in (4: 24 < C <= 32, float32 X), or 0: read from C.
+template <bool kOneTile, int kNt, int kLink, bool kShards, int kPrec, bool kNarrow>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_mma(Params p, int nblk) {
+  static_assert(kPrec != kHighest, "highest runs b2_pass");
+  extern __shared__ __align__(16) float smem[];
+  if (kShards) p = shard_view(p, blockIdx.y, nblk);
+  const int C = p.C, D = p.D, N = p.N;
+  const Layout L = layout(C, D);
+  float* xs = smem + L.xs;
+  float* ys = smem + L.ys;
+  float* rs = smem + L.rs;
+  float* bsh = smem + L.bsh;
+  float* vsl = smem + L.vsl;
+  float* gsl = !kOneTile && L.gsl_global ? p.gpart + (size_t)blockIdx.x * C * D : smem + L.gsl;
+
+  const int cp = kOneTile ? kChains : chains_padded(C);
+  const int cb = round4(C);  // row stride of bsh
+  const int xbuf = (kOneTile ? kFeat : L.xrows) * kLd;
+  const int rbuf = kChains * kLd;
+  const bool two = kOneTile || L.nbuf == 2;
+  const bool offs = p.offsets != nullptr;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, tq = lane & 3;  // the fragments' row and k index
+  const int b = blockIdx.x;
+  const long long nsub = (N + kRows - 1) / kRows;
+  const int sub0 = (int)(b * nsub / nblk), sub1 = (int)((b + 1) * nsub / nblk);
+  const bool x16 = (reinterpret_cast<uintptr_t>(p.xT) & 15) == 0;
+  const bool o16 = offs && (reinterpret_cast<uintptr_t>(p.offsets) & 15) == 0;
+  const bool r16 = offs && (reinterpret_cast<uintptr_t>(p.resid) & 15) == 0;
+  const int nkd = (D + 15) / 16;  // the logits' k-steps of 16 features
+
+  // first sub-tile in flight while the block sets up
+  stage<kNarrow>(p, xs, ys, rs, sub0 * kRows, min(kRows, N - sub0 * kRows), x16, o16);
+  cp_async_commit();
+
+  for (int i = t; i < D * cb + cp - cb; i += kThreads) {  // beta [d][c]
+    const int d = i / cb, c = i - d * cb;
+    bsh[i] = d < D && c < C ? stage_operand<kPrec>(p.beta[(size_t)c * D + d]) : 0.f;
+  }
+  if (two) {  // padded feature rows of both buffers
+    for (int i = t; i < (L.xrows - D) * kLd; i += kThreads) {
+      xs[D * kLd + i] = 0.f;
+      xs[xbuf + D * kLd + i] = 0.f;
+    }
+  }
+  for (int i = t; i < 2 * cp; i += kThreads) vsl[i] = 0.f;
+
+  // beta's pairs of this lane for the logits' k-step kd (16 features) and
+  // n-tile j of chunk k: column n = g is chain k + 8 j + n / 2 + 4 (n % 2),
+  // so a thread's accumulators hold chains tq and tq + 4 of each n-tile;
+  // k 2t and 2t+1 (t = tq) are features 16 kd + t and + 4, k 2t+8 and
+  // 2t+9 features + 8 and + 12; 0 past D (bsh's zeros past C).
+  auto beta_pairs = [&](int k, int j, int kd, unsigned (&bp)[4]) {
+    const int c = k + 8 * j + (g >> 1) + 4 * (g & 1);
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = 16 * kd + tq + 4 * i;
+      w[i] = d < D ? __float_as_uint(bsh[d * cb + c]) : 0u;
+    }
+    bp[0] = hi_pair(w[0], w[1]);
+    bp[1] = hi_pair(w[2], w[3]);
+    bp[2] = lo_pair(w[0], w[1]);
+    bp[3] = lo_pair(w[2], w[3]);
+  };
+  const int nt0 = kNt ? kNt : mma_ntiles(C, 0);
+  // one tile: beta's pairs for the block, [k-step][n-tile][hi b0, b1, lo b0, b1]
+  unsigned bfr[2][4][4];
+  if constexpr (kOneTile) {
+    __syncthreads();  // beta is staged
+#pragma unroll
+    for (int kd = 0; kd < 2; ++kd)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (kd < nkd && j < nt0) {
+          beta_pairs(0, j, kd, bfr[kd][j]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) bfr[kd][j][e] = 0u;
+        }
+      }
+  }
+
+  float vacc[4][2];     // chains k + 8 j + tq + 4 e, the thread's rows
+  float gacc[2][4][4];  // features f0 + 16 mm + g + 8 (e / 2), chains k + 8 j + 2 tq + e % 2
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    vacc[j][0] = vacc[j][1] = 0.f;
+#pragma unroll
+    for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gacc[mm][j][e] = 0.f;
+  }
+
+  // Value partials of chunk k: the thread's rows by a fixed shuffle tree
+  // over g, then the warps of half h (0: warps 0 and 1, 1: warps 2 and 3)
+  // add theirs to vsl [c][warp % 2]; half 0 adds before a barrier, half
+  // 1 after it, so each slot takes warp w, then warp w + 2.
+  auto fold_values = [&](int k, int h) {
+    if ((warp >> 1) != h) return;  // (warp-uniform: every lane shuffles)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = vacc[j][e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (g == 0) vsl[(k + 8 * j + tq + 4 * e) * 2 + (warp & 1)] += v;
+        vacc[j][e] = 0.f;
+      }
+  };
+  // The gradient tiles to gsl [c][d], one warp (row slice) after the
+  // other in index order; warp 0 starts the sums when `first`.  Every
+  // thread reaches the barriers.
+  auto fold_gradient = [&](int k, int f0, bool first) {
+    for (int q = 0; q < kThreads / 32; ++q) {
+      if (warp == q) {
+#pragma unroll
+        for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int f = f0 + 16 * mm + g + 8 * (e >> 1);
+              const int c = k + 8 * j + 2 * tq + (e & 1);
+              if (c < C && f < D) {
+                float* gp = gsl + c * D + f;
+                *gp = first && q == 0 ? gacc[mm][j][e] : *gp + gacc[mm][j][e];
+              }
+              gacc[mm][j][e] = 0.f;
+            }
+      }
+      __syncthreads();
+    }
+  };
+
+  for (int sub = sub0; sub < sub1; ++sub) {
+    const int buf = two ? (sub - sub0) & 1 : 0;
+    const int row0 = sub * kRows;
+    const int nvalid = min(kRows, N - row0);
+    float* xb = xs + buf * xbuf;
+    cp_async_wait_all();
+    __syncthreads();  // this sub-tile has landed; the other buffer is free
+    if (two && sub + 1 < sub1) {
+      const int nrow0 = row0 + kRows;
+      stage<kNarrow>(p, xs + (buf ^ 1) * xbuf, ys + (buf ^ 1) * kRows, rs + (buf ^ 1) * rbuf,
+                     nrow0, min(kRows, N - nrow0), x16, o16);
+    }
+    cp_async_commit();
+
+    const float* xcur = xb;
+    const float* ycur = ys + buf * kRows;
+    float* rcur = rs + buf * rbuf;
+
+    for (int k = 0; k < cp; k += kChains) {
+      const int nt = kOneTile ? nt0 : mma_ntiles(C, k);
+      if (k > 0) {
+        __syncthreads();  // the previous chunk is done with rcur
+        if (offs) {  // this chunk's offsets (the wait also lands the next sub-tile)
+          stage_offsets(p, rcur, k, row0, nvalid, o16);
+          cp_async_commit();
+          cp_async_wait_all();
+          __syncthreads();
+        }
+      }
+
+      // ---- logits on the tensor cores and the link, one m-tile 2 warp + i
+      // (16 rows) at a time (so 16 accumulators are live, not 32): n-tiles
+      // j, k-steps of 16 features (x's words 0 past D: in the one tile the
+      // buffers' zero rows, else selects); then the link on the
+      // accumulators, rows mma_row(2 warp + i, g, u), chains k + 8 j + tq +
+      // 4 e, each chain's logit plus its offset from rcur, resid over it,
+      // unrounded
+#pragma unroll 1
+      for (int i = 0; i < 2; ++i) {
+        const int r0 = mma_row(2 * warp + i, g, 0);
+        float acc[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        auto logits_step = [&](int kd, const unsigned (&bp)[4][4]) {
+          const int d0 = 16 * kd + tq;
+          unsigned w[8];
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            const bool ok = kOneTile || d0 + 4 * f < D;
+            const float* xd = xcur + (d0 + 4 * f) * kLd;
+            w[2 * f] = ok ? __float_as_uint(xd[r0]) : 0u;
+            w[2 * f + 1] = ok ? __float_as_uint(xd[r0 + 4]) : 0u;
+          }
+          // a[0] (row g): features d0, d0 + 4; a[1] (row g + 8: row r0 + 4);
+          // a[2], a[3]: features d0 + 8, d0 + 12
+          const XPairs x =
+              x_round_pairs<kPrec, kNarrow>(w[0], w[2], w[1], w[3], w[4], w[6], w[5], w[7]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (j < nt) mma_prec<kPrec, kNarrow>(acc[j], x, bp[j][0], bp[j][1], bp[j][2],
+                                                 bp[j][3]);
+        };
+        if constexpr (kOneTile) {
+#pragma unroll
+          for (int kd = 0; kd < 2; ++kd)
+            if (kd < nkd) logits_step(kd, bfr[kd]);
+        } else {
+#pragma unroll 1
+          for (int kd = 0; kd < nkd; ++kd) {
+            unsigned bp[4][4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (j < nt) beta_pairs(k, j, kd, bp[j]);
+            logits_step(kd, bp);
+          }
+        }
+
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int r = r0 + 4 * u;  // mma_row(2 warp + i, g, u)
+          const bool valid = r < nvalid;
+          const float yv = ycur[r];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (j >= nt) continue;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int cl = 8 * j + tq + 4 * e;
+              const bool ok = valid && k + cl < C;
+              float* rp = rcur + cl * kLd + r;
+              const float l = offs ? acc[j][2 * u + e] + *rp : acc[j][2 * u + e];
+              float v, res;
+              if (kLink == kGaussian) {
+                res = yv - l;
+                v = res * res;
+              } else {
+                const float ex = __expf(-fabsf(l));
+                const float un = 1.f + ex;
+                v = fmaf(yv - 1.f, l, fminf(l, 0.f)) - __logf(un);
+                res = yv - __fdividef(l >= 0.f ? 1.f : ex, un);
+              }
+              vacc[j][e] += ok ? v : 0.f;
+              *rp = ok ? res : 0.f;
+            }
+          }
+        }
+      }
+      __syncwarp();  // the warp's resid rows are in place
+      if (cp > kChains) {  // more chunks: values to shared memory
+        fold_values(k, 0);
+        __syncthreads();
+        fold_values(k, 1);
+      }
+
+      // ---- resid (C, N): the warp's 32 rows of each chain of the chunk,
+      // eight lanes a chain (128 bytes), 16 bytes a lane (4 where the
+      // row is off alignment)
+      if (offs) {
+        for (int i = lane; i < nt * 8 * 8; i += 32) {
+          const int cl = i >> 3, r = 32 * warp + 4 * (i & 7);
+          if (k + cl >= C || r >= nvalid) continue;
+          const size_t off = (size_t)(k + cl) * N + row0 + r;
+          const float4 v = *reinterpret_cast<const float4*>(rcur + cl * kLd + r);
+          if (r16 && (off & 3) == 0 && r + 4 <= nvalid) {
+            __stcs(reinterpret_cast<float4*>(p.resid + off), v);
+          } else {
+            const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (r + e < nvalid) __stcs(p.resid + off + e, vv[e]);
+          }
+        }
+      }
+
+      // ---- gradient on the tensor cores: features f0 + 16 mm + 0..15 by
+      // chains k + 8 j + 0..7 over the warp's rows, 16 a k-step: k 2t and
+      // 2t+1 are rows r + t and r + t + 4, k 2t+8 and 2t+9 rows r + 8 + t
+      // and r + 12 + t.  ldmatrix rows: x's matrices q = lane / 8 are
+      // features + 8 (q % 2), rows + 4 (q / 2); resid's chains + 8 (q / 2),
+      // rows + 4 (q % 2) (row strides of 33 x 16 bytes meet every bank
+      // once).  Features past D are computed and never stored.
+      for (int f0 = 0; f0 < D; f0 += kFeat) {
+        const float* xa = xcur + (f0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd + 4 * (lane >> 4);
+        const float* ra = rcur + ((lane & 7) + 8 * (lane >> 4)) * kLd + 4 * ((lane >> 3) & 1);
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int r = 32 * warp + 16 * s;
+          XPairs x[2];
+#pragma unroll
+          for (int mm = 0; mm < 2; ++mm) {
+            unsigned a0[4], a1[4];
+            ldsm_x4(a0, xa + 16 * mm * kLd + r);
+            ldsm_x4(a1, xa + 16 * mm * kLd + r + 8);
+            x[mm] = x_round_pairs<kPrec, kNarrow>(a0[0], a0[2], a0[1], a0[3], a1[0], a1[2],
+                                                  a1[1], a1[3]);
+          }
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            if (2 * jp >= nt) continue;
+            unsigned q0[4], q1[4];
+            ldsm_x4(q0, ra + 16 * jp * kLd + r);
+            ldsm_x4(q1, ra + 16 * jp * kLd + r + 8);
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              const int j = 2 * jp + jj;
+              if (j >= nt) continue;
+              unsigned bh0, bh1, bl0 = 0u, bl1 = 0u;
+              round_pairs<kPrec>(q0[2 * jj], q0[2 * jj + 1], bh0, bl0);
+              round_pairs<kPrec>(q1[2 * jj], q1[2 * jj + 1], bh1, bl1);
+#pragma unroll
+              for (int mm = 0; mm < 2; ++mm)
+                mma_prec<kPrec, kNarrow>(gacc[mm][j], x[mm], bh0, bh1, bl0, bl1);
+            }
+          }
+        }
+        if (!kOneTile) fold_gradient(k, f0, sub == sub0);  // more tiles than one
+      }
+    }
+    if (!two && sub + 1 < sub1) {  // one buffer: the next sub-tile once this one is done
+      __syncthreads();
+      const int nrow0 = row0 + kRows;
+      stage<kNarrow>(p, xs, ys, rs, nrow0, min(kRows, N - nrow0), x16, o16);
+      cp_async_commit();
+    }
+  }
+  cp_async_wait_all();  // (an empty group; nothing left in flight)
+  __syncthreads();      // every thread is done with the buffers
+
+  if (kOneTile) fold_gradient(0, 0, true);  // the one tile: gsl overlays the x buffers
+  if (cp == kChains) {
+    fold_values(0, 0);
+    __syncthreads();
+    fold_values(0, 1);
+  }
+  __syncthreads();
+
+  if (!L.gsl_global) {
+    for (int i = t; i < C * D; i += kThreads) p.gpart[(size_t)b * C * D + i] = gsl[i];
+  }
+  for (int c = t; c < C; c += kThreads) p.vpart[(size_t)b * C + c] = vsl[2 * c] + vsl[2 * c + 1];
+}
+
+using Kernel = void (*)(Params, int);
+
+// b2_pass runs at highest only (high and default: b2_mma).
 template <bool kOneTile, bool kShards, bool kNarrow>
-inline Kernel pick_prec(int link, int prec) {
-  return prec == kHigh      ? pick_link<kOneTile, kShards, kHigh, kNarrow>(link)
-         : prec == kDefault ? pick_link<kOneTile, kShards, kDefault, kNarrow>(link)
-                            : pick_link<kOneTile, kShards, kHighest, kNarrow>(link);
+inline Kernel pick_link(int link) {
+  return link == kGaussian ? b2_pass<kOneTile, kGaussian, kShards, kNarrow>
+                           : b2_pass<kOneTile, kBernoulli, kShards, kNarrow>;
 }
 
 template <bool kOneTile, bool kShards>
-inline Kernel pick(int link, int prec, bool narrow) {
-  return narrow ? pick_prec<kOneTile, kShards, true>(link, prec)
-                : pick_prec<kOneTile, kShards, false>(link, prec);
+inline Kernel pick(int link, bool narrow) {
+  return narrow ? pick_link<kOneTile, kShards, true>(link)
+                : pick_link<kOneTile, kShards, false>(link);
 }
 
 template <int kCh, int kF, int kPrec, bool kNarrow>
@@ -954,11 +1373,51 @@ int launch_chunk_of(const Params& p, int nblk, int S, int link, int prec, cudaSt
   return (int)cudaGetLastError();
 }
 
-// One entry a part (1-4), defined where its kernels compile.
+template <bool kOneTile, int kNt, bool kShards, int kPrec, bool kNarrow>
+inline Kernel mma_link(int link) {
+  return link == kGaussian ? b2_mma<kOneTile, kNt, kGaussian, kShards, kPrec, kNarrow>
+                           : b2_mma<kOneTile, kNt, kBernoulli, kShards, kPrec, kNarrow>;
+}
+
+template <bool kOneTile, int kNt, bool kShards, bool kNarrow>
+inline Kernel mma_prec_of(int link, int prec) {
+  return prec == kHigh ? mma_link<kOneTile, kNt, kShards, kHigh, kNarrow>(link)
+                       : mma_link<kOneTile, kNt, kShards, kDefault, kNarrow>(link);
+}
+
+// The one-tile float32 kernels of 25 to 32 chains have their 4 n-tiles
+// compiled in; on a narrow X (where one so spilled) nt is read at run time.
+template <bool kShards, bool kNarrow>
+inline Kernel mma_pick(int C, int D, int link, int prec) {
+  if (!one_tile(C, D)) return mma_prec_of<false, 0, kShards, kNarrow>(link, prec);
+  if constexpr (!kNarrow) {
+    if (mma_ntiles(C, 0) == 4) return mma_prec_of<true, 4, kShards, false>(link, prec);
+  }
+  return mma_prec_of<true, 0, kShards, kNarrow>(link, prec);
+}
+
+// b2_mma at (C, D, link, prec = high or default) over the grid (nblk,
+// S): its shared memory (b2_pass's layout) allowed, launched; the
+// launch's error.
+template <bool kNarrow>
+int launch_mma_of(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s) {
+  const Kernel kern = S > 1 ? mma_pick<true, kNarrow>(p.C, p.D, link, prec)
+                            : mma_pick<false, kNarrow>(p.C, p.D, link, prec);
+  const int bytes = layout(p.C, p.D).words * (int)sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             bytes);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(nblk, S), kThreads, bytes, s>>>(p, nblk);
+  return (int)cudaGetLastError();
+}
+
+// One entry a part (1-6), defined where its kernels compile.
 int launch_chunk8(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s);
 int launch_chunk8_narrow(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s);
 int launch_chunk16(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s);
 int launch_chunk16_narrow(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s);
+int launch_mma(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s);
+int launch_mma_narrow(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s);
 #if STARK_HOLDS(1)
 int launch_chunk8(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s) {
   return launch_chunk_of<8, false>(p, nblk, S, link, prec, s);
@@ -977,6 +1436,16 @@ int launch_chunk16(const Params& p, int nblk, int S, int link, int prec, cudaStr
 #if STARK_HOLDS(4)
 int launch_chunk16_narrow(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s) {
   return launch_chunk_of<16, true>(p, nblk, S, link, prec, s);
+}
+#endif
+#if STARK_HOLDS(5)
+int launch_mma(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s) {
+  return launch_mma_of<false>(p, nblk, S, link, prec, s);
+}
+#endif
+#if STARK_HOLDS(6)
+int launch_mma_narrow(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s) {
+  return launch_mma_of<true>(p, nblk, S, link, prec, s);
 }
 #endif
 
@@ -1020,20 +1489,21 @@ extern "C" int stark_logistic_batched(
                       : (narrow ? b2::launch_chunk16_narrow : b2::launch_chunk16)(p, nblk, S, link,
                                                                                   prec, s);
     if (e != 0) return e;
-  } else {
+  } else if (prec == stark::kHighest) {  // past them at highest: b2_pass
     const size_t bytes = (size_t)b2::layout(C, D).words * sizeof(float);
     const bool one = b2::one_tile(C, D);
     const b2::Kernel kern =
-        S > 1 ? (one ? b2::pick<true, true>(link, prec, narrow)
-                     : b2::pick<false, true>(link, prec, narrow))
-              : (one ? b2::pick<true, false>(link, prec, narrow)
-                     : b2::pick<false, false>(link, prec, narrow));
+        S > 1 ? (one ? b2::pick<true, true>(link, narrow) : b2::pick<false, true>(link, narrow))
+              : (one ? b2::pick<true, false>(link, narrow) : b2::pick<false, false>(link, narrow));
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
     if (e != cudaSuccess) return (int)e;
     kern<<<dim3(nblk, S), b2::kThreads, bytes, s>>>(p, nblk);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
+  } else {  // at high and default: b2_mma
+    const int e = (narrow ? b2::launch_mma_narrow : b2::launch_mma)(p, nblk, S, link, prec, s);
+    if (e) return e;
   }
   const long long warps = ((long long)C * D + C) * S;
   const int blocks = (int)((32 * warps + b2::kThreads - 1) / b2::kThreads);
@@ -1051,14 +1521,23 @@ extern "C" int stark_logistic_batched_smem(int C, int D, int device, int* need, 
   return (int)cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
 }
 
-// The chunk the launcher runs at (C, D): b2_chunk's chains and features,
-// or b2_pass's 32 and 32 (stark_tpu_torch/ops/logistic_fused.py:b2_chunks
-// mirrors it).
-extern "C" int stark_logistic_batched_chunks(int C, int D, int* chains, int* features) {
+// The pass the launcher runs at (C, D) and dot precision prec, and its
+// chunks (stark_tpu_torch/ops/logistic_fused.py:b2_chunks and b2_route
+// mirror them): route 0 b2_chunk (chains and features its chunk's), 1
+// b2_pass, 2 b2_mma (32 and 32); `padded` the chains the pass computes
+// (b2_chunk's chunk, b2_pass's C rounded up to 32, b2_mma's last chunk
+// rounded up to 8).
+extern "C" int stark_logistic_batched_chunks(int C, int D, int prec, int* chains, int* features,
+                                             int* route, int* padded) {
   namespace b2 = stark::b2;
+  if (prec != stark::kHighest && prec != stark::kHigh && prec != stark::kDefault) {
+    return (int)cudaErrorInvalidValue;
+  }
   const bool chunk = b2::chunked(C, D);
   *chains = chunk ? b2::chunk_chains(C) : b2::kChains;
   *features = chunk ? b2::chunk_features(D) : b2::kFeat;
+  *route = chunk ? 0 : prec == stark::kHighest ? 1 : 2;
+  *padded = chunk ? *chains : *route == 1 ? b2::chains_padded(C) : b2::mma_chains(C);
   return 0;
 }
 #endif

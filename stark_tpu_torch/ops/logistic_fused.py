@@ -141,6 +141,31 @@ def b2_chunks(c: int, d: int):
     return B2_CHAIN_CHUNKS[-1], B2_FEATURE_CHUNKS[-1]
 
 
+#: B2's passes (csrc/logistic_batched.cu), in the order of their codes in
+#: stark_logistic_batched_chunks: b2_chunk at C <= 16 and D <= 32, every
+#: precision; past them b2_pass at highest (FP32 CUDA cores) and b2_mma at
+#: high and default (bf16 tensor cores)
+B2_ROUTES = ("b2_chunk", "b2_pass", "b2_mma")
+
+
+def b2_route(c: int, d: int, prec: str):
+    """(pass, chains it computes) that B2 runs at C=c, D=d and dot
+    precision ``prec`` (one of `precision.PRECISIONS`): b2_chunk's chunk
+    (`b2_chunks`); b2_pass's C rounded up to its chunks of 32; b2_mma's
+    32 for each whole chunk of 32 and the rest rounded up to 8 (its
+    n-tiles), so that C = 17..24 computes 24 chains;
+    csrc/logistic_batched.cu:stark_logistic_batched_chunks."""
+    if prec not in PRECISIONS:
+        raise ValueError(f"unknown dot precision {prec!r}; use one of {sorted(PRECISIONS)}")
+    chains, _ = b2_chunks(c, d)
+    if chains < B2_CHAIN_CHUNKS[-1]:
+        return B2_ROUTES[0], chains
+    whole, rest = divmod(c, chains)
+    if prec == "highest":
+        return B2_ROUTES[1], (whole + (rest > 0)) * chains
+    return B2_ROUTES[2], whole * chains + -(-rest // 8) * 8
+
+
 #: the links both kernels take, and their code in the C entry points
 LINKS = {"bernoulli_logit": 0, "gaussian": 1}
 _LOG_2PI = 1.8378770664093453

@@ -67,9 +67,12 @@ def test_rehearsal_counts_special_functions_at_the_h100s_rate():
 @pytest.mark.parametrize("prec", cs.PRECISION_MODES)
 @pytest.mark.parametrize("chains", ["", f" C={cs.NUTS_CHAINS}"])
 def test_compare_with_times_b1_at_each_precision(prec, chains):
+    """B1 at high and default is timed at both chain counts; against a
+    parent that already has its tensor-core pass it is expected bitwise
+    equal."""
     key = f"B1 {prec}{chains}"
     assert key in cs.SHARED_KERNELS
-    assert cs.expected_against_parent(key).startswith("no")
+    assert cs.expected_against_parent(key) == "yes"
 
 
 def test_compare_with_keeps_every_kernel_it_had():

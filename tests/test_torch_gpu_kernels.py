@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from chip_smoke import (B2_EDGE_CASES, B2_SHARD_EDGE_CASES, b1_edge_inputs, b1_link_slack,
-                        compare_slack)
+                        b2_edge_inputs, b2_link_slack, compare_slack)
 from chip_smoke import sizes_with_gaps as _sizes_with_gaps
 from stark_tpu_torch.ops import hier_fused, logistic_fused
 
@@ -587,22 +587,33 @@ def test_b2_runs_every_width_the_shared_pass_ran(chains):
     assert need <= limit, (chains, d, need, limit)
 
 
-@pytest.mark.parametrize("chains", [1, 7, 8, 9, 15, 16, 17, 32, 33, 64, 100])
+@pytest.mark.parametrize("chains", [1, 7, 8, 9, 15, 16, 17, 24, 25, 32, 33, 64, 100])
 def test_b2_chunk_choice_is_the_python_mirror(chains):
     """The chunk the launcher runs (b2_chunk's 8 or 16 chains and 8, 16 or
-    32 features at C <= 16, D <= 32; b2_pass's 32 and 32 past them) is
-    logistic_fused.b2_chunks', which the CPU tests check."""
+    32 features at C <= 16, D <= 32; 32 and 32 past them) is
+    logistic_fused.b2_chunks', and the pass it runs at each dot precision
+    (b2_chunk; past it b2_pass at highest, b2_mma at high and default)
+    and the chains that pass computes (b2_mma's last chunk padded to 8)
+    are logistic_fused.b2_route's, which the CPU tests check."""
     import ctypes
 
     from stark_tpu_torch import _build
+    from stark_tpu_torch.ops.precision import PRECISIONS as CODES
 
     _cuda()
     fn = _build.function("logistic_batched", "stark_logistic_batched_chunks",
-                         [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2)
-    for d in (1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 100):
-        ch, f = ctypes.c_int(), ctypes.c_int()
-        assert fn(chains, d, ctypes.byref(ch), ctypes.byref(f)) == 0
-        assert (ch.value, f.value) == logistic_fused.b2_chunks(chains, d), (chains, d)
+                         [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4)
+    for prec in PRECISIONS:
+        for d in (1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 100, 327):
+            ch, f, route, padded = (ctypes.c_int() for _ in range(4))
+            assert fn(chains, d, CODES[prec], ctypes.byref(ch), ctypes.byref(f),
+                      ctypes.byref(route), ctypes.byref(padded)) == 0
+            assert (ch.value, f.value) == logistic_fused.b2_chunks(chains, d), (chains, d)
+            assert (logistic_fused.B2_ROUTES[route.value], padded.value) == (
+                logistic_fused.b2_route(chains, d, prec)), (chains, d, prec)
+    ch, f, route, padded = (ctypes.c_int() for _ in range(4))
+    assert fn(chains, 8, 7, ctypes.byref(ch), ctypes.byref(f), ctypes.byref(route),
+              ctypes.byref(padded)) != 0  # no such precision
 
 
 @pytest.mark.parametrize("link", ["bernoulli_logit", "gaussian"])
@@ -885,3 +896,85 @@ def test_wrappers_refuse_an_unknown_slab_dtype():
     with pytest.raises(ValueError, match="xT has dtype"):
         logistic_fused.logistic_batched(torch.zeros(2, 3, device=dev), xT,
                                         torch.zeros(100, device=dev))
+
+
+# --- B2 at high and default on the bf16 tensor cores (b2_mma) ---------------
+
+# B2_EDGE_CASES past b2_chunk's (C > 16 or D > 32): b2_mma's shapes at high
+# and default, chain counts off its n-tiles of 8 and past one chunk of 32,
+# features off its k-steps of 16 and past one chunk of 32, every
+# shared-memory tier
+_B2_MMA_CASES = [(n, d, c) for n, d, c in B2_EDGE_CASES
+                 if logistic_fused.b2_route(c, d, "high")[0] == "b2_mma"]
+
+
+def _b2_mma_check(args, link, prec, monkeypatch, wide=False):
+    """B2 at ``prec`` on ``args`` (dyadic: every logit exact) twice: both
+    launches counted at ``prec``, bitwise equal, and against the plain
+    version at ``prec`` in float64 within highest's tolerances plus the
+    bernoulli link's slack (chip_smoke.b2_link_slack); ``wide``: the slab
+    is narrow and the yardstick takes it widened."""
+    monkeypatch.setenv("STARK_FUSED_PRECISION", prec)
+    lb = logistic_fused.logistic_batched
+    before = lb.precision_launches[prec]
+    got = lb(*args, link=link)
+    again = lb(*args, link=link)
+    torch.cuda.synchronize()
+    assert lb.precision_launches[prec] == before + 2
+    plain = functools.partial(logistic_fused.logistic_batched_plain, link=link, prec=prec)
+    want = (_in_float64_wide if wide else _in_float64)(plain, args)
+    wide_args = [a.float() if torch.is_tensor(a) and a.dtype in _NARROW.values() else a
+                 for a in args]
+    _, excess = compare_slack("", got, want, b2_link_slack(wide_args, prec, link), GRAD_RTOL,
+                              GRAD_ATOL, quiet=True)
+    assert excess <= 0, f"error exceeds its bound by {excess:.4g}"
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("prec", ["high", "default"])
+@pytest.mark.parametrize("link", ["bernoulli_logit", "gaussian"])
+@pytest.mark.parametrize("with_offsets", [False, True])
+@pytest.mark.parametrize("n,d,chains", _B2_MMA_CASES)
+def test_b2_mma_edge_cases_match_float64_and_repeat_bitwise(n, d, chains, with_offsets, link,
+                                                            prec, monkeypatch):
+    """b2_mma on the edge shapes past b2_chunk's, on chip_smoke's grids
+    (default: x in steps of 2^-9, which bf16 rounds; high: the coarse
+    grid, whose gradient sums are exact in float32 in any order)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(n + d + chains)
+    xT, y, beta, off = b2_edge_inputs(n, d, chains, link, gen, dev, fine=prec == "default")
+    _b2_mma_check((beta, xT, y, off if with_offsets else None), link, prec, monkeypatch)
+
+
+@pytest.mark.parametrize("prec", ["high", "default"])
+@pytest.mark.parametrize("name", list(_NARROW))
+@pytest.mark.parametrize("n", [40_003, 1_000_003])
+def test_b2_mma_narrow_x_matches_float64_and_repeats_bitwise(n, name, prec, monkeypatch):
+    """b2_mma at C=32, D=32 (the offset path's shape) on a narrow xT,
+    with offsets, rows off alignment, against float64 on the widened
+    values; launches by dtype."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(n)
+    xT, y, beta, off = b2_edge_inputs(n, 32, 32, "bernoulli_logit", gen, dev)
+    q = _narrow(xT, name)
+    beta = beta / 4.0 if name == "int8" else beta
+    before = _counts(logistic_fused.logistic_batched, name)
+    _b2_mma_check((beta, q, y, off), "bernoulli_logit", prec, monkeypatch, wide=True)
+    assert _counts(logistic_fused.logistic_batched, name) == before + 2
+
+
+@pytest.mark.parametrize("prec", ["high", "default"])
+@pytest.mark.parametrize("link", ["bernoulli_logit", "gaussian"])
+@pytest.mark.parametrize("with_offsets", [False, True])
+@pytest.mark.parametrize("s,n,d", [(2, 3001, 33), (3, 40_002, 17), (8, 1001, 32)])
+def test_b2_mma_shard_axis_at_33_chains(s, n, d, with_offsets, link, prec, monkeypatch):
+    """b2_mma with the shard axis at C=33 (a chunk of 32 and one n-tile
+    of 8), one launch for every shard, against float64 on dyadic inputs."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(s + n + d)
+    parts = [b2_edge_inputs(n, d, 33, link, gen, dev, fine=prec == "default") for _ in range(s)]
+    xT, y, beta, off = (torch.stack(t) for t in zip(*parts))
+    lb = logistic_fused.logistic_batched
+    before = lb.shard_launches
+    _b2_mma_check((beta, xT, y, off if with_offsets else None), link, prec, monkeypatch)
+    assert lb.shard_launches == before + 2
