@@ -240,10 +240,15 @@ Phases, in order; any failure exits non-zero (none is caught):
                 narrow on dyadic values whose logits are exact, against
                 the plain version in float64 on the widened values at
                 highest, a second launch bitwise equal, CUDA-event times
-                beside the bound at the storage width; the kernels'
-                full-width shapes also at high and default; one B1 call on
-                int8 X at the flagship allocating less than the float32
-                slab beyond its inputs and outputs.  Then the precision
+                beside the bound at the storage width (B1 at highest on
+                the bf16 tensor cores, split3's three passes); the
+                kernels' full-width shapes also at high and default; one
+                B1 call on int8 X at the flagship allocating less than the
+                float32 slab beyond its inputs and outputs; B1's narrow
+                edge sweep (`phase_b1_narrow_edges`: every B1_EDGE_CASES
+                shape under bf16 and int8, two under fp8 e4m3 and e5m2,
+                and a slab at a base off 16-byte alignment, each at every
+                precision against float64).  Then the precision
                 phase's five chees_sample / consensus_sample legs under
                 each narrow dtype (launches = evaluations, all of that
                 dtype) and the single-chain op (B3) on X prepared under
@@ -277,14 +282,16 @@ wall and where its sampling time went.
 
 ``--compare-with TREE`` instead times the kernels that TREE (another
 checkout, e.g. the parent commit's) shares with this one: B1 (at highest,
-and at high and default also at C=8), B2 (both links, with and without
-offsets; bernoulli also at high and default) and B3 at the flagship's
-full width, B2's narrow chunks (B2_NARROW_KEYS), B2's gaussian link and
-B4 at config 3's, each tree's own build in its own process, in the order
-TREE, this, this, TREE on the same card, and says for each kernel
-whether its outputs are bitwise equal across the trees (against a parent
-before B2's tensor-core pass every kernel but B2 at high and default at
-C=32, B2_MMA_KEYS, is expected to be).
+and at high and default also at C=8; on the flagship's X stored as bf16
+and int8 at each precision, and as bf16 at C=8, B1_NARROW_KEYS), B2
+(both links, with and without offsets; bernoulli also at high and
+default) and B3 at the flagship's full width, B2's narrow chunks
+(B2_NARROW_KEYS), B2's gaussian link and B4 at config 3's, each tree's
+own build in its own process, in the order TREE, this, this, TREE on the
+same card, and says for each kernel whether its outputs are bitwise
+equal across the trees (`expected_against_parent`: against a parent
+before B1's tensor-core pass at highest on narrow X every kernel but B1
+at highest on narrow X is expected to be).
 """
 
 from __future__ import annotations
@@ -575,8 +582,9 @@ class Run:
             # the rest of the zoo's seven NUTS legs: depth 6, 20 + 20 (30 +
             # 30 until PR 14's precision phases)
             # (15 + 15, cut from 20 + 20 for the X-dtype phases; then 10 +
-            # 10; then 9 + 9 for B1's edge sweeps at high and default)
-            self.zoo_rest_budget = dict(max_tree_depth=6, num_warmup=9, num_samples=9)
+            # 10; then 9 + 9 for B1's edge sweeps at high and default; then
+            # 7 + 7 for B1's narrow-X edge sweep at every precision)
+            self.zoo_rest_budget = dict(max_tree_depth=6, num_warmup=7, num_samples=7)
             # the precision phase's legs check the paths at each precision,
             # not convergence: ChEES, MAP 3, warmup 3, samples 3 (MAP 10,
             # warmup 10, samples 5: 98 s for the ten legs on one H100 80GB
@@ -2782,6 +2790,19 @@ PRECISION_MODES = ("high", "default")
 BF16_FLOP_PER_S = 989e12
 #: bf16 passes per product of each precision
 PASSES = {"highest": 1, "high": 3, "default": 1}
+#: bf16 passes per product of B1 at highest on narrow X where it runs on
+#: the tensor cores: x times each of the three pieces of beta and of resid
+#: (csrc/fused_pass.cuh:split3)
+SPLIT3_PASSES = 3
+
+
+def b1_split3_route() -> bool:
+    """Whether B1 at highest on narrow X runs on the bf16 tensor cores
+    (hier_mma by split3, `hier_fused.b1_route`), whose bound counts
+    SPLIT3_PASSES bf16 passes, rather than on the FP32 CUDA cores."""
+    from stark_tpu_torch.ops.hier_fused import b1_route
+
+    return b1_route(64, 32, "highest", "bf16")[0] == "hier_mma"
 #: the reference's parity bands of a precision against ``highest``
 #: (tools/precision_parity.py:19-21), (value, gradient) in the metrics
 #: of `parity_error`: ``high`` tight, ``default`` wide
@@ -3448,7 +3469,11 @@ def phase_x_dtype_kernels(run: Run, flag, lmm):
             ms = timed(run, lambda: wrapper(*kargs, **kw), 20)
             plain_ms = timed(run, lambda: plain(*kargs, **kw), 5)
             sfu = dict(sfu=case.get("sfu", 0), sfu_per_s=run.sfu_per_s)
-            e = bound(x_bytes(case, kargs, xdt), 2 * case["products"], **sfu)
+            if kind == "B1" and b1_split3_route():  # highest on the tensor cores
+                e = bound(x_bytes(case, kargs, xdt), 2 * case["products"] * SPLIT3_PASSES,
+                          BF16_FLOP_PER_S, **sfu)
+            else:
+                e = bound(x_bytes(case, kargs, xdt), 2 * case["products"], **sfu)
             e.update(max_abs_err=err, excess=excess, ms=ms, plain_ms=plain_ms)
             log(f"  {label} [{smi}]: {ms:.4f} ms, plain {plain_ms:.4f} ms, {fmt_bound(e)}")
             if case["entry"]:
@@ -3469,11 +3494,15 @@ def phase_x_dtype_kernels(run: Run, flag, lmm):
                             *case["tol"])
                         assert pexcess <= 0, f"{label} {prec}: exceeds its bound by {pexcess:.4g}"
                         pms = timed(run, lambda: wrapper(*kargs, **kw), 20)
+                    pplain = (timed(run, lambda: plain(*kargs, **kw, prec=prec), 5)
+                              if kind == "B1" else None)
                     pe = bound(x_bytes(case, kargs, xdt), 2 * case["products"] * PASSES[prec],
                                BF16_FLOP_PER_S, **sfu)
-                    log(f"  {label} {prec} [{smi}]: {pms:.4f} ms, {fmt_bound(pe)} on bf16 tensor "
-                        f"cores")
-                    out[f"{label} {prec}"] = dict(pe, max_abs_err=perr, excess=pexcess, ms=pms)
+                    log(f"  {label} {prec} [{smi}]: {pms:.4f} ms"
+                        + (f", plain {pplain:.4f} ms" if pplain is not None else "")
+                        + f", {fmt_bound(pe)} on bf16 tensor cores")
+                    out[f"{label} {prec}"] = dict(pe, max_abs_err=perr, excess=pexcess, ms=pms,
+                                                  plain_ms=pplain)
             out[label] = e
     out["edges_max_abs_err"] = phase_x_dtype_edges(run, gen)
     # no float32 copy of X: one B1 call on int8 X at the flagship
@@ -3500,8 +3529,9 @@ def phase_x_dtype_kernels(run: Run, flag, lmm):
 #: edge cases of the narrow staging: rows that start off the alignment of
 #: a 4-element load (N = 1, 2, 3 mod 4), N below one sub-tile, chain and
 #: feature counts off the chunks, each kernel's general instantiation
-#: (B1 (N, D, C, G); B2 (N, D, C); the shard axis (S, n, D, C); B3 (N,
-#: D); B4 (ids, N, D, Q, C, G), as B4_EDGE_CASES)
+#: (B1 (N, D, C, G), fp8 at each precision, `phase_b1_narrow_edges`; B2
+#: (N, D, C); the shard axis (S, n, D, C); B3 (N, D); B4 (ids, N, D, Q,
+#: C, G), as B4_EDGE_CASES)
 X_EDGE_B1 = ((3001, 7, 9, 20), (1027, 33, 70, 12))
 X_EDGE_B2 = ((3001, 7, 9), (50, 5, 9), (40_003, 32, 20), (1001, 33, 33))
 X_EDGE_SHARDS = ((3, 127, 16, 8), (2, 3001, 33, 33), (8, 1001, 16, 8))
@@ -3512,22 +3542,13 @@ X_EDGE_B4 = (("uniform", 3001, 8, 2, 16, 20), ("uniform", 50, 5, 2, 9, 3),
 
 def x_edge_cases(run: Run, gen):
     """(label, kind, wrapper, plain, dyadic arguments, link keywords,
-    tolerances) of every X_EDGE_* case, x on `dyadic_inputs`' 2^-9 grid."""
+    tolerances) of B2's, the shard axis', B3's and B4's X_EDGE_* cases, x
+    on `dyadic_inputs`' 2^-9 grid."""
     from stark_tpu_torch.ops import hier_fused as hf
     from stark_tpu_torch.ops import logistic_fused as lf
 
     dev, rs = run.dev, np.random.RandomState(23)
-    fine = lambda shape: dyadic(torch.empty(shape, device=dev), 2.0 ** -11, 0.25, gen)
     out = []
-    for n, d, c, groups in X_EDGE_B1:
-        raw = {"x": (rs.randint(-512, 513, size=(n, d)) * 2.0 ** -9).astype(np.float32),
-               "y": (rs.rand(n) < 0.4).astype(np.float32),
-               "g": rs.randint(0, groups, size=n).astype(np.int32)}
-        prep = hf.prepare_grouped(raw, d)
-        t = [torch.as_tensor(prep[k], device=dev) for k in ("xT", "y", "gl", "first_gid")]
-        out.append((f"B1 N={n} D={d} C={c}", "B1", hf.hier_grouped, hf.hier_grouped_plain,
-                    (fine((c, d)), fine((c, groups)), *t, prep["lane_tile"]), {},
-                    (GRAD_RTOL, GRAD_ATOL)))
     for link in ("bernoulli_logit", "gaussian"):
         for n, d, c in X_EDGE_B2:
             xT, y, beta, off = b2_edge_inputs(n, d, c, link, gen, dev, fine=True)
@@ -3557,10 +3578,85 @@ def x_edge_cases(run: Run, gen):
     return out
 
 
+def b1_narrow_edge_args(run: Run):
+    """(label, dyadic float32 arguments) of B1's narrow-X edge sweep: every
+    B1_EDGE_CASES shape on `b1_edge_inputs`' grids (one RandomState(29)),
+    then X_EDGE_B1's two (fp8's, on `dyadic_inputs`' grids)."""
+    from stark_tpu_torch.ops import hier_fused as hf
+
+    rs, out = np.random.RandomState(29), []
+    cases = [*B1_EDGE_CASES, *((f"fp8 N={n}", n, d, g, c, None, 0.3) for n, d, c, g in X_EDGE_B1)]
+    for case in cases:
+        raw, params = b1_edge_inputs(case, rs)
+        prep = hf.prepare_grouped(raw, case[2])
+        t = [torch.as_tensor(prep[k], device=run.dev) for k in ("xT", "y", "gl", "first_gid")]
+        args = (*(torch.as_tensor(a, device=run.dev) for a in params), *t, prep["lane_tile"])
+        out.append((f"B1 {case[0]} N={prep['y'].shape[0]} D={case[2]} C={case[4]}", args))
+    return out[:len(B1_EDGE_CASES)], out[len(B1_EDGE_CASES):]
+
+
+def off_16_bytes(t):
+    """``t``'s values in a contiguous tensor whose base lies one element
+    past a 16-byte boundary (the tail of a buffer one element longer)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    out = flat[1:].view(t.shape)
+    assert out.data_ptr() % 16 and out.is_contiguous()
+    return out
+
+
+def phase_b1_narrow_edges(run: Run):
+    """B1 on narrow X at each dot precision: every B1_EDGE_CASES shape with
+    X stored as bf16 and as int8, X_EDGE_B1's two as fp8 e4m3 and e5m2,
+    and the 'N=3 mod 4' slab at a base off 16-byte alignment (plain
+    loads; bitwise the aligned slab's outputs, which are copied in
+    flight): against the plain version at that precision in float64 on
+    the widened values (`x_narrow_args`), within highest's tolerances
+    plus at high and default the link's slack; a second launch bitwise
+    equal."""
+    from stark_tpu_torch.ops import hier_fused as hf
+
+    log(f"== B1 narrow X edge cases at each precision, against {yardstick_name(run)} (script "
+        f"at {run.elapsed():.1f} s)")
+    shapes, fp8 = b1_narrow_edge_args(run)
+    sweep = [(label, args, xdt) for label, args in shapes for xdt in ("bf16", "int8")]
+    sweep += [(label, args, xdt) for label, args in fp8 for xdt in ("fp8e4m3", "fp8e5m2")]
+    skew = dict(shapes)[next(label for label, _ in shapes if "N=3 mod 4" in label)]
+    sweep += [("B1 N=3 mod 4, base off 16 bytes", skew, xdt) for xdt in ("bf16", "int8")]
+    worst, checks = 0.0, 0
+    for label, args, xdt in sweep:
+        kargs, wide, units = x_narrow_args("B1", args, xdt)
+        aligned = None
+        if "off 16 bytes" in label:
+            aligned = kargs
+            kargs = (*kargs[:2], off_16_bytes(kargs[2]), *kargs[3:])
+        for prec in ("highest", *PRECISION_MODES):
+            name = f"{label} {xdt} at {prec}"
+            with env(PREC_KNOB, prec):
+                got = hf.hier_grouped(*kargs)
+                again = hf.hier_grouped(*kargs)
+                same = None if aligned is None else hf.hier_grouped(*aligned)
+            run.sync()
+            want = yardstick(run, hf.hier_grouped_plain, *wide, prec=prec)
+            slack = [] if prec == "highest" else b1_link_slack(wide, prec)
+            err, excess = compare_slack(name, units(got), units(want), units(slack), GRAD_RTOL,
+                                        GRAD_ATOL, quiet=True)
+            assert excess <= 0, f"{name}: error exceeds its bound by {excess:.4g}"
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{name} repeat"
+            if same is not None:
+                assert all(torch.equal(a, b) for a, b in zip(got, same)), f"{name}: not bitwise"
+            worst, checks = max(worst, err), checks + 1
+    log(f"  {checks} checks ({len(shapes)} shapes x bf16, int8; {len(fp8)} x fp8 e4m3, e5m2; the "
+        f"slab off 16 bytes bitwise the aligned one), each at highest, high and default: every "
+        f"one passes, a second launch bitwise equal; largest error {worst:.4g}")
+    return worst
+
+
 def phase_x_dtype_edges(run: Run, gen):
-    """Every X_EDGE_* case under every narrow dtype at highest: the kernel
-    against its plain version in float64 on the widened values, a second
-    launch bitwise equal."""
+    """Every X_EDGE_* case of B2, B3 and B4 under every narrow dtype at
+    highest: the kernel against its plain version in float64 on the
+    widened values, a second launch bitwise equal; then B1's at each
+    precision (`phase_b1_narrow_edges`)."""
     log(f"== x dtype edge cases (X_EDGE_*), every narrow dtype, against "
         f"{yardstick_name(run)} (script at {run.elapsed():.1f} s)")
     worst = 0.0
@@ -3577,7 +3673,7 @@ def phase_x_dtype_edges(run: Run, gen):
             assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{label} {xdt} repeat"
             worst = max(worst, err)
     log(f"  every case passes, a second launch bitwise equal; largest error {worst:.4g}")
-    return worst
+    return max(worst, phase_b1_narrow_edges(run))
 
 
 def _x_leg(run: Run, xdt, label, fn, counted, evals_of):
@@ -3892,11 +3988,25 @@ B2_MMA_KEYS = tuple(f"B2 {prec} offsets={off}" for prec in ("high", "default")
 #: B2 at C=32 (both links, with and without offsets; bernoulli also at
 #: high and default, B2_MMA_KEYS) and at the chain and feature counts of
 #: its narrow chunks (B2_NARROW_KEYS)
+
+
+def b1_narrow_key(prec, xdt, chains=64):
+    """The --compare-with key of B1 at ``prec`` on X stored as ``xdt``."""
+    p = "" if prec == "highest" else f" {prec}"
+    return f"B1{p} {xdt}" + ("" if chains == 64 else f" C={chains}")
+
+
+#: B1 on the flagship's X stored narrow (dyadic values): bf16 and int8 at
+#: each precision at C=64, bf16 at each at the NUTS legs' C=8
+B1_NARROW_KEYS = tuple(b1_narrow_key(prec, xdt, c) for c, dts in ((64, ("bf16", "int8")),
+                                                                  (NUTS_CHAINS, ("bf16",)))
+                       for xdt in dts for prec in ("highest", "high", "default"))
 SHARED_KERNELS = ("B1", "B1 high", "B1 high C=8", "B1 default", "B1 default C=8",
                   "B2 offsets=False", "B2 offsets=True", "B2 gaussian offsets=False",
                   "B2 gaussian offsets=True", *B2_MMA_KEYS, "B2 gaussian (LMM)",
                   "B2 offsets=True C=8", "B2 gaussian C=8 (zoo)", "B2 shards", "B2 shards high",
-                  "B2 shards default", "B3 offsets=False", "B3 offsets=True", "B4")
+                  "B2 shards default", "B3 offsets=False", "B3 offsets=True", "B4",
+                  *B1_NARROW_KEYS)
 #: B2 at C <= 16, D <= 32 (b2_chunk): config 3's offset path (C=16, D=8),
 #: the NUTS legs (C=8 with offsets, the flagship's X), zoo_glm's
 #: FusedLinearRegression (gaussian, C=8, D=32, N=200,000, no offsets) and
@@ -3908,11 +4018,13 @@ B2_NARROW_KEYS = ("B2 gaussian (LMM)", "B2 offsets=True C=8", "B2 gaussian C=8 (
 
 def expected_against_parent(key: str) -> str:
     """Whether a kernel of SHARED_KERNELS is expected bitwise equal to the
-    parent commit's: B2 at high and default past its narrow chunks sums
-    in another order since its tensor-core pass (b2_mma); every other
-    kernel as its parent does."""
-    if key in B2_MMA_KEYS:
-        return "no, the tensor-core pass (b2_mma) sums in another order"
+    parent commit's: B1 at highest on narrow X, once it runs on the
+    tensor cores (`b1_split3_route`), sums in another order; B1 on narrow
+    X at high and default only moves its bytes otherwise (cp.async of the
+    packed words), so it is; and so is every other kernel."""
+    highest = key in B1_NARROW_KEYS and not key.startswith(("B1 high", "B1 default"))
+    if highest and b1_split3_route():
+        return "no, highest on narrow X runs on the bf16 tensor cores (split3) in another order"
     return "yes"
 
 
@@ -3986,6 +4098,14 @@ def shared_kernel_times(tree: str) -> dict:
         calls[f"B1 {prec}"] = lambda prec=prec: at_precision(prec, hf.hier_grouped, *b1_args)
         calls[f"B1 {prec} C={NUTS_CHAINS}"] = (
             lambda prec=prec: at_precision(prec, hf.hier_grouped, *b1_c8))
+    ngen = torch.Generator(device=run.dev).manual_seed(2)
+    for c, args in ((64, b1_args), (NUTS_CHAINS, b1_c8)):
+        fine = dyadic_inputs("B1", args, ngen)
+        for xdt in ("bf16", "int8"):
+            kargs = x_narrow_args("B1", fine, xdt)[0]
+            for prec in ("highest", *PRECISION_MODES):
+                calls[b1_narrow_key(prec, xdt, c)] = (
+                    lambda kargs=kargs, prec=prec: at_precision(prec, hf.hier_grouped, *kargs))
     out = {"tree": tree, "digests": {}}
     for key in SHARED_KERNELS:
         out[key] = timed(run, calls[key], 50 if key == "B4" or key in B2_NARROW_KEYS else 20)

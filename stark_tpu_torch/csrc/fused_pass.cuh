@@ -246,7 +246,8 @@ __device__ __forceinline__ XPairs x_round_pairs(unsigned w0, unsigned w1, unsign
 // (stark_tpu_torch/ops/precision.py:X_CODES): float32, bf16, int8, fp8
 // e4m3 (e4m3fn: no infinity) and fp8 e5m2.  A kernel reads a narrow slab
 // from device memory at its storage width (2 bytes, or 1) and widens each
-// element to float32 where it stages it (`stage_x4`); the widening is
+// element to float32 where it stages it (`stage_x4`, or in B1 after
+// cp.async of the packed words, `x_window_copy` below); the widening is
 // exact (every bf16, int8 and fp8 value is a float32), so everything
 // after the staging, the dots and every sum, is the float32 kernel's.
 // Every such value is also exact in bf16 (int8 and fp8 have at most 8
@@ -317,9 +318,10 @@ __device__ __forceinline__ float4 load_x4(const void* base, size_t off, int left
 }
 
 // Stage elements off .. off + 3 of a slab of storage type xdt into dst
-// (16-byte aligned) as float32, with plain loads: the kernels' narrow
-// instantiations stage x this way, where the float32 ones copy it with
-// cp.async (which has no copy of 1 or 2 bytes).  The type is a uniform
+// (16-byte aligned) as float32, with plain loads: B2's and B4's narrow
+// instantiations stage x this way, as B1's do where they have no packed
+// slot (x_window_copy); the float32 ones copy it with cp.async (which
+// has no copy of 1 or 2 bytes).  The type is a uniform
 // runtime switch: the staging runs outside the FMA loops, and one narrow
 // instantiation serves every type (float32 too: B4's z may be float32
 // beside a narrow x).
@@ -334,6 +336,133 @@ __device__ __forceinline__ void stage_x4(float* dst, const void* base, int xdt, 
     default: v = load_x4<kXE5M2>(base, off, left); break;
   }
   *reinterpret_cast<float4*>(dst) = v;
+}
+
+// ---- Narrow X copied in flight: cp.async of the packed words, widened
+// after the wait (B1's hier_pass and hier_mma; B2 can take the same) ----
+//
+// cp.async has no copy of 1 or 2 bytes, and a narrow row of a sub-tile
+// (elements off .. off + rows - 1 of the slab, 2 or 1 bytes each) starts
+// 16-byte aligned only where off * size is a multiple of 16: a row of xT
+// starts at element d * N.  So a row is copied as the 16-byte windows,
+// aligned to the slab's base, that cover it: window 0 starts at the
+// boundary at or before its first element, `head` = off * size mod 16
+// bytes before it, and x_window_chunks(rows, size) windows hold the row
+// at any head.  x_window_copy starts the copies of the windows that hold
+// one of the row's first nvalid elements (no others), lane j of a warp
+// window j, j + 32, ...; a window that reaches past the slab's last byte
+// copies only the slab's bytes and fills the rest with zeros (cp.async's
+// src-size), so no copy reads outside the slab.  After its wait and a
+// __syncwarp the same warp widens the row (x_window_load4: lane l the
+// elements 4 l .. 4 l + 3, zeros from nvalid on), its own copies only,
+// so the widening needs no barrier of the block.  The slab's base must
+// be 16-byte aligned; a slab that is not (a view) keeps the plain loads
+// of stage_x4.  (Python mirror: stark_tpu_torch/ops/hier_fused.py:
+// x_windows.)
+
+// 16-byte windows that hold a row of `rows` elements of `size` bytes at
+// any head (0 .. 15): 17 for 128 bf16 elements, 9 for 128 of one byte.
+__host__ __device__ constexpr int x_window_chunks(int rows, int size) {
+  return (rows * size + 30) / 16;
+}
+
+// Start the copies of the windows of the row at element `off` (its first
+// nvalid elements valid) of a slab of slab_bytes bytes at `base` into
+// `slot` (the row's x_window_chunks windows, 16-byte aligned): lane j of
+// the calling warp copies windows j, j + 32, ....
+__device__ __forceinline__ void x_window_copy(void* slot, const void* base, int size,
+                                              long long slab_bytes, long long off, int nvalid,
+                                              int lane) {
+  const long long b = off * size, w0 = b & ~15LL;
+  const int end = (int)(b - w0) + nvalid * size;  // bytes from window 0 to the last valid one
+  for (int j = lane; 16 * j < end; j += 32) {
+    const long long src = w0 + 16LL * j;
+    const long long left = slab_bytes - src;  // > 0: the window holds a valid element
+    const int bytes = left < 16 ? (int)left : 16;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(static_cast<char*>(slot) +
+                                                                    16 * j))),
+                 "l"(static_cast<const char*>(base) + src), "r"(bytes));
+  }
+}
+
+// Elements r .. r + 3 of a row copied by x_window_copy (window 0 at
+// `slot`, the row's first element `head` bytes into it), stored as kX and
+// widened to float32; zeros from element nvalid on.  The words are read
+// whole and the elements cut out with funnel shifts, so a head off 4-byte
+// alignment costs one word more.
+template <int kX>
+__device__ __forceinline__ float4 x_window_widen4(const void* slot, int head, int r, int nvalid) {
+  constexpr int kSize = kX == kXBf16 ? 2 : 1;
+  const unsigned* w = static_cast<const unsigned*>(slot);
+  const int b = head + r * kSize, q = b >> 2, s = (b & 3) * 8;
+  unsigned e[4];
+  if (kSize == 2) {
+    const unsigned lo = __funnelshift_r(w[q], w[q + 1], s);
+    const unsigned hi = __funnelshift_r(w[q + 1], w[q + 2], s);
+    e[0] = lo & 0xffffu;
+    e[1] = lo >> 16;
+    e[2] = hi & 0xffffu;
+    e[3] = hi >> 16;
+  } else {
+    const unsigned v = __funnelshift_r(w[q], w[q + 1], s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = (v >> (8 * i)) & 0xffu;
+  }
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = r + i < nvalid ? widen<kX>(e[i]) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// x_window_widen4 for a narrow storage type xdt, a uniform runtime switch.
+__device__ __forceinline__ float4 x_window_load4(const void* slot, int xdt, int head, int r,
+                                                 int nvalid) {
+  switch (xdt) {
+    case kXBf16: return x_window_widen4<kXBf16>(slot, head, r, nvalid);
+    case kXInt8: return x_window_widen4<kXInt8>(slot, head, r, nvalid);
+    case kXE4M3: return x_window_widen4<kXE4M3>(slot, head, r, nvalid);
+    default: return x_window_widen4<kXE5M2>(slot, head, r, nvalid);
+  }
+}
+
+// A float32 operand's word split into three bf16 pieces, a = p0 + p1 +
+// p2, each the rest so far cut to bf16 toward zero (the high 16 bits of
+// its float32 word; the differences are exact in float32): the piece
+// words, low halves 0.  A float32 has 24 significant bits and each piece
+// takes 8, so the sum is exact for every a that is a multiple of 2^-133,
+// bf16's least subnormal (every normal a of magnitude >= 2^-110, and 0);
+// of a smaller a the bits below 2^-133 are lost (an error under 2^-133).
+// Cut toward zero, no piece overflows, the largest float32 too (to
+// nearest, bf16(a) of a >= (2 - 2^-8) 2^127 would be infinite).  B1's
+// tensor-core pass at highest on narrow X takes beta and resid so: x
+// (exact in bf16) times each piece is exact in float32.
+__device__ __forceinline__ void split3(unsigned a, unsigned& p0, unsigned& p1, unsigned& p2) {
+  p0 = a & 0xffff0000u;
+  const float r1 = __uint_as_float(a) - __uint_as_float(p0);
+  p1 = __float_as_uint(r1) & 0xffff0000u;
+  p2 = __float_as_uint(r1 - __uint_as_float(p1)) & 0xffff0000u;
+}
+
+// The three bf16 pairs (b0 or b1 registers, one per piece of split3) of
+// two float32 words a (the lower k) and b.
+__device__ __forceinline__ void split3_pairs(unsigned a, unsigned b, unsigned (&pair)[3]) {
+  unsigned a0, a1, a2, b0, b1, b2;
+  split3(a, a0, a1, a2);
+  split3(b, b0, b1, b2);
+  pair[0] = hi_pair(a0, b0);
+  pair[1] = hi_pair(a1, b1);
+  pair[2] = hi_pair(a2, b2);
+}
+
+// c += x . b at highest on a narrow x (its own bf16 bits, XPairs.hi):
+// x p0, x p1, x p2, each product exact in float32, summed in float32.
+// b0[i], b1[i]: the B registers of piece i.
+__device__ __forceinline__ void mma_split3(float (&c)[4], const XPairs& x, const unsigned (&b0)[3],
+                                           const unsigned (&b1)[3]) {
+  mma_bf16(c, x.hi, b0[0], b1[0]);
+  mma_bf16(c, x.hi, b0[1], b1[1]);
+  mma_bf16(c, x.hi, b0[2], b1[2]);
 }
 
 // A slab's base pointer advanced by n elements stored as xdt.

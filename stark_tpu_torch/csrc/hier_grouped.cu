@@ -15,11 +15,12 @@
 // GFLOP, 122 us at the 67 TFLOP/s of the FP32 CUDA cores, 8.3 us at the
 // 989 of the bf16 tensor cores; and its link runs three special-function
 // instructions per chain and row (below), 192e6, 46 us at 16 per SM and
-// clock on 132 SMs at 1.98 GHz.  At highest (hier_pass) the products run
-// on the CUDA cores, so it is bound by arithmetic and the design keeps
-// them fed from registers rather than from shared memory.  At high and
-// default (hier_mma) they run on the tensor cores, and at C = 64 the
-// link, not the bytes, sets the floor (at C = 8 the bytes).
+// clock on 132 SMs at 1.98 GHz.  At highest on float32 X (hier_pass) the
+// products run on the CUDA cores, so it is bound by arithmetic and the
+// design keeps them fed from registers rather than from shared memory.
+// At high and default, and at highest on narrow X (hier_mma), they run on
+// the tensor cores, and at C = 64 the link, not the bytes, sets the floor
+// (at C = 8 the bytes: 21.7 us of bf16 X, 12.1 of one byte).
 //
 // Work split.  Block b owns the sub-tiles [b*S/B, (b+1)*S/B) of kRows
 // rows (S sub-tiles in all, B = min(kBlocks, S) blocks, two resident per
@@ -89,8 +90,21 @@
 // MMA's narrow side (n = 8) and x the A operand of both:
 //   logits^T (rows x chains) = x^T beta^T,
 //   gbeta^T (features x chains) = x resid^T.
-// The link, the staging and the block split are hier_pass's.  What its
-// design does, and why:
+// The link, the staging and the block split are hier_pass's.  It runs
+// high and default on every X, and highest on narrow X: there x is
+// exact in bf16, and beta and resid each enter as three bf16 pieces
+// (split3, csrc/fused_pass.cuh: a = p0 + p1 + p2, each the rest cut to
+// bf16 toward zero, exact for every float32 that is a multiple of
+// 2^-133), so each product is three MMAs (x p0, x p1, x p2), each exact
+// in float32 and summed in float32: highest's arithmetic in another order
+// of its sums than hier_pass's.  That is high's count of MMAs (its x_lo
+// pass is not needed, a narrow x_lo being 0), 25 us at the flagship at
+// the dense rate, under the link's 46 us where hier_pass's FP32 products
+// take 122 us at best.  beta's pieces are built once per block into the
+// fragment block (6 words an entry at highest), resid stays whole in rs
+// and is split where the gradient builds its pairs, alpha enters whole
+// and the segment sums add resid whole, as hier_pass's.  What its design
+// does, and why:
 //   - Operands stay in highest's layout, one staged word an element, so
 //     shared memory, its tiers and the widths they take are highest's
 //     (layout_mma adds 9 KB at one tile): every (C, D) highest takes runs
@@ -110,11 +124,14 @@
 //     m-tiles of 16 rows by ng n-tiles (mt ng = nt; 8 warps, 128 rows),
 //     and the gradient of one m-tile of 16 features by ngg n-tiles over
 //     the sub-tile's rows or, when the chunk has under 8 output tiles, a
-//     slice of them (added in slice order).  The one-tile float32 kernels
-//     for nt = 1 (C <= 8) and, at default, nt = 8 (the flagship) have nt
-//     compiled in (kNt), so their loops are unrolled to the shape (25 us
-//     less each on an H100 than with nt read at run time); at high the
-//     flagship's spilled so, and reads nt at run time.
+//     slice of them (added in slice order).  The one-tile kernels for nt =
+//     1 (C <= 8) and, at default and on narrow X, nt = 8 (the flagship)
+//     have nt compiled in (kNt), so their loops are unrolled to the shape
+//     (25 us less each on an H100 than with nt read at run time); on
+//     float32 X at high the flagship's spilled so, and reads nt at run
+//     time.  The narrow ones at highest and high spilled too until they
+//     loaded beta's pairs for each MMA (kLazyB, lds_v4), and at highest
+//     left the run sums below to the segment sums (run_sums).
 //   - Logits: a k-step takes 16 features; a thread loads 8 words of x
 //     per m-tile (lds.32), rows permuted within 32-row groups (mma_row) so
 //     that a warp's 32 loads meet 32 banks (kLd = 4 mod 32).  beta's pairs
@@ -147,15 +164,25 @@
 //
 // X's storage type (STARK_FUSED_X_DTYPE; p.xdt, csrc/fused_pass.cuh).
 // A bf16, int8 or fp8 xT is read at its width, 2 or 1 bytes an element
-// (at the flagship 64 MB or 32 MB in place of 128), with plain loads of 4
-// elements (8 or 4 bytes) where they lie whole and aligned and one load
-// an element elsewhere (a row of xT starts at d * N elements, so at an
-// odd N most rows start off alignment), widened to float32 as the thread
-// writes them into the sub-tile, instead of cp.async, which has no copy
-// of 1 or 2 bytes.  Those loads are not in flight while the block
-// computes: the staging thread waits for them (a simple kernel first).
-// Past the staging the pass is the float32 pass, at every precision; the
-// staged rounding of x is skipped, being the identity on narrow values.
+// (at the flagship 64 MB or 32 MB in place of 128), and is in flight
+// while the block computes, as float32's is.  cp.async has no copy of 1
+// or 2 bytes, and a row of xT starts at element d * N (at most N's rows
+// start 16-byte aligned), so each feature row of the next sub-tile is
+// copied, a sub-tile ahead where float32's copies are issued, as the
+// aligned 16-byte windows that cover it (x_window_copy: 17 of bf16, 9 of
+// one byte; zeros past the slab's end, nothing read outside it) into one
+// packed slot after the layout (xslot_at: 8.7 KB for bf16, 4.6 KB for one
+// byte at D = 32).  After its wait each warp widens the rows it copied
+// into the sub-tile's float32 buffer (widen_slot), where float32's
+// stage_rows stands, before the barrier: no barrier more.  So the staging
+// moves bytes, not values: the float32 buffers, the tiers, the block
+// split, the link and every sum are as they were, and at high and
+// default narrow X gives bitwise what it gave with plain loads.  A slab
+// whose base is off 16-byte alignment (a view), and a width whose slot
+// does not fit its tier (xslot_at), keeps the plain loads (stage_x4), in
+// the kernels that read their n-tiles from C.  The staged rounding of x
+// is skipped, being the identity on narrow values.  Every precision of
+// narrow X runs on hier_mma, highest too (split3, below).
 //
 // Every sum runs in a fixed order: per thread in row and feature order
 // (in an MMA, the tensor core's own fixed order); the row groups of a
@@ -174,13 +201,6 @@ namespace b1 {
 constexpr int kThreads = 256;     // 8 warps
 constexpr int kBlocksPerSm = 2;
 constexpr int kBlocks = 132 * kBlocksPerSm;  // H100 SXM: 132 SMs
-// blocks per SM that an instantiation is compiled for: two (128 registers
-// a thread), but one (255) for the general kernel's narrow-X
-// instantiations, whose staging spilled at 128 (the grid stays kBlocks,
-// two waves of them; the flagship's one-tile kernels keep two)
-constexpr int blocks_per_sm(bool one_tile, bool narrow) {
-  return !one_tile && narrow ? 1 : kBlocksPerSm;
-}
 constexpr int kTwoPerSm = 113 * 1024;  // most shared memory of a block, in
                                        // bytes, with two blocks on an SM
 constexpr int kOnePerSm = 227 * 1024;  // most shared memory of one block
@@ -265,22 +285,49 @@ __host__ __device__ inline Layout layout(int C, int D) {
   return layout_with(C, D, 1, true);
 }
 
-// Words of hier_mma's beta pairs in fragment order, one tile: [k-step of
-// 16 features][n-tile][lane] of 4 (hi b0, b1, lo b0, b1).
-constexpr int kBetaFragWords = 2 * (kChains / 8) * 32 * 4;
+// Entries of hier_mma's beta pairs in fragment order, one tile: [k-step
+// of 16 features][n-tile][lane], each 4 words (hi b0, b1, lo b0, b1; at
+// highest the pieces p0 and p1 of split3), and at highest a second block
+// of the same entries of 2 words (p2 b0, b1).
+constexpr int kBetaFragEntries = 2 * (kChains / 8) * 32;
+__host__ __device__ constexpr int beta_frag_words(int prec) {
+  return kBetaFragEntries * (prec == kHighest ? 6 : 4);
+}
 
 // hier_mma's: highest's, with in the one-tile case beta's pairs in
 // fragment order and the segment partials [2][c][row group] after it (89
-// KB at C = 64, D = 32).
-__host__ __device__ inline Layout layout_mma(int C, int D) {
+// KB at C = 64, D = 32 at high and default, 93 KB at highest).
+__host__ __device__ inline Layout layout_mma(int C, int D, int prec) {
   Layout L = layout(C, D);
   if (one_tile(C, D)) {
     L.bfr = L.words;
-    L.words += kBetaFragWords;
+    L.words += beta_frag_words(prec);
     L.segp = L.words;
     L.words += 2 * 2 * kChains;
   }
   return L;
+}
+
+// Words of the packed slot into which a narrow sub-tile is copied in
+// flight (x_window_copy): D rows of x_window_chunks windows.
+__host__ __device__ inline int xslot_words(int D, int xdt) {
+  return D * x_window_chunks(kRows, x_size(xdt)) * 4;
+}
+
+// The slot's offset in words, after the pass's layout L, or -1: float32
+// X, or a slot that does not fit L's tier (113 KB a block with two x
+// buffers, so that two blocks share an SM; 227 KB with one).  Such a
+// width keeps the plain loads (stage_x4), and no width is refused for the
+// slot.  They are the widths whose layout leaves less than the slot
+// (D x 272 bytes for bf16, D x 144 for one byte) under its tier's limit:
+// at C = 64, D >= 150 (bf16) and 166-188, 212-249 (one byte); at C = 8,
+// 33 <= D <= 64 (bf16; one byte from 50) and D >= 227 (266); at C = 33,
+// 33-37 and from 182 (207).  ops/hier_fused.py:b1_route lists them for
+// any (C, D).
+__host__ __device__ inline int xslot_at(const Layout& L, int D, int xdt) {
+  if (xdt == kXF32) return -1;
+  const int limit = (L.nbuf == 2 ? kTwoPerSm : kOnePerSm) / (int)sizeof(float);
+  return L.words + xslot_words(D, xdt) <= limit ? L.words : -1;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -309,17 +356,32 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Start the copies of the sub-tile at row0 (nvalid rows) into one buffer.
 // A row of xT starts 16-byte aligned only where d * N is a multiple of 4;
 // elsewhere, and at the ragged end, the copies are 4 bytes each.  kNarrow:
-// a narrow xT is loaded and widened here instead (stage_x4), done when the
-// thread leaves.
-template <bool kNarrow>
+// a narrow xT's rows are copied in flight into the packed slot at word
+// xsw of the block's shared memory (x_window_copy, warp w rows w, w + 8,
+// ...) and widened into the buffer after the wait (widen_slot); with no
+// slot (xsw < 0) they are loaded and widened here (stage_x4), done when
+// the thread leaves.  kPlain: that second way is compiled (a kernel that
+// is launched only with a slot leaves it out).
+template <bool kNarrow, bool kPlain>
 __device__ __forceinline__ void stage(const Params& p, float* xs, float* ys, int* gls,
-                                      int row0, int nvalid, bool x16) {
+                                      int row0, int nvalid, bool x16, int xsw) {
+  extern __shared__ __align__(16) float smem[];
   const int t = threadIdx.x, D = p.D;
   if constexpr (kNarrow) {
+    if (!kPlain || xsw >= 0) {
+      const int size = x_size(p.xdt), nch = x_window_chunks(kRows, size);
+      const long long slab = (long long)D * p.N * size;
 #pragma unroll 1
-    for (int i = t; i < D * (kRows / 4); i += kThreads) {
-      const int d = i / (kRows / 4), r = (i % (kRows / 4)) * 4;
-      stage_x4(xs + d * kLd + r, p.xT, p.xdt, (size_t)d * p.N + row0 + r, nvalid - r);
+      for (int d = t >> 5; d < D; d += kThreads / 32) {
+        x_window_copy(reinterpret_cast<char*>(smem + xsw) + 16 * nch * d, p.xT, size, slab,
+                      (long long)d * p.N + row0, nvalid, t & 31);
+      }
+    } else {
+#pragma unroll 1
+      for (int i = t; i < D * (kRows / 4); i += kThreads) {
+        const int d = i / (kRows / 4), r = (i % (kRows / 4)) * 4;
+        stage_x4(xs + d * kLd + r, p.xT, p.xdt, (size_t)d * p.N + row0 + r, nvalid - r);
+      }
     }
   }
   for (int i = t; !kNarrow && i < D * (kRows / 4); i += kThreads) {
@@ -343,6 +405,25 @@ __device__ __forceinline__ void stage(const Params& p, float* xs, float* ys, int
     const int r = t - kRows;
     const bool ok = r < nvalid;
     cp_async4(gls + r, p.gl + row0 + (ok ? r : 0), ok);
+  }
+}
+
+// Widen the rows of the sub-tile at row0 (nvalid rows) that this warp
+// copied into the packed slot at word xsw (stage) into a float32 x
+// buffer, after the thread's wait and before the barrier: lane l elements
+// 4 l .. 4 l + 3 of rows w, w + 8, ... (warp w), one 16-byte store each.
+__device__ __forceinline__ void widen_slot(const Params& p, int xsw, float* xs, int row0,
+                                           int nvalid) {
+  static_assert(kRows == 4 * 32, "a lane widens 4 elements of a row");
+  extern __shared__ __align__(16) float smem[];
+  const int size = x_size(p.xdt), nch = x_window_chunks(kRows, size), lane = threadIdx.x & 31;
+  __syncwarp();  // the warp's copies, each landed for its own lane, to every lane
+#pragma unroll 1
+  for (int d = threadIdx.x >> 5; d < p.D; d += kThreads / 32) {
+    const int head = (d * (p.N & 15) * size) & 15;  // row0 * size is a multiple of 16
+    *reinterpret_cast<float4*>(xs + d * kLd + 4 * lane) = x_window_load4(
+        reinterpret_cast<const char*>(smem + xsw) + 16 * nch * d, p.xdt, head, 4 * lane,
+        nvalid);
   }
 }
 
@@ -371,13 +452,19 @@ __device__ __forceinline__ Tiles carve(float* smem, const Layout& L, const Param
   return s;
 }
 
-// The block's set-up while its first sub-tile is in flight: beta staged
-// [d][c] as the dots at kPrec take it, zeros in the padded feature rows of
-// both x buffers (two), the value partials and the open group sums.
+// The block's set-up while its first sub-tile is in flight: its first and
+// last groups for finish (written here, so that no register holds its
+// rows to the end), beta staged [d][c] as the dots at kPrec take it, zeros
+// in the padded feature rows of both x buffers (two), the value partials
+// and the open group sums.
 template <int kPrec>
 __device__ __forceinline__ void begin_block(const Params& p, const Tiles& s, const Layout& L,
-                                            int cp, int xbuf, int row_begin) {
+                                            int cp, int xbuf, int row_begin, int row_end) {
   const int t = threadIdx.x, C = p.C, D = p.D, cb = round4(C);
+  if (t == 0) {  // the block's first and last groups, for finish
+    p.blo[blockIdx.x] = group_of(p, row_begin);
+    p.bhi[blockIdx.x] = group_of(p, row_end - 1);
+  }
   for (int i = t; i < D * cb + cp - cb; i += kThreads) {  // beta [d][c]
     const int d = i / cb, c = i - d * cb;
     s.bsh[i] = d < D && c < C ? stage_operand<kPrec>(p.beta[(size_t)c * D + d]) : 0.f;
@@ -437,13 +524,13 @@ __device__ __forceinline__ void add_segment(const Params& p, const Tiles& s, int
 }
 
 // The block's partials for finish: gradient sums (unless already in
-// gpart), chain c's value (value_of(c)), the open groups' sums as head or
-// tail, and the block's first and last groups.
+// gpart, gsl_global), chain c's value (value_of(c)) and the open groups'
+// sums as head or tail.
 template <class ValueOf>
-__device__ __forceinline__ void end_block(const Params& p, const Tiles& s, const Layout& L,
-                                          int row_begin, int row_end, ValueOf value_of) {
+__device__ __forceinline__ void end_block(const Params& p, const Tiles& s, bool gsl_global,
+                                          ValueOf value_of) {
   const int t = threadIdx.x, C = p.C, D = p.D, b = blockIdx.x;
-  if (!L.gsl_global) {
+  if (!gsl_global) {
     for (int i = t; i < C * D; i += kThreads) p.gpart[(size_t)b * C * D + i] = s.gsl[i];
   }
   for (int c = t; c < C; c += kThreads) {
@@ -456,24 +543,19 @@ __device__ __forceinline__ void end_block(const Params& p, const Tiles& s, const
       p.tail[i] = s.run[c];
     }
   }
-  if (t == 0) {
-    p.blo[b] = group_of(p, row_begin);
-    p.bhi[b] = group_of(p, row_end - 1);
-  }
 }
 
-// The pass at highest, float32 products on the CUDA cores (pick routes
-// high and default to hier_mma): its text is kept as it was written for
-// every precision, so that its instantiations at highest compile to the
-// code they had (at 128 registers a thread it has no room: a refactor of
-// it spilled).
+// The pass at highest on float32 X, float32 products on the CUDA cores
+// (route sends high and default, and narrow X at every precision, to
+// hier_mma): its text is kept as it was written for every precision, so
+// that its instantiations at highest compile to the code they had (at 128
+// registers a thread it has no room: a refactor of it spilled).
 // kOneTile: one_tile(C, D), the flagship's case (two x buffers, one
 // chunk, the gradient tile in registers throughout), compiled apart so
 // that none of the other cases' state takes its registers.  kPrec: the
-// dot precision.  kNarrow: xT stored as bf16, int8 or fp8 (p.xdt), its own
-// instantiations, so that the float32 ones keep their code and registers.
-template <bool kOneTile, int kPrec, bool kNarrow>
-__global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
+// dot precision.
+template <bool kOneTile, int kPrec>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     hier_pass(Params p, int nblk) {
   extern __shared__ __align__(16) float smem[];
   const int C = p.C, D = p.D, N = p.N, G = p.G;
@@ -503,7 +585,7 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
   const bool x16 = (reinterpret_cast<uintptr_t>(p.xT) & 15) == 0;
 
   // first sub-tile in flight while the block sets up
-  stage<kNarrow>(p, xs, ys, gls, row_begin, min(kRows, N - row_begin), x16);
+  stage<false, false>(p, xs, ys, gls, row_begin, min(kRows, N - row_begin), x16, -1);
   cp_async_commit();
 
   for (int i = t; i < D * cb + cp - cb; i += kThreads) {  // beta [d][c]
@@ -581,12 +663,12 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
     const int row0 = sub * kRows;
     const int nvalid = min(kRows, N - row0);
     cp_async_wait_all();
-    if (!kNarrow) stage_rows<kPrec, kRows, kLd, kThreads>(xs + buf * xbuf, D);
+    stage_rows<kPrec, kRows, kLd, kThreads>(xs + buf * xbuf, D);
     __syncthreads();  // this sub-tile has landed; the other buffer is free
     if (two && sub + 1 < sub1) {
       const int nrow0 = row0 + kRows;
-      stage<kNarrow>(p, xs + (buf ^ 1) * xbuf, ys + (buf ^ 1) * kRows, gls + (buf ^ 1) * kRows,
-            nrow0, min(kRows, N - nrow0), x16);
+      stage<false, false>(p, xs + (buf ^ 1) * xbuf, ys + (buf ^ 1) * kRows,
+                          gls + (buf ^ 1) * kRows, nrow0, min(kRows, N - nrow0), x16, -1);
     }
     cp_async_commit();
 
@@ -737,7 +819,7 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
     if (!two && sub + 1 < sub1) {  // one buffer: the next sub-tile once this one is done
       __syncthreads();
       const int nrow0 = row0 + kRows;
-      stage<kNarrow>(p, xs, ys, gls, nrow0, min(kRows, N - nrow0), x16);
+      stage<false, false>(p, xs, ys, gls, nrow0, min(kRows, N - nrow0), x16, -1);
       cp_async_commit();
     }
   }
@@ -771,6 +853,23 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
 
 // (mma_bf16, ldsm_x4, ldsm_x2, hi_pair, lo_pair, x_pairs, mma_prec and
 // mma_row: csrc/fused_pass.cuh, shared with B2's b2_mma)
+
+// 16 and 8 bytes from shared memory, loaded where written: volatile, so
+// the compiler keeps each load at its use and holds no register for it
+// across a loop.
+__device__ __forceinline__ uint4 lds_v4(const void* p) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(smem_addr(p)));
+  return v;
+}
+
+__device__ __forceinline__ uint2 lds_v2(const void* p) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(smem_addr(p)));
+  return v;
+}
 
 // The chains of the chunk at k as n-tiles of 8: 1, 2, 4 or 8.
 __host__ __device__ inline int chunk_ntiles(int C, int k) {
@@ -836,11 +935,12 @@ __device__ __forceinline__ void mma_segment_sums(const Params& p, const Tiles& s
 // kNt: the n-tiles of the one chunk, compiled in (1: C <= 8, the NUTS
 // legs'; 8: 56 < C <= 64, the flagship's, at default), or 0: read from C.
 template <bool kOneTile, int kPrec, bool kNarrow, int kNt>
-__global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     hier_mma(Params p, int nblk) {
   extern __shared__ __align__(16) float smem[];
   const int C = p.C, D = p.D, N = p.N, G = p.G;
-  const Layout L = layout_mma(C, D);
+  static_assert(kPrec != kHighest || kNarrow, "highest on float32 X is hier_pass's");
+  const Layout L = layout_mma(C, D, kPrec);
   const Tiles s = carve(smem, L, p, kOneTile);
 
   const int cp = kOneTile ? kChains : chains_padded(C);
@@ -855,22 +955,29 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
   const int row_begin = sub0 * kRows, row_end = min(N, sub1 * kRows);
   const bool x16 = (reinterpret_cast<uintptr_t>(p.xT) & 15) == 0;
   const int nkd = (D + 15) / 16;  // the logits' k-steps of 16 features
+  // narrow X: the packed slot, where it fits and the slab's base is
+  // aligned; a kernel with its n-tiles compiled in is launched only so
+  // (route), and leaves the plain loads out
+  constexpr bool kPlain = kNarrow && kNt == 0;
+  const int xsw = !kNarrow ? -1 : !kPlain ? L.words : x16 ? xslot_at(L, D, p.xdt) : -1;
 
   // the sub-tile at row0 into buffer j
   auto stage_into = [&](int j, int row0) {
-    stage<kNarrow>(p, s.xs + j * xbuf, s.ys + j * kRows, s.gls + j * kRows, row0,
-                   min(kRows, N - row0), x16);
+    stage<kNarrow, kPlain>(p, s.xs + j * xbuf, s.ys + j * kRows, s.gls + j * kRows, row0,
+                           min(kRows, N - row0), x16, xsw);
   };
   // first sub-tile in flight while the block sets up
   stage_into(0, row_begin);
   cp_async_commit();
-  begin_block<kPrec>(p, s, L, cp, xbuf, row_begin);
+  begin_block<kPrec>(p, s, L, cp, xbuf, row_begin, row_end);
 
   // beta's pairs of lane ln for the logits' k-step kd (16 features) and
   // n-tile nt of chunk k: column n = ln / 4 is chain n / 2 + 4 (n % 2); k
   // 2t and 2t+1 (t = ln % 4) are features 16 kd + t and + 4, k 2t+8 and
-  // 2t+9 features + 8 and + 12; 0 past D.  bh (and at high bl): b0, b1.
-  auto beta_pairs = [&](int k, int nt, int kd, int ln, unsigned (&bh)[2], unsigned (&bl)[2]) {
+  // 2t+9 features + 8 and + 12; 0 past D.  bh (and at high bl): b0, b1;
+  // at highest bh, bl and bp: b0, b1 of the pieces p0, p1, p2 (split3).
+  auto beta_pairs = [&](int k, int nt, int kd, int ln, unsigned (&bh)[2], unsigned (&bl)[2],
+                        unsigned (&bp)[2]) {
     const int n = ln >> 2;
     const int c = k + 8 * nt + (n >> 1) + 4 * (n & 1);
     unsigned w[4];
@@ -879,27 +986,53 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
       const int d = 16 * kd + (ln & 3) + 4 * i;
       w[i] = d < D ? __float_as_uint(s.bsh[d * cb + c]) : 0u;
     }
-    bh[0] = hi_pair(w[0], w[1]);
-    bh[1] = hi_pair(w[2], w[3]);
-    bl[0] = lo_pair(w[0], w[1]);
-    bl[1] = lo_pair(w[2], w[3]);
+    if constexpr (kPrec == kHighest) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        unsigned q[3];
+        split3_pairs(w[2 * h], w[2 * h + 1], q);
+        bh[h] = q[0];
+        bl[h] = q[1];
+        bp[h] = q[2];
+      }
+    } else {
+      bh[0] = hi_pair(w[0], w[1]);
+      bh[1] = hi_pair(w[2], w[3]);
+      bl[0] = lo_pair(w[0], w[1]);
+      bl[1] = lo_pair(w[2], w[3]);
+    }
   };
   const MmaShape sh0(kNt ? kNt : chunk_ntiles(C, 0), warp);  // one chunk: the block's only shape
   // one tile: beta's pairs for the block in fragment order (L.bfr), one
-  // 16-byte load per k-step and n-tile (in registers they spilled)
+  // 16-byte load per k-step and n-tile (in registers they spilled); at
+  // highest the third piece's in a block of 8-byte entries after them
   const uint4* bfr = reinterpret_cast<const uint4*>(smem + L.bfr);
+  const uint2* bfr3 = reinterpret_cast<const uint2*>(bfr + kBetaFragEntries);
+  // the narrow 64-chain kernels at highest and high load beta's pairs for
+  // each MMA (lds_v4, not hoisted), not for a k-step: they spilled so
+  constexpr bool kLazyB = kOneTile && kNarrow && kNt == 8 && kPrec != kDefault;
   if constexpr (kOneTile) {
     __syncthreads();  // beta is staged
-    for (int i = t; i < kBetaFragWords / 4; i += kThreads) {
+    for (int i = t; i < kBetaFragEntries; i += kThreads) {
       const int ln = i % 32, nt = (i / 32) % (kChains / 8), kd = i / (32 * (kChains / 8));
-      unsigned bh[2], bl[2];
-      beta_pairs(0, nt, kd, ln, bh, bl);
+      unsigned bh[2], bl[2], bp[2];
+      beta_pairs(0, nt, kd, ln, bh, bl, bp);
       reinterpret_cast<uint4*>(smem + L.bfr)[i] = make_uint4(bh[0], bh[1], bl[0], bl[1]);
+      if (kPrec == kHighest) {
+        reinterpret_cast<uint2*>(smem + L.bfr + 4 * kBetaFragEntries)[i] = make_uint2(bp[0], bp[1]);
+      }
     }
   }
 
   float vacc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // chains tq + 4 e of n-tile j
-  float* segp = kOneTile ? smem + L.segp : nullptr;  // one tile: [run][c][row group]
+  // one tile: the link's run sums of resid (run_sums), segp [run][c][row
+  // group]; not on narrow X at highest in the 64-chain case (nt = 8),
+  // whose kernel spilled with them.  Decided from the chunk's n-tiles, not
+  // from how they were compiled, so that a slab off alignment (launched on
+  // the kernel that reads them from C) sums as an aligned one does.
+  const bool run_sums =
+      kOneTile && !(kNarrow && kPrec == kHighest && (kNt ? kNt : chunk_ntiles(C, 0)) == 8);
+  float* segp = kOneTile ? smem + L.segp : nullptr;
   // alpha of the thread's chains at group gprev: with one chunk carried
   // from sub-tile to sub-tile (groups are sorted, so a change of group is
   // rare), else reloaded per chunk
@@ -914,7 +1047,7 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
   // as beta_pairs', 0 past D).
   auto logits_step = [&](const MmaShape& sh, const float* xcur, int kd,
                          const unsigned (&bh)[2][2], const unsigned (&bl)[2][2],
-                         float (&acc)[4][2][4]) {
+                         const unsigned (&bp)[2][2], float (&acc)[4][2][4]) {
     const int d0 = 16 * kd + tq;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -932,9 +1065,26 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
         // features d0 + 8, d0 + 12
         const XPairs x = x_pairs<kPrec, kNarrow>(w[0], w[2], w[1], w[3], w[4], w[6], w[5], w[7]);
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          if (j < sh.ng)
+        for (int j = 0; j < 2; ++j) {
+          if (j >= sh.ng) continue;
+          if constexpr (kLazyB) {  // beta's pairs loaded here, for this MMA only
+            const int e = (kd * (kChains / 8) + sh.cgi * sh.ng + j) * 32 + lane;
+            const uint4 w4 = lds_v4(bfr + e);
+            if constexpr (kPrec == kHighest) {
+              const uint2 w2 = lds_v2(bfr3 + e);
+              const unsigned b0[3] = {w4.x, w4.z, w2.x}, b1[3] = {w4.y, w4.w, w2.y};
+              mma_split3(acc[i][j], x, b0, b1);
+            } else {
+              mma_prec<kPrec, kNarrow>(acc[i][j], x, w4.x, w4.y, w4.z, w4.w);
+            }
+          } else if constexpr (kPrec == kHighest) {
+            const unsigned b0[3] = {bh[j][0], bl[j][0], bp[j][0]};
+            const unsigned b1[3] = {bh[j][1], bl[j][1], bp[j][1]};
+            mma_split3(acc[i][j], x, b0, b1);
+          } else {
             mma_prec<kPrec, kNarrow>(acc[i][j], x, bh[j][0], bh[j][1], bl[j][0], bl[j][1]);
+          }
+        }
       }
     }
   };
@@ -986,6 +1136,7 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
     const int nvalid = min(kRows, N - row0);
     cp_async_wait_all();
     if (!kNarrow) stage_rows<kPrec, kRows, kLd, kThreads>(s.xs + buf * xbuf, D);
+    else if (!kPlain || xsw >= 0) widen_slot(p, xsw, s.xs + buf * xbuf, row0, nvalid);
     __syncthreads();  // this sub-tile has landed; the other buffer is free
     if (two && sub + 1 < sub1) stage_into(buf ^ 1, row0 + kRows);
     cp_async_commit();
@@ -1014,25 +1165,32 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
 #pragma unroll
         for (int kd = 0; kd < 2; ++kd) {
           if (kd < nkd) {
-            unsigned bh[2][2], bl[2][2];
+            unsigned bh[2][2], bl[2][2], bp[2][2];
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const uint4 w = bfr[(kd * (kChains / 8) + sh.cgi * sh.ng + j) * 32 + lane];
+            for (int j = 0; j < 2 && !kLazyB; ++j) {
+              const int e = (kd * (kChains / 8) + sh.cgi * sh.ng + j) * 32 + lane;
+              const uint4 w = bfr[e];
               bh[j][0] = w.x;
               bh[j][1] = w.y;
               bl[j][0] = w.z;
               bl[j][1] = w.w;
+              if constexpr (kPrec == kHighest) {
+                const uint2 w3 = bfr3[e];
+                bp[j][0] = w3.x;
+                bp[j][1] = w3.y;
+              }
             }
-            logits_step(sh, xcur, kd, bh, bl, acc);
+            logits_step(sh, xcur, kd, bh, bl, bp, acc);
           }
         }
       } else {
 #pragma unroll 1
         for (int kd = 0; kd < nkd; ++kd) {
-          unsigned bh[2][2], bl[2][2];
+          unsigned bh[2][2], bl[2][2], bp[2][2];
 #pragma unroll
-          for (int j = 0; j < 2; ++j) beta_pairs(k, sh.cgi * sh.ng + j, kd, lane, bh[j], bl[j]);
-          logits_step(sh, xcur, kd, bh, bl, acc);
+          for (int j = 0; j < 2; ++j)
+            beta_pairs(k, sh.cgi * sh.ng + j, kd, lane, bh[j], bl[j], bp[j]);
+          logits_step(sh, xcur, kd, bh, bl, bp, acc);
         }
       }
 
@@ -1082,7 +1240,7 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
                 vacc[j][e] += ok ? v : 0.f;
                 const float w = stage_operand<kPrec>(ok ? yv - sg : 0.f);
                 s.rs[cl * kLd + r] = w;
-                if (kOneTile) {
+                if (run_sums) {
                   const float sv = staged_value<kPrec>(w);
                   sr[0][j][e] += first ? sv : 0.f;
                   sr[1][j][e] += first ? 0.f : sv;
@@ -1092,7 +1250,7 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
           }
         }
         if (cp > kChains) fold_values(sh, k);  // more chunks: values to shared memory
-        if constexpr (kOneTile) {  // the run sums over g by a fixed shuffle tree
+        if (run_sums) {  // the run sums over g by a fixed shuffle tree
 #pragma unroll
           for (int q = 0; q < 2; ++q)
 #pragma unroll
@@ -1109,7 +1267,7 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
         }
       }
       __syncthreads();  // resid, the run sums and the segment starts are in place
-      if (kOneTile && s.misc[0] <= 2) {  // one run or two: their sums in row-group order
+      if (run_sums && s.misc[0] <= 2) {  // one run or two: their sums in row-group order
         if (t < C) {
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
@@ -1136,6 +1294,10 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
                           4 * (lane >> 4);
         const float* ra = s.rs + (8 * sh.gn0 + (lane & 7) + 8 * (lane >> 4)) * kLd +
                           4 * ((lane >> 3) & 1);
+        // highest: the sub-tile's products summed apart and added to gacc in
+        // float32 (the tensor cores' sums truncate, and a block's rows in
+        // one accumulator drifted past highest's tolerance at N = 1M)
+        float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll 2
         for (int r = r0; r < r1; r += 16) {
           unsigned a0[4], a1[4];
@@ -1148,18 +1310,39 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
             ldsm_x4(q0, ra + r);
             ldsm_x4(q1, ra + r + 8);
 #pragma unroll
-            for (int j = 0; j < 2; ++j)
-              mma_prec<kPrec, kNarrow>(gacc[j], x, hi_pair(q0[2 * j], q0[2 * j + 1]),
-                                       hi_pair(q1[2 * j], q1[2 * j + 1]),
-                                       lo_pair(q0[2 * j], q0[2 * j + 1]),
-                                       lo_pair(q1[2 * j], q1[2 * j + 1]));
+            for (int j = 0; j < 2; ++j) {
+              if constexpr (kPrec == kHighest) {  // resid's pieces (split3), built here
+                unsigned b0[3], b1[3];
+                split3_pairs(q0[2 * j], q0[2 * j + 1], b0);
+                split3_pairs(q1[2 * j], q1[2 * j + 1], b1);
+                mma_split3(part[j], x, b0, b1);
+              } else {
+                mma_prec<kPrec, kNarrow>(gacc[j], x, hi_pair(q0[2 * j], q0[2 * j + 1]),
+                                         hi_pair(q1[2 * j], q1[2 * j + 1]),
+                                         lo_pair(q0[2 * j], q0[2 * j + 1]),
+                                         lo_pair(q1[2 * j], q1[2 * j + 1]));
+              }
+            }
           } else {
             unsigned q0[2], q1[2];
             ldsm_x2(q0, ra + r);
             ldsm_x2(q1, ra + r + 8);
-            mma_prec<kPrec, kNarrow>(gacc[0], x, hi_pair(q0[0], q0[1]), hi_pair(q1[0], q1[1]),
-                                     lo_pair(q0[0], q0[1]), lo_pair(q1[0], q1[1]));
+            if constexpr (kPrec == kHighest) {
+              unsigned b0[3], b1[3];
+              split3_pairs(q0[0], q0[1], b0);
+              split3_pairs(q1[0], q1[1], b1);
+              mma_split3(part[0], x, b0, b1);
+            } else {
+              mma_prec<kPrec, kNarrow>(gacc[0], x, hi_pair(q0[0], q0[1]), hi_pair(q1[0], q1[1]),
+                                       lo_pair(q0[0], q0[1]), lo_pair(q1[0], q1[1]));
+            }
           }
+        }
+        if constexpr (kPrec == kHighest) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) gacc[j][e] += part[j][e];
         }
         if (!kOneTile) fold_gradient(sh, k, f0, sub == sub0);  // more tiles than one
       }
@@ -1176,7 +1359,7 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(kOneTile, kNarrow))
   if (kOneTile) fold_gradient(sh0, 0, 0, true);  // the one tile: gsl overlays the x buffers
   if (cp == kChains) fold_values(sh0, 0);
   __syncthreads();
-  end_block(p, s, L, row_begin, row_end, [&](int c) {
+  end_block(p, s, !kOneTile && L.gsl_global, [&](int c) {
     const int k = c / kChains * kChains;
     const int nslot = MmaShape(chunk_ntiles(C, k), 0).nslot;
     const float* v = s.vsl + 2 * k + (c - k) * nslot;
@@ -1213,27 +1396,65 @@ __global__ void mma_finish(Params p, int nblk, float* val, float* gbeta) {
 
 using Kernel = void (*)(Params, int);
 
-// Shared memory of the pass at (C, D) and dot precision prec, in words.
-inline int layout_words(int C, int D, int prec) {
-  return (prec == kHighest ? layout(C, D) : layout_mma(C, D)).words;
+// The pass that runs (C, D) at dot precision prec with X stored as xdt,
+// and what it takes.  Highest on float32 X is hier_pass (FP32 CUDA
+// cores); high and default, and every precision on narrow X, hier_mma
+// (bf16 tensor cores; highest there by split3).  The one-tile cases of 8
+// chains, and of 64 at default and on narrow X, have their n-tiles
+// compiled in (on float32 X at high the 64-chain case spilled so); a
+// narrow case with them is launched only with its slot (the launcher
+// sends a slab off 16-byte alignment to the case that reads them from
+// C, which keeps the plain loads).  (Python mirror:
+// stark_tpu_torch/ops/hier_fused.py:b1_route.)
+struct Route {
+  bool mma;      // hier_mma, else hier_pass
+  bool one;      // one_tile(C, D)
+  int nt;        // n-tiles compiled in, or 0: read from C
+  bool windows;  // a narrow xT copied in flight through the packed slot
+  int words;     // shared memory of a block, in words
+};
+
+// The n-tiles a one-tile hier_mma case has compiled in (0: read from C).
+inline int compiled_nt(int nt, int prec, bool narrow) {
+  if (nt == 1) return 1;
+  return nt == 8 && (prec == kDefault || narrow) ? 8 : 0;
+}
+
+inline Route route(int C, int D, int prec, int xdt) {
+  Route r;
+  const bool narrow = xdt != kXF32;
+  r.mma = prec != kHighest || narrow;
+  r.one = one_tile(C, D);
+  const Layout L = r.mma ? layout_mma(C, D, prec) : layout(C, D);
+  const int slot = xslot_at(L, D, xdt);
+  r.windows = slot >= 0;
+  r.words = L.words + (r.windows ? xslot_words(D, xdt) : 0);
+  r.nt = r.mma && r.one && (!narrow || r.windows) ? compiled_nt(chunk_ntiles(C, 0), prec, narrow)
+                                                  : 0;
+  return r;
 }
 
 template <bool kOneTile, bool kNarrow, int kNt>
 inline Kernel pick(int prec) {
-  return prec == kHigh      ? hier_mma<kOneTile, kHigh, kNarrow, kNt>
-         : prec == kDefault ? hier_mma<kOneTile, kDefault, kNarrow, kNt>
-                            : hier_pass<kOneTile, kHighest, kNarrow>;
+  if (prec == kHigh) return hier_mma<kOneTile, kHigh, kNarrow, kNt>;
+  if (prec == kDefault) return hier_mma<kOneTile, kDefault, kNarrow, kNt>;
+  if constexpr (kNarrow) {
+    return hier_mma<kOneTile, kHighest, true, kNt>;
+  } else {
+    return hier_pass<kOneTile, kHighest>;
+  }
 }
 
-// The pass for (C, D) at prec with X stored as xdt: the one-tile float32
-// cases of 8 chains, and of 64 at default, with their n-tiles compiled in
-// (at high the 64-chain case spilled so).
-inline Kernel pick(int C, int D, int prec, int xdt) {
-  if (xdt != kXF32) return one_tile(C, D) ? pick<true, true, 0>(prec) : pick<false, true, 0>(prec);
-  if (!one_tile(C, D)) return pick<false, false, 0>(prec);
-  const int nt = chunk_ntiles(C, 0);
-  if (nt == 8 && prec == kDefault) return hier_mma<true, kDefault, false, 8>;
-  return nt == 1 ? pick<true, false, 1>(prec) : pick<true, false, 0>(prec);
+// The kernel of a route.
+inline Kernel pick(const Route& r, int prec, int xdt) {
+  if (xdt != kXF32) {
+    if (!r.one) return pick<false, true, 0>(prec);
+    return r.nt == 1 ? pick<true, true, 1>(prec)
+           : r.nt == 8 ? pick<true, true, 8>(prec) : pick<true, true, 0>(prec);
+  }
+  if (!r.one) return pick<false, false, 0>(prec);
+  if (r.nt == 8) return hier_mma<true, kDefault, false, 8>;
+  return r.nt == 1 ? pick<true, false, 1>(prec) : pick<true, false, 0>(prec);
 }
 
 }  // namespace b1
@@ -1269,8 +1490,12 @@ extern "C" int stark_hier_grouped(
   if (!stark::x_code_ok(xdt)) return (int)cudaErrorInvalidValue;
   stark::carve_scratch(p, scratch, nblk);
   auto s = static_cast<cudaStream_t>(stream);
-  const size_t bytes = (size_t)stark::b1::layout_words(C, D, prec) * sizeof(float);
-  const stark::b1::Kernel kern = stark::b1::pick(C, D, prec, xdt);
+  stark::b1::Route r = stark::b1::route(C, D, prec, xdt);
+  // a narrow slab off 16-byte alignment is loaded plainly, by the kernel
+  // that reads its n-tiles from C (the others have no plain loads)
+  if (xdt != stark::kXF32 && (reinterpret_cast<uintptr_t>(xT) & 15) != 0) r.nt = 0;
+  const size_t bytes = (size_t)r.words * sizeof(float);
+  const stark::b1::Kernel kern = stark::b1::pick(r, prec, xdt);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)bytes);
   if (e != cudaSuccess) return (int)e;
@@ -1278,20 +1503,41 @@ extern "C" int stark_hier_grouped(
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long nw = (long long)C * D + C;  // outputs summed across blocks
-  const long long total = (prec == stark::kHighest ? nw : 32 * nw) + (long long)C * G;
+  const long long total = (r.mma ? 32 * nw : nw) + (long long)C * G;
   const int blocks = (int)((total + stark::b1::kThreads - 1) / stark::b1::kThreads);
-  if (prec == stark::kHighest) {
-    stark::finish<true><<<blocks, stark::b1::kThreads, 0, s>>>(p, nblk, val, gbeta);
-  } else {
+  if (r.mma) {
     stark::b1::mma_finish<<<blocks, stark::b1::kThreads, 0, s>>>(p, nblk, val, gbeta);
+  } else {
+    stark::finish<true><<<blocks, stark::b1::kThreads, 0, s>>>(p, nblk, val, gbeta);
   }
   return (int)cudaGetLastError();
 }
 
-// Shared memory the pass needs per block at (C, D) and dot precision prec,
-// and the most the card `device` gives one block, both in bytes.
-extern "C" int stark_hier_grouped_smem(int C, int D, int prec, int device, int* need,
+// Shared memory the pass needs per block at (C, D), dot precision prec
+// and X stored as xdt, and the most the card `device` gives one block,
+// both in bytes.
+extern "C" int stark_hier_grouped_smem(int C, int D, int prec, int xdt, int device, int* need,
                                        int* limit) {
-  *need = stark::b1::layout_words(C, D, prec) * (int)sizeof(float);
+  if (!stark::x_code_ok(xdt)) return (int)cudaErrorInvalidValue;
+  *need = stark::b1::route(C, D, prec, xdt).words * (int)sizeof(float);
   return (int)cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+}
+
+// The route (stark::b1::route) of (C, D) at prec with X stored as xdt:
+// the pass (0 hier_pass, 1 hier_mma), one tile or not, the n-tiles
+// compiled in (0: read from C), narrow X through the packed slot or not,
+// and the block's shared memory in bytes.
+extern "C" int stark_hier_grouped_route(int C, int D, int prec, int xdt, int* pass, int* one,
+                                        int* nt, int* windows, int* bytes) {
+  if (prec != stark::kHighest && prec != stark::kHigh && prec != stark::kDefault) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!stark::x_code_ok(xdt)) return (int)cudaErrorInvalidValue;
+  const stark::b1::Route r = stark::b1::route(C, D, prec, xdt);
+  *pass = r.mma ? 1 : 0;
+  *one = r.one ? 1 : 0;
+  *nt = r.nt;
+  *windows = r.windows ? 1 : 0;
+  *bytes = r.words * (int)sizeof(float);
+  return 0;
 }

@@ -56,6 +56,7 @@ from .logistic_fused import (
 )
 from .precision import (
     PRECISIONS,
+    X_CODES,
     X_DTYPE_NAMES,
     check_knobs,
     dot,
@@ -171,20 +172,120 @@ def b1_blocks(n: int):
     return subtile_split(n, B1_ROW_TILE, B1_BLOCKS)
 
 
+# csrc/hier_grouped.cu's constants: chains per chunk (kChains), features
+# per gradient chunk (kFeat), the shared tiles' row stride (kLd), the most
+# shared memory of a block with two blocks an SM and with one (kTwoPerSm,
+# kOnePerSm), and the entries of hier_mma's beta fragments (kBetaFragEntries)
+_B1_CHAINS, _B1_FEAT, _B1_LD = 64, 32, B1_ROW_TILE + 4
+_B1_TWO_PER_SM, _B1_ONE_PER_SM = 113 * 1024, 227 * 1024
+_B1_BETA_FRAG_ENTRIES = 2 * (_B1_CHAINS // 8) * 32
+#: bytes of an element of each storage type of X (fused_pass.cuh:x_size)
+X_ITEMSIZE = {"f32": 4, "bf16": 2, "int8": 1, "fp8e4m3": 1, "fp8e5m2": 1}
+#: B1's passes (csrc/hier_grouped.cu:stark_hier_grouped_route)
+B1_PASSES = ("hier_pass", "hier_mma")
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _b1_layout(c: int, d: int, nbuf: int, gsl_global: bool) -> int:
+    """Words of csrc/hier_grouped.cu:layout_with."""
+    cp = -(-c // _B1_CHAINS) * _B1_CHAINS
+    xrows = -(-d // _B1_FEAT) * _B1_FEAT if nbuf == 2 else d
+    words = (nbuf * xrows * _B1_LD + 2 * nbuf * B1_ROW_TILE + _B1_CHAINS * _B1_LD
+             + d * _round4(c) + cp - _round4(c) + 5 * cp + _round4(B1_ROW_TILE + 1) + 4)
+    if not (cp == _B1_CHAINS and d <= _B1_FEAT) and not gsl_global:
+        words += _round4(c * d)
+    return words
+
+
+def b1_layout(c: int, d: int, prec: str, mma: bool):
+    """(x buffers, words) of a B1 block's shared memory before the narrow
+    slot: csrc/hier_grouped.cu:layout, and for hier_mma (``mma``)
+    layout_mma, which adds beta's fragments (6 words an entry at highest,
+    4 else) and the segment partials in the one-tile case."""
+    for nbuf, gsl_global, limit in ((2, False, _B1_TWO_PER_SM), (1, False, _B1_ONE_PER_SM),
+                                    (1, True, None)):
+        words = _b1_layout(c, d, nbuf, gsl_global)
+        if limit is None or 4 * words <= limit:
+            break
+    if mma and -(-c // _B1_CHAINS) == 1 and d <= _B1_FEAT:
+        words += _B1_BETA_FRAG_ENTRIES * (6 if prec == "highest" else 4) + 4 * _B1_CHAINS
+    return nbuf, words
+
+
+def x_window_chunks(rows: int, size: int) -> int:
+    """16-byte windows that hold a row of ``rows`` elements of ``size``
+    bytes at any offset in its first window (csrc/fused_pass.cuh)."""
+    return (rows * size + 30) // 16
+
+
+def x_windows(off: int, nvalid: int, size: int, slab_bytes: int):
+    """The copies csrc/fused_pass.cuh:x_window_copy starts for the row of
+    a narrow slab at element ``off`` whose first ``nvalid`` elements are
+    valid: [(window j, source byte, bytes read)], and the row's head (its
+    first element's byte in window 0).  Window j starts 16 j bytes after
+    the 16-byte boundary at or before the row; the last may read fewer
+    than 16 bytes (the rest filled with zeros), never past the slab."""
+    b = off * size
+    w0 = b & ~15
+    head = b - w0
+    out = []
+    j = 0
+    while 16 * j < head + nvalid * size:
+        src = w0 + 16 * j
+        out.append((j, src, min(16, slab_bytes - src)))
+        j += 1
+    return out, head
+
+
+def b1_route(c: int, d: int, prec: str, x_dtype: str = "f32"):
+    """(pass, one tile, n-tiles compiled in, narrow X through the packed
+    slot, bytes of shared memory) that B1 runs at C=c, D=d, the dot
+    precision ``prec`` and X stored as ``x_dtype`` (a name of
+    `precision.X_DTYPE_NAMES`): csrc/hier_grouped.cu:route.  Highest on
+    float32 X is hier_pass; the rest hier_mma.  A narrow slab is copied
+    in flight through a slot of D rows of `x_window_chunks` windows where
+    the slot fits the block's tier (113 KB with two x buffers, 227 KB
+    with one), else loaded plainly.  (A narrow slab whose base is off
+    16-byte alignment is loaded plainly, by the kernel that reads its
+    n-tiles from C: the launcher sets nt to 0 for it.)"""
+    if prec not in PRECISIONS:
+        raise ValueError(f"unknown dot precision {prec!r}; use one of {sorted(PRECISIONS)}")
+    if x_dtype not in X_DTYPE_NAMES:
+        raise ValueError(f"unknown X dtype {x_dtype!r}; use one of {X_DTYPE_NAMES}")
+    narrow = x_dtype != "f32"
+    mma = prec != "highest" or narrow
+    one = -(-c // _B1_CHAINS) == 1 and d <= _B1_FEAT
+    nt8 = -(-min(c, _B1_CHAINS) // 8)
+    ntiles = 1 if nt8 <= 1 else 2 if nt8 <= 2 else 4 if nt8 <= 4 else 8
+    nbuf, words = b1_layout(c, d, prec, mma)
+    windows = False
+    if narrow:
+        slot = d * x_window_chunks(B1_ROW_TILE, X_ITEMSIZE[x_dtype]) * 4
+        windows = 4 * (words + slot) <= (_B1_TWO_PER_SM if nbuf == 2 else _B1_ONE_PER_SM)
+        words += slot if windows else 0
+    compiled = ntiles == 1 or (ntiles == 8 and (prec == "default" or narrow))
+    nt = ntiles if mma and one and (windows or not narrow) and compiled else 0
+    return B1_PASSES[mma], one, nt, windows, 4 * words
+
+
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
-def b1_shared_memory(c: int, d: int, prec: str, device: int):
-    """(bytes of shared memory one B1 block needs at C=c, D=d and the dot
-    precision ``prec``, most bytes the card ``device`` gives one block),
-    from csrc/hier_grouped.cu."""
+def b1_shared_memory(c: int, d: int, prec: str, x_dtype: str, device: int):
+    """(bytes of shared memory one B1 block needs at C=c, D=d, the dot
+    precision ``prec`` and X stored as ``x_dtype``, most bytes the card
+    ``device`` gives one block), from csrc/hier_grouped.cu."""
     fn = _build.function(
         "hier_grouped", "stark_hier_grouped_smem",
-        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2,
+        [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2,
     )
     need, limit = ctypes.c_int(), ctypes.c_int()
-    err = fn(c, d, PRECISIONS[prec], device, ctypes.byref(need), ctypes.byref(limit))
+    err = fn(c, d, PRECISIONS[prec], X_CODES[x_dtype], device, ctypes.byref(need),
+             ctypes.byref(limit))
     _build.check("hier_grouped", err)
     return need.value, limit.value
 
@@ -221,7 +322,7 @@ def hier_grouped(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
     )
     if lane_tile % B1_ROW_TILE:
         raise ValueError(f"lane_tile={lane_tile} is not a multiple of {B1_ROW_TILE}")
-    need, limit = b1_shared_memory(c, d, prec, beta.device.index)
+    need, limit = b1_shared_memory(c, d, prec, xname, beta.device.index)
     if need > limit:
         raise ValueError(
             f"hier_grouped: C={c} chains of D={d} features need {need} bytes of "

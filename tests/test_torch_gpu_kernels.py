@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from chip_smoke import (B2_EDGE_CASES, B2_SHARD_EDGE_CASES, b1_edge_inputs, b1_link_slack,
-                        b2_edge_inputs, b2_link_slack, compare_slack)
+                        b2_edge_inputs, b2_link_slack, compare_slack, off_16_bytes)
 from chip_smoke import sizes_with_gaps as _sizes_with_gaps
 from stark_tpu_torch.ops import hier_fused, logistic_fused
 
@@ -801,25 +801,113 @@ def _counts(fn, name):
     return fn.x_dtype_launches[name]
 
 
+def _widened(args):
+    """``args`` with every narrow slab widened to float32."""
+    return [a.float() if torch.is_tensor(a) and a.dtype in _NARROW.values() else a for a in args]
+
+
+def _b1_narrow_check(args, prec, name):
+    """B1 at ``prec`` on ``args`` (a narrow xT) launched twice, counted by
+    dtype and bitwise equal, against its plain version in float64 on the
+    widened values: highest's tolerances, at high and default plus the
+    link's slack."""
+    before = _counts(hier_fused.hier_grouped, name)
+    got, again = _launch_b1_twice(args, prec)
+    assert _counts(hier_fused.hier_grouped, name) == before + 2
+    if prec == "highest":
+        _assert_parity(got, _in_float64_wide(hier_fused.hier_grouped_plain, args))
+    else:
+        _assert_within_slack(got, _widened(args), prec)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got
+
+
+@pytest.mark.parametrize("prec", PRECISIONS)
 @pytest.mark.parametrize("name", list(_NARROW))
 @pytest.mark.parametrize("n,d,groups,chains", [(40_003, 32, 300, 64), (3001, 7, 20, 9),
                                                (1027, 33, 12, 70), (50, 5, 3, 9)])
-def test_b1_narrow_x_matches_float64_and_repeats_bitwise(n, d, groups, chains, name):
+def test_b1_narrow_x_matches_float64_and_repeats_bitwise(n, d, groups, chains, name, prec,
+                                                          monkeypatch):
     """B1 on a narrow xT (rows off the 4-element alignment at N = 1, 2, 3
     mod 4, N below a sub-tile, the general kernel past 64 chains or 32
-    features) against its plain version in float64 on the widened
-    values; launches counted by dtype."""
+    features) at each dot precision against its plain version in float64
+    on the widened values; launches counted by dtype."""
+    monkeypatch.setenv("STARK_FUSED_PRECISION", prec)
     beta, alpha, xT, y, gl, fg, lane_tile = _grouped_case(n, d, groups, chains, dyadic=True)
     q = _narrow(xT, name)
     beta = beta / 4.0 if name == "int8" else beta
-    args = (beta, alpha, q, y, gl, fg, lane_tile)
-    before = _counts(hier_fused.hier_grouped, name)
-    got = hier_fused.hier_grouped(*args)
-    again = hier_fused.hier_grouped(*args)
-    torch.cuda.synchronize()
-    assert _counts(hier_fused.hier_grouped, name) == before + 2
-    _assert_parity(got, _in_float64_wide(hier_fused.hier_grouped_plain, args))
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _b1_narrow_check((beta, alpha, q, y, gl, fg, lane_tile), prec, name)
+
+
+@pytest.mark.parametrize("n,d,groups,chains", [(40_003, 32, 300, 64), (3001, 7, 20, 9),
+                                               (1027, 33, 12, 70), (20_011, 128, 50, 8)])
+def test_b1_narrow_x_at_highest_takes_beta_whole(n, d, groups, chains, monkeypatch):
+    """Highest on narrow X with beta and alpha of full float32
+    significands (so all three pieces of beta's split are in play), a
+    column of beta near 2^-120 and a chain's row near 2^-141 (pieces in
+    bf16's subnormal range, a float32 subnormal): the kernel against its
+    plain version in float64 within highest's tolerances."""
+    monkeypatch.setenv("STARK_FUSED_PRECISION", "highest")
+    _, _, xT, y, gl, fg, lane_tile = _grouped_case(n, d, groups, chains, dyadic=True)
+    rs = np.random.RandomState(n + d)
+    beta = (0.3 * rs.standard_normal((chains, d))).astype(np.float32)
+    beta[:, 0] *= np.float32(2.0 ** -120)
+    if chains > 1:
+        beta[1, :] *= np.float32(2.0 ** -140)
+    alpha = rs.standard_normal((chains, groups)).astype(np.float32)
+    dev = _cuda()
+    for name in ("bf16", "int8"):
+        b = torch.as_tensor(beta / 4.0 if name == "int8" else beta, device=dev)
+        args = (b, torch.as_tensor(alpha, device=dev), _narrow(xT, name), y, gl, fg, lane_tile)
+        _b1_narrow_check(args, "highest", name)
+
+
+@pytest.mark.parametrize("prec", PRECISIONS)
+@pytest.mark.parametrize("name", ["bf16", "int8"])
+@pytest.mark.parametrize("n,d,chains", [(40_003, 32, 64), (3001, 7, 9), (1027, 33, 70)])
+def test_b1_narrow_x_off_16_byte_base_is_bitwise_the_aligned_one(n, d, chains, name, prec,
+                                                                  monkeypatch):
+    """A narrow slab whose base is off 16-byte alignment (a view one
+    element into its buffer) keeps the plain loads; its outputs are
+    bitwise those of the same values at an aligned base (copied in
+    flight through the packed slot), and within the float64 check."""
+    monkeypatch.setenv("STARK_FUSED_PRECISION", prec)
+    beta, alpha, xT, y, gl, fg, lane_tile = _grouped_case(n, d, 20, chains, dyadic=True)
+    q = _narrow(xT, name)
+    beta = beta / 4.0 if name == "int8" else beta
+    got = _b1_narrow_check((beta, alpha, off_16_bytes(q), y, gl, fg, lane_tile), prec, name)
+    aligned = hier_fused.hier_grouped(beta, alpha, q, y, gl, fg, lane_tile)
+    assert all(torch.equal(a, b) for a, b in zip(got, aligned))
+
+
+def test_b1_route_is_the_python_mirror():
+    """The pass, tile, compiled n-tiles, narrow staging and shared memory
+    the launcher takes for each (C, D, precision, X dtype)
+    (csrc/hier_grouped.cu:route) are hier_fused.b1_route's, which the CPU
+    tests check; the shared-memory query agrees."""
+    import ctypes
+
+    from stark_tpu_torch import _build
+    from stark_tpu_torch.ops.precision import PRECISIONS as CODES
+    from stark_tpu_torch.ops.precision import X_CODES
+
+    dev = _cuda()
+    fn = _build.function("hier_grouped", "stark_hier_grouped_route",
+                         [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 5)
+    for chains in (1, 7, 8, 9, 33, 64, 65, 100, 128):
+        for d in (1, 7, 16, 32, 33, 50, 64, 150, 166, 200, 249):
+            for prec in PRECISIONS:
+                for name, code in X_CODES.items():
+                    out = [ctypes.c_int() for _ in range(5)]
+                    assert fn(chains, d, CODES[prec], code, *map(ctypes.byref, out)) == 0
+                    mma, one, nt, windows, nbytes = (o.value for o in out)
+                    assert (hier_fused.B1_PASSES[mma], bool(one), nt, bool(windows), nbytes) == (
+                        hier_fused.b1_route(chains, d, prec, name)), (chains, d, prec, name)
+                    need, _ = hier_fused.b1_shared_memory(chains, d, prec, name, dev.index or 0)
+                    assert need == nbytes
+    out = [ctypes.c_int() for _ in range(5)]
+    assert fn(64, 32, 7, 0, *map(ctypes.byref, out)) != 0  # no such precision
+    assert fn(64, 32, 0, 9, *map(ctypes.byref, out)) != 0  # no such X dtype
 
 
 @pytest.mark.parametrize("name", list(_NARROW))
