@@ -2803,6 +2803,16 @@ def b1_split3_route() -> bool:
     from stark_tpu_torch.ops.hier_fused import b1_route
 
     return b1_route(64, 32, "highest", "bf16")[0] == "hier_mma"
+
+
+def b2_split3_route(c=32, d=32, xdt="bf16") -> bool:
+    """Whether B2 at highest on X stored as ``xdt`` runs on the bf16
+    tensor cores at C=c, D=d (b2_mma by split3, `logistic_fused.b2_route`),
+    whose bound counts SPLIT3_PASSES bf16 passes: past b2_chunk's shapes
+    on narrow X."""
+    from stark_tpu_torch.ops.logistic_fused import b2_route
+
+    return b2_route(c, d, "highest", xdt)[0] == "b2_mma"
 #: the reference's parity bands of a precision against ``highest``
 #: (tools/precision_parity.py:19-21), (value, gradient) in the metrics
 #: of `parity_error`: ``high`` tight, ``default`` wide
@@ -3469,7 +3479,8 @@ def phase_x_dtype_kernels(run: Run, flag, lmm):
             ms = timed(run, lambda: wrapper(*kargs, **kw), 20)
             plain_ms = timed(run, lambda: plain(*kargs, **kw), 5)
             sfu = dict(sfu=case.get("sfu", 0), sfu_per_s=run.sfu_per_s)
-            if kind == "B1" and b1_split3_route():  # highest on the tensor cores
+            if ((kind == "B1" and b1_split3_route())  # highest on the tensor cores
+                    or (kind == "B2" and b2_split3_route(*kargs[0].shape[-2:], xdt))):
                 e = bound(x_bytes(case, kargs, xdt), 2 * case["products"] * SPLIT3_PASSES,
                           BF16_FLOP_PER_S, **sfu)
             else:
@@ -3495,7 +3506,7 @@ def phase_x_dtype_kernels(run: Run, flag, lmm):
                         assert pexcess <= 0, f"{label} {prec}: exceeds its bound by {pexcess:.4g}"
                         pms = timed(run, lambda: wrapper(*kargs, **kw), 20)
                     pplain = (timed(run, lambda: plain(*kargs, **kw, prec=prec), 5)
-                              if kind == "B1" else None)
+                              if kind in ("B1", "B2") else None)
                     pe = bound(x_bytes(case, kargs, xdt), 2 * case["products"] * PASSES[prec],
                                BF16_FLOP_PER_S, **sfu)
                     log(f"  {label} {prec} [{smi}]: {pms:.4f} ms"
@@ -3652,11 +3663,100 @@ def phase_b1_narrow_edges(run: Run):
     return worst
 
 
+#: B2's narrow-X edge sweep past b2_chunk's shapes (`phase_b2_narrow_edges`),
+#: beside B2_EDGE_CASES': two shapes (N, D, C) under fp8; slabs at a base
+#: off 16-byte alignment; N = 20,000 + 0 .. 15 at C=32, D=32, so that a
+#: row's first element sits at each of the 16 bytes of its first window
+#: (one-byte X; bf16 at the even ones); shard launches (S, n, D, C) at C >
+#: 16 whose shards start off 16 bytes (D n of 2 or 1 bytes not a multiple
+#: of 16)
+B2_X_EDGE_FP8 = ((40_003, 32, 20), (1001, 33, 33))
+B2_X_EDGE_SKEW = ((40_003, 32, 32), (3001, 7, 20))
+B2_X_EDGE_HEADS = tuple(20_000 + m for m in range(16))
+B2_X_EDGE_SHARDS = ((3, 3001, 7, 32), (2, 1001, 33, 33))
+
+
+def b2_narrow_edge_cases():
+    """(N, D, C) of B2_EDGE_CASES past b2_chunk's shapes (b2_mma's)."""
+    from stark_tpu_torch.ops.logistic_fused import b2_route
+
+    return [(n, d, c) for n, d, c in B2_EDGE_CASES if b2_route(c, d, "high")[0] == "b2_mma"]
+
+
+def b2_narrow_edge_sweep(run: Run, gen):
+    """[(label, float32 dyadic arguments, link, X dtype, base off 16
+    bytes)] of `phase_b2_narrow_edges`, on b2_edge_inputs' grids."""
+    out = []
+    for n, d, c in b2_narrow_edge_cases():
+        for link, with_off in (("bernoulli_logit", True), ("gaussian", False)):
+            xT, y, beta, off = b2_edge_inputs(n, d, c, link, gen, run.dev)
+            for xdt in ("bf16", "int8"):
+                out.append((f"B2 N={n} D={d} C={c} {link}", (beta, xT, y, off if with_off else None),
+                            link, xdt, False))
+    more = [(f"B2 fp8 N={n} D={d} C={c}", n, d, c, ("fp8e4m3", "fp8e5m2"), False)
+            for n, d, c in B2_X_EDGE_FP8]
+    more += [(f"B2 head N={n}", n, 32, 32, ("bf16", "int8"), False) for n in B2_X_EDGE_HEADS]
+    more += [(f"B2 N={n} D={d} C={c}, base off 16 bytes", n, d, c, ("bf16", "int8"), True)
+             for n, d, c in B2_X_EDGE_SKEW]
+    for label, n, d, c, dts, skew in more:
+        xT, y, beta, off = b2_edge_inputs(n, d, c, "bernoulli_logit", gen, run.dev)
+        out += [(label, (beta, xT, y, off), "bernoulli_logit", xdt, skew) for xdt in dts]
+    for s, n, d, c in B2_X_EDGE_SHARDS:
+        args = b2_shard_inputs(s, n, d, c, gen, run.dev, dyadic=True)
+        out += [(f"B2 shards S={s} n={n} D={d} C={c}", args, "bernoulli_logit", xdt, False)
+                for xdt in ("bf16", "int8")]
+    return out
+
+
+def phase_b2_narrow_edges(run: Run, gen):
+    """B2 on narrow X past b2_chunk's shapes (b2_mma, highest by split3)
+    at each dot precision, over `b2_narrow_edge_sweep`: against the plain
+    version at that precision in float64 on the widened values
+    (`x_narrow_args`), within highest's tolerances plus at high and
+    default the link's slack; a second launch bitwise equal; a slab at a
+    base off 16-byte alignment (plain loads) bitwise the aligned slab's
+    outputs (copied in flight)."""
+    from stark_tpu_torch.ops import logistic_fused as lf
+
+    log(f"== B2 narrow X edge cases past b2_chunk at each precision, against "
+        f"{yardstick_name(run)} (script at {run.elapsed():.1f} s)")
+    worst, checks = 0.0, 0
+    for label, args, link, xdt, skew in b2_narrow_edge_sweep(run, gen):
+        kargs, wide, units = x_narrow_args("B2", args, xdt)
+        aligned = None
+        if skew:
+            aligned = kargs
+            kargs = (kargs[0], off_16_bytes(kargs[1]), *kargs[2:])
+        for prec in ("highest", *PRECISION_MODES):
+            name = f"{label} {xdt} at {prec}"
+            with env(PREC_KNOB, prec):
+                got = lf.logistic_batched(*kargs, link=link)
+                again = lf.logistic_batched(*kargs, link=link)
+                same = None if aligned is None else lf.logistic_batched(*aligned, link=link)
+            run.sync()
+            want = yardstick(run, lf.logistic_batched_plain, *wide, link=link, prec=prec)
+            slack = [] if prec == "highest" else b2_link_slack(wide, prec, link)
+            err, excess = compare_slack(name, units(got), units(want), units(slack), GRAD_RTOL,
+                                        GRAD_ATOL, quiet=True)
+            assert excess <= 0, f"{name}: error exceeds its bound by {excess:.4g}"
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{name} repeat"
+            if same is not None:
+                assert all(torch.equal(a, b) for a, b in zip(got, same)), f"{name}: not bitwise"
+            worst, checks = max(worst, err), checks + 1
+    log(f"  {checks} checks ({len(b2_narrow_edge_cases())} B2_EDGE_CASES shapes x 2 links x "
+        f"bf16, int8; fp8's {len(B2_X_EDGE_FP8)}, {len(B2_X_EDGE_HEADS)} heads, "
+        f"{len(B2_X_EDGE_SHARDS)} shard launches off 16 bytes, {len(B2_X_EDGE_SKEW)} slabs off "
+        f"16 bytes bitwise the aligned ones), each at highest, high and default: every one "
+        f"passes, a second launch bitwise equal; largest error {worst:.4g}")
+    return worst
+
+
 def phase_x_dtype_edges(run: Run, gen):
     """Every X_EDGE_* case of B2, B3 and B4 under every narrow dtype at
     highest: the kernel against its plain version in float64 on the
-    widened values, a second launch bitwise equal; then B1's at each
-    precision (`phase_b1_narrow_edges`)."""
+    widened values, a second launch bitwise equal; then B1's and B2's
+    narrow sweeps at each precision (`phase_b1_narrow_edges`,
+    `phase_b2_narrow_edges`)."""
     log(f"== x dtype edge cases (X_EDGE_*), every narrow dtype, against "
         f"{yardstick_name(run)} (script at {run.elapsed():.1f} s)")
     worst = 0.0
@@ -3673,7 +3773,7 @@ def phase_x_dtype_edges(run: Run, gen):
             assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{label} {xdt} repeat"
             worst = max(worst, err)
     log(f"  every case passes, a second launch bitwise equal; largest error {worst:.4g}")
-    return max(worst, phase_b1_narrow_edges(run))
+    return max(worst, phase_b1_narrow_edges(run), phase_b2_narrow_edges(run, gen))
 
 
 def _x_leg(run: Run, xdt, label, fn, counted, evals_of):
@@ -4001,12 +4101,27 @@ def b1_narrow_key(prec, xdt, chains=64):
 B1_NARROW_KEYS = tuple(b1_narrow_key(prec, xdt, c) for c, dts in ((64, ("bf16", "int8")),
                                                                   (NUTS_CHAINS, ("bf16",)))
                        for xdt in dts for prec in ("highest", "high", "default"))
+
+
+def b2_x_key(prec, xdt, offsets=True):
+    """The --compare-with key of B2 at C=32 at ``prec`` on X stored as
+    ``xdt``, with or without offsets."""
+    p = "" if prec == "highest" else f" {prec}"
+    return f"B2{p} {xdt} offsets={offsets}"
+
+
+#: B2 at C=32, D=32 on the flagship's X stored narrow (dyadic values):
+#: bf16 and int8 with offsets at each precision, bf16 without (b2_mma's
+#: packed slots; at highest split3)
+B2_X_KEYS = tuple(b2_x_key(prec, xdt, off) for off, dts in ((True, ("bf16", "int8")),
+                                                             (False, ("bf16",)))
+                  for xdt in dts for prec in ("highest", "high", "default"))
 SHARED_KERNELS = ("B1", "B1 high", "B1 high C=8", "B1 default", "B1 default C=8",
                   "B2 offsets=False", "B2 offsets=True", "B2 gaussian offsets=False",
                   "B2 gaussian offsets=True", *B2_MMA_KEYS, "B2 gaussian (LMM)",
                   "B2 offsets=True C=8", "B2 gaussian C=8 (zoo)", "B2 shards", "B2 shards high",
                   "B2 shards default", "B3 offsets=False", "B3 offsets=True", "B4",
-                  *B1_NARROW_KEYS)
+                  *B1_NARROW_KEYS, *B2_X_KEYS)
 #: B2 at C <= 16, D <= 32 (b2_chunk): config 3's offset path (C=16, D=8),
 #: the NUTS legs (C=8 with offsets, the flagship's X), zoo_glm's
 #: FusedLinearRegression (gaussian, C=8, D=32, N=200,000, no offsets) and
@@ -4018,12 +4133,13 @@ B2_NARROW_KEYS = ("B2 gaussian (LMM)", "B2 offsets=True C=8", "B2 gaussian C=8 (
 
 def expected_against_parent(key: str) -> str:
     """Whether a kernel of SHARED_KERNELS is expected bitwise equal to the
-    parent commit's: B1 at highest on narrow X, once it runs on the
-    tensor cores (`b1_split3_route`), sums in another order; B1 on narrow
+    parent commit's: B2 at highest on narrow X, once it runs on the
+    tensor cores (`b2_split3_route`), sums in another order; B2 on narrow
     X at high and default only moves its bytes otherwise (cp.async of the
-    packed words), so it is; and so is every other kernel."""
-    highest = key in B1_NARROW_KEYS and not key.startswith(("B1 high", "B1 default"))
-    if highest and b1_split3_route():
+    packed words), so it is; and so is every other kernel (B1 on narrow X
+    at highest too: it ran on the tensor cores in the parent already)."""
+    highest = key in B2_X_KEYS and not key.startswith(("B2 high", "B2 default"))
+    if highest and b2_split3_route():
         return "no, highest on narrow X runs on the bf16 tensor cores (split3) in another order"
     return "yes"
 
@@ -4053,6 +4169,25 @@ def b2_narrow_calls(run: Run, full, lfull, gen) -> dict:
     for prec in PRECISION_MODES:
         calls[f"B2 shards {prec}"] = (
             lambda prec=prec: at_precision(prec, lf.logistic_batched, *sargs))
+    return calls
+
+
+def b2_x_calls(run: Run, full, gen) -> dict:
+    """The calls of B2_X_KEYS on the flagship's X (`make_data`) at C=32:
+    `_batched_inputs` on `dyadic_inputs`' grids, X stored narrow
+    (`x_narrow_args`)."""
+    from stark_tpu_torch.ops import logistic_fused as lf
+
+    calls = {}
+    for with_off in (True, False):
+        fine = dyadic_inputs("bernoulli_logit", _batched_inputs(run, full, 32, gen, with_off), gen)
+        for xdt in ("bf16", "int8"):
+            kargs = x_narrow_args("B2", fine, xdt)[0]
+            for prec in ("highest", *PRECISION_MODES):
+                key = b2_x_key(prec, xdt, with_off)
+                if key in B2_X_KEYS:
+                    calls[key] = (lambda kargs=kargs, prec=prec:
+                                  at_precision(prec, lf.logistic_batched, *kargs))
     return calls
 
 
@@ -4106,6 +4241,7 @@ def shared_kernel_times(tree: str) -> dict:
             for prec in ("highest", *PRECISION_MODES):
                 calls[b1_narrow_key(prec, xdt, c)] = (
                     lambda kargs=kargs, prec=prec: at_precision(prec, hf.hier_grouped, *kargs))
+    calls.update(b2_x_calls(run, full, ngen))
     out = {"tree": tree, "digests": {}}
     for key in SHARED_KERNELS:
         out[key] = timed(run, calls[key], 50 if key == "B4" or key in B2_NARROW_KEYS else 20)

@@ -49,7 +49,7 @@ _FLAGS = (
 
 #: sources compiled in parts: name -> number of parts (csrc/<name>.cu's
 #: STARK_PART values 0 .. n - 1)
-PARTS = {"logistic_batched": 7}
+PARTS = {"logistic_batched": 8}
 
 # the flags of one part's object (PARTS): _FLAGS without -shared
 _OBJ_FLAGS = tuple(f for f in _FLAGS if f != "-shared")

@@ -246,8 +246,8 @@ __device__ __forceinline__ XPairs x_round_pairs(unsigned w0, unsigned w1, unsign
 // (stark_tpu_torch/ops/precision.py:X_CODES): float32, bf16, int8, fp8
 // e4m3 (e4m3fn: no infinity) and fp8 e5m2.  A kernel reads a narrow slab
 // from device memory at its storage width (2 bytes, or 1) and widens each
-// element to float32 where it stages it (`stage_x4`, or in B1 after
-// cp.async of the packed words, `x_window_copy` below); the widening is
+// element to float32 where it stages it (`stage_x4`, or in B1 and B2
+// after cp.async of the packed words, `x_window_copy` below); the widening is
 // exact (every bf16, int8 and fp8 value is a float32), so everything
 // after the staging, the dots and every sum, is the float32 kernel's.
 // Every such value is also exact in bf16 (int8 and fp8 have at most 8
@@ -318,10 +318,10 @@ __device__ __forceinline__ float4 load_x4(const void* base, size_t off, int left
 }
 
 // Stage elements off .. off + 3 of a slab of storage type xdt into dst
-// (16-byte aligned) as float32, with plain loads: B2's and B4's narrow
-// instantiations stage x this way, as B1's do where they have no packed
-// slot (x_window_copy); the float32 ones copy it with cp.async (which
-// has no copy of 1 or 2 bytes).  The type is a uniform
+// (16-byte aligned) as float32, with plain loads: B4's and b2_chunk's
+// narrow instantiations stage x this way, as B1's and b2_mma's do where
+// they have no packed slot (x_window_copy); the float32 ones copy it
+// with cp.async (which has no copy of 1 or 2 bytes).  The type is a uniform
 // runtime switch: the staging runs outside the FMA loops, and one narrow
 // instantiation serves every type (float32 too: B4's z may be float32
 // beside a narrow x).
@@ -339,7 +339,7 @@ __device__ __forceinline__ void stage_x4(float* dst, const void* base, int xdt, 
 }
 
 // ---- Narrow X copied in flight: cp.async of the packed words, widened
-// after the wait (B1's hier_pass and hier_mma; B2 can take the same) ----
+// after the wait (B1's hier_mma; B2's b2_mma, each warp its own rows) ----
 //
 // cp.async has no copy of 1 or 2 bytes, and a narrow row of a sub-tile
 // (elements off .. off + rows - 1 of the slab, 2 or 1 bytes each) starts
@@ -366,10 +366,28 @@ __host__ __device__ constexpr int x_window_chunks(int rows, int size) {
   return (rows * size + 30) / 16;
 }
 
+// Start the copy of window j of the row at element `off` (its first
+// nvalid elements valid) of a slab of slab_bytes bytes at `base` into
+// `dst` (16-byte aligned), if the window holds one of those elements.
+__device__ __forceinline__ void x_window_copy1(void* dst, const void* base, int size,
+                                               long long slab_bytes, long long off, int nvalid,
+                                               int j) {
+  const long long b = off * size, w0 = b & ~15LL;
+  if (16 * j >= (int)(b - w0) + nvalid * size) return;  // past the row's last valid element
+  const long long src = w0 + 16LL * j;
+  const long long left = slab_bytes - src;  // > 0: the window holds a valid element
+  const int bytes = left < 16 ? (int)left : 16;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(static_cast<const char*>(base) + src), "r"(bytes));
+}
+
 // Start the copies of the windows of the row at element `off` (its first
 // nvalid elements valid) of a slab of slab_bytes bytes at `base` into
 // `slot` (the row's x_window_chunks windows, 16-byte aligned): lane j of
-// the calling warp copies windows j, j + 32, ....
+// the calling warp copies windows j, j + 32, ....  (Written out rather
+// than on x_window_copy1: B1 on narrow X ran 4 % slower so on an H100,
+// PERF.md.)
 __device__ __forceinline__ void x_window_copy(void* slot, const void* base, int size,
                                               long long slab_bytes, long long off, int nvalid,
                                               int lane) {
@@ -435,8 +453,8 @@ __device__ __forceinline__ float4 x_window_load4(const void* slot, int xdt, int 
 // of a smaller a the bits below 2^-133 are lost (an error under 2^-133).
 // Cut toward zero, no piece overflows, the largest float32 too (to
 // nearest, bf16(a) of a >= (2 - 2^-8) 2^127 would be infinite).  B1's
-// tensor-core pass at highest on narrow X takes beta and resid so: x
-// (exact in bf16) times each piece is exact in float32.
+// and B2's tensor-core passes at highest on narrow X take beta and resid
+// so: x (exact in bf16) times each piece is exact in float32.
 __device__ __forceinline__ void split3(unsigned a, unsigned& p0, unsigned& p1, unsigned& p2) {
   p0 = a & 0xffff0000u;
   const float r1 = __uint_as_float(a) - __uint_as_float(p0);

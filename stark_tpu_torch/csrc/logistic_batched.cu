@@ -18,7 +18,8 @@
 // resid is written only with offsets: the offset path's own output, which
 // the model chains through the gather that made the offsets.
 //
-// Three passes, picked by the launcher from C, D and the dot precision:
+// Three passes, picked by the launcher from C, D, the dot precision and
+// X's storage type (route):
 //   b2_chunk  C <= 16 and D <= 32, every precision: one chunk of kCh = 8
 //             or 16 chains (the smallest that holds C) and kF = 8, 16 or 32
 //             features (the smallest that holds D), each pair compiled
@@ -26,13 +27,15 @@
 //             shard axis (S=8, C=8, D=16), the NUTS legs (C=8, D=32,
 //             offsets), config 3's offset path (gaussian, C=16, D=8) and
 //             zoo_glm's linear regression (gaussian, C=8, D=32).
-//   b2_pass   every other (C, D) at highest: chunks of kChains = 32 chains
-//             and kFeat = 32 features, taken in turn past them, products
-//             on the FP32 CUDA cores; the offset-path flagship (C=32, D=32)
-//             and everything past 16 chains or 32 features.
-//   b2_mma    the same (C, D) at high and default: b2_pass's chunks,
-//             staging and shared memory, both products on the bf16 tensor
-//             cores (below).
+//   b2_pass   every other (C, D) at highest on float32 X: chunks of
+//             kChains = 32 chains and kFeat = 32 features, taken in turn
+//             past them, products on the FP32 CUDA cores; the offset-path
+//             flagship (C=32, D=32) and everything past 16 chains or 32
+//             features.
+//   b2_mma    the same (C, D) at high and default, and on narrow X at
+//             highest too (split3): b2_pass's chunks, staging and shared
+//             memory (on narrow X its own staging, below), both products
+//             on the bf16 tensor cores.
 // All split the rows alike and end in b2_finish.
 //
 // Bounds on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32, 4.18e12
@@ -55,6 +58,11 @@
 //     (23.0 us): bound by bytes at both precisions, with and without
 //     offsets.  On the FP32 CUDA cores high's three FMAs a product took
 //     183 us by operations alone.
+//   the same at highest on narrow X (b2_mma by split3): X at 2 or 1
+//     bytes an element, 324 MB (bf16, 96.7 us) or 292 MB (one byte, 87.2
+//     us) with offsets, against three passes a product on the tensor
+//     cores (12.4 us) and the link's 23.0 us: bound by bytes; without
+//     offsets (68 or 36 MB) by the link's special functions.
 // b2_pass and b2_chunk keep the CUDA cores fed from registers, and every
 // pass keeps the next sub-tile's bytes in flight while one is computed;
 // b2_chunk leaves no lane on a chain or feature past its chunk, where
@@ -170,7 +178,8 @@
 // value sums are not rounded: the reference adds the offsets after its
 // dot.
 //
-// b2_mma (high and default past b2_chunk's shapes) computes both products
+// b2_mma (high and default past b2_chunk's shapes, and highest on narrow
+// X there) computes both products
 // with mma.sync m16n8k16 (bf16 operands, float32 accumulators), chains on
 // the MMA's n = 8 side and x the A operand of both:
 //   logits^T (rows x chains) = x^T beta^T,
@@ -178,7 +187,8 @@
 // Its pieces are B1's hier_mma's (csrc/fused_pass.cuh: mma_bf16, ldsm_x4,
 // hi_pair, lo_pair, mma_prec, mma_row).  What its design does, and why:
 //   - Shared memory is b2_pass's Layout, its tiers and widths (B2_REFUSED
-//     alike): 73 KB a block at C = 32, D = 32, three blocks an SM.  beta
+//     alike): 73 KB a block at C = 32, D = 32, three blocks an SM (on
+//     narrow X with one x buffer and two packed slots, layout_x).  beta
 //     is staged rounded (a_hi | a_lo in one word) and its pairs built with
 //     one byte permute each; x and resid stay float32 in shared memory and
 //     are rounded where their pairs are built (round_pairs: one cvt for
@@ -198,13 +208,17 @@
 //     and n-tile (the four warps' tiles added in warp order after the
 //     block, or per sub-tile past one tile).  So a warp reads back only
 //     the resid it wrote: a __syncwarp, not a barrier, stands between link
-//     and gradient, one barrier a sub-tile in all (b2_pass: two).
+//     and gradient, one barrier a sub-tile in all (b2_pass: two; none in
+//     the one-tile case on narrow X, whose warps stage their own rows).
 //   - Logits: a k-step takes 16 features; x's words by lds.32 at rows
 //     mma_row (a warp's loads meet 32 banks at kLd = 132); beta's pairs in
-//     registers for the block in the one-tile case, else built per k-step
-//     from bsh.  An n-tile's column n is chain n / 2 + 4 (n % 2), so a
-//     thread holds rows g and g + 8 (mma_row) of chains tq and tq + 4 of
-//     each n-tile: its offsets reads and resid writes in rs meet 32 banks.
+//     registers for the block in the one-tile case (at highest split3's
+//     pieces, 48 words a lane), else built per k-step from bsh (at
+//     highest per k-step and n-tile: for a k-step's n-tiles at once the
+//     shard-axis kernel spilled).  An n-tile's column n is
+//     chain n / 2 + 4 (n % 2), so a thread holds rows g and g + 8
+//     (mma_row) of chains tq and tq + 4 of each n-tile: its offsets reads
+//     and resid writes in rs meet 32 banks.
 //   - Link: b2_pass's, with its approximate forms and bounds, on the
 //     accumulators in registers; the value sums stay in registers (one
 //     tile) and meet by a fixed shuffle tree, then warps 0 and 2, 1 and 3
@@ -215,19 +229,39 @@
 //   - Gradient: x and resid by ldmatrix (row strides of 33 x 16 bytes meet
 //     every bank once), each word rounded where its pair is built; feature
 //     rows past D computed and never stored.
-//   - The one-tile float32 kernels of 25 to 32 chains have their 4
-//     n-tiles compiled in (kNt); the rest read nt at run time (a narrow
-//     one so compiled spilled).
+//   - The one-tile kernels of 25 to 32 chains have their 4 n-tiles
+//     compiled in (kNt; on narrow X launched only with the packed slots,
+//     whose kernels have no plain loads, and not at highest: with beta's
+//     pieces for the block they spilled); the rest read nt at run time.
 
 // X's storage type (STARK_FUSED_X_DTYPE; p.xdt), as B1 takes it
-// (csrc/hier_grouped.cu): a bf16, int8 or fp8 xT is read at its width
-// with plain loads (4 elements at once where whole and aligned, else one
-// at a time; a shard's rows start at s * D * n elements, so at config 2's
-// n = 125,000 every row of a 1-byte slab starts off 4-byte alignment:
-// 125,000 = 8 mod 16) and widened to float32 where it is staged; the
-// offsets, y and resid stay float32 and cp.async.  Past the staging the
-// pass is the float32 pass at every precision, the staged rounding of x
-// skipped (the identity on narrow values).  Every pass compiles the
+// (csrc/hier_grouped.cu): a bf16, int8 or fp8 xT is read at its width.
+// Past b2_chunk's shapes it runs on b2_mma at every precision, copied in
+// flight: cp.async has no copy of 1 or 2 bytes, so each warp copies, a
+// sub-tile ahead, the aligned 16-byte windows that cover its own rows of
+// each feature row (x_window_copy1; 5 of bf16, 3 of one byte; zeros past
+// the slab's end, nothing read outside it) into a packed slot, and after
+// its own wait widens them into the float32 x buffer (widen_rows), the
+// values stage_x4 gave; warp w computes only rows 32 w .. 32 w + 31 in
+// every phase, so with y and the first chunk's offsets copied the same
+// way it needs no barrier of the block a sub-tile, and one float32 x
+// buffer with two packed slots takes the place of two x buffers
+// (layout_x: 76,544 bytes a block on bf16 at C = 32, D = 32, three
+// blocks an SM).  At high and default the widened x is the parent's, so
+// the outputs are bitwise the plain-loads staging's; at highest x enters
+// as its own bf16 bits and beta and resid as split3's three exact pieces
+// (csrc/fused_pass.cuh), three MMAs a product, each exact in float32 and
+// summed in float32, each k-step's gradient products summed apart and
+// added to the block's sums in float32 (the tensor cores' sums truncate;
+// a block's rows in one accumulator drifted in B1).  A slab whose base
+// is off 16-byte alignment (a view), and the widths whose layout has one
+// buffer or whose slots leave the tier (layout_x), keep the plain loads of
+// stage_x4 (4 elements at once where whole and aligned, else one at a
+// time), which are not in flight: the thread waits for them where it
+// stages.  b2_chunk stages a narrow X so (a shard's rows start at s * D *
+// n elements, so at config 2's n = 125,000 every row of a 1-byte slab
+// starts off 4-byte alignment: 125,000 = 8 mod 16).  The offsets, y and
+// resid stay float32 and cp.async.  b2_chunk and b2_mma compile the
 // narrow X apart (kNarrow), so the float32 ones keep their code.
 //
 // Every sum runs in a fixed order: per thread in row and feature order
@@ -288,26 +322,38 @@ __host__ __device__ inline bool one_tile(int C, int D) {
 
 // Dynamic shared memory, in 4-byte words, every array 16-byte aligned.
 struct Layout {
-  int nbuf;   // x, y and resid buffers
+  int nbuf;   // y and resid buffers, and x buffers but with a packed slot
   int xrows;  // feature rows of one x buffer
   bool gsl_global;  // gradient sums in the block's slice of gpart
   int xs, ys, rs, bsh, vsl, gsl, words;
+  int xslot;  // b2_mma on narrow X copied in flight: the first of two
+              // packed slots (xslot_words each), or -1
 };
+
+// Words of one packed slot of b2_mma: D feature rows of a narrow
+// sub-tile, each as four warps' segments of 32 rows, a segment the
+// x_window_chunks(32, size) windows that cover it (5 of bf16, 3 of one
+// byte: 2,560 and 1,536 words at D = 32).
+__host__ __device__ inline int xslot_words(int D, int xdt) {
+  return D * (kThreads / 32) * x_window_chunks(kRows / (kThreads / 32), x_size(xdt)) * 4;
+}
 
 // With two buffers, each x buffer holds D rounded up to whole gradient
 // chunks, the rows past D zero.  With one, it holds D rows, and the
 // gradient's reads of rows past D (at most kFeat - 1 of them) land in ys
 // and rs, which nothing writes during the gradient: their products fall
 // in accumulators that are never stored.  Either way the gradient's
-// operand offsets are constants.
-__host__ __device__ inline Layout layout_with(int C, int D, int nbuf, bool gsl_global) {
+// operand offsets are constants.  slot > 0 (two buffers only): one x
+// buffer and, after everything else, two packed slots of `slot` words.
+__host__ __device__ inline Layout layout_with(int C, int D, int nbuf, bool gsl_global,
+                                              int slot = 0) {
   Layout L;
   const int cp = chains_padded(C);
   L.nbuf = nbuf;
   L.gsl_global = gsl_global;
   L.xrows = nbuf == 2 ? (D + kFeat - 1) / kFeat * kFeat : D;
   int o = 0;
-  L.xs = o;     o += nbuf * L.xrows * kLd;   // x sub-tiles [buffer][d][r]
+  L.xs = o;     o += (slot > 0 ? 1 : nbuf) * L.xrows * kLd;  // x sub-tiles [buffer][d][r]
   L.ys = o;     o += nbuf * kRows;           // y [buffer][r]
   L.rs = o;     o += nbuf * kChains * kLd;   // offsets, then resid [buffer][chain][r]
   L.bsh = o;    o += D * round4(C) + cp - round4(C);  // beta [d][c], rows
@@ -323,6 +369,8 @@ __host__ __device__ inline Layout layout_with(int C, int D, int nbuf, bool gsl_g
   } else {
     L.gsl = o;  o += round4(C * D);
   }
+  L.xslot = slot > 0 ? o : -1;
+  o += 2 * slot;
   L.words = o;
   return L;
 }
@@ -336,6 +384,25 @@ __host__ __device__ inline Layout layout(int C, int D) {
   const Layout one = layout_with(C, D, 1, false);
   if (one.words * (long long)sizeof(float) <= kOnePerSm) return one;
   return layout_with(C, D, 1, true);
+}
+
+// b2_mma's layout for X stored as xdt: a narrow X takes one float32 x
+// buffer and two packed slots in place of the two float32 x buffers where
+// the layout has two buffers and the slots keep it in its tier (113 KB
+// a block), else `layout`'s.  Each warp widens only the rows it computes
+// (32 w .. 32 w + 31), so one x buffer serves every sub-tile: at C = 32,
+// D = 32 19,136 words for bf16 (76,544 bytes, three blocks an SM) and
+// 17,088 for one byte (68,352 bytes), against float32's 18,240.  The
+// widths whose layout has one buffer, and on bf16 a few two-buffer
+// widths below them whose slots leave the tier, keep the plain loads
+// (stage_x4): C = 17, D >= 60 on bf16 and 65 on one byte; C = 25, 55
+// and 62; C = 32, 52; C = 33, 46; C = 64, 33 (every width past one
+// chunk) (ops/logistic_fused.py:b2_x_route lists them for any (C, D)).
+__host__ __device__ inline Layout layout_x(int C, int D, int xdt) {
+  const Layout L = layout(C, D);
+  if (xdt == kXF32 || L.nbuf != 2) return L;
+  const Layout W = layout_with(C, D, 2, false, xslot_words(D, xdt));
+  return W.words * (long long)sizeof(float) <= kTwoPerSm ? W : L;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -408,6 +475,144 @@ __device__ __forceinline__ void stage(const Params& p, float* xs, float* ys, flo
   if (p.offsets != nullptr) stage_offsets<kC>(p, rs, 0, row0, nvalid, o16);
 }
 
+// b2_mma's narrow X in flight, staged by each warp for its own rows.
+// Warp w computes rows 32 w .. 32 w + 31 of a sub-tile in every phase, so
+// it copies just those rows of x (kWarpRows of each feature row, as the
+// x_window_chunks(kWarpRows, size) aligned 16-byte windows that cover
+// them: 5 of bf16, 3 of one byte), of y and of the first chunk's offsets,
+// waits for its own copies and widens them: no barrier of the block.
+// The launch's slab (S shards of D rows of N elements at xbase, 16-byte
+// aligned) is where the windows are taken, not shard_view's advanced
+// pointer, so a shard whose rows start off 16 bytes (s D N elements in)
+// copies in flight as well.  Row d of shard s starts (s D + d) N
+// elements in, and a warp's first row at a multiple of kWarpRows, so the
+// head of its segment is ((s D + d) N size) mod 16.
+constexpr int kWarpRows = kRows / (kThreads / 32);
+
+__device__ __forceinline__ int x_head(const Params& p, int s, int d) {
+  return (int)((((long long)s * p.D + d) * p.N * x_size(p.xdt)) & 15);
+}
+
+// Start the copies of this warp's segment of every feature row of shard
+// s's sub-tile at row0 (nvalid rows) into `slot`, [d][warp][kNch
+// windows]: lane l windows l, l + 32, ... of the warp's D kNch, so that
+// neighbouring lanes copy neighbouring windows of a row (zeros past the
+// slab's end, nothing read outside it).  Where N size is a multiple of 16
+// (every head 0) a row's last window holds none of the segment and is
+// not visited.  (A lane to each feature row, its windows in turn, was
+// slower with offsets: 0.1590 against 0.1487 ms at high on bf16 X at the
+// flagship's width on an H100, PERF.md.)
+template <int kSize, int kNch>
+__device__ __forceinline__ void copy_windows_in(const Params& p, const void* xbase, int S,
+                                                char* slot, long long off0, int nv) {
+  constexpr int kStride = x_window_chunks(kWarpRows, kSize);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long slab = (long long)S * p.D * p.N * kSize;
+#pragma unroll 1
+  for (int i = lane; i < p.D * kNch; i += 32) {
+    const int d = i / kNch, j = i - d * kNch;
+    x_window_copy1(slot + 16 * (kStride * (4 * d + warp) + j), xbase, kSize, slab,
+                   off0 + (long long)d * p.N, nv, j);
+  }
+}
+
+template <int kSize>
+__device__ __forceinline__ void copy_windows_of(const Params& p, const void* xbase, int s, int S,
+                                                char* slot, int row0, int nvalid) {
+  constexpr int kNch = x_window_chunks(kWarpRows, kSize);
+  const int warp = threadIdx.x >> 5;
+  const int nv = min(kWarpRows, nvalid - kWarpRows * warp);
+  if (nv <= 0) return;
+  const long long off0 = (long long)s * p.D * p.N + row0 + kWarpRows * warp;
+  if (((long long)p.N * kSize & 15) == 0) {
+    copy_windows_in<kSize, kWarpRows * kSize / 16>(p, xbase, S, slot, off0, nv);
+  } else {
+    copy_windows_in<kSize, kNch>(p, xbase, S, slot, off0, nv);
+  }
+}
+
+// Widen this warp's segment of every feature row, copied into `slot` as
+// kX, into the x buffer xs (the values stage_x4 writes, zeros from nvalid
+// on); then a __syncwarp, after which the warp reads its rows.  Where N
+// size is a multiple of 16 every segment starts a window (head 0), and a
+// whole segment is widened from aligned loads: lane l elements 8 (l % 4)
+// .. + 7 of rows l / 4, l / 4 + 8, ..., one 16- (bf16) or 8-byte load
+// each.  Else (and for the last, partial segment) lane l elements 4 (l %
+// 8) .. + 3 of rows l / 8, l / 8 + 4, ... cut out of the words around
+// them (x_window_widen4), the head of row d + 4 from row d's.
+template <int kX>
+__device__ __forceinline__ void widen_rows_of(const Params& p, int s, const char* slot, float* xs,
+                                              int nvalid) {
+  constexpr int kSize = kX == kXBf16 ? 2 : 1, kNch = x_window_chunks(kWarpRows, kSize);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nv = nvalid - kWarpRows * warp;  // <= 0: zeros
+  float* xw = xs + kWarpRows * warp;
+  if (nv >= kWarpRows && ((long long)p.N * kSize & 15) == 0) {
+    const int r = 8 * (lane & 3);
+#pragma unroll 2
+    for (int d = lane >> 2; d < p.D; d += 8) {
+      const char* seg = slot + 16 * kNch * (4 * d + warp) + r * kSize;
+      float v[8];
+      if constexpr (kSize == 2) {
+        const uint4 w = *reinterpret_cast<const uint4*>(seg);
+        const unsigned ww[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[2 * e] = __uint_as_float(ww[e] << 16);
+          v[2 * e + 1] = __uint_as_float(ww[e] & 0xffff0000u);
+        }
+      } else {
+        const uint2 w = *reinterpret_cast<const uint2*>(seg);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = widen<kX>(((e < 4 ? w.x : w.y) >> (8 * (e & 3))) & 0xffu);
+      }
+      *reinterpret_cast<float4*>(xw + d * kLd + r) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(xw + d * kLd + r + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    }
+  } else {
+    const int r = 4 * (lane & 7), step = (int)((4LL * p.N * kSize) & 15);
+    int head = x_head(p, s, lane >> 3);
+#pragma unroll 1
+    for (int d = lane >> 3; d < p.D; d += 4) {
+      *reinterpret_cast<float4*>(xw + d * kLd + r) =
+          x_window_widen4<kX>(slot + 16 * kNch * (4 * d + warp), head, r, nv);
+      head = (head + step) & 15;
+    }
+  }
+  __syncwarp();
+}
+
+// The warp's part of the sub-tile at row0 (nvalid rows) into slot, ys and
+// rs: x's windows, y (thread t row t) and with offsets the first chunk's
+// (lane l rows 32 w + 4 (l % 8) of chains l / 8, l / 8 + 4, ...).
+__device__ __forceinline__ void stage_warp(const Params& p, const void* xbase, int s, int S,
+                                           char* slot, float* ys, float* rs, int row0,
+                                           int nvalid, bool o16) {
+  if (x_size(p.xdt) == 2) {
+    copy_windows_of<2>(p, xbase, s, S, slot, row0, nvalid);
+  } else {
+    copy_windows_of<1>(p, xbase, s, S, slot, row0, nvalid);
+  }
+  const int t = threadIdx.x, lane = t & 31;
+  cp_async4(ys + t, p.y + row0 + (t < nvalid ? t : 0), t < nvalid);
+  const int r = kWarpRows * (t >> 5) + 4 * (lane & 7);
+  if (p.offsets != nullptr && r < nvalid) {
+    for (int cl = lane >> 3; cl < kChains && cl < p.C; cl += 4) {
+      copy4(rs + cl * kLd + r, p.offsets, (size_t)cl * p.N + row0 + r, nvalid - r, o16);
+    }
+  }
+}
+
+__device__ __forceinline__ void widen_rows(const Params& p, int s, const char* slot, float* xs,
+                                           int nvalid) {
+  switch (p.xdt) {
+    case kXBf16: widen_rows_of<kXBf16>(p, s, slot, xs, nvalid); break;
+    case kXInt8: widen_rows_of<kXInt8>(p, s, slot, xs, nvalid); break;
+    case kXE4M3: widen_rows_of<kXE4M3>(p, s, slot, xs, nvalid); break;
+    default: widen_rows_of<kXE5M2>(p, s, slot, xs, nvalid); break;
+  }
+}
+
 // kOneTile: one_tile(C, D), the flagship's case (two buffers, one chunk,
 // the gradient tile in registers throughout), compiled apart so that none
 // of the other cases' state takes its registers.
@@ -426,10 +631,9 @@ __device__ __forceinline__ Params shard_view(Params p, int s, int nblk) {
 }
 
 // kShards: S > 1, blockIdx.y the shard.  At highest only (float32
-// products; high and default run b2_mma).  kNarrow: xT stored as bf16,
-// int8 or fp8 (p.xdt), its own instantiations, so that the float32 ones
-// keep their code and registers.
-template <bool kOneTile, int kLink, bool kShards, bool kNarrow>
+// products; high and default, and narrow X at every precision, run
+// b2_mma).
+template <bool kOneTile, int kLink, bool kShards>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int nblk) {
   extern __shared__ __align__(16) float smem[];
   if (kShards) p = shard_view(p, blockIdx.y, nblk);
@@ -457,7 +661,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
   const bool r16 = offs && (reinterpret_cast<uintptr_t>(p.resid) & 15) == 0;
 
   // first sub-tile in flight while the block sets up
-  stage<kNarrow>(p, xs, ys, rs, sub0 * kRows, min(kRows, N - sub0 * kRows), x16, o16);
+  stage<false>(p, xs, ys, rs, sub0 * kRows, min(kRows, N - sub0 * kRows), x16, o16);
   cp_async_commit();
 
   for (int i = t; i < D * cb + cp - cb; i += kThreads) {  // beta [d][c]
@@ -534,7 +738,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
     __syncthreads();  // this sub-tile has landed; the other buffer is free
     if (two && sub + 1 < sub1) {
       const int nrow0 = row0 + kRows;
-      stage<kNarrow>(p, xs + (buf ^ 1) * xbuf, ys + (buf ^ 1) * kRows, rs + (buf ^ 1) * rbuf, nrow0,
+      stage<false>(p, xs + (buf ^ 1) * xbuf, ys + (buf ^ 1) * kRows, rs + (buf ^ 1) * rbuf, nrow0,
             min(kRows, N - nrow0), x16, o16);
     }
     cp_async_commit();
@@ -661,7 +865,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_pass(Params p, int 
     if (!two && sub + 1 < sub1) {  // one buffer: the next sub-tile once this one is done
       __syncthreads();
       const int nrow0 = row0 + kRows;
-      stage<kNarrow>(p, xs, ys, rs, nrow0, min(kRows, N - nrow0), x16, o16);
+      stage<false>(p, xs, ys, rs, nrow0, min(kRows, N - nrow0), x16, o16);
       cp_async_commit();
     }
   }
@@ -972,9 +1176,10 @@ __host__ __device__ inline int mma_chains(int C) {
   return C / kChains * kChains + (C % kChains + 7) / 8 * 8;
 }
 
-// b2_pass at high and default with both products on the tensor cores
-// (mma.sync m16n8k16, bf16 operands, float32 sums), the chains on the
-// MMA's n = 8 side and x the A operand of both:
+// b2_pass at high and default, and at highest on narrow X (split3), with
+// both products on the tensor cores (mma.sync m16n8k16, bf16 operands,
+// float32 sums), the chains on the MMA's n = 8 side and x the A operand
+// of both:
 //   logits^T (rows x chains) = x^T beta^T,  gbeta^T (features x chains) = x resid^T.
 // Warp w owns rows 32 w .. 32 w + 31 of each sub-tile in both products
 // and the link: the logits' m-tiles 2 w and 2 w + 1 (rows mma_row), the
@@ -988,14 +1193,31 @@ __host__ __device__ inline int mma_chains(int C) {
 // (x_round_pairs), where the logits and where the gradient load it.  kOneTile
 // (C <= 32, D <= 32): beta's pairs in registers for the block, the
 // gradient tile in registers for the block; kNt: its n-tiles compiled
-// in (4: 24 < C <= 32, float32 X), or 0: read from C.
+// in (4: 24 < C <= 32; on narrow X at high and default, launched only
+// with its packed slots),
+// or 0: read from C.  kNarrow: x stored as bf16, int8 or fp8, copied in
+// flight through two packed slots (layout_x) where the launch's slab is
+// 16-byte aligned, else loaded plainly (stage_x4).
 template <bool kOneTile, int kNt, int kLink, bool kShards, int kPrec, bool kNarrow>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_mma(Params p, int nblk) {
-  static_assert(kPrec != kHighest, "highest runs b2_pass");
+  static_assert(kPrec != kHighest || kNarrow, "highest on float32 X runs b2_pass");
   extern __shared__ __align__(16) float smem[];
+  const void* xbase = p.xT;  // the launch's slab, every shard's rows
+  const int shard = kShards ? blockIdx.y : 0;
   if (kShards) p = shard_view(p, blockIdx.y, nblk);
   const int C = p.C, D = p.D, N = p.N;
-  const Layout L = layout(C, D);
+  // narrow X through the packed slots (win): the route's choice
+  // (route); a kernel with its n-tiles compiled in is launched only so
+  // and leaves the plain loads out
+  constexpr bool kPlain = kNarrow && kNt == 0;
+  // words of beta's pairs a (k-step, n-tile): hi and lo b0, b1, or at
+  // highest b0, b1 of each of split3's three pieces
+  constexpr int kBW = kPrec == kHighest ? 6 : 4;
+  const bool base16 = (reinterpret_cast<uintptr_t>(xbase) & 15) == 0;
+  const Layout L = kNarrow && (!kPlain || base16) ? layout_x(C, D, p.xdt) : layout(C, D);
+  const bool win = kNarrow && (!kPlain || L.xslot >= 0);
+  char* slot = reinterpret_cast<char*>(smem + L.xslot);
+  const int slotb = win ? 4 * xslot_words(D, p.xdt) : 0;  // bytes of one slot
   float* xs = smem + L.xs;
   float* ys = smem + L.ys;
   float* rs = smem + L.rs;
@@ -1005,7 +1227,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_mma(Params p, int n
 
   const int cp = kOneTile ? kChains : chains_padded(C);
   const int cb = round4(C);  // row stride of bsh
-  const int xbuf = (kOneTile ? kFeat : L.xrows) * kLd;
+  const int xbuf = win ? 0 : (kOneTile ? kFeat : L.xrows) * kLd;  // (win: one x buffer)
   const int rbuf = kChains * kLd;
   const bool two = kOneTile || L.nbuf == 2;
   const bool offs = p.offsets != nullptr;
@@ -1019,8 +1241,19 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_mma(Params p, int n
   const bool r16 = offs && (reinterpret_cast<uintptr_t>(p.resid) & 15) == 0;
   const int nkd = (D + 15) / 16;  // the logits' k-steps of 16 features
 
+  // the sub-tile at row0 into buffer j (win: the warp's rows, x's windows
+  // into slot j)
+  auto stage_into = [&](int j, int row0) {
+    const int nv = min(kRows, N - row0);
+    if (win) {
+      stage_warp(p, xbase, shard, gridDim.y, slot + j * slotb, ys + j * kRows, rs + j * rbuf,
+                 row0, nv, o16);
+    } else {
+      stage<kNarrow>(p, xs + j * xbuf, ys + j * kRows, rs + j * rbuf, row0, nv, x16, o16);
+    }
+  };
   // first sub-tile in flight while the block sets up
-  stage<kNarrow>(p, xs, ys, rs, sub0 * kRows, min(kRows, N - sub0 * kRows), x16, o16);
+  stage_into(0, sub0 * kRows);
   cp_async_commit();
 
   for (int i = t; i < D * cb + cp - cb; i += kThreads) {  // beta [d][c]
@@ -1039,8 +1272,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_mma(Params p, int n
   // n-tile j of chunk k: column n = g is chain k + 8 j + n / 2 + 4 (n % 2),
   // so a thread's accumulators hold chains tq and tq + 4 of each n-tile;
   // k 2t and 2t+1 (t = tq) are features 16 kd + t and + 4, k 2t+8 and
-  // 2t+9 features + 8 and + 12; 0 past D (bsh's zeros past C).
-  auto beta_pairs = [&](int k, int j, int kd, unsigned (&bp)[4]) {
+  // 2t+9 features + 8 and + 12; 0 past D (bsh's zeros past C).  bp: b0,
+  // b1 of hi and lo, or at highest of split3's pieces p0, p1, p2.
+  auto beta_pairs = [&](int k, int j, int kd, unsigned (&bp)[kBW]) {
     const int c = k + 8 * j + (g >> 1) + 4 * (g & 1);
     unsigned w[4];
 #pragma unroll
@@ -1048,14 +1282,34 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_mma(Params p, int n
       const int d = 16 * kd + tq + 4 * i;
       w[i] = d < D ? __float_as_uint(bsh[d * cb + c]) : 0u;
     }
-    bp[0] = hi_pair(w[0], w[1]);
-    bp[1] = hi_pair(w[2], w[3]);
-    bp[2] = lo_pair(w[0], w[1]);
-    bp[3] = lo_pair(w[2], w[3]);
+    if constexpr (kPrec == kHighest) {
+      unsigned q0[3], q1[3];
+      split3_pairs(w[0], w[1], q0);
+      split3_pairs(w[2], w[3], q1);
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        bp[2 * e] = q0[e];
+        bp[2 * e + 1] = q1[e];
+      }
+    } else {
+      bp[0] = hi_pair(w[0], w[1]);
+      bp[1] = hi_pair(w[2], w[3]);
+      bp[2] = lo_pair(w[0], w[1]);
+      bp[3] = lo_pair(w[2], w[3]);
+    }
+  };
+  // c += x . beta at kPrec (highest: x times each piece, mma_split3)
+  auto mma_beta = [&](float (&c)[4], const XPairs& x, const unsigned (&bp)[kBW]) {
+    if constexpr (kPrec == kHighest) {
+      const unsigned b0[3] = {bp[0], bp[2], bp[4]}, b1[3] = {bp[1], bp[3], bp[5]};
+      mma_split3(c, x, b0, b1);
+    } else {
+      mma_prec<kPrec, kNarrow>(c, x, bp[0], bp[1], bp[2], bp[3]);
+    }
   };
   const int nt0 = kNt ? kNt : mma_ntiles(C, 0);
-  // one tile: beta's pairs for the block, [k-step][n-tile][hi b0, b1, lo b0, b1]
-  unsigned bfr[2][4][4];
+  // one tile: beta's pairs for the block, [k-step][n-tile][kBW]
+  unsigned bfr[2][4][kBW];
   if constexpr (kOneTile) {
     __syncthreads();  // beta is staged
 #pragma unroll
@@ -1066,7 +1320,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_mma(Params p, int n
           beta_pairs(0, j, kd, bfr[kd][j]);
         } else {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) bfr[kd][j][e] = 0u;
+          for (int e = 0; e < kBW; ++e) bfr[kd][j][e] = 0u;
         }
       }
   }
@@ -1125,19 +1379,19 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_mma(Params p, int n
     }
   };
 
+  if (win) __syncthreads();  // beta, the zero rows and vsl are in place
   for (int sub = sub0; sub < sub1; ++sub) {
     const int buf = two ? (sub - sub0) & 1 : 0;
     const int row0 = sub * kRows;
     const int nvalid = min(kRows, N - row0);
     float* xb = xs + buf * xbuf;
     cp_async_wait_all();
-    __syncthreads();  // this sub-tile has landed; the other buffer is free
-    if (two && sub + 1 < sub1) {
-      const int nrow0 = row0 + kRows;
-      stage<kNarrow>(p, xs + (buf ^ 1) * xbuf, ys + (buf ^ 1) * kRows, rs + (buf ^ 1) * rbuf,
-                     nrow0, min(kRows, N - nrow0), x16, o16);
-    }
+    // this sub-tile has landed; the other buffer is free (win: the warp's
+    // own rows, which only it reads)
+    if (win) __syncwarp(); else __syncthreads();
+    if (two && sub + 1 < sub1) stage_into(buf ^ 1, row0 + kRows);
     cp_async_commit();
+    if (win) widen_rows(p, shard, slot + buf * slotb, xb, nvalid);  // the warp's rows
 
     const float* xcur = xb;
     const float* ycur = ys + buf * kRows;
@@ -1170,7 +1424,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_mma(Params p, int n
         for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-        auto logits_step = [&](int kd, const unsigned (&bp)[4][4]) {
+        // x's pairs of the k-step kd: a[0] (row g): features d0, d0 + 4;
+        // a[1] (row g + 8: row r0 + 4); a[2], a[3]: features d0 + 8, d0 + 12
+        auto x_step = [&](int kd) {
           const int d0 = 16 * kd + tq;
           unsigned w[8];
 #pragma unroll
@@ -1180,23 +1436,36 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_mma(Params p, int n
             w[2 * f] = ok ? __float_as_uint(xd[r0]) : 0u;
             w[2 * f + 1] = ok ? __float_as_uint(xd[r0 + 4]) : 0u;
           }
-          // a[0] (row g): features d0, d0 + 4; a[1] (row g + 8: row r0 + 4);
-          // a[2], a[3]: features d0 + 8, d0 + 12
-          const XPairs x =
-              x_round_pairs<kPrec, kNarrow>(w[0], w[2], w[1], w[3], w[4], w[6], w[5], w[7]);
+          return x_round_pairs<kPrec, kNarrow>(w[0], w[2], w[1], w[3], w[4], w[6], w[5], w[7]);
+        };
+        auto logits_step = [&](int kd, const unsigned (&bp)[4][kBW]) {
+          const XPairs x = x_step(kd);
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            if (j < nt) mma_prec<kPrec, kNarrow>(acc[j], x, bp[j][0], bp[j][1], bp[j][2],
-                                                 bp[j][3]);
+            if (j < nt) mma_beta(acc[j], x, bp[j]);
         };
         if constexpr (kOneTile) {
 #pragma unroll
           for (int kd = 0; kd < 2; ++kd)
             if (kd < nkd) logits_step(kd, bfr[kd]);
+        } else if constexpr (kPrec == kHighest) {
+          // beta's pieces built for one n-tile at a time (for every n-tile
+          // of a k-step at once the shard-axis kernel spilled)
+#pragma unroll 1
+          for (int kd = 0; kd < nkd; ++kd) {
+            const XPairs x = x_step(kd);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (j >= nt) continue;
+              unsigned bp[kBW];
+              beta_pairs(k, j, kd, bp);
+              mma_beta(acc[j], x, bp);
+            }
+          }
         } else {
 #pragma unroll 1
           for (int kd = 0; kd < nkd; ++kd) {
-            unsigned bp[4][4];
+            unsigned bp[4][kBW];
 #pragma unroll
             for (int j = 0; j < 4; ++j)
               if (j < nt) beta_pairs(k, j, kd, bp[j]);
@@ -1283,7 +1552,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_mma(Params p, int n
             x[mm] = x_round_pairs<kPrec, kNarrow>(a0[0], a0[2], a0[1], a0[3], a1[0], a1[2],
                                                   a1[1], a1[3]);
           }
-#pragma unroll
+          // (at highest on the shard axis one pair of n-tiles at a time:
+          // unrolled, the one-tile kernel spilled)
+#pragma unroll(kPrec == kHighest && kShards ? 1 : 2)
           for (int jp = 0; jp < 2; ++jp) {
             if (2 * jp >= nt) continue;
             unsigned q0[4], q1[4];
@@ -1293,12 +1564,28 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_mma(Params p, int n
             for (int jj = 0; jj < 2; ++jj) {
               const int j = 2 * jp + jj;
               if (j >= nt) continue;
-              unsigned bh0, bh1, bl0 = 0u, bl1 = 0u;
-              round_pairs<kPrec>(q0[2 * jj], q0[2 * jj + 1], bh0, bl0);
-              round_pairs<kPrec>(q1[2 * jj], q1[2 * jj + 1], bh1, bl1);
+              if constexpr (kPrec == kHighest) {
+                // resid's pieces (split3); each k-step's products summed
+                // apart and added to gacc in float32 (the tensor cores'
+                // sums truncate: a block's rows in one accumulator drift)
+                unsigned b0[3], b1[3];
+                split3_pairs(q0[2 * jj], q0[2 * jj + 1], b0);
+                split3_pairs(q1[2 * jj], q1[2 * jj + 1], b1);
 #pragma unroll
-              for (int mm = 0; mm < 2; ++mm)
-                mma_prec<kPrec, kNarrow>(gacc[mm][j], x[mm], bh0, bh1, bl0, bl1);
+                for (int mm = 0; mm < 2; ++mm) {
+                  float part[4] = {0.f, 0.f, 0.f, 0.f};
+                  mma_split3(part, x[mm], b0, b1);
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) gacc[mm][j][e] += part[e];
+                }
+              } else {
+                unsigned bh0, bh1, bl0 = 0u, bl1 = 0u;
+                round_pairs<kPrec>(q0[2 * jj], q0[2 * jj + 1], bh0, bl0);
+                round_pairs<kPrec>(q1[2 * jj], q1[2 * jj + 1], bh1, bl1);
+#pragma unroll
+                for (int mm = 0; mm < 2; ++mm)
+                  mma_prec<kPrec, kNarrow>(gacc[mm][j], x[mm], bh0, bh1, bl0, bl1);
+              }
             }
           }
         }
@@ -1307,8 +1594,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_mma(Params p, int n
     }
     if (!two && sub + 1 < sub1) {  // one buffer: the next sub-tile once this one is done
       __syncthreads();
-      const int nrow0 = row0 + kRows;
-      stage<kNarrow>(p, xs, ys, rs, nrow0, min(kRows, N - nrow0), x16, o16);
+      stage_into(0, row0 + kRows);
       cp_async_commit();
     }
   }
@@ -1331,17 +1617,52 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) b2_mma(Params p, int n
 
 using Kernel = void (*)(Params, int);
 
-// b2_pass runs at highest only (high and default: b2_mma).
-template <bool kOneTile, bool kShards, bool kNarrow>
-inline Kernel pick_link(int link) {
-  return link == kGaussian ? b2_pass<kOneTile, kGaussian, kShards, kNarrow>
-                           : b2_pass<kOneTile, kBernoulli, kShards, kNarrow>;
+// The pass that runs (C, D) at dot precision prec with X stored as xdt,
+// and what it takes: b2_chunk at C <= 16, D <= 32 (every precision and
+// X); past it b2_pass at highest on float32 X (FP32 CUDA cores), b2_mma
+// at high and default and, on narrow X, at highest too (split3).  A
+// narrow X runs through b2_mma's packed slots where its layout has them
+// (layout_x) and the launch's slab is 16-byte aligned (`aligned`), else
+// with plain loads.  The one-tile b2_mma kernels of 25 to 32 chains have
+// their 4 n-tiles compiled in, on narrow X only with the slots and not at
+// highest, whose beta pieces for the block (48 words a lane) spilled so.
+// (Python mirror: stark_tpu_torch/ops/logistic_fused.py:b2_x_route.)
+struct Route {
+  int pass;      // 0 b2_chunk, 1 b2_pass, 2 b2_mma
+  int chains;    // chains of a chunk (b2_chunk) or computed (b2_pass, b2_mma)
+  bool windows;  // narrow X copied in flight through the packed slots
+  int nt;        // b2_mma's n-tiles compiled in, or 0: read from C
+  int words;     // shared memory of a block, in words
+};
+
+inline Route route(int C, int D, int prec, int xdt, bool aligned) {
+  Route r;
+  const bool narrow = xdt != kXF32;
+  r.windows = false;
+  r.nt = 0;
+  if (chunked(C, D)) {
+    r.pass = 0;
+    r.chains = chunk_chains(C);
+    r.words = chunk_words(C, D);
+    return r;
+  }
+  r.pass = prec == kHighest && !narrow ? 1 : 2;
+  r.chains = r.pass == 1 ? chains_padded(C) : mma_chains(C);
+  const Layout L = r.pass == 2 && aligned ? layout_x(C, D, xdt) : layout(C, D);
+  r.windows = narrow && L.xslot >= 0;
+  r.words = L.words;
+  if (r.pass == 2 && one_tile(C, D) && mma_ntiles(C, 0) == 4 &&
+      (!narrow || (r.windows && prec != kHighest))) {
+    r.nt = 4;
+  }
+  return r;
 }
 
+// b2_pass runs at highest on float32 X only.
 template <bool kOneTile, bool kShards>
-inline Kernel pick(int link, bool narrow) {
-  return narrow ? pick_link<kOneTile, kShards, true>(link)
-                : pick_link<kOneTile, kShards, false>(link);
+inline Kernel pick(int link) {
+  return link == kGaussian ? b2_pass<kOneTile, kGaussian, kShards>
+                           : b2_pass<kOneTile, kBernoulli, kShards>;
 }
 
 template <int kCh, int kF, int kPrec, bool kNarrow>
@@ -1379,31 +1700,35 @@ inline Kernel mma_link(int link) {
                            : b2_mma<kOneTile, kNt, kBernoulli, kShards, kPrec, kNarrow>;
 }
 
-template <bool kOneTile, int kNt, bool kShards, bool kNarrow>
+// kSplit3: highest on narrow X; else high or default.
+template <bool kOneTile, int kNt, bool kShards, bool kNarrow, bool kSplit3>
 inline Kernel mma_prec_of(int link, int prec) {
-  return prec == kHigh ? mma_link<kOneTile, kNt, kShards, kHigh, kNarrow>(link)
-                       : mma_link<kOneTile, kNt, kShards, kDefault, kNarrow>(link);
-}
-
-// The one-tile float32 kernels of 25 to 32 chains have their 4 n-tiles
-// compiled in; on a narrow X (where one so spilled) nt is read at run time.
-template <bool kShards, bool kNarrow>
-inline Kernel mma_pick(int C, int D, int link, int prec) {
-  if (!one_tile(C, D)) return mma_prec_of<false, 0, kShards, kNarrow>(link, prec);
-  if constexpr (!kNarrow) {
-    if (mma_ntiles(C, 0) == 4) return mma_prec_of<true, 4, kShards, false>(link, prec);
+  if constexpr (kSplit3) {
+    return mma_link<kOneTile, kNt, kShards, kHighest, true>(link);
+  } else {
+    return prec == kHigh ? mma_link<kOneTile, kNt, kShards, kHigh, kNarrow>(link)
+                         : mma_link<kOneTile, kNt, kShards, kDefault, kNarrow>(link);
   }
-  return mma_prec_of<true, 0, kShards, kNarrow>(link, prec);
 }
 
-// b2_mma at (C, D, link, prec = high or default) over the grid (nblk,
-// S): its shared memory (b2_pass's layout) allowed, launched; the
-// launch's error.
-template <bool kNarrow>
-int launch_mma_of(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s) {
-  const Kernel kern = S > 1 ? mma_pick<true, kNarrow>(p.C, p.D, link, prec)
-                            : mma_pick<false, kNarrow>(p.C, p.D, link, prec);
-  const int bytes = layout(p.C, p.D).words * (int)sizeof(float);
+// b2_mma's kernel of route r (one tile or not; its n-tiles).
+template <bool kShards, bool kNarrow, bool kSplit3>
+inline Kernel mma_pick(int C, int D, const Route& r, int link, int prec) {
+  if (!one_tile(C, D)) return mma_prec_of<false, 0, kShards, kNarrow, kSplit3>(link, prec);
+  if constexpr (!kSplit3) {
+    if (r.nt == 4) return mma_prec_of<true, 4, kShards, kNarrow, false>(link, prec);
+  }
+  return mma_prec_of<true, 0, kShards, kNarrow, kSplit3>(link, prec);
+}
+
+// b2_mma on route r over the grid (nblk, S): its shared memory allowed,
+// launched; the launch's error.
+template <bool kNarrow, bool kSplit3>
+int launch_mma_of(const Params& p, const Route& r, int nblk, int S, int link, int prec,
+                  cudaStream_t s) {
+  const Kernel kern = S > 1 ? mma_pick<true, kNarrow, kSplit3>(p.C, p.D, r, link, prec)
+                            : mma_pick<false, kNarrow, kSplit3>(p.C, p.D, r, link, prec);
+  const int bytes = r.words * (int)sizeof(float);
   const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              bytes);
   if (e != cudaSuccess) return (int)e;
@@ -1411,13 +1736,18 @@ int launch_mma_of(const Params& p, int nblk, int S, int link, int prec, cudaStre
   return (int)cudaGetLastError();
 }
 
-// One entry a part (1-6), defined where its kernels compile.
+// One entry a part (1-7), defined where its kernels compile.
 int launch_chunk8(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s);
 int launch_chunk8_narrow(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s);
 int launch_chunk16(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s);
 int launch_chunk16_narrow(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s);
-int launch_mma(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s);
-int launch_mma_narrow(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s);
+using MmaLaunch = int (*)(const Params&, const Route&, int, int, int, int, cudaStream_t);
+int launch_mma(const Params& p, const Route& r, int nblk, int S, int link, int prec,
+               cudaStream_t s);
+int launch_mma_narrow(const Params& p, const Route& r, int nblk, int S, int link, int prec,
+                      cudaStream_t s);
+int launch_mma_split3(const Params& p, const Route& r, int nblk, int S, int link, int prec,
+                      cudaStream_t s);
 #if STARK_HOLDS(1)
 int launch_chunk8(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s) {
   return launch_chunk_of<8, false>(p, nblk, S, link, prec, s);
@@ -1439,13 +1769,21 @@ int launch_chunk16_narrow(const Params& p, int nblk, int S, int link, int prec, 
 }
 #endif
 #if STARK_HOLDS(5)
-int launch_mma(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s) {
-  return launch_mma_of<false>(p, nblk, S, link, prec, s);
+int launch_mma(const Params& p, const Route& r, int nblk, int S, int link, int prec,
+               cudaStream_t s) {
+  return launch_mma_of<false, false>(p, r, nblk, S, link, prec, s);
 }
 #endif
 #if STARK_HOLDS(6)
-int launch_mma_narrow(const Params& p, int nblk, int S, int link, int prec, cudaStream_t s) {
-  return launch_mma_of<true>(p, nblk, S, link, prec, s);
+int launch_mma_narrow(const Params& p, const Route& r, int nblk, int S, int link, int prec,
+                      cudaStream_t s) {
+  return launch_mma_of<true, false>(p, r, nblk, S, link, prec, s);
+}
+#endif
+#if STARK_HOLDS(7)
+int launch_mma_split3(const Params& p, const Route& r, int nblk, int S, int link, int prec,
+                      cudaStream_t s) {
+  return launch_mma_of<true, true>(p, r, nblk, S, link, prec, s);
 }
 #endif
 
@@ -1482,27 +1820,30 @@ extern "C" int stark_logistic_batched(
 
   auto s = static_cast<cudaStream_t>(stream);
   const bool narrow = xdt != stark::kXF32;
-  if (b2::chunked(C, D)) {  // C <= 16, D <= 32: b2_chunk
-    const int e = b2::chunk_chains(C) == 8
+  const b2::Route r = b2::route(C, D, prec, xdt, (reinterpret_cast<uintptr_t>(xT) & 15) == 0);
+  if (r.pass == 0) {  // C <= 16, D <= 32: b2_chunk
+    const int e = r.chains == 8
                       ? (narrow ? b2::launch_chunk8_narrow : b2::launch_chunk8)(p, nblk, S, link,
                                                                                 prec, s)
                       : (narrow ? b2::launch_chunk16_narrow : b2::launch_chunk16)(p, nblk, S, link,
                                                                                   prec, s);
     if (e != 0) return e;
-  } else if (prec == stark::kHighest) {  // past them at highest: b2_pass
-    const size_t bytes = (size_t)b2::layout(C, D).words * sizeof(float);
+  } else if (r.pass == 1) {  // past them at highest on float32 X: b2_pass
+    const size_t bytes = (size_t)r.words * sizeof(float);
     const bool one = b2::one_tile(C, D);
-    const b2::Kernel kern =
-        S > 1 ? (one ? b2::pick<true, true>(link, narrow) : b2::pick<false, true>(link, narrow))
-              : (one ? b2::pick<true, false>(link, narrow) : b2::pick<false, false>(link, narrow));
+    const b2::Kernel kern = S > 1 ? (one ? b2::pick<true, true>(link) : b2::pick<false, true>(link))
+                                  : (one ? b2::pick<true, false>(link) : b2::pick<false, false>(link));
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
     if (e != cudaSuccess) return (int)e;
     kern<<<dim3(nblk, S), b2::kThreads, bytes, s>>>(p, nblk);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-  } else {  // at high and default: b2_mma
-    const int e = (narrow ? b2::launch_mma_narrow : b2::launch_mma)(p, nblk, S, link, prec, s);
+  } else {  // at high and default, and at highest on narrow X: b2_mma
+    const b2::MmaLaunch launch = !narrow ? b2::launch_mma
+                                 : prec == stark::kHighest ? b2::launch_mma_split3
+                                                           : b2::launch_mma_narrow;
+    const int e = launch(p, r, nblk, S, link, prec, s);
     if (e) return e;
   }
   const long long warps = ((long long)C * D + C) * S;
@@ -1512,12 +1853,13 @@ extern "C" int stark_logistic_batched(
   return (int)cudaGetLastError();
 }
 
-// Shared memory the pass needs per block at (C, D), and the most the
-// card `device` gives one block, both in bytes.
-extern "C" int stark_logistic_batched_smem(int C, int D, int device, int* need, int* limit) {
-  namespace b2 = stark::b2;
-  *need = (b2::chunked(C, D) ? b2::chunk_words(C, D) : b2::layout(C, D).words) *
-          (int)sizeof(float);
+// Shared memory the pass needs per block at (C, D) with X stored as xdt
+// (a slab 16-byte aligned, at any precision: the slots are the same),
+// and the most the card `device` gives one block, both in bytes.
+extern "C" int stark_logistic_batched_smem(int C, int D, int xdt, int device, int* need,
+                                           int* limit) {
+  if (!stark::x_code_ok(xdt)) return (int)cudaErrorInvalidValue;
+  *need = stark::b2::route(C, D, stark::kHigh, xdt, true).words * (int)sizeof(float);
   return (int)cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
 }
 
@@ -1538,6 +1880,26 @@ extern "C" int stark_logistic_batched_chunks(int C, int D, int prec, int* chains
   *features = chunk ? b2::chunk_features(D) : b2::kFeat;
   *route = chunk ? 0 : prec == stark::kHighest ? 1 : 2;
   *padded = chunk ? *chains : *route == 1 ? b2::chains_padded(C) : b2::mma_chains(C);
+  return 0;
+}
+// The route (stark::b2::route) of (C, D) at prec with X stored as xdt,
+// its slab 16-byte aligned or not: the pass (0 b2_chunk, 1 b2_pass, 2
+// b2_mma), the chains of its chunk or that it computes, narrow X through
+// the packed slots or not, the n-tiles compiled in (0: read from C), and
+// the block's shared memory in bytes.
+extern "C" int stark_logistic_batched_route(int C, int D, int prec, int xdt, int aligned,
+                                            int* pass, int* chains, int* windows, int* nt,
+                                            int* bytes) {
+  if (prec != stark::kHighest && prec != stark::kHigh && prec != stark::kDefault) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!stark::x_code_ok(xdt)) return (int)cudaErrorInvalidValue;
+  const stark::b2::Route r = stark::b2::route(C, D, prec, xdt, aligned != 0);
+  *pass = r.pass;
+  *chains = r.chains;
+  *windows = r.windows ? 1 : 0;
+  *nt = r.nt;
+  *bytes = r.words * (int)sizeof(float);
   return 0;
 }
 #endif

@@ -46,13 +46,17 @@ import torch
 
 from .. import _build
 from .logistic_fused import (
+    X_ITEMSIZE,
     _link_parts,
+    _round4,
     check_kernel_args,
     normal_loglik_from_ssr,
     scratch_words,
     sigma_grad,
     subtile_split,
     x_code,
+    x_window_chunks,
+    x_windows,
 )
 from .precision import (
     PRECISIONS,
@@ -179,14 +183,8 @@ def b1_blocks(n: int):
 _B1_CHAINS, _B1_FEAT, _B1_LD = 64, 32, B1_ROW_TILE + 4
 _B1_TWO_PER_SM, _B1_ONE_PER_SM = 113 * 1024, 227 * 1024
 _B1_BETA_FRAG_ENTRIES = 2 * (_B1_CHAINS // 8) * 32
-#: bytes of an element of each storage type of X (fused_pass.cuh:x_size)
-X_ITEMSIZE = {"f32": 4, "bf16": 2, "int8": 1, "fp8e4m3": 1, "fp8e5m2": 1}
 #: B1's passes (csrc/hier_grouped.cu:stark_hier_grouped_route)
 B1_PASSES = ("hier_pass", "hier_mma")
-
-
-def _round4(n: int) -> int:
-    return (n + 3) & ~3
 
 
 def _b1_layout(c: int, d: int, nbuf: int, gsl_global: bool) -> int:
@@ -213,31 +211,6 @@ def b1_layout(c: int, d: int, prec: str, mma: bool):
     if mma and -(-c // _B1_CHAINS) == 1 and d <= _B1_FEAT:
         words += _B1_BETA_FRAG_ENTRIES * (6 if prec == "highest" else 4) + 4 * _B1_CHAINS
     return nbuf, words
-
-
-def x_window_chunks(rows: int, size: int) -> int:
-    """16-byte windows that hold a row of ``rows`` elements of ``size``
-    bytes at any offset in its first window (csrc/fused_pass.cuh)."""
-    return (rows * size + 30) // 16
-
-
-def x_windows(off: int, nvalid: int, size: int, slab_bytes: int):
-    """The copies csrc/fused_pass.cuh:x_window_copy starts for the row of
-    a narrow slab at element ``off`` whose first ``nvalid`` elements are
-    valid: [(window j, source byte, bytes read)], and the row's head (its
-    first element's byte in window 0).  Window j starts 16 j bytes after
-    the 16-byte boundary at or before the row; the last may read fewer
-    than 16 bytes (the rest filled with zeros), never past the slab."""
-    b = off * size
-    w0 = b & ~15
-    head = b - w0
-    out = []
-    j = 0
-    while 16 * j < head + nvalid * size:
-        src = w0 + 16 * j
-        out.append((j, src, min(16, slab_bytes - src)))
-        j += 1
-    return out, head
 
 
 def b1_route(c: int, d: int, prec: str, x_dtype: str = "f32"):

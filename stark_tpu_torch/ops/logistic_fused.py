@@ -142,28 +142,132 @@ def b2_chunks(c: int, d: int):
 
 
 #: B2's passes (csrc/logistic_batched.cu), in the order of their codes in
-#: stark_logistic_batched_chunks: b2_chunk at C <= 16 and D <= 32, every
-#: precision; past them b2_pass at highest (FP32 CUDA cores) and b2_mma at
-#: high and default (bf16 tensor cores)
+#: stark_logistic_batched_chunks and stark_logistic_batched_route: b2_chunk
+#: at C <= 16 and D <= 32, every precision and X; past them b2_pass at
+#: highest on float32 X (FP32 CUDA cores) and b2_mma at high and default,
+#: and on narrow X at highest too (bf16 tensor cores; split3)
 B2_ROUTES = ("b2_chunk", "b2_pass", "b2_mma")
 
 
-def b2_route(c: int, d: int, prec: str):
-    """(pass, chains it computes) that B2 runs at C=c, D=d and dot
-    precision ``prec`` (one of `precision.PRECISIONS`): b2_chunk's chunk
-    (`b2_chunks`); b2_pass's C rounded up to its chunks of 32; b2_mma's
-    32 for each whole chunk of 32 and the rest rounded up to 8 (its
-    n-tiles), so that C = 17..24 computes 24 chains;
-    csrc/logistic_batched.cu:stark_logistic_batched_chunks."""
+def b2_route(c: int, d: int, prec: str, x_dtype: str = "f32"):
+    """(pass, chains it computes) that B2 runs at C=c, D=d, dot precision
+    ``prec`` (one of `precision.PRECISIONS`) and X stored as ``x_dtype``:
+    b2_chunk's chunk (`b2_chunks`); b2_pass's C rounded up to its chunks
+    of 32; b2_mma's 32 for each whole chunk of 32 and the rest rounded up
+    to 8 (its n-tiles), so that C = 17..24 computes 24 chains;
+    csrc/logistic_batched.cu:stark_logistic_batched_chunks (float32 X)
+    and route (`b2_x_route`)."""
+    return b2_x_route(c, d, prec, x_dtype)[:2]
+
+
+#: bytes of an element of each storage type of X (fused_pass.cuh:x_size)
+X_ITEMSIZE = {"f32": 4, "bf16": 2, "int8": 1, "fp8e4m3": 1, "fp8e5m2": 1}
+
+
+def x_window_chunks(rows: int, size: int) -> int:
+    """16-byte windows that hold a row of ``rows`` elements of ``size``
+    bytes at any offset in its first window (csrc/fused_pass.cuh)."""
+    return (rows * size + 30) // 16
+
+
+def x_windows(off: int, nvalid: int, size: int, slab_bytes: int):
+    """The copies csrc/fused_pass.cuh:x_window_copy starts for the row of
+    a narrow slab at element ``off`` whose first ``nvalid`` elements are
+    valid: [(window j, source byte, bytes read)], and the row's head (its
+    first element's byte in window 0).  Window j starts 16 j bytes after
+    the 16-byte boundary at or before the row; the last may read fewer
+    than 16 bytes (the rest filled with zeros), never past the slab."""
+    b = off * size
+    w0 = b & ~15
+    head = b - w0
+    out = []
+    j = 0
+    while 16 * j < head + nvalid * size:
+        src = w0 + 16 * j
+        out.append((j, src, min(16, slab_bytes - src)))
+        j += 1
+    return out, head
+
+
+# csrc/logistic_batched.cu's constants: the shared tiles' row stride
+# (kLd) and the most shared memory of a block with two blocks an SM and
+# with one (kTwoPerSm, kOnePerSm)
+_B2_LD = B2_ROW_TILE + 4
+_B2_TWO_PER_SM, _B2_ONE_PER_SM = 113 * 1024, 227 * 1024
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def b2_layout_words(c: int, d: int, nbuf: int, gsl_global: bool, slot: int = 0) -> int:
+    """Words of csrc/logistic_batched.cu:layout_with: x buffers (one and
+    two packed slots of ``slot`` words each when ``slot``), y and resid
+    buffers, beta, the value partials and, past one tile, the gradient
+    sums unless in device memory."""
+    chunk = B2_CHAIN_CHUNKS[-1]
+    cp = -(-c // chunk) * chunk
+    xrows = -(-d // B2_FEATURE_CHUNKS[-1]) * B2_FEATURE_CHUNKS[-1] if nbuf == 2 else d
+    words = ((1 if slot else nbuf) * xrows * _B2_LD + nbuf * B2_ROW_TILE + nbuf * chunk * _B2_LD
+             + d * _round4(c) + cp - _round4(c) + 2 * cp + 2 * slot)
+    if not (cp == chunk and d <= B2_FEATURE_CHUNKS[-1]) and not gsl_global:
+        words += _round4(c * d)
+    return words
+
+
+def b2_chunk_words(c: int, d: int) -> int:
+    """Words of b2_chunk's block (csrc/logistic_batched.cu:Chunk::kWords)."""
+    ch, f = b2_chunks(c, d)
+    return 2 * ((f + ch) * _B2_LD + B2_ROW_TILE) + f * ch + 4 * ch
+
+
+#: rows of a B2 sub-tile that one warp computes and stages (b2::kWarpRows)
+B2_WARP_ROWS = B2_ROW_TILE // 4
+
+
+def b2_xslot_words(d: int, x_dtype: str) -> int:
+    """Words of one of b2_mma's packed slots (csrc/logistic_batched.cu:
+    xslot_words): D rows of four warps' segments of `x_window_chunks`
+    windows of B2_WARP_ROWS elements."""
+    return d * 4 * x_window_chunks(B2_WARP_ROWS, X_ITEMSIZE[x_dtype]) * 4
+
+
+def b2_x_route(c: int, d: int, prec: str, x_dtype: str = "f32", aligned: bool = True):
+    """(pass, chains, narrow X through the packed slots, n-tiles compiled
+    in, bytes of shared memory) that B2 runs at C=c, D=d, the dot
+    precision ``prec`` and X stored as ``x_dtype`` (a name of
+    `precision.X_DTYPE_NAMES`), its slab's base 16-byte ``aligned`` or not:
+    csrc/logistic_batched.cu:route.  b2_chunk at C <= 16, D <= 32;
+    past it b2_pass at highest on float32 X, b2_mma else.  b2_mma takes a
+    narrow X through two packed slots in place of its second float32 x
+    buffer where its layout has two buffers and the slots keep it in that
+    tier (113 KB), and the slab is aligned; else plain loads.  Its
+    one-tile kernels of 25 to 32 chains have their 4 n-tiles compiled in,
+    on narrow X only with the slots and not at highest."""
     if prec not in PRECISIONS:
         raise ValueError(f"unknown dot precision {prec!r}; use one of {sorted(PRECISIONS)}")
+    if x_dtype not in X_DTYPE_NAMES:
+        raise ValueError(f"unknown X dtype {x_dtype!r}; use one of {X_DTYPE_NAMES}")
     chains, _ = b2_chunks(c, d)
     if chains < B2_CHAIN_CHUNKS[-1]:
-        return B2_ROUTES[0], chains
+        return B2_ROUTES[0], chains, False, 0, 4 * b2_chunk_words(c, d)
+    narrow = x_dtype != "f32"
     whole, rest = divmod(c, chains)
-    if prec == "highest":
-        return B2_ROUTES[1], (whole + (rest > 0)) * chains
-    return B2_ROUTES[2], whole * chains + -(-rest // 8) * 8
+    for nbuf, gsl_global, limit in ((2, False, _B2_TWO_PER_SM), (1, False, _B2_ONE_PER_SM),
+                                    (1, True, None)):
+        words = b2_layout_words(c, d, nbuf, gsl_global)
+        if limit is None or 4 * words <= limit:
+            break
+    if prec == "highest" and not narrow:
+        return B2_ROUTES[1], (whole + (rest > 0)) * chains, False, 0, 4 * words
+    windows = False
+    if narrow and aligned and nbuf == 2:
+        slotted = b2_layout_words(c, d, 2, False, b2_xslot_words(d, x_dtype))
+        windows = 4 * slotted <= _B2_TWO_PER_SM
+        words = slotted if windows else words
+    one = c <= chains and d <= B2_FEATURE_CHUNKS[-1]
+    nt = 4 if one and -(-c // 8) == 4 and (not narrow or windows and prec != "highest") else 0
+    return B2_ROUTES[2], whole * chains + -(-rest // 8) * 8, windows, nt, 4 * words
 
 
 #: the links both kernels take, and their code in the C entry points
@@ -240,16 +344,18 @@ _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
-def b2_shared_memory(c: int, d: int, device: int):
-    """(bytes of shared memory one B2 block needs at C=c, D=d, most bytes
+def b2_shared_memory(c: int, d: int, device: int, x_dtype: str = "f32"):
+    """(bytes of shared memory one B2 block needs at C=c, D=d with X
+    stored as ``x_dtype`` (its slab aligned, at any precision), most bytes
     the card ``device`` gives one block), from csrc/logistic_batched.cu."""
     fn = _build.function(
         "logistic_batched", "stark_logistic_batched_smem",
-        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2,
+        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2,
     )
     need, limit = ctypes.c_int(), ctypes.c_int()
     _build.check(
-        "logistic_batched", fn(c, d, device, ctypes.byref(need), ctypes.byref(limit))
+        "logistic_batched",
+        fn(c, d, X_CODES[x_dtype], device, ctypes.byref(need), ctypes.byref(limit)),
     )
     return need.value, limit.value
 
@@ -299,7 +405,7 @@ def logistic_batched(
         named, device=beta.device,
         dtypes={**{k: torch.float32 for k in shapes}, "xT": xT.dtype}, shapes=shapes,
     )
-    need, limit = b2_shared_memory(c, d, beta.device.index)
+    need, limit = b2_shared_memory(c, d, beta.device.index, xname)
     if need > limit:
         raise ValueError(
             f"logistic_batched: C={c} chains of D={d} features need {need} bytes "

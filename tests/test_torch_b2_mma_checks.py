@@ -112,15 +112,15 @@ def test_b2_mma_keys_are_high_and_default_with_and_without_offsets():
     assert len(set(cs.SHARED_KERNELS)) == len(cs.SHARED_KERNELS)
 
 
-#: B1 at highest on narrow X, on the tensor cores since its split3 pass
-_SPLIT3_KEYS = [k for k in cs.B1_NARROW_KEYS if not k.startswith(("B1 high", "B1 default"))]
+#: B2 at highest on narrow X, on the tensor cores since its split3 route
+_SPLIT3_KEYS = [k for k in cs.B2_X_KEYS if not k.startswith(("B2 high", "B2 default"))]
 
 
 @pytest.mark.parametrize("key", [k for k in cs.SHARED_KERNELS if k not in _SPLIT3_KEYS])
 def test_every_other_key_is_expected_bitwise_the_parents(key):
-    """Against a parent with B1's and B2's tensor-core passes and
-    b2_chunk, only B1 at highest on narrow X (split3) sums in another
-    order."""
+    """Against a parent with B1's and B2's tensor-core passes, b2_chunk
+    and B1's split3 pass, only B2 at highest on narrow X (split3) sums in
+    another order."""
     assert cs.expected_against_parent(key) == "yes"
 
 

@@ -1017,6 +1017,7 @@ def _b2_mma_check(args, link, prec, monkeypatch, wide=False):
                               GRAD_ATOL, quiet=True)
     assert excess <= 0, f"error exceeds its bound by {excess:.4g}"
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got
 
 
 @pytest.mark.parametrize("prec", ["high", "default"])
@@ -1066,3 +1067,129 @@ def test_b2_mma_shard_axis_at_33_chains(s, n, d, with_offsets, link, prec, monke
     before = lb.shard_launches
     _b2_mma_check((beta, xT, y, off if with_offsets else None), link, prec, monkeypatch)
     assert lb.shard_launches == before + 2
+
+
+# --- B2 on narrow X past b2_chunk: packed X copied in flight through
+# b2_mma's slots, highest on the tensor cores by split3 ----------------------
+
+
+def _b2_narrow_args(n, d, chains, link, name, dev, fine=False, shards=0):
+    """b2_edge_inputs' dyadic grids (``shards``: that many stacked) with xT
+    stored as ``name`` (int8's 1/4 folded into beta): (beta, xT, y,
+    offsets)."""
+    gen = torch.Generator(device=dev).manual_seed(n + d + chains + shards)
+    if shards:
+        parts = [b2_edge_inputs(n, d, chains, link, gen, dev, fine) for _ in range(shards)]
+        xT, y, beta, off = (torch.stack(t) for t in zip(*parts))
+    else:
+        xT, y, beta, off = b2_edge_inputs(n, d, chains, link, gen, dev, fine)
+    beta = beta / 4.0 if name == "int8" else beta
+    return beta, _narrow(xT, name), y, off
+
+
+@pytest.mark.parametrize("prec", PRECISIONS)
+@pytest.mark.parametrize("name", ["bf16", "int8"])
+@pytest.mark.parametrize("n,d,chains", _B2_MMA_CASES)
+def test_b2_narrow_x_past_the_chunks_matches_float64(n, d, chains, name, prec, monkeypatch):
+    """B2 on narrow X at every B2_EDGE_CASES shape past b2_chunk's (b2_mma
+    at every precision, highest by split3; the slots where the layout has
+    two buffers, plain loads past them), bernoulli with offsets and
+    gaussian without, against float64 on the widened values: highest's
+    tolerances, at high and default plus the link's slack."""
+    dev = _cuda()
+    for link, with_off in (("bernoulli_logit", True), ("gaussian", False)):
+        beta, q, y, off = _b2_narrow_args(n, d, chains, link, name, dev)
+        before = _counts(logistic_fused.logistic_batched, name)
+        _b2_mma_check((beta, q, y, off if with_off else None), link, prec, monkeypatch,
+                      wide=True)
+        assert _counts(logistic_fused.logistic_batched, name) == before + 2
+
+
+@pytest.mark.parametrize("name", list(_NARROW))
+@pytest.mark.parametrize("n,d,chains", [(200_003, 32, 32), (60_001, 100, 32), (3001, 33, 33)])
+def test_b2_narrow_x_at_highest_takes_beta_whole(n, d, chains, name, monkeypatch):
+    """Highest on narrow X with beta of full float32 significands (all
+    three pieces of split3 in play; a column near 2^-120, a chain's row
+    near 2^-140) and normal offsets: the kernel against its plain version
+    in float64 within highest's tolerances."""
+    dev = _cuda()
+    _, q, y, _ = _b2_narrow_args(n, d, chains, "bernoulli_logit", name, dev)
+    rs = np.random.RandomState(n + d)
+    beta = (0.3 * rs.standard_normal((chains, d))).astype(np.float32)
+    beta[:, 0] *= np.float32(2.0 ** -120)
+    beta[1, :] *= np.float32(2.0 ** -140)
+    beta = torch.as_tensor(beta / 4.0 if name == "int8" else beta, device=dev)
+    off = torch.as_tensor(rs.standard_normal((chains, n)).astype(np.float32), device=dev)
+    _b2_mma_check((beta, q, y, off), "bernoulli_logit", "highest", monkeypatch, wide=True)
+
+
+@pytest.mark.parametrize("prec", PRECISIONS)
+@pytest.mark.parametrize("name", ["bf16", "int8", "fp8e4m3"])
+@pytest.mark.parametrize("n,d,chains", [(40_003, 32, 32), (3001, 7, 20), (1001, 51, 32),
+                                        (1001, 206, 64)])
+def test_b2_narrow_x_off_16_byte_base_is_bitwise_the_aligned_one(n, d, chains, name, prec,
+                                                                  monkeypatch):
+    """A narrow slab whose base is off 16-byte alignment keeps the plain
+    loads (and at C=32 the kernel that reads its n-tiles from C); its
+    outputs are bitwise those of the same values at an aligned base,
+    copied in flight through the packed slots (plain loads past the
+    two-buffer tier: D=51 at C=32 has them, D=206 at C=64 not)."""
+    dev = _cuda()
+    beta, q, y, off = _b2_narrow_args(n, d, chains, "bernoulli_logit", name, dev)
+    got = _b2_mma_check((beta, off_16_bytes(q), y, off), "bernoulli_logit", prec, monkeypatch,
+                        wide=True)
+    aligned = logistic_fused.logistic_batched(beta, q, y, off)
+    assert all(torch.equal(a, b) for a, b in zip(got, aligned))
+    assert logistic_fused.b2_x_route(chains, d, prec, name, aligned=False)[2:4] == (False, 0)
+
+
+@pytest.mark.parametrize("prec", PRECISIONS)
+@pytest.mark.parametrize("name", ["bf16", "int8"])
+@pytest.mark.parametrize("s,n,d,chains", [(3, 3001, 7, 32), (2, 1001, 33, 33), (4, 777, 5, 20)])
+def test_b2_narrow_x_shards_off_16_bytes_copy_in_flight(s, n, d, chains, name, prec,
+                                                        monkeypatch):
+    """The shard axis on narrow X at C > 16, each shard's rows starting
+    off 16 bytes (S D n elements of 2 or 1 bytes): copied in flight
+    against the launch's base, one launch for every shard, against
+    float64 on the widened values."""
+    dev = _cuda()
+    beta, q, y, off = _b2_narrow_args(n, d, chains, "bernoulli_logit", name, dev, shards=s)
+    assert (d * n * q.element_size()) % 16
+    lb = logistic_fused.logistic_batched
+    before = lb.shard_launches
+    _b2_mma_check((beta, q, y, off), "bernoulli_logit", prec, monkeypatch, wide=True)
+    assert lb.shard_launches == before + 2
+    assert logistic_fused.b2_x_route(chains, d, prec, name)[2]
+
+
+def test_b2_x_route_is_the_python_mirror():
+    """The pass, chains, narrow staging, compiled n-tiles and shared memory
+    the launcher takes for each (C, D, precision, X dtype, alignment)
+    (csrc/logistic_batched.cu:route) are logistic_fused.b2_x_route's,
+    which the CPU tests check; the shared-memory query agrees."""
+    import ctypes
+
+    from stark_tpu_torch import _build
+    from stark_tpu_torch.ops.precision import PRECISIONS as CODES
+    from stark_tpu_torch.ops.precision import X_CODES
+
+    dev = _cuda()
+    fn = _build.function("logistic_batched", "stark_logistic_batched_route",
+                         [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 5)
+    for chains in (1, 8, 16, 17, 24, 25, 32, 33, 64, 100):
+        for d in (1, 8, 32, 33, 46, 51, 52, 64, 65, 206, 273, 327):
+            for prec in PRECISIONS:
+                for name, code in X_CODES.items():
+                    for aligned in (True, False):
+                        out = [ctypes.c_int() for _ in range(5)]
+                        assert fn(chains, d, CODES[prec], code, int(aligned),
+                                  *map(ctypes.byref, out)) == 0
+                        got = (logistic_fused.B2_ROUTES[out[0].value], out[1].value,
+                               bool(out[2].value), out[3].value, out[4].value)
+                        assert got == logistic_fused.b2_x_route(chains, d, prec, name, aligned), (
+                            chains, d, prec, name, aligned)
+                    need, _ = logistic_fused.b2_shared_memory(chains, d, dev.index or 0, name)
+                    assert need == logistic_fused.b2_x_route(chains, d, prec, name)[4]
+    out = [ctypes.c_int() for _ in range(5)]
+    assert fn(32, 32, 7, 0, 1, *map(ctypes.byref, out)) != 0  # no such precision
+    assert fn(32, 32, 0, 9, 1, *map(ctypes.byref, out)) != 0  # no such X dtype
