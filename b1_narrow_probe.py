@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time kernel B1 on narrow X (csrc/hier_grouped.cu) from several trees of
+"""Time kernel B1 on narrow X, and at highest on float32 X at the chain
+counts of its chunk pass (csrc/hier_grouped.cu), from several trees of
 stark_tpu_torch, in turns on one card, and make the variant trees that say
 what binds it and what its design bought.
 
@@ -11,9 +12,10 @@ Each is timed in a process of its own (CUDA events, 20 warm launches
 queued behind a sleep, chip_smoke.timed) at the flagship's shape (C=64,
 D=32, N=1M, G=1000) and at the NUTS legs' C=8: float32 X at default, and
 X stored as bf16 and as int8 (chip_smoke.x_narrow_args on dyadic values)
-at each dot precision.  It prints each tree's build time and the kernels
-that spilled.  The variants (VARIANTS), each an edit of this checkout's
-source:
+at each dot precision; and float32 X at highest at C=8, 16 and 32
+(hier_chunk) and at high at C=8.  It prints each tree's build time and
+the kernels that spilled.  The variants (VARIANTS), each an edit of this
+checkout's source:
 
 - ``pass``: highest on narrow X routed to hier_pass<..., kNarrow> (FP32
   CUDA cores) with the packed words copied in flight, as the tensor-core
@@ -25,7 +27,22 @@ source:
   beta's pairs once per k-step, with the run sums in the link;
 - ``nowiden``, ``nocopy``, ``nostage``: the widening after the wait, the
   copies of the windows, or both taken out (wrong outputs; the times are
-  the point).
+  the point);
+- ``chunk_s4``: hier_chunk with 4 x buffers (two sub-tiles in flight) in
+  place of 3 (at 32 chains one block an SM); ``chunk_unroll16``: its
+  logits' loop over features unrolled whole at 16 chains;
+  ``chunk_finish``: its partials added by finish (a thread per output)
+  in place of mma_finish; ``chunk_stage``: every sub-tile copied by
+  stage, with its per-copy tests;
+- ``chunk_nolink``, ``chunk_noseg``, ``chunk_nograd``, ``chunk_nocopy``:
+  hier_chunk without the link's special functions, the segment sums (run
+  sums and segment_sums), the gradient product, or the copies of x;
+  ``chunk_bare`` without the first three, ``chunk_skeleton`` without the
+  logits too: its staging, barriers and partials alone (wrong outputs;
+  the times are the point).
+
+The chunk keys are also split by torch.profiler into the pass and its
+second kernel (``... pass``, ``... finish``).
 
 On a machine with one card:
 
@@ -70,6 +87,23 @@ _COPY = "        x_window_copy(reinterpret_cast<char*>(smem + xsw)"
 _NO_WIDEN = (_WIDEN, _WIDEN + "  return;\n")
 _NO_COPY = (_COPY, _COPY.replace("x_window_copy", "if (d < 0) x_window_copy"))
 
+_LINK = ("""          const float e = __expf(-fabsf(l));
+          const float u = 1.f + e;
+          // y log s(l) + (1 - y) log s(-l) = min(l, 0) + (y - 1) l - log1p(e)
+          const float v = fmaf(ym1, l, fminf(l, 0.f)) - __logf(u);
+          const float sg = __fdividef(l >= 0.f ? 1.f : e, u);
+""", """          const float v = fmaf(ym1, l, fminf(l, 0.f));
+          const float sg = fmaf(0.25f, l, 0.5f);
+""")
+
+_NO_SEG = [("      if (gl1 - gl0 > 1) find_segments", "      if (false) find_segments"),
+           ("      if (gl1 - gl0 <= 1) {\n        // one run or two",
+            "      if (false) {\n        // one run or two"),
+           ("      if (gl1_p - gl0_p > 1) {\n        segment_sums",
+            "      if (false) {\n        segment_sums"),
+           ("      } else if (t >= kThreads - 32", "      } else if (false && t >= kThreads - 32")]
+_NO_GRAD = ("      for (int q = 0; q < K::kQuads; ++q) {", "      for (int q = 0; q < 0; ++q) {")
+
 #: name -> edits of csrc/hier_grouped.cu
 VARIANTS = {
     "pass": _PASS,
@@ -82,6 +116,20 @@ VARIANTS = {
     "nowiden": [_NO_WIDEN],
     "nocopy": [_NO_COPY],
     "nostage": [_NO_WIDEN, _NO_COPY],
+    "chunk_nolink": [_LINK],
+    "chunk_noseg": _NO_SEG,
+    "chunk_nograd": [_NO_GRAD],
+    "chunk_nocopy": [("  for (int i = t; !kNarrow && i < D * (kRows / 4); i += kThreads) {",
+                      "  for (int i = t; !kNarrow && i < 0; i += kThreads) {"),
+                     ("          cp_async16(dst, src);", "          if (d < 0) cp_async16(dst, src);")],
+    "chunk_s4": [("constexpr int kStages = 3;", "constexpr int kStages = 4;")],
+    "chunk_stage": [("      if (whole16 && row0 + kRows <= N) {", "      if (false) {")],
+    "chunk_unroll16": [("#pragma unroll(kCh == 8 ? kFeat / 4 : 2)", "#pragma unroll(kCh == 32 ? 2 : kFeat / 4)")],
+    "chunk_bare": [_LINK, *_NO_SEG, _NO_GRAD],
+    "chunk_skeleton": [_LINK, *_NO_SEG, _NO_GRAD,
+                       ("      for (int d0 = 0; d0 < kFeat; d0 += 4) {",
+                        "      for (int d0 = 0; d0 < 0; d0 += 4) {")],
+    "chunk_finish": [("  const bool warps = r.mma || r.chunk;", "  const bool warps = r.mma;")],
 }
 
 
@@ -128,6 +176,18 @@ def time_tree(tree: str) -> dict:
     run = c.Run(False)
     full = c.make_flagship_data(run)[0]
     gen = torch.Generator(device=run.dev).manual_seed(1)
+    for chains in (8, 16, 32):
+        args, _ = c._grouped_inputs(run, full, chains, gen)
+        key = f"B1 highest f32 C={chains}"
+        out[key] = c.timed(run, lambda: hf.hier_grouped(*args), 20)
+        # the pass and its second kernel apart (torch.profiler, 10 launches)
+        _, rows = c.device_rows(lambda: [hf.hier_grouped(*args) for _ in range(10)])
+        for ms, n, name in rows:
+            part = "finish" if "finish" in name else "pass"
+            out[f"{key} {part}"] = out.get(f"{key} {part}", 0.0) + ms / n
+        if chains == c.NUTS_CHAINS:
+            out[f"B1 high f32 C={chains}"] = c.timed(
+                run, lambda: c.at_precision("high", hf.hier_grouped, *args), 20)
     for chains in (64, c.NUTS_CHAINS):
         args, _ = c._grouped_inputs(run, full, chains, gen)
         fine = c.dyadic_inputs("B1", args, gen)

@@ -34,12 +34,19 @@ Phases, in order; any failure exits non-zero (none is caught):
                 shared-memory tier) the same way, ids without rows exactly
                 0, and its refusal one width further; B1's, B2's and B4's
                 largest distance from float64 on normal inputs beside the
-                float32 plain version's
+                float32 plain version's; B1's chunk pass (hier_chunk,
+                highest on float32 X at C <= 32, D <= 32) on its edge cases
+                (B1_CHUNK_EDGE_CASES: C = 1-32 by D = 1, 15-17, 32, N below
+                a sub-tile and N = 1, 2, 3 mod 4, blocks of 9-10
+                sub-tiles, ids without rows, logits beyond +-30) against
+                the plain version in float64, each launched twice
   4. times    — CUDA-event times of each kernel and its plain version,
                 beside the least time the card could take (bound: bytes,
                 products, and for B1 and B2's bernoulli link its three
                 special-function instructions per chain and row); B2 at
-                C=1 beside B3 on the same inputs
+                C=1 beside B3 on the same inputs; B1 at C=8, 16 and 32
+                (hier_chunk, its route printed) against float64 at full
+                width, a second launch bitwise equal
   5. small    — the port's potential and gradient on the card (kernels)
                 against plain autograd on the CPU, on small inputs, for
                 the flagship and the LMM families
@@ -98,7 +105,9 @@ Phases, in order; any failure exits non-zero (none is caught):
                 draws (B1); nuts_runner, NUTS through supervised_sample
                 (warmup 6, 3 blocks of 3), whole and then faulted after
                 block 1's checkpoint,
-                the resumed draws bitwise equal.  Each leg prints, beside
+                the resumed draws bitwise equal; every B1 launch of
+                these legs runs hier_chunk (its launches go into the
+                kernels line under its own entry).  Each leg prints, beside
                 the card's name and power limit, its wall with set-up,
                 evaluations and launches (equal, or the phase fails), ms
                 per evaluation, tree depth, leaves per transition, lane
@@ -282,16 +291,17 @@ wall and where its sampling time went.
 
 ``--compare-with TREE`` instead times the kernels that TREE (another
 checkout, e.g. the parent commit's) shares with this one: B1 (at highest,
-and at high and default also at C=8; on the flagship's X stored as bf16
+also at C=8, 16 and 32, B1_CHUNK_KEYS, and at high and default also at
+C=8; on the flagship's X stored as bf16
 and int8 at each precision, and as bf16 at C=8, B1_NARROW_KEYS), B2
 (both links, with and without offsets; bernoulli also at high and
 default) and B3 at the flagship's full width, B2's narrow chunks
 (B2_NARROW_KEYS), B2's gaussian link and B4 at config 3's, each tree's
 own build in its own process, in the order TREE, this, this, TREE on the
 same card, and says for each kernel whether its outputs are bitwise
-equal across the trees (`expected_against_parent`: against a parent
-before B1's tensor-core pass at highest on narrow X every kernel but B1
-at highest on narrow X is expected to be).
+equal across the trees (`expected_against_parent`: every kernel but B1
+at highest on float32 X at C <= 32, which runs the chunk pass, and B2 at
+highest on narrow X, apart from a parent before its split3 route).
 """
 
 from __future__ import annotations
@@ -464,6 +474,28 @@ B1_EDGE_CASES = (
     ("D=200 C=64", 5003, 200, 30, 64, None, 0.3),
     ("D=126 C=128", 5003, 126, 30, 128, None, 0.3),
     ("D=249 C=64", 3001, 249, 20, 64, None, 0.3),
+)
+# B1's chunk pass at highest on float32 X (hier_chunk, C <= 32 and D <=
+# 32), in a sweep of its own (phase_b1_edges; B1_EDGE_CASES is
+# multiplied by every precision and narrow sweep): chain counts at and
+# off its 8-, 16- and 32-chain chunks by feature counts off 16 and 32; N
+# below one sub-tile and N = 1, 2, 3 (mod 4); blocks of several
+# sub-tiles, so that its ring of x buffers turns (N = 300,001: 9 or 10 a
+# block); groups straddling sub-tiles and blocks, one-row groups and ids
+# without rows; logits beyond +-30.
+B1_CHUNK_EDGE_CASES = (
+    *[(f"C={c} D={d}", 3001, d, 20, c, None, 0.3) for c in (1, 4, 8, 9, 16, 17, 24, 32)
+      for d in (1, 15, 16, 17, 32)],
+    ("N<sub-tile", 50, 5, 3, 9, None, 0.3),
+    ("N<sub-tile C=32", 100, 32, 5, 32, None, 0.3),
+    ("N=1 mod 4", 40_001, 32, 300, 8, None, 0.3),
+    ("N=2 mod 4", 40_002, 17, 300, 16, None, 0.3),
+    ("N=3 mod 4", 40_003, 32, 300, 32, None, 0.3),
+    ("ring", 300_001, 32, 1000, 8, None, 0.3),
+    ("gaps", 0, 32, 300, 8, 1, 0.3),
+    ("gaps C=24 D=15", 0, 15, 300, 24, 2, 0.3),
+    ("wide logits", 20_011, 32, 50, 32, None, 8.0),
+    ("wide logits C=4", 5003, 6, 10, 4, None, 20.0),
 )
 #: kernel libraries whose every kernel must build without spilling
 NO_SPILL = ("hier_grouped", "logistic_batched", "lmm_grouped")
@@ -650,9 +682,20 @@ def x_dtype_counters():
             "B4": hf.lmm_grouped}
 
 
+def b1_pass_counts():
+    """B1's launches by the pass that ran (hier_pass, hier_mma,
+    hier_chunk)."""
+    from stark_tpu_torch.ops import hier_fused as hf
+
+    return dict(hf.hier_grouped.pass_launches)
+
+
 def reset_counts():
+    from stark_tpu_torch.ops import hier_fused as hf
+
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
+    hf.hier_grouped.pass_launches = dict.fromkeys(hf.B1_PASSES, 0)
     for fn in precision_counters().values():
         fn.precision_launches = dict.fromkeys(fn.precision_launches, 0)
     for fn in x_dtype_counters().values():
@@ -965,6 +1008,8 @@ def phase_parity_and_times(run: Run, flag, lmm):
     phase_b2_edges(run, gen)
     phase_b4_edges(run, results["B4"][0])
     b1_float64_distance(run, gen)
+    # the chunk pass (hier_chunk) at highest on float32 X
+    phase_b1_edges(run, gen, "highest", B1_CHUNK_EDGE_CASES, seed=21, route="hier_chunk")
 
     log("== times (full width: flagship N=%d, LMM N=%d)" % (run.n_full, run.lmm_n_full))
     b1_args, b1_err = results["B1"]
@@ -1064,20 +1109,41 @@ def phase_parity_and_times(run: Run, flag, lmm):
 def times_at_nuts_chains(run: Run, full, gen):
     """B1 and B2 with offsets at the per-chain samplers' C=8 on the
     flagship X: each against its plain version, timed beside it, with its
-    bound."""
+    bound, and the route B1 takes there.  B1 at highest on float32 X at
+    C=8, 16 and 32 (hier_chunk) held to the plain version in float64 with
+    highest's tolerances, a second launch bitwise equal, and timed; its
+    C=8 row goes into the kernels line as hier_chunk's."""
     from stark_tpu_torch.ops import hier_fused as hf
     from stark_tpu_torch.ops import logistic_fused as lf
 
     out = {}
     c, n = NUTS_CHAINS, full["y"].shape[0]
-    args, _ = _grouped_inputs(run, full, c, gen)
-    beta, alpha, xT, y, gl, fg, _ = args
-    err = compare(f"B1 C={c} N={n}", hf.hier_grouped(*args), hf.hier_grouped_plain(*args))
-    e = bound(4 * (xT.numel() + y.numel() + gl.numel() + fg.numel() + 2 * alpha.numel()
-                   + 2 * beta.numel() + c), 4 * c * D * n, **link_sfu(run, c, n))
-    e.update(max_abs_err=err, ms=timed(run, lambda: hf.hier_grouped(*args), 50),
-             plain_ms=timed(run, lambda: hf.hier_grouped_plain(*args), 10))
-    out["B1"] = e
+    for chains in (c, 16, 32):
+        args, _ = _grouped_inputs(run, full, chains, gen)
+        beta, alpha, xT, y, gl, fg, _ = args
+        got, again = hf.hier_grouped(*args), hf.hier_grouped(*args)
+        run.sync()
+        err, excess = compare_slack(
+            f"B1 C={chains} N={n} against the plain version in {yardstick_name(run)}", got,
+            yardstick(run, hf.hier_grouped_plain, *args), [], GRAD_RTOL, GRAD_ATOL)
+        assert excess <= 0, f"B1 C={chains}: error exceeds its bound by {excess:.4g}"
+        check_repeat(f"B1 C={chains}", got, again)
+        e = bound(4 * (xT.numel() + y.numel() + gl.numel() + fg.numel() + 2 * alpha.numel()
+                       + 2 * beta.numel() + chains), 4 * chains * D * n,
+                  **link_sfu(run, chains, n))
+        e.update(max_abs_err=err, ms=timed(run, lambda: hf.hier_grouped(*args), 50),
+                 plain_ms=timed(run, lambda: hf.hier_grouped_plain(*args), 10),
+                 route=hf.b1_route(chains, D, "highest"))
+        out["B1" if chains == c else f"B1 C={chains}"] = e
+    route = out["B1"]["route"]
+    log(f"  B1 C={c} D={D} at highest on float32 X runs {route[0]} (chains in n-tiles of 8: "
+        f"{route[2]}; {route[4]} bytes of shared memory a block), {fmt_bound(out['B1'])}")
+    run.kernels["B1 chunk"] = dict(
+        name="hier_grouped (B1, hier_chunk: highest on float32 X at C <= 32, D <= 32; C=8)",
+        route="cuda", source="stark_tpu_torch/csrc/hier_grouped.cu",
+        replaces="stark_tpu/ops/hier_fused.py:192",
+        **{k: out["B1"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        library_ms=None)
     bargs = _batched_inputs(run, full, c, gen, True)
     beta, xT, y, off = bargs
     err = compare(f"B2 bernoulli_logit C={c} offsets=True N={n}",
@@ -1088,8 +1154,8 @@ def times_at_nuts_chains(run: Run, full, gen):
              plain_ms=timed(run, lambda: lf.logistic_batched_plain(*bargs), 10))
     out["B2 offsets"] = e
     for k, e in out.items():
-        log(f"  {k} C={c} (the NUTS legs' chain count): {e['ms']:.4f} ms, plain "
-            f"{e['plain_ms']:.4f} ms, {fmt_bound(e)}")
+        chains = f"C={c} (the NUTS legs' chain count)" if "C=" not in k else "at highest"
+        log(f"  {k} {chains}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, {fmt_bound(e)}")
     return out
 
 
@@ -1688,22 +1754,26 @@ def b1_edge_inputs(case, rs):
     return raw, (grid((c, d), k, step), grid((c, groups), 512, 2.0 ** -11))
 
 
-def phase_b1_edges(run: Run, gen, prec):
-    """B1 on its edge cases (B1_EDGE_CASES) at the dot precision ``prec``:
-    the kernel against the plain version at ``prec`` in float64 on
-    `b1_edge_inputs`' dyadic grids, within highest's tolerances plus the
-    bernoulli link's `link_slack`, each case launched twice and bitwise
-    equal; the wide-logit cases' logits beyond +-30 both ways."""
+def phase_b1_edges(run: Run, gen, prec, cases=B1_EDGE_CASES, seed=8, route=None):
+    """B1 on its edge cases (``cases``: B1_EDGE_CASES, or the chunk pass's
+    B1_CHUNK_EDGE_CASES with ``route`` the pass each must take) at the dot
+    precision ``prec``: the kernel against the plain version at ``prec``
+    in float64 on `b1_edge_inputs`' dyadic grids (drawn from
+    RandomState(``seed``)), within highest's tolerances plus, at high and
+    default, the bernoulli link's `link_slack`, each case launched twice
+    and bitwise equal; the wide-logit cases' logits beyond +-30 both
+    ways."""
     from stark_tpu_torch.ops import hier_fused as hf
 
-    rs = np.random.RandomState(8)
+    rs = np.random.RandomState(seed)
     worst = 0.0
-    for case in B1_EDGE_CASES:
+    for case in cases:
         raw, params = b1_edge_inputs(case, rs)
         prep = hf.prepare_grouped(raw, case[2])
         t = [torch.as_tensor(prep[k], device=run.dev) for k in ("xT", "y", "gl", "first_gid")]
         args = (*(torch.as_tensor(a, device=run.dev) for a in params), *t, prep["lane_tile"])
         name = f"B1 {case[0]} N={prep['y'].shape[0]} D={case[2]} C={case[4]} at {prec}"
+        assert route is None or hf.b1_route(case[4], case[2], prec)[0] == route, name
         if case[6] > 1.0:
             g = hf.absolute_groups(args[4], args[5], args[6])
             logits = args[0].double() @ args[2].double() + args[1].double()[:, g]
@@ -1713,13 +1783,14 @@ def phase_b1_edges(run: Run, gen, prec):
             again = hf.hier_grouped(*args)
         run.sync()
         want = yardstick(run, hf.hier_grouped_plain, *args, prec=prec)
-        err, excess = compare_slack(name, got, want, b1_link_slack(args, prec), GRAD_RTOL,
-                                    GRAD_ATOL, quiet=True)
+        slack = [] if prec == "highest" else b1_link_slack(args, prec)
+        err, excess = compare_slack(name, got, want, slack, GRAD_RTOL, GRAD_ATOL, quiet=True)
         assert excess <= 0, f"{name}: error exceeds its bound by {excess:.4g}"
         assert all(torch.equal(a, b) for a, b in zip(got, again)), name
         worst = max(worst, err)
-    log(f"  B1 edge cases at {prec}: {len(B1_EDGE_CASES)} shapes match the plain version in "
-        f"{yardstick_name(run)} (max abs err {worst:.6g}), second launches bitwise equal")
+    log(f"  B1 edge cases at {prec}{f' ({route})' if route else ''}: {len(cases)} shapes match "
+        f"the plain version in {yardstick_name(run)} (max abs err {worst:.6g}), second launches "
+        f"bitwise equal")
     return worst
 
 
@@ -1898,6 +1969,7 @@ def _runner_leg(run: Run, label, fn):
     run.sync()
     wall = time.perf_counter() - t
     launches = read_counts()
+    run.b1_passes = b1_pass_counts()
     log(f"  {label}: wall {wall:.2f} s, launches {launches}")
     return out, wall, launches
 
@@ -1921,7 +1993,10 @@ def _check_b1_launches(run: Run, launches, evals, label):
     assert launches["B1"] == evals, (label, launches, evals)
     others = {k: v for k, v in launches.items() if k != "B1" and v}
     assert not others, f"{others} launched on the runner's {label}"
-    run.kernels["B1"]["launches"] = run.kernels["B1"].get("launches", 0) + launches["B1"]
+    # hier_chunk's launches (the NUTS leg's C=8) under its own entry
+    chunk = run.b1_passes["hier_chunk"]
+    for key, n in (("B1", launches["B1"] - chunk), ("B1 chunk", chunk)):
+        run.kernels[key]["launches"] = run.kernels[key].get("launches", 0) + n
 
 
 def phase_runner(run: Run, full):
@@ -2173,8 +2248,17 @@ def _nuts_leg(run: Run, fn):
     run.sync()
     wall = time.perf_counter() - t
     launches = read_counts()
+    run.b1_passes = b1_pass_counts()
     peak = torch.cuda.max_memory_allocated() / 2**20 if not run.rehearsal else float("nan")
     return out, wall, launches, peak
+
+
+def _check_b1_chunk(run: Run, label, launches):
+    """Every B1 launch of a NUTS leg (C=8, highest on float32 X) ran the
+    chunk pass, hier_chunk."""
+    if run.rehearsal:
+        return
+    assert run.b1_passes["hier_chunk"] == launches["B1"] > 0, (label, run.b1_passes, launches)
 
 
 def _check_leg_launches(run: Run, label, counted, launches, evals, entry=None):
@@ -2264,7 +2348,10 @@ def phase_nuts(run: Run, full):
             f"chains={NUTS_CHAINS}, {kw}")
         post, wall, launches, peak = _nuts_leg(run, lambda: sample(
             model_cls(D, G), full, chains=NUTS_CHAINS, seed=0, **kw, **dev))
-        res = _chain_leg_result(run, label, counted, post, wall, launches, peak, kw)
+        if counted == "B1":
+            _check_b1_chunk(run, label, launches)
+        res = _chain_leg_result(run, label, counted, post, wall, launches, peak, kw,
+                                "B1 chunk" if counted == "B1" else None)
         _leg_line(run, label, res)
         if kw["kernel"] == "nuts":
             res["profile"] = profile_nuts_transitions(run, model_cls(D, G), full, post, label,
@@ -2280,7 +2367,8 @@ def phase_nuts(run: Run, full):
     whole, wall, launches, peak = _nuts_leg(run, lambda: supervised_sample(
         FusedHierLogisticGrouped(D, G), full, workdir=str(root / "whole"), **budget))
     evals = int(whole.sample_stats["num_ensemble_grad_evals"])
-    _check_leg_launches(run, "nuts_runner", "B1", launches, _launched_evals(whole))
+    _check_b1_chunk(run, "nuts_runner", launches)
+    _check_leg_launches(run, "nuts_runner", "B1", launches, _launched_evals(whole), "B1 chunk")
     recs = [json.loads(line) for line in open(root / "whole" / "metrics.jsonl")]
     (warm,) = [r for r in recs if r["event"] == "warmup_done"]
     draws = whole.draws_flat
@@ -2329,8 +2417,9 @@ def phase_nuts(run: Run, full):
     finally:
         runner.sample_until_converged = real
     assert attempts[0] is None and attempts[2] is not None, attempts
+    _check_b1_chunk(run, "nuts_runner (resume)", launches)
     _check_leg_launches(run, "nuts_runner (resume)", "B1", launches,
-                        attempts[1] + _launched_evals(resumed))
+                        attempts[1] + _launched_evals(resumed), "B1 chunk")
     restarts = [json.loads(line) for line in open(root / "faulted" / "metrics.jsonl")]
     restarts = [r for r in restarts if r["event"] == "restart"]
     assert len(restarts) == 1, restarts
@@ -4116,7 +4205,11 @@ def b2_x_key(prec, xdt, offsets=True):
 B2_X_KEYS = tuple(b2_x_key(prec, xdt, off) for off, dts in ((True, ("bf16", "int8")),
                                                              (False, ("bf16",)))
                   for xdt in dts for prec in ("highest", "high", "default"))
-SHARED_KERNELS = ("B1", "B1 high", "B1 high C=8", "B1 default", "B1 default C=8",
+#: B1 at highest on float32 X at the chain counts of its chunk pass
+#: (hier_chunk): the NUTS legs' C=8, and C=16 and 32
+B1_CHUNK_KEYS = ("B1 C=8", "B1 C=16", "B1 C=32")
+SHARED_KERNELS = ("B1", *B1_CHUNK_KEYS, "B1 high", "B1 high C=8", "B1 default",
+                  "B1 default C=8",
                   "B2 offsets=False", "B2 offsets=True", "B2 gaussian offsets=False",
                   "B2 gaussian offsets=True", *B2_MMA_KEYS, "B2 gaussian (LMM)",
                   "B2 offsets=True C=8", "B2 gaussian C=8 (zoo)", "B2 shards", "B2 shards high",
@@ -4133,11 +4226,16 @@ B2_NARROW_KEYS = ("B2 gaussian (LMM)", "B2 offsets=True C=8", "B2 gaussian C=8 (
 
 def expected_against_parent(key: str) -> str:
     """Whether a kernel of SHARED_KERNELS is expected bitwise equal to the
-    parent commit's: B2 at highest on narrow X, once it runs on the
-    tensor cores (`b2_split3_route`), sums in another order; B2 on narrow
-    X at high and default only moves its bytes otherwise (cp.async of the
-    packed words), so it is; and so is every other kernel (B1 on narrow X
-    at highest too: it ran on the tensor cores in the parent already)."""
+    parent commit's: B1 at highest on float32 X at C <= 32 (B1_CHUNK_KEYS)
+    runs the chunk pass, hier_chunk, whose sums run in another order than
+    hier_pass's 64-chain chunk; B2 at highest on narrow X, once it runs on
+    the tensor cores (`b2_split3_route`), sums in another order; B2 on
+    narrow X at high and default only moves its bytes otherwise (cp.async
+    of the packed words), so it is; and so is every other kernel (B1 at
+    C=64 on hier_pass, and on narrow X at highest: it ran on the tensor
+    cores in the parent already)."""
+    if key in B1_CHUNK_KEYS:
+        return "no, B1 at highest on float32 X at C <= 32 runs hier_chunk, in another order"
     highest = key in B2_X_KEYS and not key.startswith(("B2 high", "B2 default"))
     if highest and b2_split3_route():
         return "no, highest on narrow X runs on the bf16 tensor cores (split3) in another order"
@@ -4242,6 +4340,10 @@ def shared_kernel_times(tree: str) -> dict:
                 calls[b1_narrow_key(prec, xdt, c)] = (
                     lambda kargs=kargs, prec=prec: at_precision(prec, hf.hier_grouped, *kargs))
     calls.update(b2_x_calls(run, full, ngen))
+    cgen = torch.Generator(device=run.dev).manual_seed(3)
+    for key in B1_CHUNK_KEYS:
+        cargs, _ = _grouped_inputs(run, full, int(key.split("=")[1]), cgen)
+        calls[key] = lambda cargs=cargs: hf.hier_grouped(*cargs)
     out = {"tree": tree, "digests": {}}
     for key in SHARED_KERNELS:
         out[key] = timed(run, calls[key], 50 if key == "B4" or key in B2_NARROW_KEYS else 20)

@@ -70,6 +70,41 @@
 //            only when C > kChains or D > kFeat).
 // The strides put the float4 operands of a warp in distinct banks.
 //
+// At highest on float32 X with C <= 32 and D <= kFeat (hier_chunk<kCh>,
+// the NUTS legs' C = 8 and sample()'s default C = 4) the 64-chain chunk
+// would do 64 chains' work; hier_chunk runs one chunk of the smallest of
+// 8, 16 and 32 chains that holds C, each compiled apart, so that no lane
+// works on a chain past it (ChunkShape).  At C = 8, D = 32, N = 1M its
+// bound is the bytes' 40.6 us (products 15.3 us, link 6 us), at C = 32
+// the products' 61 us; past the bytes, what it takes is instructions and
+// their latency at two blocks of eight warps an SM, so its design keeps
+// the products fed from registers and takes the sub-tile's phases without
+// a barrier between them:
+//   logits   thread (cg, rg) computes chains cg + 8 i (kCh / 8 of them) by
+//            rows 4 rg .. 4 rg + 3: per 4 features kCh / 8 float4 of beta
+//            (held [c][d]) and four of x; features past D are zeros.
+//   link     hier_pass's, word for word; alpha as hier_pass loads it,
+//            carried from sub-tile to sub-tile.
+//   segments a sub-tile of one or two runs of one group (its last row's
+//            local id at most one past its first's; at the flagship nearly
+//            every sub-tile) takes its sums from the link's registers:
+//            per chain over the thread's rows, the warp's by a fixed
+//            shuffle tree, the warps' in order by the last warp; any other
+//            sub-tile hier_mma's segment_sums (256 / kCh lanes a chain).
+//   gradient thread (fg, gc, sl) owns 8 chains by 4 features over the
+//            4-row groups sl + kSl q, 32 sums in registers for the block,
+//            added over the slices in index order after the last sub-tile.
+// One barrier a sub-tile: iteration k takes the logits and link of
+// sub-tile k and the segment sums and gradient of k - 1, whose resid,
+// segment starts and run sums sit in the other of two parity buffers, so
+// one phase's latency hides behind another's work.  x, y and the local
+// ids come through a ring of kStages buffers by cp.async, the next
+// sub-tile copied while two are computed (a whole aligned sub-tile
+// without stage's per-copy tests).  Block split and scratch are
+// hier_pass's; the partials are added by hier_mma's mma_finish (a warp
+// per output, 2.4 us less than finish at C = 8 on an H100).  Shared
+// memory: layout_chunk, 64-96 KB, two blocks an SM.
+//
 // Dot precision (STARK_FUSED_PRECISION; kPrec, csrc/fused_pass.cuh).  The
 // reference passes it to the kernel's four dots: beta x, alpha against
 // the one-hot groups, resid x^T and resid against the one-hot groups.
@@ -903,15 +938,14 @@ struct MmaShape {
   }
 };
 
-// Segment sums of chunk k's resid (staged values) for hier_mma: thread
-// (chain cl, lane q of sh.lanes) sums every lanes-th row of each run of
-// one group in the sub-tile, in four partial sums, then the lanes by a
-// fixed shuffle tree.
+// Segment sums of chunk k's resid (staged values) for hier_mma and
+// hier_chunk: thread (chain cl, lane q of nl) sums every nl-th row of
+// each run of one group in the sub-tile, in four partial sums, then the
+// lanes by a fixed shuffle tree.
 template <int kPrec>
-__device__ __forceinline__ void mma_segment_sums(const Params& p, const Tiles& s,
-                                                 const MmaShape& sh, int k, int gbase,
-                                                 const int* glcur) {
-  const int t = threadIdx.x, nl = sh.lanes;
+__device__ __forceinline__ void segment_sums(const Params& p, const Tiles& s, int nl, int k,
+                                             int gbase, const int* glcur) {
+  const int t = threadIdx.x;
   const int cl = t / nl, q = t % nl, c = k + cl;
   const float* rp = s.rs + cl * kLd;
   const int nseg = s.misc[0];
@@ -1279,7 +1313,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
           }
         }
       } else {
-        mma_segment_sums<kPrec>(p, s, sh, k, gbase, glcur);
+        segment_sums<kPrec>(p, s, sh.lanes, k, gbase, glcur);
       }
 
       // ---- gradient on the tensor cores: features f0 + 16 mm + 0..15 by
@@ -1394,11 +1428,399 @@ __global__ void mma_finish(Params p, int nblk, float* val, float* gbeta) {
   if (j < (long long)C * p.G) finish_group(p, nblk, j);
 }
 
+// ---- highest on float32 X at C <= 32, D <= 32: the chunk pass (hier_chunk)
+
+// Chains of hier_chunk's one chunk, the smallest of 8, 16 and 32 that
+// holds C, or 0: (C, D) is past the chunk pass (C > 32 or D > kFeat).
+__host__ __device__ inline int chunk_chains(int C, int D) {
+  if (C > 32 || D > kFeat) return 0;
+  return C <= 8 ? 8 : C <= 16 ? 16 : 32;
+}
+
+// hier_chunk's ring of x buffers: the sub-tile whose gradient is taken,
+// the one whose logits are, and one in flight (4, two in flight, was no
+// faster at C = 8 and 16 on an H100, and at C = 32 would not leave two
+// blocks an SM)
+constexpr int kStages = 3;
+constexpr int kLdB = kFeat + 4;  // row stride of hier_chunk's beta [c][d]
+
+// hier_chunk's shared memory for a chunk of ch chains, in words: kStages
+// x buffers of kFeat rows (rows past D zero), y and local ids [buffer][r];
+// by the sub-tile's parity resid [c][r], the segment starts and count and
+// the run sums [run][warp][c]; beta [c][d], the value partials [warp][c]
+// and the open groups' sums, ids and flags; the gradient partials overlay
+// the x buffers after the last sub-tile (gsl).  16,456 words (65,824
+// bytes) at ch = 8, 19,200 (76,800) at 16, 24,688 (98,752) at 32: two
+// blocks an SM (kTwoPerSm) at every ch.
+__host__ __device__ inline Layout layout_chunk(int ch) {
+  Layout L;
+  L.nbuf = kStages;
+  L.xrows = kFeat;
+  L.gsl_global = false;
+  int o = 0;
+  L.xs = o;     o += kStages * kFeat * kLd;
+  L.ys = o;     o += kStages * kRows;
+  L.gls = o;    o += kStages * kRows;
+  L.rs = o;     o += 2 * ch * kLd;
+  L.bsh = o;    o += ch * kLdB;
+  L.vsl = o;    o += (kThreads / 32) * ch;
+  L.run = o;    o += ch;
+  L.rung = o;   o += ch;
+  L.ishead = o; o += ch;
+  L.segs = o;   o += 2 * round4(kRows + 1);
+  L.misc = o;   o += 2 * 4;
+  L.segp = o;   o += 2 * 2 * (kThreads / 32) * ch;
+  L.gsl = L.xs;
+  L.bfr = -1;
+  L.words = o;
+  return L;
+}
+
+// The thread mappings of hier_chunk<kCh>, so that no lane works on a
+// chain past the chunk.  Logits and link: thread (cg = lane % 8, rg = lane
+// / 8 + 4 warp) owns chains cg + 8 i (i < kLC) and rows 4 rg .. 4 rg + 3.
+// Gradient: thread (fg = t % 8, gc = t / 8 % kGroups, sl = t / kCh) owns
+// 8 chains (chain_of) by 4 features fg + 8 j over the 4-row groups sl +
+// kSl q (q < kQuads) of every sub-tile: 32 sums in registers for the whole
+// block, 4 loads of x and 8 of resid (float4) for 128 FMAs.  A warp's
+// loads of resid meet 32 banks: its chain groups are 2 chains apart and
+// its row slices (two at kCh = 16, four at 8) one 4-row group apart.
+template <int kCh>
+struct ChunkShape {
+  static constexpr int kLC = kCh / 8;
+  static constexpr int kGroups = kCh / 8;
+  static constexpr int kSl = kThreads / kCh;
+  static constexpr int kQuads = kRows / 4 / kSl;
+  static_assert(kLC * 8 == kCh && 8 * 32 == kThreads && 4 * 32 == kRows, "logits mapping");
+  static_assert(kQuads * kSl * 4 == kRows && 8 * 4 == kFeat, "gradient mapping");
+  static_assert(kSl * kCh * kFeat <= kStages * kFeat * kLd, "gradient partials fit the x buffers");
+  // chain i (< 8) of gradient chain group gc
+  __device__ static int chain_of(int gc, int i) { return 2 * gc + (i & 1) + 2 * kGroups * (i >> 1); }
+};
+
+// B1 at highest on float32 X for C <= kCh chains and D <= kFeat features:
+// one chunk of kCh chains (8, 16 or 32, chunk_chains), one gradient tile,
+// with hier_pass's block split, link and segment sums and hier_mma's
+// mma_finish (header).  Each product is one float32 FMA on the CUDA cores,
+// as in hier_pass; only the order of the sums differs.  One barrier a
+// sub-tile: iteration k takes the logits and the link of sub-tile k and
+// the segment sums and the gradient of sub-tile k - 1 (resid, the segment
+// starts and the run sums by the sub-tile's parity), and copies sub-tile
+// k + kStages - 2 into the buffer of k - 2.  Strides: beta's rows kLdB =
+// 36 words apart, so that a warp's eight chain groups load from 32 banks;
+// the gradient's features fg + 8 j, so that its x loads meet 32 banks
+// (kLd = 4 mod 32).
+template <int kCh>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) hier_chunk(Params p, int nblk) {
+  using K = ChunkShape<kCh>;
+  constexpr int kWarps = kThreads / 32;
+  extern __shared__ __align__(16) float smem[];
+  const int C = p.C, D = p.D, N = p.N, G = p.G;
+  const Layout L = layout_chunk(kCh);
+  const Tiles s = carve(smem, L, p, true);
+  const int xbuf = kFeat * kLd;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int b = blockIdx.x;
+  const long long nsub = (N + kRows - 1) / kRows;
+  const int sub0 = (int)(b * nsub / nblk), sub1 = (int)((b + 1) * nsub / nblk);
+  const int row_begin = sub0 * kRows, row_end = min(N, sub1 * kRows);
+  const bool x16 = (reinterpret_cast<uintptr_t>(p.xT) & 15) == 0;
+  // sub-tile sub into its buffer, and a group of copies either way (empty
+  // past the block), so that every wait counts the same groups.  A whole
+  // sub-tile of a slab whose rows start 16-byte aligned (N a multiple of
+  // 4) is copied as stage copies it, without its per-copy tests: thread t
+  // 16 bytes of x's rows t / 32 + 8 k at row 4 (t % 32), 4 of y or of the
+  // local ids.
+  const bool whole16 = x16 && (N & 3) == 0;
+  auto stage_sub = [&](int sub) {
+    if (sub < sub1) {
+      const int j = (sub - sub0) % kStages, row0 = sub * kRows;
+      if (whole16 && row0 + kRows <= N) {
+        float* dst = s.xs + j * xbuf + (t >> 5) * kLd + 4 * (t & 31);
+        const float* src = p.xT + (size_t)(t >> 5) * N + row0 + 4 * (t & 31);
+        for (int d = t >> 5; d < D; d += kThreads / 32) {
+          cp_async16(dst, src);
+          dst += (kThreads / 32) * kLd;
+          src += (size_t)(kThreads / 32) * N;
+        }
+        if (t < kRows) cp_async4(s.ys + j * kRows + t, p.y + row0 + t, true);
+        else cp_async4(s.gls + j * kRows + t - kRows, p.gl + row0 + t - kRows, true);
+      } else {
+        stage<false, false>(p, s.xs + j * xbuf, s.ys + j * kRows, s.gls + j * kRows, row0,
+                            min(kRows, N - row0), x16, -1);
+      }
+    }
+    cp_async_commit();
+  };
+  // the arrays of sub-tile sub's parity (resid, segment starts and count)
+  auto tiles_of = [&](int sub) {
+    Tiles u = s;
+    const int par = (sub - sub0) & 1;
+    u.rs = s.rs + par * kCh * kLd;
+    u.segs = s.segs + par * round4(kRows + 1);
+    u.misc = s.misc + par * 4;
+    return u;
+  };
+  auto segp_of = [&](int sub) { return smem + L.segp + ((sub - sub0) & 1) * 2 * kWarps * kCh; };
+
+  // the first sub-tiles in flight while the block sets up: its first and
+  // last groups for finish, beta [c][d] (0 past C and D), zeros in the
+  // feature rows past D of every buffer, the open group sums
+  for (int k = 0; k < kStages - 2; ++k) stage_sub(sub0 + k);
+  if (t == 0) {
+    p.blo[b] = group_of(p, row_begin);
+    p.bhi[b] = group_of(p, row_end - 1);
+  }
+  for (int i = t; i < kCh * kLdB; i += kThreads) {
+    const int c = i / kLdB, d = i - c * kLdB;
+    s.bsh[i] = c < C && d < D ? p.beta[(size_t)c * D + d] : 0.f;
+  }
+  for (int i = t; i < (kFeat - D) * kLd; i += kThreads) {
+#pragma unroll
+    for (int j = 0; j < kStages; ++j) s.xs[j * xbuf + D * kLd + i] = 0.f;
+  }
+  for (int c = t; c < kCh; c += kThreads) {
+    s.run[c] = 0.f;
+    s.rung[c] = group_of(p, row_begin);
+    s.ishead[c] = 1;
+  }
+
+  const int cg = lane & 7, rg = (lane >> 3) + 4 * warp;  // logits and link
+  const int fg = t & 7, gc = (t >> 3) % K::kGroups, sl = t / kCh;  // gradient
+  float vacc[K::kLC], av[K::kLC];
+  float gacc[8][4];
+#pragma unroll
+  for (int i = 0; i < K::kLC; ++i) vacc[i] = av[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) gacc[i][j] = 0.f;
+  // alpha of the thread's chains at group gprev, carried from sub-tile to
+  // sub-tile (groups are sorted, so a change of group is rare); the first
+  // group of the sub-tile's lane tile, loaded a sub-tile ahead; the
+  // previous sub-tile's first group and local ids of its first and last
+  // rows, for its segment sums
+  int gprev = -1;
+  int gbase_next = __ldg(p.first_gid + row_begin / p.lane_tile);
+  int gbase_p = 0, gl0_p = 0, gl1_p = 0;
+
+  for (int sub = sub0; sub <= sub1; ++sub) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 3) : "memory");
+    __syncthreads();  // sub is in place; sub - 2's buffer, resid and run sums are free
+    stage_sub(sub + kStages - 2);
+
+    int gbase = 0, gl0 = 0, gl1 = 0;
+    if (sub < sub1) {
+      const int buf = (sub - sub0) % kStages;
+      const int nvalid = min(kRows, N - sub * kRows);
+      const float* xcur = s.xs + buf * xbuf;
+      const float* ycur = s.ys + buf * kRows;
+      const int* glcur = s.gls + buf * kRows;
+      const Tiles cur = tiles_of(sub);
+      float* segp = segp_of(sub);
+      gbase = gbase_next;
+      if (sub + 1 < sub1) gbase_next = __ldg(p.first_gid + (sub + 1) * kRows / p.lane_tile);
+      // rows are sorted by group within a lane tile, so the sub-tile holds
+      // one or two runs of one group when its last row's local id is at
+      // most one past its first's: then the link's run sums are its
+      // segment sums
+      gl0 = glcur[0];
+      gl1 = glcur[nvalid - 1];
+      if (gl1 - gl0 > 1) find_segments(cur, glcur, nvalid);
+
+      // ---- logits: chains cg + 8 i, rows 4 rg + j, features in order (the
+      // rows and entries past D are zeros)
+      float acc[K::kLC][4];
+#pragma unroll
+      for (int i = 0; i < K::kLC; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      // (16 and 32 chains by two steps: 32 whole spilled, 16 whole was slower)
+#pragma unroll(kCh == 8 ? kFeat / 4 : 2)
+      for (int d0 = 0; d0 < kFeat; d0 += 4) {
+        float4 bv[K::kLC], xv[4];
+#pragma unroll
+        for (int i = 0; i < K::kLC; ++i)
+          bv[i] = *reinterpret_cast<const float4*>(s.bsh + (cg + 8 * i) * kLdB + d0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          xv[e] = *reinterpret_cast<const float4*>(xcur + (d0 + e) * kLd + 4 * rg);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int i = 0; i < K::kLC; ++i) {
+            const float bb = e == 0 ? bv[i].x : e == 1 ? bv[i].y : e == 2 ? bv[i].z : bv[i].w;
+            acc[i][0] = fmaf(bb, xv[e].x, acc[i][0]);
+            acc[i][1] = fmaf(bb, xv[e].y, acc[i][1]);
+            acc[i][2] = fmaf(bb, xv[e].z, acc[i][2]);
+            acc[i][3] = fmaf(bb, xv[e].w, acc[i][3]);
+          }
+        }
+      }
+
+      // ---- link (hier_pass's), resid to rs [c][r]
+      const float4 y4 = *reinterpret_cast<const float4*>(ycur + 4 * rg);
+      const int4 g4 = *reinterpret_cast<const int4*>(glcur + 4 * rg);
+      const float yy[4] = {y4.x, y4.y, y4.z, y4.w};
+      const int gg[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool valid = 4 * rg + j < nvalid;
+        const int g = gbase + gg[j];
+        if (g != gprev) {
+#pragma unroll
+          for (int i = 0; i < K::kLC; ++i) {
+            const int c = cg + 8 * i;
+            av[i] = c < C ? __ldg(p.alpha + (size_t)c * G + g) : 0.f;
+          }
+          gprev = g;
+        }
+        const float ym1 = yy[j] - 1.f;
+#pragma unroll
+        for (int i = 0; i < K::kLC; ++i) {
+          const bool ok = valid && cg + 8 * i < C;
+          const float l = acc[i][j] + av[i];
+          const float e = __expf(-fabsf(l));
+          const float u = 1.f + e;
+          // y log s(l) + (1 - y) log s(-l) = min(l, 0) + (y - 1) l - log1p(e)
+          const float v = fmaf(ym1, l, fminf(l, 0.f)) - __logf(u);
+          const float sg = __fdividef(l >= 0.f ? 1.f : e, u);
+          vacc[i] += ok ? v : 0.f;
+          acc[i][j] = ok ? yy[j] - sg : 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < K::kLC; ++i) {
+        *reinterpret_cast<float4*>(cur.rs + (cg + 8 * i) * kLd + 4 * rg) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      }
+      if (gl1 - gl0 <= 1) {
+        // one run or two: resid summed per chain over the thread's rows of
+        // the first run (local id gl0) and of the rest, in row order (when
+        // its four rows are valid and of one group, their sum goes whole
+        // to the run); then over the warp's row groups by a fixed shuffle
+        // tree
+        float sr[2][K::kLC];
+        const bool one = 4 * rg + 3 < nvalid && gg[0] == gg[3], first = gg[0] == gl0;
+#pragma unroll
+        for (int i = 0; i < K::kLC; ++i) {
+          if (one) {
+            const float sum = ((acc[i][0] + acc[i][1]) + acc[i][2]) + acc[i][3];
+            sr[0][i] = first ? sum : 0.f;
+            sr[1][i] = first ? 0.f : sum;
+          } else {
+            sr[0][i] = sr[1][i] = 0.f;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              sr[0][i] += gg[j] == gl0 ? acc[i][j] : 0.f;
+              sr[1][i] += gg[j] == gl0 ? 0.f : acc[i][j];
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int i = 0; i < K::kLC; ++i) {
+            float v = sr[q][i];
+            v += __shfl_xor_sync(0xffffffffu, v, 8);
+            v += __shfl_xor_sync(0xffffffffu, v, 16);
+            if (lane < 8) segp[(q * kWarps + warp) * kCh + cg + 8 * i] = v;
+          }
+      }
+    }
+
+    if (sub > sub0) {  // sub - 1: its resid, run sums and segment starts are in place
+      const int pre = sub - 1;
+      const float* xpre = s.xs + ((pre - sub0) % kStages) * xbuf;
+      const int* glpre = s.gls + ((pre - sub0) % kStages) * kRows;
+      const Tiles prv = tiles_of(pre);
+      const float* segp = segp_of(pre);
+      if (gl1_p - gl0_p > 1) {
+        segment_sums<kHighest>(p, prv, kThreads / kCh, 0, gbase_p, glpre);
+      } else if (t >= kThreads - 32 && t - (kThreads - 32) < C) {
+        // one run or two: the last warp adds the warps' run sums in order
+        const int c = t - (kThreads - 32);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (q == 0 || gl1_p != gl0_p) {
+            float sum = 0.f;
+#pragma unroll
+            for (int w = 0; w < kWarps; ++w) sum += segp[(q * kWarps + w) * kCh + c];
+            add_segment(p, s, c, gbase_p + (q ? gl1_p : gl0_p), sum);
+          }
+        }
+      }
+
+      // ---- gradient: chains chain_of(gc, i) by features fg + 8 j, over
+      // the 4-row groups sl + kSl q, rows in order
+#pragma unroll
+      for (int q = 0; q < K::kQuads; ++q) {
+        const int r = 4 * (sl + K::kSl * q);
+        float4 xv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          xv[j] = *reinterpret_cast<const float4*>(xpre + (fg + 8 * j) * kLd + r);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 rv =
+              *reinterpret_cast<const float4*>(prv.rs + K::chain_of(gc, i) * kLd + r);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float a = gacc[i][j];
+            a = fmaf(rv.x, xv[j].x, a);
+            a = fmaf(rv.y, xv[j].y, a);
+            a = fmaf(rv.z, xv[j].z, a);
+            gacc[i][j] = fmaf(rv.w, xv[j].w, a);
+          }
+        }
+      }
+    }
+    gbase_p = gbase;
+    gl0_p = gl0;
+    gl1_p = gl1;
+  }
+  cp_async_wait_all();  // (empty groups; nothing left in flight)
+  __syncthreads();      // every thread is done with the x buffers
+
+  // the gradient tiles over the x buffers [sl][c][f], then each entry
+  // summed over the row slices in index order; the values: the warp's row
+  // groups by a fixed shuffle tree, then the warps in order
+  float* part = s.gsl;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      part[(sl * kCh + K::chain_of(gc, i)) * kFeat + fg + 8 * j] = gacc[i][j];
+#pragma unroll
+  for (int i = 0; i < K::kLC; ++i) {
+    float v = vacc[i];
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    if (lane < 8) s.vsl[warp * kCh + cg + 8 * i] = v;
+  }
+  __syncthreads();
+  for (int e = t; e < C * D; e += kThreads) {
+    const int c = e / D, f = e - c * D;
+    float sum = 0.f;
+#pragma unroll 8
+    for (int q = 0; q < K::kSl; ++q) sum += part[(q * kCh + c) * kFeat + f];
+    p.gpart[(size_t)b * C * D + e] = sum;
+  }
+  end_block(p, s, true, [&](int c) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += s.vsl[w * kCh + c];
+    return sum;
+  });
+}
+
 using Kernel = void (*)(Params, int);
 
 // The pass that runs (C, D) at dot precision prec with X stored as xdt,
-// and what it takes.  Highest on float32 X is hier_pass (FP32 CUDA
-// cores); high and default, and every precision on narrow X, hier_mma
+// and what it takes.  Highest on float32 X is hier_chunk at C <= 32 and
+// D <= kFeat (FP32 CUDA cores, one chunk of 8, 16 or 32 chains: nt holds
+// its chains / 8), else hier_pass (FP32 CUDA cores, 64-chain chunks);
+// high and default, and every precision on narrow X, hier_mma
 // (bf16 tensor cores; highest there by split3).  The one-tile cases of 8
 // chains, and of 64 at default and on narrow X, have their n-tiles
 // compiled in (on float32 X at high the 64-chain case spilled so); a
@@ -1407,7 +1829,8 @@ using Kernel = void (*)(Params, int);
 // C, which keeps the plain loads).  (Python mirror:
 // stark_tpu_torch/ops/hier_fused.py:b1_route.)
 struct Route {
-  bool mma;      // hier_mma, else hier_pass
+  bool mma;      // hier_mma, else hier_pass or hier_chunk
+  bool chunk;    // hier_chunk
   bool one;      // one_tile(C, D)
   int nt;        // n-tiles compiled in, or 0: read from C
   bool windows;  // a narrow xT copied in flight through the packed slot
@@ -1425,6 +1848,14 @@ inline Route route(int C, int D, int prec, int xdt) {
   const bool narrow = xdt != kXF32;
   r.mma = prec != kHighest || narrow;
   r.one = one_tile(C, D);
+  const int ch = r.mma ? 0 : chunk_chains(C, D);
+  r.chunk = ch > 0;
+  if (r.chunk) {
+    r.nt = ch / 8;
+    r.windows = false;
+    r.words = layout_chunk(ch).words;
+    return r;
+  }
   const Layout L = r.mma ? layout_mma(C, D, prec) : layout(C, D);
   const int slot = xslot_at(L, D, xdt);
   r.windows = slot >= 0;
@@ -1447,6 +1878,7 @@ inline Kernel pick(int prec) {
 
 // The kernel of a route.
 inline Kernel pick(const Route& r, int prec, int xdt) {
+  if (r.chunk) return r.nt == 1 ? hier_chunk<8> : r.nt == 2 ? hier_chunk<16> : hier_chunk<32>;
   if (xdt != kXF32) {
     if (!r.one) return pick<false, true, 0>(prec);
     return r.nt == 1 ? pick<true, true, 1>(prec)
@@ -1503,9 +1935,10 @@ extern "C" int stark_hier_grouped(
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long nw = (long long)C * D + C;  // outputs summed across blocks
-  const long long total = (r.mma ? 32 * nw : nw) + (long long)C * G;
+  const bool warps = r.mma || r.chunk;  // mma_finish: a warp per output
+  const long long total = (warps ? 32 * nw : nw) + (long long)C * G;
   const int blocks = (int)((total + stark::b1::kThreads - 1) / stark::b1::kThreads);
-  if (r.mma) {
+  if (warps) {
     stark::b1::mma_finish<<<blocks, stark::b1::kThreads, 0, s>>>(p, nblk, val, gbeta);
   } else {
     stark::finish<true><<<blocks, stark::b1::kThreads, 0, s>>>(p, nblk, val, gbeta);
@@ -1524,9 +1957,9 @@ extern "C" int stark_hier_grouped_smem(int C, int D, int prec, int xdt, int devi
 }
 
 // The route (stark::b1::route) of (C, D) at prec with X stored as xdt:
-// the pass (0 hier_pass, 1 hier_mma), one tile or not, the n-tiles
-// compiled in (0: read from C), narrow X through the packed slot or not,
-// and the block's shared memory in bytes.
+// the pass (0 hier_pass, 1 hier_mma, 2 hier_chunk), one tile or not, the
+// n-tiles of 8 chains compiled in (0: read from C), narrow X through the
+// packed slot or not, and the block's shared memory in bytes.
 extern "C" int stark_hier_grouped_route(int C, int D, int prec, int xdt, int* pass, int* one,
                                         int* nt, int* windows, int* bytes) {
   if (prec != stark::kHighest && prec != stark::kHigh && prec != stark::kDefault) {
@@ -1534,7 +1967,7 @@ extern "C" int stark_hier_grouped_route(int C, int D, int prec, int xdt, int* pa
   }
   if (!stark::x_code_ok(xdt)) return (int)cudaErrorInvalidValue;
   const stark::b1::Route r = stark::b1::route(C, D, prec, xdt);
-  *pass = r.mma ? 1 : 0;
+  *pass = r.chunk ? 2 : r.mma ? 1 : 0;
   *one = r.one ? 1 : 0;
   *nt = r.nt;
   *windows = r.windows ? 1 : 0;

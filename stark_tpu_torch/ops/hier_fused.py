@@ -184,7 +184,12 @@ _B1_CHAINS, _B1_FEAT, _B1_LD = 64, 32, B1_ROW_TILE + 4
 _B1_TWO_PER_SM, _B1_ONE_PER_SM = 113 * 1024, 227 * 1024
 _B1_BETA_FRAG_ENTRIES = 2 * (_B1_CHAINS // 8) * 32
 #: B1's passes (csrc/hier_grouped.cu:stark_hier_grouped_route)
-B1_PASSES = ("hier_pass", "hier_mma")
+B1_PASSES = ("hier_pass", "hier_mma", "hier_chunk")
+#: the chain counts of hier_chunk's one chunk (csrc/hier_grouped.cu:chunk_chains)
+B1_CHUNK_CHAINS = (8, 16, 32)
+#: hier_chunk's ring of x buffers (kStages): the sub-tile whose gradient
+#: is taken, the one whose logits are, and one in flight
+B1_CHUNK_STAGES = 3
 
 
 def _b1_layout(c: int, d: int, nbuf: int, gsl_global: bool) -> int:
@@ -196,6 +201,27 @@ def _b1_layout(c: int, d: int, nbuf: int, gsl_global: bool) -> int:
     if not (cp == _B1_CHAINS and d <= _B1_FEAT) and not gsl_global:
         words += _round4(c * d)
     return words
+
+
+def b1_chunk_chains(c: int, d: int) -> int:
+    """The chains of hier_chunk's one chunk at C=c, D=d: the smallest of
+    `B1_CHUNK_CHAINS` that holds c, or 0 past them or past 32 features
+    (csrc/hier_grouped.cu:chunk_chains)."""
+    if d > _B1_FEAT:
+        return 0
+    return next((ch for ch in B1_CHUNK_CHAINS if c <= ch), 0)
+
+
+def b1_chunk_words(ch: int) -> int:
+    """Words of hier_chunk's shared memory for a chunk of ``ch`` chains
+    (csrc/hier_grouped.cu:layout_chunk): `B1_CHUNK_STAGES` buffers of x
+    (32 rows), y and local ids; two (by the sub-tile's parity) of resid
+    [c][r], of the segment starts and count and of the run sums
+    [run][warp][c]; beta [c][36], the value partials [warp][c], the open
+    groups' sums, ids and flags."""
+    return (B1_CHUNK_STAGES * (_B1_FEAT * _B1_LD + 2 * B1_ROW_TILE)
+            + 2 * (ch * _B1_LD + _round4(B1_ROW_TILE + 1) + 4 + 16 * ch)
+            + ch * (_B1_FEAT + 4) + 8 * ch + 3 * ch)
 
 
 def b1_layout(c: int, d: int, prec: str, mma: bool):
@@ -218,7 +244,9 @@ def b1_route(c: int, d: int, prec: str, x_dtype: str = "f32"):
     slot, bytes of shared memory) that B1 runs at C=c, D=d, the dot
     precision ``prec`` and X stored as ``x_dtype`` (a name of
     `precision.X_DTYPE_NAMES`): csrc/hier_grouped.cu:route.  Highest on
-    float32 X is hier_pass; the rest hier_mma.  A narrow slab is copied
+    float32 X is hier_chunk at C <= 32 and D <= 32 (one chunk of 8, 16 or
+    32 chains, `b1_chunk_chains`; its n-tiles of 8 chains in the third
+    place), else hier_pass; the rest hier_mma.  A narrow slab is copied
     in flight through a slot of D rows of `x_window_chunks` windows where
     the slot fits the block's tier (113 KB with two x buffers, 227 KB
     with one), else loaded plainly.  (A narrow slab whose base is off
@@ -231,6 +259,9 @@ def b1_route(c: int, d: int, prec: str, x_dtype: str = "f32"):
     narrow = x_dtype != "f32"
     mma = prec != "highest" or narrow
     one = -(-c // _B1_CHAINS) == 1 and d <= _B1_FEAT
+    ch = 0 if mma else b1_chunk_chains(c, d)
+    if ch:
+        return B1_PASSES[2], one, ch // 8, False, 4 * b1_chunk_words(ch)
     nt8 = -(-min(c, _B1_CHAINS) // 8)
     ntiles = 1 if nt8 <= 1 else 2 if nt8 <= 2 else 4 if nt8 <= 4 else 8
     nbuf, words = b1_layout(c, d, prec, mma)
@@ -270,9 +301,10 @@ def hier_grouped(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
     float32, bf16, int8 or fp8; gl (N,), first_gid (ceil(N /
     lane_tile),) int32; rows sorted by group.  The dots run at
     STARK_FUSED_PRECISION, read at the call; launches count in
-    ``hier_grouped.launches`` and, by precision and by xT's storage
-    dtype, in ``hier_grouped.precision_launches`` and
-    ``hier_grouped.x_dtype_launches``.
+    ``hier_grouped.launches`` and, by precision, by xT's storage dtype
+    and by the pass that ran (`b1_route`), in
+    ``hier_grouped.precision_launches``, ``hier_grouped.x_dtype_launches``
+    and ``hier_grouped.pass_launches``.
     """
     prec = check_knobs()
     if beta.device.type == "cpu":
@@ -320,14 +352,21 @@ def hier_grouped(beta, alpha, xT, y, gl, first_gid, lane_tile: int):
     hier_grouped.launches += 1
     hier_grouped.precision_launches[prec] += 1
     hier_grouped.x_dtype_launches[xname] += 1
+    hier_grouped.pass_launches[_b1_pass(c, d, prec, xname)] += 1
     return val, gbeta, galpha
 
 
+@functools.lru_cache(maxsize=None)
+def _b1_pass(c: int, d: int, prec: str, x_dtype: str) -> str:
+    return b1_route(c, d, prec, x_dtype)[0]
+
+
 #: launches of the CUDA kernel in this process (CPU calls do not count),
-#: in all, by dot precision and by xT's storage dtype
+#: in all, by dot precision, by xT's storage dtype and by pass
 hier_grouped.launches = 0
 hier_grouped.precision_launches = dict.fromkeys(PRECISIONS, 0)
 hier_grouped.x_dtype_launches = dict.fromkeys(X_DTYPE_NAMES, 0)
+hier_grouped.pass_launches = dict.fromkeys(B1_PASSES, 0)
 
 
 class _HierLogisticLoglik(torch.autograd.Function):

@@ -162,7 +162,8 @@ def test_split3_arithmetic_holds_highest_against_the_reference(n, d, groups, cha
 #: (C, D, precision, X dtype) -> (pass, one tile, n-tiles compiled in,
 #: narrow X through the slot, bytes of shared memory), worked out from
 #: csrc/hier_grouped.cu:layout_with by hand: 19,912 words at the flagship
-#: at highest on float32 X (beta's rows take 1,736 fewer at C=8, 868 at C=33); hier_mma
+#: at highest on float32 X (beta's rows take 1,736 fewer at C=8, 868 at C=33;
+#: at C=8 highest on float32 X runs hier_chunk, layout_chunk's 16,456); hier_mma
 #: adds beta's fragments, 2048 words at high and default and 3072 at
 #: highest, and 256 of segment partials; the slot is 32 x 17 x 4 words for
 #: bf16 and 32 x 9 x 4 for one byte
@@ -171,7 +172,7 @@ ROUTES = {
     (64, 32, "high", "f32"): ("hier_mma", True, 0, False, 4 * 22_216),
     (64, 32, "default", "f32"): ("hier_mma", True, 8, False, 4 * 22_216),
     (8, 32, "high", "f32"): ("hier_mma", True, 1, False, 4 * (22_216 - 1736)),
-    (8, 32, "highest", "f32"): ("hier_pass", True, 0, False, 4 * (19_912 - 1736)),
+    (8, 32, "highest", "f32"): ("hier_chunk", True, 1, False, 4 * 16_456),
     (64, 32, "highest", "bf16"): ("hier_mma", True, 8, True, 4 * (23_240 + 2176)),
     (64, 32, "highest", "int8"): ("hier_mma", True, 8, True, 4 * (23_240 + 1152)),
     (64, 32, "high", "bf16"): ("hier_mma", True, 8, True, 4 * (22_216 + 2176)),

@@ -22,8 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (B2_EDGE_CASES, B2_SHARD_EDGE_CASES, b1_edge_inputs, b1_link_slack,
-                        b2_edge_inputs, b2_link_slack, compare_slack, off_16_bytes)
+from chip_smoke import (B1_CHUNK_EDGE_CASES, B2_EDGE_CASES, B2_SHARD_EDGE_CASES, b1_edge_inputs,
+                        b1_link_slack, b2_edge_inputs, b2_link_slack, compare_slack,
+                        off_16_bytes)
 from chip_smoke import sizes_with_gaps as _sizes_with_gaps
 from stark_tpu_torch.ops import hier_fused, logistic_fused
 
@@ -223,6 +224,29 @@ def test_b1_edge_cases_match_float64_on_dyadic_inputs(case, prec, monkeypatch):
         _assert_parity(got, _in_float64(hier_fused.hier_grouped_plain, args))
     else:
         _assert_within_slack(got, args, prec)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", B1_CHUNK_EDGE_CASES, ids=[c[0] for c in B1_CHUNK_EDGE_CASES])
+def test_b1_chunk_edge_cases_match_float64_and_repeat_bitwise(case, monkeypatch):
+    """The chunk pass (hier_chunk, highest on float32 X at C <= 32, D <=
+    32) on chip_smoke's sweep of its edges, on dyadic inputs whose logits
+    are exact, against the plain version in float64 within highest's
+    tolerances; two launches bitwise equal, both counted as the chunk
+    pass's."""
+    monkeypatch.setenv("STARK_FUSED_PRECISION", "highest")
+    _, n, d, groups, chains, gaps, scale = case
+    args = _fine_case(n, d, groups, chains, seed=n + d + chains,
+                      g=None if gaps is None else _sizes_with_gaps(groups, gaps),
+                      beta_scale=scale)
+    before = hier_fused.hier_grouped.pass_launches["hier_chunk"]
+    got, again = _launch_b1_twice(args, "highest")
+    assert hier_fused.hier_grouped.pass_launches["hier_chunk"] == before + 2
+    if scale > 1:
+        logits = args[0] @ args[2]
+        assert float(logits.max()) > 30 and float(logits.min()) < -30
+    _assert_parity(got, _in_float64(hier_fused.hier_grouped_plain, args))
     for a, b in zip(got, again):
         assert torch.equal(a, b)
 
@@ -894,7 +918,7 @@ def test_b1_route_is_the_python_mirror():
     dev = _cuda()
     fn = _build.function("hier_grouped", "stark_hier_grouped_route",
                          [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 5)
-    for chains in (1, 7, 8, 9, 33, 64, 65, 100, 128):
+    for chains in (1, 4, 7, 8, 9, 16, 17, 32, 33, 64, 65, 100, 128):
         for d in (1, 7, 16, 32, 33, 50, 64, 150, 166, 200, 249):
             for prec in PRECISIONS:
                 for name, code in X_CODES.items():
